@@ -26,8 +26,35 @@ raises (and so exits non-zero) when it fails:
      its median time (CUDA events) beside its bound, its plain version's
      time and ``torch.sum``'s.
 
-It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``.  Details go to
+The compensated and double-double tier (kernels B4, B5; CUDA C++ in
+``csrc/mma_compensated.cu``) adds its own phases beside those:
+
+  2b. B4 and B5 against their plain versions on the card at n = 2^20 and
+      2^20 + 13 (split_words 2 and 3, squares on and off, two
+      geometries; B5 on f32 and f64 input), and on counting inputs,
+      where kernel, plain version and count agree bit for bit, also at
+      n = 2^28;
+  3c. the tier's path at n = 2^28 (uniform [0, 1] and normal; 1 GiB of
+      f32, 2 GiB of f64): ``reduce_sum`` / ``squared_sum`` through
+      ``pallas_ec`` (2 and 3 words), ``mma_ec``, ``auto`` under
+      ``MmaPolicy(split_words=3)``, and ``pallas_dd``, ``mma_dd`` and
+      ``auto`` under ``F64_EQUIVALENT``, held to the reference's ec
+      (1e-4 %) and dd (1e-10 %) ceilings against the f64 oracle of the
+      input as given; B4's and B5's counters are zeroed before it and
+      must have moved after it;
+  3d. the integration example (``repro_torch.examples.integrate``) with
+      ``auto`` and with ``pallas_dd``: the dd rows pass the 1e-12 gate,
+      ``mma`` and ``mma_ec`` fail it;
+  5b. B4 (2 and 3 words) and B5 (f64 and f32 input) timed at 2^28 beside
+      their bound, their plain version and ``torch.sum(x, float64)``;
+  6.  the cost model against the card: ``pallas`` over its R x B grid,
+      ``vpu`` and ``mma`` timed at 2^20, 2^24 and 2^28 (f32), the
+      model's two estimated constants fitted to those times, and the
+      model's pick (with the constants as committed) held to 1.25x the
+      measured best at each size.
+
+It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
+(B1-B5), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -36,6 +63,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -110,6 +138,50 @@ MMA_FLOPS_PER_ELEMENT = {torch.float32: 32, torch.bfloat16: 16,
                          torch.float16: 16}
 
 
+# The tier's ceilings, the reference's GATES values (copied as above):
+# ec = mma_ec_w2 / mma_ec_w3 / pallas_ec_w2 / sq_mma_ec_w2, dd = mma_dd /
+# pallas_dd / sq_mma_dd / sq_pallas_dd; held on both input classes.
+EC_CEILING = 1e-4
+DD_CEILING = 1e-10
+# B4 / B5 geometries of the kernel phase: the main path's (chain 4,
+# block_rows 128) and the sweep's largest tile (5, 512).
+TIER_GEOMETRIES = ((CHAIN, BLOCK_ROWS), (5, 512))
+
+# B4 against its plain version: |kernel - plain| <= 2^-21 * sum|x|
+# (sum of x*x with squares).  Both fold exact TwoSum steps over the
+# same bf16 words, so they differ only in how each 16-element row of a
+# word is summed before its fold, in the tensor cores (whose adders may
+# truncate) or in an f32 torch.sum: at most 2^-23 of the rows' |sums|
+# per side, all of one sign in the worst case, plus each side's final
+# f32 rounding.  The largest ratio seen in sound runs is 2^-24.0, one
+# f32 ulp of the result.
+EC_RTOL = 2.0 ** -21
+# B5 against its plain version: |kernel - plain| <= 2^-40 * sum|x|.
+# Each dd_add rounds its folded low words once, ~2^-47 of its operands;
+# the kernel chains up to 40 per thread plus log-depth trees (about 60
+# steps deep, 2^-41), the plain version a tree of log2 n levels.  The
+# largest ratio seen in sound runs is 2^-48.
+DD_RTOL = 2.0 ** -40
+# FP64 outside the tensor cores on the H100 SXM (NVIDIA data sheet).
+FP64_FLOPS = 34e12
+# Operations per element the tier's kernels do, counted from
+# csrc/mma_compensated.cu.  B4, per bf16 word: a cvt to bf16, a cvt
+# back, a subtract, half a pack, and 2 TwoSum folds (7 ops) per lane of
+# 8 elements on the CUDA cores, 4.25 in all, plus 16 tensor-core flops
+# (m16n8k16 against ones: 4096 flops per 256 elements); squares add one
+# multiply.  B5: 3 f64 ops to split an f64 value (two cvts, a
+# subtract), ~11 f32 ops per dd_add, 10 more for a dd square.
+B4_CUDA_OPS_PER_WORD = 4.25
+B4_TC_FLOPS_PER_WORD = 16
+B5_F32_OPS, B5_SQUARE_OPS, B5_F64_SPLIT_OPS = 11, 10, 3
+
+# Phase 6: sizes, repeats and the slack the model's pick may take.
+SWEEP_SIZES = (1 << 20, 1 << 24, 1 << 28)
+SWEEP_ROUNDS = 5
+SWEEP_ITERS = {1 << 20: 50, 1 << 24: 20, 1 << 28: 5}
+PICK_SLACK = 1.25
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -131,10 +203,21 @@ def nvidia_smi() -> str:
     return got.stdout.strip().splitlines()[0]
 
 
-def inputs(n: int, dist: str, gen: torch.Generator) -> torch.Tensor:
+def ptxas_report(lib) -> dict:
+    """Registers (fewest, most) over a library's kernels and the bytes
+    they spill, from the compiler's report beside it."""
+    import re
+    log = open(f"{lib}.log").read()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
+    return {"registers": [min(regs), max(regs)], "spill_bytes": spills}
+
+
+def inputs(n: int, dist: str, gen: torch.Generator,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if dist == "uniform":
-        return torch.rand(n, device="cuda", generator=gen)
-    return torch.randn(n, device="cuda", generator=gen)
+        return torch.rand(n, device="cuda", generator=gen, dtype=dtype)
+    return torch.randn(n, device="cuda", generator=gen, dtype=dtype)
 
 
 # ------------------------------------------------ phase 2: kernel checks
@@ -263,6 +346,111 @@ def check_counts(mr, ops, x: torch.Tensor, chain: int,
     return 6
 
 
+# ------------------------------------- phase 2b: B4 / B5 kernel checks
+
+
+def dd_f64(pair: torch.Tensor) -> float:
+    """A dd [hi, lo] pair as one f64 value."""
+    return float(torch.sum(pair.to(torch.float64)))
+
+
+def check_tier_kernels(mc, ops, gen) -> dict:
+    """B4 and B5 against their plain versions on the same card inputs,
+    and on counting inputs; returns the worst |kernel - plain| / scale
+    per kernel and the largest |kernel - plain| itself."""
+    worst = {k: 0.0 for k in mc.LAUNCHES}
+    worst_abs = {k: 0.0 for k in mc.LAUNCHES}
+    rows = []
+
+    def held(kname, got, want, scale, rtol, where):
+        err = abs(got - want)
+        rows.append((kname, where, got, want, err, scale))
+        worst[kname] = max(worst[kname], err / scale)
+        worst_abs[kname] = max(worst_abs[kname], err)
+        check(err <= rtol * scale,
+              f"{kname} {where}: kernel {got!r} vs plain {want!r}, "
+              f"|diff| {err:.3g} > {rtol:.3g} of {scale:.6g}")
+
+    for n in N_CHECK:
+        x32 = torch.randn(n, device="cuda", generator=gen)
+        x64 = torch.randn(n, device="cuda", generator=gen,
+                          dtype=torch.float64)
+        for chain, block_rows in TIER_GEOMETRIES:
+            tile = chain * block_rows
+            for square in (False, True):
+                for words in mc.SPLIT_WORDS:
+                    got = mc.ec_cuda(x32, chain=chain, block_rows=block_rows,
+                                     split_words=words, square=square)
+                    want = mc.ec_plain(ops._to_tiles(x32, tile, mc.M),
+                                       chain=chain, block_rows=block_rows,
+                                       split_words=words, square=square)
+                    xs = x32.double() ** 2 if square else x32.double()
+                    held("b4_ec", float(got), float(want),
+                         float(torch.sum(xs.abs())), EC_RTOL,
+                         f"n={n} R={chain} B={block_rows} w={words} "
+                         f"square={square}")
+                for x in (x32, x64):
+                    got = mc.dd_cuda(x, chain=chain, block_rows=block_rows,
+                                     square=square)
+                    want = mc.dd_plain(ops._to_tiles(x, tile, mc.M),
+                                       chain=chain, block_rows=block_rows,
+                                       square=square)
+                    check(got.shape == want.shape == (2,),
+                          f"B5 result shape {tuple(got.shape)}")
+                    xs = x.double() ** 2 if square else x.double()
+                    held("b5_dd", dd_f64(got), dd_f64(want),
+                         float(torch.sum(xs.abs())), DD_RTOL,
+                         f"n={n} {name(x.dtype)} R={chain} B={block_rows} "
+                         f"square={square}")
+    counted = 0
+    for dt in (torch.float32, torch.float64):
+        for chain, block_rows in TIER_GEOMETRIES:
+            tile = chain * block_rows * mc.M
+            for n in (TAIL, tile + TAIL, N_CHECK[1]):
+                x = count_input(n, dt, COUNT_SHARE_CHECK, gen)
+                counted += check_tier_counts(mc, ops, x, chain, block_rows)
+    torch.cuda.synchronize()
+    print(f"phase 2b: {len(rows)} B4/B5 kernel-vs-plain checks passed, "
+          f"worst |diff| / sum|x| {worst}; {counted} exact counts passed",
+          flush=True)
+    return {"worst": worst, "worst_abs": worst_abs, "rows": rows,
+            "counted": counted}
+
+
+def check_tier_counts(mc, ops, x: torch.Tensor, chain: int,
+                      block_rows: int) -> int:
+    """B4 (f32 input, both word counts) and B5 on a counting input, with
+    and without squares: kernel, plain version and the f64 count must be
+    equal (B5: the pair [count, 0]).  Returns the number of checks."""
+    n = x.numel()
+    count = float(torch.sum(x, dtype=torch.float64))
+    check(count < 2 ** 24, f"count {count} is not exact in f32")
+    where = f"n={n} {name(x.dtype)} R={chain} B={block_rows}"
+    x2d = ops._to_tiles(x, chain * block_rows, mc.M)
+    checks = 0
+    for square in (False, True):
+        if x.dtype == torch.float32:
+            for words in mc.SPLIT_WORDS:
+                got = float(mc.ec_cuda(x, chain=chain, block_rows=block_rows,
+                                       split_words=words, square=square))
+                want = float(mc.ec_plain(x2d, chain=chain,
+                                         block_rows=block_rows,
+                                         split_words=words, square=square))
+                check(got == want == count,
+                      f"B4 count {where} w={words} square={square}: "
+                      f"kernel {got}, plain {want}, {count}")
+                checks += 1
+        got = mc.dd_cuda(x, chain=chain, block_rows=block_rows,
+                         square=square).tolist()
+        want = mc.dd_plain(x2d, chain=chain, block_rows=block_rows,
+                           square=square).tolist()
+        check(got == want == [count, 0.0],
+              f"B5 count {where} square={square}: kernel {got}, plain "
+              f"{want}, {count}")
+        checks += 1
+    return checks
+
+
 # --------------------------------------------------- phase 3: main path
 
 
@@ -373,6 +561,92 @@ def run_other_ops(integration, gen) -> list:
         check(bool(torch.equal(got, want)), f"expert_counts/{method}")
     print(f"phase 3b: masked_mean and expert_counts agree: {rows}",
           flush=True)
+    return rows
+
+
+# ------------------------------------ phase 3c / 3d: the tier's path
+
+
+def run_tier_path(integration, precision, autotune, gen) -> list:
+    """reduce_sum / squared_sum through the ec and dd engines at
+    n = 2^28, against the f64 oracle of the input as given."""
+    pol3 = precision.MmaPolicy(split_words=3)
+    pol2 = precision.MmaPolicy(split_words=2)
+    f64 = precision.F64_EQUIVALENT
+    ec_calls = (("pallas_ec:w2", "pallas_ec", pol2),
+                ("pallas_ec:w3", "pallas_ec", pol3),
+                ("mma_ec", "mma_ec", None),
+                ("auto:w3", "auto", pol3))
+    dd_calls = (("pallas_dd", "pallas_dd", f64),
+                ("mma_dd", "mma_dd", f64),
+                ("auto:f64", "auto", f64))
+    results = []
+    for dist in ("uniform", "normal"):
+        for dt in (torch.float32, torch.float64):
+            x = inputs(N_MAIN, dist, gen, dt)
+            x64 = x.to(torch.float64)
+            exact = {"reduce_sum": float(torch.sum(x64)),
+                     "squared_sum": float(torch.sum(x64 * x64))}
+            scale = {"reduce_sum": float(torch.sum(x64.abs())),
+                     "squared_sum": exact["squared_sum"]}
+            del x64
+            calls = dd_calls if dt == torch.float64 else ec_calls + dd_calls
+            for op in ("reduce_sum", "squared_sum"):
+                for label, method, pol in calls:
+                    t0 = time.perf_counter()
+                    out = getattr(integration, op)(x, method=method,
+                                                   precision=pol)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    engine = method
+                    if method == "auto":
+                        engine = autotune.get_plan(
+                            x.numel(), x.dtype, op=op, backend="cuda",
+                            policy=pol).method
+                    dd = pol is f64
+                    check(out.is_cuda and out.dtype == torch.float32
+                          and tuple(out.shape) == ((2,) if dd else ()),
+                          f"{op}/{label}: result {out.device} {out.dtype} "
+                          f"{tuple(out.shape)}")
+                    check(bool(torch.all(torch.isfinite(out))),
+                          f"{op}/{label}: {out.tolist()}")
+                    got = dd_f64(out)
+                    ceiling = DD_CEILING if dd else EC_CEILING
+                    err = 100.0 * abs(got - exact[op]) / scale[op]
+                    results.append({"dist": dist, "dtype": name(dt),
+                                    "op": op, "method": label,
+                                    "engine": engine, "got": got,
+                                    "want": exact[op],
+                                    "pct_err_of_abs_sum": err,
+                                    "ceiling_pct": ceiling,
+                                    "wall_s": wall})
+                    print(f"  {dist:7s} {name(dt):8s} {op:11s} {label:13s} "
+                          f"engine={engine:9s} err={err:.3e}% (ceiling "
+                          f"{ceiling:g}%) {wall * 1e3:.1f} ms", flush=True)
+                    check(err <= ceiling,
+                          f"{dist} {dt} {op}/{label}: {err:.3e}% > "
+                          f"{ceiling:g}%")
+            del x
+    return results
+
+
+def run_integrate_example() -> list:
+    """The integration example on the card with auto and pallas_dd."""
+    from repro_torch.examples import integrate
+    rows = []
+    for method in ("auto", "pallas_dd"):
+        got = integrate.run("cuda", method)
+        plans = [(k, p.method, p.chain, p.block_rows)
+                 for k, p in got["plans"]]
+        for est, errs in got["errors"].items():
+            print(f"  integrate --method {method}: {est} "
+                  + ", ".join(f"{k} rel={v:.3e}" for k, v in errs.items()
+                              if k != "truth"), flush=True)
+        print(f"  integrate --method {method}: plans {plans}", flush=True)
+        check(got["passed"], f"integrate --method {method}: the 1e-12 gate "
+                             f"did not separate the families: {got}")
+        rows.append({"method": method, "errors": got["errors"],
+                     "plans": plans})
     return rows
 
 
@@ -504,6 +778,215 @@ def time_kernels(mr, ops, gen, launches: dict, worst: dict) -> tuple:
     return entries, details
 
 
+def tier_bound(n: int, itemsize: int, out_bytes: int, f32_ops: float,
+               tc_flops: float, f64_ops: float) -> tuple:
+    """Least time in ms for one B4 / B5 call: the input read once and the
+    output written once at HBM rate, against each unit's operations per
+    element at its peak (CUDA-core f32, tensor-core bf16, f64)."""
+    bytes_ms = (n * itemsize + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n * f32_ops / CUDA_CORE_FLOPS,
+                 n * tc_flops / TC_FLOPS[torch.bfloat16],
+                 n * f64_ops / FP64_FLOPS) * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes"
+    return ops_ms, "operations"
+
+
+def time_tier_kernels(mc, ops, gen, launches: dict, worst: dict) -> tuple:
+    """B4 (f32, 2 and 3 words) and B5 (f64 and f32 input) at the main
+    path's geometry and n = 2^28: held to the exact count on counting
+    input and to their bound against the plain version on normal input,
+    then timed.  B4 with 3 words and B5 on f64 go to the ``kernels``
+    line (the words ``auto`` runs under split_words=3, and the
+    integration example's dtype), every case to the details."""
+    src = "src/repro_torch/kernels/csrc/mma_compensated.cu"
+    replaces = {"b4_ec": "src/repro/kernels/mma_compensated.py:96",
+                "b5_dd": "src/repro/kernels/mma_compensated.py:198"}
+    for dt in (torch.float32, torch.float64):
+        check_tier_counts(mc, ops, count_input(N_MAIN, dt, COUNT_SHARE_MAIN,
+                                               gen), CHAIN, BLOCK_ROWS)
+    x32 = torch.randn(N_MAIN, device="cuda", generator=gen)
+    x64 = torch.randn(N_MAIN, device="cuda", generator=gen,
+                      dtype=torch.float64)
+    tile = CHAIN * BLOCK_ROWS
+    geo = dict(chain=CHAIN, block_rows=BLOCK_ROWS)
+    cases = []
+    for words in mc.SPLIT_WORDS:
+        cases.append(("b4_ec", f"w{words}", x32,
+                      lambda w=words: mc.ec_cuda(x32, split_words=w, **geo),
+                      lambda w=words: mc.ec_plain(
+                          ops._to_tiles(x32, tile, mc.M), split_words=w,
+                          **geo),
+                      EC_RTOL, 4,
+                      (B4_CUDA_OPS_PER_WORD * words,
+                       B4_TC_FLOPS_PER_WORD * words, 0.0)))
+    for x in (x64, x32):
+        split = B5_F64_SPLIT_OPS if x.dtype == torch.float64 else 0.0
+        cases.append(("b5_dd", name(x.dtype), x,
+                      lambda x=x: mc.dd_cuda(x, **geo),
+                      lambda x=x: mc.dd_plain(
+                          ops._to_tiles(x, tile, mc.M), **geo),
+                      DD_RTOL, 8, (B5_F32_OPS, 0.0, split)))
+    entries, details = [], []
+    for kname, case, x, kern, plain, rtol, out_bytes, per_elem in cases:
+        scale = float(torch.sum(x.abs(), dtype=torch.float64))
+        got, want = dd_f64(kern()), dd_f64(plain())
+        diff = abs(got - want)
+        check(diff <= rtol * scale,
+              f"{kname} {case} n=2^28: |kernel - plain| {diff} over "
+              f"{rtol:.3g} of sum|x|")
+        p1 = median_ms(plain)
+        k1 = median_ms(kern)
+        k2 = median_ms(kern)
+        p2 = median_ms(plain)
+        lib_ms = median_ms(lambda x=x: torch.sum(x, dtype=torch.float64))
+        bound_ms, bound_by = tier_bound(N_MAIN, x.element_size(), out_bytes,
+                                        *per_elem)
+        row = {"name": kname, "case": case, "dtype": name(x.dtype),
+               "n": N_MAIN, "chain": CHAIN, "block_rows": BLOCK_ROWS,
+               "ms": min(k1, k2), "ms_runs": [k1, k2],
+               "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": diff,
+               "diff_over_abs_sum": diff / scale}
+        details.append(row)
+        print(f"  {kname:6s} {case:8s} kernel {row['ms']:.4f} ms plain "
+              f"{row['plain_ms']:.4f} ms torch.sum(f64) {lib_ms:.4f} ms "
+              f"bound {bound_ms:.4f} ms ({bound_by}) |diff| {diff:.3g}",
+              flush=True)
+        if case in ("w3", "float64"):
+            entries.append({
+                "name": kname, "route": "cuda", "source": src,
+                "replaces": replaces[kname], "launches": launches[kname],
+                "max_abs_err": max(diff, worst[kname]),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms})
+    del x32, x64
+    return entries, details
+
+
+# ---------------------------------------- phase 6: the cost model's fit
+
+
+def sweep_times(autotune, dispatch, gen) -> dict:
+    """{n: {plan: µs}}: every pallas (R, B) candidate, vpu and mma on one
+    f32 card input per size, timed as the autotuner times a plan (CUDA
+    events around SWEEP_ITERS back-to-back calls through the executor),
+    the median of SWEEP_ROUNDS rounds."""
+    out = {}
+    for n in SWEEP_SIZES:
+        x = torch.randn(n, device="cuda", generator=gen)
+        plans = [c for c in autotune.candidate_plans(n, torch.float32)
+                 if c.method in ("pallas", "vpu", "mma")]
+        out[n] = {p: plan_us(dispatch, x, p) for p in plans}
+        pallas = sorted((us, p.chain, p.block_rows)
+                        for p, us in out[n].items() if p.method == "pallas")
+        other = {p.method: us for p, us in out[n].items()
+                 if p.method != "pallas"}
+        print(f"  n=2^{n.bit_length() - 1}: vpu {other['vpu']:.1f} us, "
+              f"mma {other['mma']:.1f} us, pallas (R, B) fastest "
+              f"{pallas[:3]}, slowest {pallas[-1]}", flush=True)
+        del x
+    return out
+
+
+def plan_us(dispatch, x: torch.Tensor, plan) -> float:
+    iters = SWEEP_ITERS[x.numel()]
+    for _ in range(2):
+        dispatch.execute("reduce_sum", x, plan)
+    runs = []
+    for _ in range(SWEEP_ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            dispatch.execute("reduce_sum", x, plan)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) * 1e3 / iters)
+    return statistics.median(runs)
+
+
+def model_terms(autotune, plan, n: int) -> tuple:
+    """model_cost = base + _STEP_US * a + _GRID_STEP_OVERHEAD * b: the
+    model is linear in its two estimated constants, so (base, a, b) come
+    from three evaluations with the constants set to 0 and 1."""
+    saved = autotune._STEP_US, autotune._GRID_STEP_OVERHEAD
+    try:
+        vals = []
+        for step, grid in ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0)):
+            autotune._STEP_US, autotune._GRID_STEP_OVERHEAD = step, grid
+            vals.append(autotune.model_cost(plan, n, torch.float32))
+    finally:
+        autotune._STEP_US, autotune._GRID_STEP_OVERHEAD = saved
+    return vals[0], vals[1] - vals[0], vals[2] - vals[0]
+
+
+def fit_constants(autotune, times: dict) -> dict:
+    """Non-negative least squares, in relative terms, of the measured
+    times on base + step * a + grid * b + call (``call`` is the host's
+    cost per call, the same for every engine, so it moves no pick and
+    stays out of the model)."""
+    import numpy as np
+    rows, target = [], []
+    for n, by_plan in times.items():
+        for plan, us in by_plan.items():
+            base, a, b = model_terms(autotune, plan, n)
+            rows.append([a / us, b / us, 1.0 / us])
+            target.append(1.0 - base / us)
+    a_mat, y = np.asarray(rows), np.asarray(target)
+    best = None
+    for mask in range(8):
+        cols = [i for i in range(3) if mask >> i & 1]
+        coef = np.zeros(3)
+        if cols:
+            sol, *_ = np.linalg.lstsq(a_mat[:, cols], y, rcond=None)
+            if np.any(sol < 0):
+                continue
+            coef[cols] = sol
+        res = float(np.sum((a_mat @ coef - y) ** 2))
+        if best is None or res < best[0]:
+            best = (res, coef)
+    res, coef = best
+    return {"step_us": float(coef[0]), "grid_step_overhead_us":
+            float(coef[1]), "call_us": float(coef[2]),
+            "rms_rel_residual": math.sqrt(res / len(y))}
+
+
+def check_model_picks(autotune, dispatch, times: dict, gen) -> list:
+    """At each size the model's pick, with the constants as committed,
+    must run within PICK_SLACK of the measured best."""
+    rows = []
+    for n, by_plan in times.items():
+        best_plan = min(by_plan, key=by_plan.get)
+        pick = autotune.autotune(n, torch.float32, backend="cuda")
+        key = next((p for p in by_plan if (p.method, p.chain, p.block_rows)
+                    == (pick.method, pick.chain, pick.block_rows)), None)
+        if key is not None:
+            pick_us = by_plan[key]
+        else:
+            x = torch.randn(n, device="cuda", generator=gen)
+            pick_us = plan_us(dispatch, x, pick)
+            del x
+        ratio = pick_us / by_plan[best_plan]
+        rows.append({"n": n, "model_pick": [pick.method, pick.chain,
+                                            pick.block_rows],
+                     "model_pick_us": pick_us,
+                     "best": [best_plan.method, best_plan.chain,
+                              best_plan.block_rows],
+                     "best_us": by_plan[best_plan], "ratio": ratio})
+        print(f"  n=2^{n.bit_length() - 1}: model picks {pick.method} "
+              f"(R={pick.chain}, B={pick.block_rows}) {pick_us:.1f} us; "
+              f"measured best {best_plan.method} (R={best_plan.chain}, "
+              f"B={best_plan.block_rows}) {by_plan[best_plan]:.1f} us; "
+              f"ratio {ratio:.3f}", flush=True)
+        check(ratio <= PICK_SLACK,
+              f"n={n}: the model's pick runs {ratio:.2f}x the measured "
+              f"best (> {PICK_SLACK})")
+    return rows
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -518,8 +1001,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch import kernels
-    from repro_torch.core import autotune, integration
+    from repro_torch.core import autotune, dispatch, integration, precision
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import mma_compensated as mc
     # The package exports the function mma_reduce under the module's
     # name, so the kernel module is fetched by its full name.
     mr = importlib.import_module("repro_torch.kernels.mma_reduce")
@@ -534,9 +1018,13 @@ def main() -> int:
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"phase 1: built {sorted(libs)} in {build_s:.1f} s", flush=True)
+    ptxas = {lib: ptxas_report(path) for lib, path in libs.items()}
+    print(f"phase 1: ptxas (registers min-max, spill bytes) {ptxas}",
+          flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = check_kernels(mr, ops, gen)
+    tier_checks = check_tier_kernels(mc, ops, gen)
 
     print("phase 3: main path at n = 2^28", flush=True)
     mr.reset_launches()
@@ -549,13 +1037,27 @@ def main() -> int:
                          f"path")
     other_rows = run_other_ops(integration, gen)
 
+    print("phase 3c: the compensated and double-double tier at n = 2^28",
+          flush=True)
+    mc.reset_launches()
+    tier_rows = run_tier_path(integration, precision, autotune, gen)
+    torch.cuda.synchronize()
+    tier_launches = dict(mc.LAUNCHES)
+    print(f"phase 3c: launches on the tier's path {tier_launches}",
+          flush=True)
+    for kname, count in tier_launches.items():
+        check(count > 0, f"kernel {kname} was not launched on the tier's "
+                         f"path")
+    print("phase 3d: the integration example on the card", flush=True)
+    integrate_rows = run_integrate_example()
+
     t0 = time.perf_counter()
     plan = autotune.get_plan(N_TUNE, torch.float32, measure=True,
                              backend="cuda")
     tune_s = time.perf_counter() - t0
     check(plan.source == "measured", f"autotune: {plan}")
-    # The cost model's constants are data-sheet estimates, not fitted to
-    # the card: its pick is recorded beside the measured one, unchecked.
+    # Recorded beside the measured pick; phase 6 holds the model's pick
+    # to the measured times.
     model_plan = autotune.autotune(N_TUNE, torch.float32, backend="cuda")
     print(f"phase 4: measured plan at n = 2^24 f32 in {tune_s:.1f} s: "
           f"{plan}; the cost model picks {model_plan.method} "
@@ -565,17 +1067,45 @@ def main() -> int:
     print("phase 5: kernel timings at n = 2^28", flush=True)
     entries, timing_rows = time_kernels(mr, ops, gen, launches,
                                         checks["worst"])
+    print("phase 5b: B4 and B5 timings at n = 2^28", flush=True)
+    tier_entries, tier_timing_rows = time_tier_kernels(
+        mc, ops, gen, tier_launches, tier_checks["worst_abs"])
+    entries += tier_entries
+
+    print("phase 6: the cost model against measured times (f32)",
+          flush=True)
+    t0 = time.perf_counter()
+    times = sweep_times(autotune, dispatch, gen)
+    fit = fit_constants(autotune, times)
+    print(f"phase 6: fitted _STEP_US {fit['step_us']:.6g} us, "
+          f"_GRID_STEP_OVERHEAD {fit['grid_step_overhead_us']:.6g} us, "
+          f"host per call {fit['call_us']:.6g} us (rms relative residual "
+          f"{fit['rms_rel_residual']:.3g}); committed _STEP_US "
+          f"{autotune._STEP_US}, _GRID_STEP_OVERHEAD "
+          f"{autotune._GRID_STEP_OVERHEAD}", flush=True)
+    picks = check_model_picks(autotune, dispatch, times, gen)
+    sweep_s = time.perf_counter() - t0
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi,
                    "torch": torch.__version__, "build_s": build_s,
+                   "ptxas": ptxas,
                    "kernel_checks": checks["rows"],
                    "main_path": main_rows, "other_ops": other_rows,
                    "exact_counts": checks["counted"],
                    "launches": launches, "tuned_plan": plan.to_dict(),
                    "model_plan": model_plan.to_dict(),
                    "tune_s": tune_s, "timings": timing_rows,
+                   "tier_kernel_checks": tier_checks["rows"],
+                   "tier_exact_counts": tier_checks["counted"],
+                   "tier_path": tier_rows, "tier_launches": tier_launches,
+                   "integrate": integrate_rows,
+                   "tier_timings": tier_timing_rows,
+                   "sweep_us": {str(n): [[p.method, p.chain, p.block_rows,
+                                          us] for p, us in by.items()]
+                                for n, by in times.items()},
+                   "fit": fit, "model_picks": picks, "sweep_s": sweep_s,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

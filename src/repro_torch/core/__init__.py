@@ -7,6 +7,8 @@ from repro_torch.core.reduction import (  # noqa: F401
     tc_contract,
     tc_reduce,
     tc_reduce_axes,
+    tc_reduce_dd,
+    tc_reduce_ec,
     tc_reduce_lastdim,
     tc_reduce_rows,
 )

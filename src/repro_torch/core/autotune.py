@@ -64,14 +64,20 @@ _VPU_THROUGHPUT = 128 * 1980
 # bf16 is 4096 flops per clock per SM at 1830 MHz, and a ones-MMA spends
 # 2m = 32 flops on each element it folds.
 _MXU_THROUGHPUT = 4096 * 1830 // (2 * DEFAULT_M)
-# µs a thread block adds that its loads do not hide: launch and
-# retirement, ~200 cycles at 1.98 GHz.  An estimate, not yet fitted to
-# timings on the card (ROADMAP.md queue C); measured sweeps replace the
-# model.
-_GRID_STEP_OVERHEAD = 0.1
-# µs per PRAM step of the paper's depth formulas: one dependent MMA or
-# shuffle, ~30 cycles at 1.98 GHz.
-_STEP_US = 0.015
+# The two constants below are fitted, not taken from a data sheet:
+# chip_smoke.py (phase 6) times the pallas R x B grid, vpu and mma on
+# f32 input at n = 2^20, 2^24 and 2^28 on one H100 80GB HBM3 (700 W)
+# and fits the model to those times by non-negative least squares in
+# relative terms, beside a per-call host cost that is the same for
+# every engine (26.8 us there; it moves no pick, so it stays out).
+# µs a thread block adds that its loads do not hide, per wave of SMs
+# (the data-sheet estimate was ~200 cycles, 0.1 µs; the fit gives
+# 0.042).
+_GRID_STEP_OVERHEAD = 0.042
+# µs per PRAM step of the paper's depth formulas (estimated at ~30
+# cycles, 0.015 µs).  The fit puts it at 0: beside the memory stream
+# and the host's cost per call, no time on the card follows the depth.
+_STEP_US = 0.0
 # Device-memory bytes per µs: 3.35 TB/s.
 _HBM_BYTES_PER_US = 3.35e6
 
@@ -313,6 +319,11 @@ def plan_key(op: str, n: int, dtype, backend: Optional[str] = None,
             f"{_lat_tag(objective)}{_mesh_tag(mesh)}")
 
 
+# The split-word counts the compensated engines sweep when no policy
+# pins one: hi+lo (~16-bit multiplicands) and hi+mid+lo (exact f32).
+SPLIT_WORDS = (2, 3)
+
+
 def candidate_plans(n: int, dtype, *, chains=CHAINS, blocks=BLOCK_ROWS,
                     m: int = DEFAULT_M, engine: Engine = None,
                     op: str = "reduce_sum",
@@ -320,13 +331,15 @@ def candidate_plans(n: int, dtype, *, chains=CHAINS, blocks=BLOCK_ROWS,
     """Enumerate the sweep space for one problem, off the op registry.
 
     Geometry-free engines give one candidate, ``('chain',)`` engines
-    sweep R, ``('chain', 'block_rows')`` engines the R x B grid.  The
-    reference pruned the grid by a TPU VMEM budget; the Hopper kernels
-    stage no tile in shared memory, and what bounds a block there is
-    its thread count (2 * block_rows <= 1024), so the grid keeps the
-    ``block_rows`` the kernels take (``kernels.mma_reduce.
-    block_rows_ok``) and, as in the reference, drops tiles that are
-    strictly more padding than a smaller one.
+    sweep R, ``('chain', 'block_rows')`` engines the R x B grid, and the
+    compensated family also sweeps ``split_words`` over ``SPLIT_WORDS``
+    unless ``policy`` pins a word count.  The reference pruned the grid
+    by a TPU VMEM budget; the Hopper kernels stage no tile in shared
+    memory, and what bounds a block there is its thread count
+    (2 * block_rows <= 1024), so the grid keeps the ``block_rows`` the
+    kernels take (``kernels.mma_reduce.block_rows_ok``) and, as in the
+    reference, drops tiles that are strictly more padding than a
+    smaller one.
     """
     from repro_torch.core import dispatch
     from repro_torch.kernels.mma_reduce import block_rows_ok
@@ -343,24 +356,34 @@ def candidate_plans(n: int, dtype, *, chains=CHAINS, blocks=BLOCK_ROWS,
                 continue
             if dtype_name(policy.accum_dtype) not in eng.accum_dtypes:
                 continue
+        if "split_words" not in eng.sweep:
+            words_opts = (ReductionPlan.split_words,)
+        elif policy is not None and policy.split_words > 1:
+            words_opts = (int(policy.split_words),)
+        else:
+            words_opts = SPLIT_WORDS
         if not eng.sweep:
             yield ReductionPlan(method=eng.name)
             continue
         if "block_rows" not in eng.sweep:
             for chain in chains:
-                yield ReductionPlan(method=eng.name, chain=chain, m=m)
+                for words in words_opts:
+                    yield ReductionPlan(method=eng.name, chain=chain, m=m,
+                                        split_words=words)
             continue
-        prev_tile = 0
-        for chain in chains:
-            for block_rows in blocks:
-                if not block_rows_ok(block_rows):
-                    continue
-                tile = chain * block_rows * m
-                if tile > max(n, 1) and prev_tile > max(n, 1):
-                    continue  # strictly more padding than smaller
-                prev_tile = tile
-                yield ReductionPlan(method=eng.name, chain=chain,
-                                    block_rows=block_rows, m=m)
+        for words in words_opts:
+            prev_tile = 0
+            for chain in chains:
+                for block_rows in blocks:
+                    if not block_rows_ok(block_rows):
+                        continue
+                    tile = chain * block_rows * m
+                    if tile > max(n, 1) and prev_tile > max(n, 1):
+                        continue  # strictly more padding than smaller
+                    prev_tile = tile
+                    yield ReductionPlan(method=eng.name, chain=chain,
+                                        block_rows=block_rows, m=m,
+                                        split_words=words)
 
 
 # --------------------------------------------------------------- cost
@@ -378,6 +401,12 @@ def _cost_mma(plan: ReductionPlan, n: int) -> float:
         + n / (_MXU_THROUGHPUT * _PARALLELISM)
 
 
+def _grid(plan: ReductionPlan, n: int) -> float:
+    # µs the kernel's blocks add beyond their loads, per wave of SMs.
+    groups = max(1, math.ceil(n / (plan.chain * plan.block_rows * plan.m)))
+    return _GRID_STEP_OVERHEAD * groups / _PARALLELISM
+
+
 def _cost_chained(plan: ReductionPlan, n: int, *,
                   grid_walk: bool = False) -> float:
     # chained engines: PRAM depth + MMA work + block overheads + padding.
@@ -388,9 +417,37 @@ def _cost_chained(plan: ReductionPlan, n: int, *,
     oc = theory.op_count(padded, m=plan.m, chain=plan.chain,
                          variant=plan.variant)
     work = oc.mma_ops * plan.m * plan.m / (_MXU_THROUGHPUT * _PARALLELISM)
-    grid = _GRID_STEP_OVERHEAD * groups / _PARALLELISM if grid_walk else 0.0
+    grid = _grid(plan, n) if grid_walk else 0.0
     waste = (padded - n) / (_MXU_THROUGHPUT * _PARALLELISM)
     return depth * _STEP_US + work + grid + waste
+
+
+def _cost_ec(plan: ReductionPlan, n: int, *,
+             grid_walk: bool = False) -> float:
+    # Compensated split-bf16 engines: one ones-MMA chain per word (one
+    # grid walk for all words in kernel B4), the split on the CUDA
+    # cores (a cvt and a subtract per extra word, a cvt for the last:
+    # 2w - 1 f32 ops per element), and the TwoSum combine: one 6-op
+    # TwoSum per lane partial of w * n / (chain * m) and a log-depth
+    # tree.
+    w = max(int(plan.split_words), 1)
+    base = w * _cost_chained(plan, n)
+    grid = _grid(plan, n) if grid_walk else 0.0
+    split = (2 * w - 1) * n / (_VPU_THROUGHPUT * _PARALLELISM)
+    lanes = w * n / max(plan.chain * plan.m, 1)
+    combine = 6.0 * lanes / (_VPU_THROUGHPUT * _PARALLELISM) \
+        + math.log2(max(lanes, 2.0)) * _STEP_US
+    return base + grid + split + combine
+
+
+def _cost_dd(plan: ReductionPlan, n: int, *,
+             grid_walk: bool = False) -> float:
+    # Double-double engines, CUDA cores only on the card (B5, and the
+    # plain twin adds its high words as a + b): n - 1 dd_adds of ~11
+    # f32 ops each, and a pairwise merge tree of log2 n levels.
+    carry = 11.0 * n / (_VPU_THROUGHPUT * _PARALLELISM)
+    grid = _grid(plan, n) if grid_walk else 0.0
+    return carry + math.log2(max(n, 2.0)) * _STEP_US + grid
 
 
 # Per-engine scoring — keyed, not branched, so the only place engine
@@ -399,31 +456,94 @@ _ENGINE_COSTS = {
     "vpu": _cost_vpu,
     "mma": _cost_mma,
     "mma_chained": _cost_chained,
+    "mma_ec": _cost_ec,
     "pallas": functools.partial(_cost_chained, grid_walk=True),
+    "pallas_ec": functools.partial(_cost_ec, grid_walk=True),
+    "mma_dd": _cost_dd,
+    "pallas_dd": functools.partial(_cost_dd, grid_walk=True),
 }
+
+# Device-memory bytes an engine moves per element of f32 input, counted
+# from its runner (``core.dispatch``); the model scales them by the
+# input's itemsize over 4.  The kernels read their input once (4).  The
+# plain engines run each step as its own PyTorch kernel, which streams
+# its operands from device memory and writes its result back: ``mma``
+# writes a ones tensor and reads it beside x (12; squares read x twice,
+# 8), ``vpu`` squares write and reread x * x (12), ``mma_chained``
+# writes and rereads its (n / 16) row sums (4.5; squares 12.5),
+# ``mma_dd`` runs ~11 elementwise ops of 12 bytes per output of its
+# merge tree, n outputs in all, plus its lo plane (136; squares add the
+# ~25 ops of the dd square, 436).  ``mma_ec``: see ``_ec_bytes``.
+_BYTES_PER_ELEMENT = {
+    ("reduce_sum", "mma"): 12.0, ("squared_sum", "mma"): 8.0,
+    ("squared_sum", "vpu"): 12.0,
+    ("reduce_sum", "mma_chained"): 4.5, ("squared_sum", "mma_chained"): 12.5,
+    ("reduce_sum", "mma_dd"): 136.0, ("squared_sum", "mma_dd"): 436.0,
+}
+
+
+def _ec_bytes(plan: ReductionPlan, op: str) -> float:
+    # mma_ec's split: 24 bytes per extra word (cast to bf16, back to f32,
+    # subtract), 6 for the last; 2.6 per word for its MMA chain and
+    # 4.5 per word for the TwoSum tree over its lanes; squares +8.
+    w = max(int(plan.split_words), 1)
+    return 24.0 * (w - 1) + 6.0 + 7.1 * w + (8.0 if op == "squared_sum"
+                                             else 0.0)
+
+
+def _bytes_per_element(plan: ReductionPlan, op: str) -> float:
+    if plan.method == "mma_ec":
+        return _ec_bytes(plan, op)
+    return _BYTES_PER_ELEMENT.get((op, plan.method), 4.0)
 
 
 # ------------------------------------------------------- error model
 
 _EPS32 = 2.0 ** -24     # f32 unit roundoff
-_INPUT_BITS = {"bfloat16": 8, "float16": 11}
+_BF16_BITS = 8          # bf16 significand bits (incl. implicit)
+_INPUT_BITS = {"bfloat16": _BF16_BITS, "float16": 11}
 _F32_BITS = 24
+# The TwoSum-compensated engine family and the double-double family
+# (keyed, like _ENGINE_COSTS, so engine names select no branch ladder).
+_COMPENSATED = frozenset({"mma_ec", "pallas_ec"})
+_DOUBLE_DOUBLE = frozenset({"mma_dd", "pallas_dd"})
 # Significand bits each engine's multiplicands carry on Hopper: the
-# plain matmuls run in full f32 (TF32 off), the kernels in TF32_WORDS
-# TF32 words of 11 bits.
+# plain matmuls run in full f32 (TF32 off), the kernels B1-B3 in
+# TF32_WORDS TF32 words of 11 bits; None marks the split family, whose
+# width is 8 bits per bf16 word.
 _ENGINE_BITS = {"vpu": _F32_BITS, "mma": _F32_BITS,
-                "mma_chained": _F32_BITS, "pallas": 11 * TF32_WORDS}
+                "mma_chained": _F32_BITS, "pallas": 11 * TF32_WORDS,
+                "mma_ec": None, "pallas_ec": None}
+
+
+def _multiplicand_bits(plan: ReductionPlan, dtype) -> int:
+    """Effective significand bits the engine's multiplicands carry; a
+    16-bit input caps every engine at its own width."""
+    in_bits = _INPUT_BITS.get(dtype_name(dtype), _F32_BITS)
+    eng_bits = _ENGINE_BITS.get(plan.method, _F32_BITS)
+    if eng_bits is None:
+        eng_bits = min(_BF16_BITS * max(int(plan.split_words), 1),
+                       _F32_BITS)
+    return min(in_bits, eng_bits)
 
 
 def model_percent_error(plan: ReductionPlan, n: int, dtype,
                         op: str = "reduce_sum") -> float:
-    """Modelled % error vs the fp64 oracle: a representation term
-    2^-(bits+1) from the multiplicand width and an accumulation term
-    ~eps32 * sqrt(n) — the reference's model for the plain engines."""
+    """Modelled % error vs the fp64 oracle — the reference's model: a
+    representation term 2^-(bits+1) from the multiplicand width and an
+    accumulation term, ~eps32 * sqrt(n) of random-walk rounding for the
+    plain engines, ~eps32^2 * n plus one final rounding for the
+    compensated family; the dd family carries no multiplicand
+    truncation and ~log2(n) second-order terms, 2^-48 (4 + log2 n)."""
     n = max(int(n), 1)
-    bits = min(_INPUT_BITS.get(dtype_name(dtype), _F32_BITS),
-               _ENGINE_BITS.get(plan.method, _F32_BITS))
-    return 100.0 * (2.0 ** -(bits + 1) + _EPS32 * math.sqrt(n))
+    if plan.method in _DOUBLE_DOUBLE:
+        return 100.0 * (2.0 ** -48) * (4.0 + math.log2(n))
+    rep = 2.0 ** -(_multiplicand_bits(plan, dtype) + 1)
+    if plan.method in _COMPENSATED:
+        acc = _EPS32 * _EPS32 * n + 2.0 ** -25
+    else:
+        acc = _EPS32 * math.sqrt(n)
+    return 100.0 * (rep + acc)
 
 
 def measured_percent_error(plan: ReductionPlan, n: int, dtype, *,
@@ -452,11 +572,13 @@ def measured_percent_error(plan: ReductionPlan, n: int, dtype, *,
 def model_cost(plan: ReductionPlan, n: int, dtype,
                op: str = "reduce_sum") -> float:
     """Analytical score in µs: depth + work/P + block overheads +
-    padding, plus the time to stream the input once from device memory
-    (every engine pays it; it anchors the estimate to the card)."""
+    padding, plus the time the engine's device-memory traffic takes
+    (``_BYTES_PER_ELEMENT``: a kernel streams its input once, the plain
+    engines' intermediate tensors go through memory too)."""
     n = max(int(n), 1)
     itemsize = torch.empty((), dtype=as_dtype(dtype)).element_size()
-    mem = n * itemsize / _HBM_BYTES_PER_US
+    mem = n * _bytes_per_element(plan, op) * itemsize / 4.0 \
+        / _HBM_BYTES_PER_US
     return _ENGINE_COSTS[plan.method](plan, n) + mem
 
 

@@ -10,18 +10,26 @@ autotuner hooks.  The engines keep the reference's spellings:
   * ``'mma'``          one f32-accumulated ones-contraction (matmul),
                        axis-aware, distribution-safe;
   * ``'mma_chained'``  the paper-structured ``tc_reduce`` core;
+  * ``'mma_ec'``       the compensated split-bf16 core ``tc_reduce_ec``
+                       (2-3 bf16 words per f32 value, TwoSum combine);
   * ``'pallas'``       the hand-written Hopper kernels B1-B3
                        (``repro_torch.kernels``) — the name is kept so
                        plan keys and configs carry across packages;
+  * ``'pallas_ec'``    kernel B4, the hand-written twin of ``mma_ec``;
+  * ``'mma_dd'``       the double-double core ``tc_reduce_dd``: a
+                       shape-(2,) f32 ``[hi, lo]`` pair, f64-equivalent;
+  * ``'pallas_dd'``    kernel B5, the hand-written twin of ``mma_dd``;
   * ``'vpu'``          the classic f32 sum, the baseline.
+
+The dd engines declare ``accum_dtypes=('float64',)``: they run only
+under an explicit f64 policy (``precision.F64_EQUIVALENT``), and every
+f32-scalar engine refuses that policy, each naming its reason.
 
 ``dispatch(op, x, method=..., **op_kwargs)`` is the one entry point of
 the framework hooks: an explicit method is capability-checked (an
 illegal or undeclared engine raises ``ValueError`` naming the reason),
 ``'auto'`` runs the autotuner's plan for the legal engines through
-``execute``.  The compensated (``_ec``) and double-double (``_dd``)
-engines are not registered yet, so naming one raises like any
-undeclared engine.
+``execute``.
 
 Device rule: a ``torch.Tensor`` runs on its own device (a CPU tensor is
 how a caller asks for the CPU); a numpy array or Python scalar goes to
@@ -96,7 +104,7 @@ class EngineSpec:
     multi_device_safe: bool = False
     axis_subsets: bool = False      # batched reductions (axis=...)
     ndim: Optional[int] = None      # exact input rank, None = any
-    sweep: tuple = ()               # of 'chain' / 'block_rows'
+    sweep: tuple = ()               # of 'chain' / 'block_rows' / 'split_words'
     max_split_words: int = 1        # split-bf16 words the engine runs
     accum_dtypes: tuple = ("float32",)  # accumulators it can honour
 
@@ -381,6 +389,28 @@ def _reduce_vpu(x, plan, *, axis=None, **_):
     return torch.sum(x, dim=axis, dtype=ACCUM_DTYPE)
 
 
+def _reduce_ec(x, plan, **_):
+    from repro_torch.core import reduction as R
+    return R.tc_reduce_ec(x, split_words=plan.split_words,
+                          chain=plan.chain, m=plan.m)
+
+
+def _reduce_pallas_ec(x, plan, **_):
+    from repro_torch.kernels import mma_ec_reduce
+    return mma_ec_reduce(x, split_words=plan.split_words,
+                         chain=plan.chain, block_rows=plan.block_rows)
+
+
+def _reduce_dd(x, plan, **_):
+    from repro_torch.core import reduction as R
+    return R.tc_reduce_dd(x)
+
+
+def _reduce_pallas_dd(x, plan, **_):
+    from repro_torch.kernels import mma_dd_reduce
+    return mma_dd_reduce(x, chain=plan.chain, block_rows=plan.block_rows)
+
+
 def _sq_mma(x, plan, *, axis=None, **_):
     from repro_torch.core import reduction as R
     if axis is None:
@@ -402,6 +432,30 @@ def _sq_pallas(x, plan, **_):
 def _sq_vpu(x, plan, *, axis=None, **_):
     xf = _f32(x)
     return _reduce_vpu(xf * xf, plan, axis=axis)
+
+
+def _sq_ec(x, plan, **_):
+    # Square in f32 (one rounding per element, as every engine), then
+    # the compensated reduce adds no first-order error.
+    xf = _f32(x)
+    return _reduce_ec(xf * xf, plan)
+
+
+def _sq_pallas_ec(x, plan, **_):
+    from repro_torch.kernels import mma_ec_squared_sum
+    return mma_ec_squared_sum(x, split_words=plan.split_words,
+                              chain=plan.chain, block_rows=plan.block_rows)
+
+
+def _sq_dd(x, plan, **_):
+    from repro_torch.core import reduction as R
+    return R.tc_reduce_dd(x, square=True)
+
+
+def _sq_pallas_dd(x, plan, **_):
+    from repro_torch.kernels import mma_dd_squared_sum
+    return mma_dd_squared_sum(x, chain=plan.chain,
+                              block_rows=plan.block_rows)
 
 
 def _masked_mean_with(reduce_run):
@@ -477,14 +531,28 @@ def _measure_expert_counts(n, dtype, rng, device):
 #   mma          single f32-accumulated contraction — distribution-safe,
 #                axis-aware (batched).
 #   mma_chained  plain chained core: flatten-and-pad, single device.
+#   mma_ec       compensated split-bf16 core: the only family honouring
+#                policy split_words > 1; flatten-only, single device.
 #   pallas       the Hopper kernels B1-B3: flatten-only, single device.
+#   pallas_ec    kernel B4, the twin of mma_ec.
+#   mma_dd       double-double core: a (hi, lo) pair, accum_dtypes
+#                ('float64',) — refused without an explicit f64 policy.
+#   pallas_dd    kernel B5, the twin of mma_dd.
 #   vpu          classic baseline: safe everywhere.
 
 _REDUCE_ENGINES = (
     EngineSpec("mma", _reduce_mma, multi_device_safe=True,
                axis_subsets=True),
     EngineSpec("mma_chained", _reduce_chained, sweep=("chain",)),
+    EngineSpec("mma_ec", _reduce_ec, max_split_words=3,
+               sweep=("chain", "split_words")),
     EngineSpec("pallas", _reduce_pallas, sweep=("chain", "block_rows")),
+    EngineSpec("pallas_ec", _reduce_pallas_ec, max_split_words=3,
+               sweep=("chain", "block_rows", "split_words")),
+    EngineSpec("mma_dd", _reduce_dd, max_split_words=2,
+               accum_dtypes=("float64",)),
+    EngineSpec("pallas_dd", _reduce_pallas_dd, max_split_words=2,
+               accum_dtypes=("float64",), sweep=("chain", "block_rows")),
     EngineSpec("vpu", _reduce_vpu, multi_device_safe=True,
                axis_subsets=True),
 )
@@ -499,7 +567,16 @@ register(OpSpec(
         EngineSpec("mma", _sq_mma, multi_device_safe=True,
                    axis_subsets=True),
         EngineSpec("mma_chained", _sq_chained, sweep=("chain",)),
+        EngineSpec("mma_ec", _sq_ec, max_split_words=3,
+                   sweep=("chain", "split_words")),
         EngineSpec("pallas", _sq_pallas, sweep=("chain", "block_rows")),
+        EngineSpec("pallas_ec", _sq_pallas_ec, max_split_words=3,
+                   sweep=("chain", "block_rows", "split_words")),
+        EngineSpec("mma_dd", _sq_dd, max_split_words=2,
+                   accum_dtypes=("float64",)),
+        EngineSpec("pallas_dd", _sq_pallas_dd, max_split_words=2,
+                   accum_dtypes=("float64",),
+                   sweep=("chain", "block_rows")),
         EngineSpec("vpu", _sq_vpu, multi_device_safe=True,
                    axis_subsets=True),
     ),

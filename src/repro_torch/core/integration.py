@@ -6,13 +6,18 @@ Each hook is a thin wrapper over ONE dispatch path,
 ``method`` is ``'auto'`` (the autotuner's plan for this op, size, dtype
 and device, over the legal engines), ``'mma'`` (one ones-contraction;
 the default), ``'mma_chained'`` (the paper-structured core),
-``'pallas'`` (the hand-written Hopper kernels) or ``'vpu'`` (the
-classic f32 baseline).  An engine the op does not declare, or one whose
-predicates reject the call, raises ``ValueError`` naming the reason.
+``'pallas'`` (the hand-written Hopper kernels B1-B3), ``'vpu'`` (the
+classic f32 baseline), or, for ``reduce_sum`` / ``squared_sum``, the
+compensated ``'mma_ec'`` / ``'pallas_ec'`` (kernel B4) and the
+double-double ``'mma_dd'`` / ``'pallas_dd'`` (kernel B5).  An engine
+the op does not declare, or one whose predicates reject the call,
+raises ``ValueError`` naming the reason.
 
 Inputs follow the device rule of ``dispatch.as_tensor``: a tensor runs
 on its own device, anything else on the card.  Results are f32 tensors
-on the input's device.
+on the input's device; a dd engine returns the shape-(2,) ``[hi, lo]``
+pair (collapse it with ``precision.dd_value``), and runs only under an
+f64 policy such as ``precision.F64_EQUIVALENT``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 from repro_torch.core import dispatch
 from repro_torch.core.precision import ACCUM_DTYPE
 
-Method = Literal["auto", "mma", "mma_chained", "pallas", "vpu"]
+Method = Literal["auto", "mma", "mma_chained", "mma_ec", "pallas",
+                 "pallas_ec", "mma_dd", "pallas_dd", "vpu"]
 
 
 def _norm_axes(axis, ndim: int) -> Optional[tuple]:

@@ -23,6 +23,14 @@ Shape convention: the input is flattened, zero-padded to a multiple of
     s_g = C_g x [1]_{m x 1}                   (final transposed MMA)
 
 followed by variant-specific combining of the per-group scalars s_g.
+
+The compensated (``tc_reduce_ec``) and double-double (``tc_reduce_dd``)
+twins are the cores of the ``mma_ec`` and ``mma_dd`` engines.  The dd
+merge tree adds each pair of high words as ``a + b``, not through a
+pair ones-contraction as the reference does (``repro.core.reduction.
+_dd_merge_tree``): an eager f32 add rounds exactly once on every
+device, which is all the TwoSum residual needs to be exact, whereas a
+matmul library is free to reorder, split or fuse the two products.
 """
 
 from __future__ import annotations
@@ -32,7 +40,9 @@ from typing import Literal
 
 import torch
 
-from repro_torch.core.precision import ACCUM_DTYPE
+from repro_torch.core.precision import (ACCUM_DTYPE, compensated_sum,
+                                        dd_add, dd_from_any, fast_two_sum,
+                                        split_f32_words, two_prod)
 
 DEFAULT_M = 16  # the paper's wmma tile (the reference's TPU tile is 128)
 
@@ -127,6 +137,71 @@ def tc_reduce(x, *, variant: Variant = "single_pass",
             scalars = _mma_collapse(_mma_chain(_as_groups(nxt, chain, m)))
         return scalars[0]
     raise ValueError(f"unknown variant: {variant!r}")
+
+
+def tc_reduce_ec(x, *, split_words: int = 2, chain: int | str = 2,
+                 m: int = DEFAULT_M) -> torch.Tensor:
+    """Error-compensated reduction: split-bf16 MMA chains + TwoSum
+    combine.  Returns an f32 scalar at (near) correctly-rounded
+    accuracy.
+
+    Each f32 value is split into ``split_words`` bf16 words
+    (``precision.split_f32_words``: 3 words reconstruct f32 exactly, 2
+    keep ~16 bits), one ones-MMA chain runs per word with f32
+    accumulation as in ``tc_reduce``, and the (G, m) lane partials of
+    every word are folded with the pairwise-TwoSum tree
+    (``precision.compensated_sum``) in place of the final MMA.
+    ``chain='auto'`` resolves R from the plan registry (engine
+    ``'mma_ec'``).
+    """
+    if chain == "auto":
+        from repro_torch.core import autotune
+        chain = autotune.get_plan(x.numel(), x.dtype, op="reduce_sum",
+                                  engine="mma_ec",
+                                  backend=x.device.type).chain
+    words = split_f32_words(x, int(split_words))
+    lanes = [_mma_chain(_as_groups(w, int(chain), m)).reshape(-1)
+             for w in words]
+    return compensated_sum(torch.cat(lanes))
+
+
+def _dd_merge_tree(hi, lo):
+    """Pairwise double-double merge tree over the last axis: (..., k)
+    (hi, lo) f32 pairs -> (...) pairs.  Each level dd-adds neighbours
+    (``precision.dd_add``: TwoSum of the high words, both low words
+    folded into the residual, FastTwoSum), so a level adds only
+    O(eps32^2) relative error; an odd level is padded with (0, 0)."""
+    hi = hi.to(ACCUM_DTYPE)
+    lo = lo.to(ACCUM_DTYPE)
+    if hi.shape[-1] == 0:
+        z = torch.zeros(hi.shape[:-1], dtype=ACCUM_DTYPE, device=hi.device)
+        return z, z.clone()
+    while hi.shape[-1] > 1:
+        if hi.shape[-1] % 2:
+            hi = torch.nn.functional.pad(hi, (0, 1))
+            lo = torch.nn.functional.pad(lo, (0, 1))
+        hi, lo = dd_add(hi[..., 0::2], lo[..., 0::2],
+                        hi[..., 1::2], lo[..., 1::2])
+    return hi[..., 0], lo[..., 0]
+
+
+def _dd_square(hi, lo):
+    """Elementwise dd square: (hi + lo)^2 = TwoProd(hi, hi) + 2 hi lo +
+    lo^2, renormalised (the reference's order of operations)."""
+    p, e = two_prod(hi, hi)
+    return fast_two_sum(p, e + (2.0 * hi * lo + lo * lo))
+
+
+def tc_reduce_dd(x, *, square: bool = False) -> torch.Tensor:
+    """Double-double reduction: a shape-(2,) f32 ``[hi, lo]`` pair whose
+    exact sum is the f64-equivalent value of ``sum(x)`` (``sum(x*x)``
+    with ``square=True``).  f64 input splits exactly into dd pairs on
+    entry; collapse the pair with ``precision.dd_value``."""
+    hi, lo = dd_from_any(x.reshape(-1))
+    if square:
+        hi, lo = _dd_square(hi, lo)
+    h, low = _dd_merge_tree(hi, lo)
+    return torch.stack([h, low])
 
 
 def tc_contract(a, b) -> torch.Tensor:

@@ -8,6 +8,10 @@ version and a launch counter, ``ops`` exposes the public API and
 
 from repro_torch.kernels.ops import (  # noqa: F401
     M,
+    mma_dd_reduce,
+    mma_dd_squared_sum,
+    mma_ec_reduce,
+    mma_ec_squared_sum,
     mma_reduce,
     mma_reduce_partials,
     mma_squared_sum,

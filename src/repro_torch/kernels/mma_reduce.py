@@ -125,12 +125,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(x, block_rows: int, chain: int = 1) -> None:
+def _check(x, block_rows: int, chain: int = 1, dtypes=DTYPES) -> None:
     if not x.is_cuda:
         raise ValueError(f"the CUDA kernel takes a CUDA tensor, got "
                          f"one on {x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"dtype {x.dtype} not in {DTYPES}")
+    if x.dtype not in dtypes:
+        raise ValueError(f"dtype {x.dtype} not in {dtypes}")
     if x.dim() != 1 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("the kernel takes a contiguous 1-D tensor "
                          "aligned to 16 bytes")

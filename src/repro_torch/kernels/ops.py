@@ -1,5 +1,5 @@
-"""Public wrappers for the reduction kernels — the counterpart of the
-reduction half of ``repro.kernels.ops``.
+"""Public wrappers for the reduction kernels (B1-B5) — the counterpart
+of the reduction half of ``repro.kernels.ops``.
 
 They flatten, resolve ``'auto'`` geometry and pick the variant.  Where
 the reference chose interpret mode off the TPU, the port chooses by the
@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import mma_compensated as _mc
 from repro_torch.kernels import mma_reduce as _mr
 
 M = _mr.M
@@ -46,13 +47,13 @@ def _resolve_auto(x, chain, block_rows, *, op: str,
     return int(chain), int(block_rows)
 
 
-def _flat(x, m: int):
+def _flat(x, m: int, dtypes=_mr.DTYPES):
     """The kernels' input: flat, contiguous, 16-byte aligned, in a dtype
     they take (other floats are cast to f32, as the reference's JAX
     canonicalises them)."""
     if x.is_cuda and m != M:
         raise ValueError(f"the Hopper kernels use m={M}, got m={m}")
-    if x.dtype not in _mr.DTYPES:
+    if x.dtype not in dtypes:
         x = x.to(torch.float32)
     flat = x.reshape(-1)
     if x.is_cuda and flat.data_ptr() % 16:
@@ -128,3 +129,70 @@ def mma_reduce_partials(x, *, chain: int = 4, block_rows: int = 128,
                         m: int = M) -> torch.Tensor:
     """One recurrence level (B2): per-tile f32 partial sums, shape (G,)."""
     return _partials(_flat(x, m), int(chain), int(block_rows), m)
+
+
+def _ec(x, split_words: int, chain: int, block_rows: int, m: int,
+        square: bool):
+    # B4 splits f32 words whatever the input dtype, as the reference's
+    # kernel does, so other inputs are cast to f32 first.
+    flat = _flat(x, m, dtypes=(torch.float32,))
+    if flat.is_cuda:
+        return _mc.ec_cuda(flat, chain=chain, block_rows=block_rows,
+                           split_words=split_words, square=square)
+    return _mc.ec_plain(_to_tiles(flat, chain * block_rows, m),
+                        chain=chain, block_rows=block_rows,
+                        split_words=split_words, square=square)
+
+
+def mma_ec_reduce(x, *, split_words: int = 2, chain=2, block_rows=128,
+                  m: int = M) -> torch.Tensor:
+    """Compensated split-bf16 sum (the ``pallas_ec`` engine; kernel B4):
+    each f32 value splits into ``split_words`` bf16 words, one ones-MMA
+    chain runs per word, and TwoSum folds the lanes.  Returns an f32
+    scalar at (near) correctly-rounded accuracy.  ``chain`` /
+    ``block_rows`` accept 'auto' (plan registry, engine
+    ``'pallas_ec'``)."""
+    chain, block_rows = _resolve_auto(x, chain, block_rows,
+                                      op="reduce_sum", engine="pallas_ec")
+    return _ec(x, int(split_words), chain, block_rows, m, square=False)
+
+
+def mma_ec_squared_sum(x, *, split_words: int = 2, chain=2,
+                       block_rows=128, m: int = M) -> torch.Tensor:
+    """Compensated sum of squares (kernel B4): each value squared in f32
+    before the word split, then reduced as ``mma_ec_reduce``."""
+    chain, block_rows = _resolve_auto(x, chain, block_rows,
+                                      op="squared_sum", engine="pallas_ec")
+    return _ec(x, int(split_words), chain, block_rows, m, square=True)
+
+
+def _dd(x, chain: int, block_rows: int, m: int, square: bool):
+    flat = _flat(x, m, dtypes=_mc.DD_DTYPES)
+    if flat.is_cuda:
+        return _mc.dd_cuda(flat, chain=chain, block_rows=block_rows,
+                           square=square)
+    return _mc.dd_plain(_to_tiles(flat, chain * block_rows, m),
+                        chain=chain, block_rows=block_rows, square=square)
+
+
+def mma_dd_reduce(x, *, chain=2, block_rows=128,
+                  m: int = M) -> torch.Tensor:
+    """Double-double sum (the ``pallas_dd`` engine; kernel B5): the
+    input splits into elementwise (hi, lo) f32 pairs (exactly, for f64)
+    inside the kernel and merges with ``dd_add``.  Returns the
+    f64-equivalent shape-(2,) f32 pair ``[hi, lo]``; collapse it with
+    ``core.precision.dd_value``.  ``chain`` / ``block_rows`` accept
+    'auto' (plan registry, engine ``'pallas_dd'``)."""
+    chain, block_rows = _resolve_auto(x, chain, block_rows,
+                                      op="reduce_sum", engine="pallas_dd")
+    return _dd(x, chain, block_rows, m, square=False)
+
+
+def mma_dd_squared_sum(x, *, chain=2, block_rows=128,
+                       m: int = M) -> torch.Tensor:
+    """Double-double sum of squares (kernel B5): each dd pair squared
+    exactly with TwoProd, then reduced as ``mma_dd_reduce``.  Returns
+    the shape-(2,) pair ``[hi, lo]``."""
+    chain, block_rows = _resolve_auto(x, chain, block_rows,
+                                      op="squared_sum", engine="pallas_dd")
+    return _dd(x, chain, block_rows, m, square=True)

@@ -1,5 +1,5 @@
 """Plain-PyTorch oracles for the reduction kernels — the counterpart of
-``repro.kernels.ref`` for this slice.
+``repro.kernels.ref`` for the reduction kernels.
 
 Each oracle states the *semantics* a kernel must have (including the
 f32 accumulation), not its implementation.
@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.precision import ACCUM_DTYPE
+from repro_torch.core.precision import (ACCUM_DTYPE, compensated_sum,
+                                        split_f32_words)
 
 
 def reduce_ref(x) -> torch.Tensor:
@@ -30,3 +31,25 @@ def squared_sum_ref(x) -> torch.Tensor:
     """f32-accumulated sum of squares (grad-norm building block)."""
     xf = x.to(ACCUM_DTYPE)
     return torch.sum(xf * xf)
+
+
+def ec_reduce_ref(x, *, split_words: int = 2,
+                  square: bool = False) -> torch.Tensor:
+    """Compensated split-bf16 sum: the semantics of the ``mma_ec`` /
+    ``pallas_ec`` engines without the MMA structure — split into bf16
+    words, then a pairwise-TwoSum compensated tree over every word
+    value."""
+    xf = x.to(ACCUM_DTYPE)
+    if square:
+        xf = xf * xf
+    parts = split_f32_words(xf, split_words)
+    return compensated_sum(torch.cat(
+        [p.reshape(-1).to(ACCUM_DTYPE) for p in parts]))
+
+
+def dd_reduce_ref(x, *, square: bool = False) -> torch.Tensor:
+    """Double-double sum: the semantics of the ``mma_dd`` /
+    ``pallas_dd`` engines without the tile structure — elementwise
+    (hi, lo) pairs, dd-merged pairwise, as a shape-(2,) f32 pair."""
+    from repro_torch.core.reduction import tc_reduce_dd
+    return tc_reduce_dd(x, square=square)

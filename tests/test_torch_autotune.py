@@ -101,8 +101,10 @@ def test_candidates_offer_only_geometries_the_kernels_take():
     small = [c for c in tat.candidate_plans(100, torch.float32,
                                             engine="pallas")]
     assert [(c.chain, c.block_rows) for c in small] == [(1, 32)]
-    assert list(tat.candidate_plans(
-        10, torch.float32, policy=tp.MmaPolicy(split_words=2))) == []
+    split = list(tat.candidate_plans(
+        10, torch.float32, policy=tp.MmaPolicy(split_words=2)))
+    assert {c.method for c in split} == {"mma_ec", "pallas_ec"}
+    assert {c.split_words for c in split} == {2}
 
 
 def test_model_scores_the_plain_engines():
@@ -142,7 +144,7 @@ def test_selection_rules(fresh_registries):
     with pytest.raises(NotImplementedError, match="distributed"):
         tat.autotune(n, torch.float32, mesh="data2")
     with pytest.raises(ValueError, match="no reduction candidates"):
-        tat.autotune(n, torch.float32, engine="mma_ec")
+        tat.autotune(n, torch.float32, engine="fused_pallas")
 
 
 def test_get_plan_caches_and_measures_on_this_host(fresh_registries):

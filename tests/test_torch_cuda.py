@@ -1,4 +1,4 @@
-"""The port on the card: kernels B1-B3 against their plain PyTorch
+"""The port on the card: kernels B1-B5 against their plain PyTorch
 versions, the wrappers' checks and launch counters, and the entry
 points' device rule.  Every test here needs an NVIDIA card (and nvcc to
 build the kernels) and skips without one; this file imports nothing of
@@ -11,7 +11,9 @@ and B3 with float atomics), so they agree to 2^-16 of sum|x| (per tile
 for B2's partials).  That bound cannot see a few elements go missing,
 so the kernels are also run on counting inputs (0 and 1, partial sums
 integers below 2^24), where every order of adds is exact and kernel,
-plain version and count must be equal.
+plain version and count must be equal.  The compensated B4 agrees with
+its plain version to 2^-21 of sum|x| and the double-double B5 to 2^-40
+(the bounds ``chip_smoke.py`` states and justifies).
 """
 
 import importlib
@@ -20,13 +22,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import integration
+from repro_torch.core import integration, precision
+from repro_torch.kernels import mma_compensated as mc
 from repro_torch.kernels import ops
 
 mr = importlib.import_module("repro_torch.kernels.mma_reduce")
 
 M = 16
 RTOL = 2.0 ** -16
+EC_RTOL = 2.0 ** -21
+DD_RTOL = 2.0 ** -40
 pytestmark = pytest.mark.cuda
 
 
@@ -41,8 +46,8 @@ def _abs_sum(t: torch.Tensor, square: bool = False) -> float:
     return float(torch.sum(t.abs(), dtype=torch.float64))
 
 
-def _close(got, want, scale: float):
-    assert abs(float(got) - float(want)) <= RTOL * scale + 1e-30, \
+def _close(got, want, scale: float, rtol: float = RTOL):
+    assert abs(float(got) - float(want)) <= rtol * scale + 1e-30, \
         (float(got), float(want), scale)
 
 
@@ -145,3 +150,102 @@ def test_entry_points_run_on_the_card(cuda):
     rows = integration.reduce_sum(torch.from_numpy(x).cuda(), axis=1)
     np.testing.assert_allclose(rows.cpu().numpy(), x.sum(axis=1),
                                rtol=1e-5, atol=1e-3)
+
+
+def _dd(pair) -> float:
+    return float(torch.sum(pair.to(torch.float64)))
+
+
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 13])
+@pytest.mark.parametrize("chain,block_rows", [(4, 128), (5, 512)])
+def test_tier_kernels_match_plain_on_card(cuda, n, chain, block_rows):
+    gen = torch.Generator(device="cuda").manual_seed(n + chain)
+    x32 = torch.randn(n, device="cuda", generator=gen)
+    x64 = torch.randn(n, device="cuda", generator=gen, dtype=torch.float64)
+    tile = chain * block_rows
+    for square in (False, True):
+        for words in (2, 3):
+            got = mc.ec_cuda(x32, chain=chain, block_rows=block_rows,
+                             split_words=words, square=square)
+            want = mc.ec_plain(ops._to_tiles(x32, tile, M), chain=chain,
+                               block_rows=block_rows, split_words=words,
+                               square=square)
+            assert got.dim() == 0
+            _close(got, want, _abs_sum(x32.double(), square), EC_RTOL)
+        for x in (x32, x64, x32.to(torch.bfloat16)):
+            got = mc.dd_cuda(x, chain=chain, block_rows=block_rows,
+                             square=square)
+            want = mc.dd_plain(ops._to_tiles(x, tile, M), chain=chain,
+                               block_rows=block_rows, square=square)
+            assert got.shape == want.shape == (2,)
+            assert abs(_dd(got) - _dd(want)) \
+                <= DD_RTOL * _abs_sum(x.double(), square)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chain,block_rows", [(1, 32), (4, 128), (5, 512)])
+def test_tier_kernels_count_exactly_with_a_ragged_tail(cuda, dtype, chain,
+                                                       block_rows):
+    tile = chain * block_rows * M
+    gen = torch.Generator(device="cuda").manual_seed(tile)
+    for n in (13, tile + 13, (1 << 16) + 13):
+        buf = torch.ones(n + 64, device="cuda", dtype=dtype)
+        buf[:n] = (torch.rand(n, device="cuda", generator=gen)
+                   < 0.25).to(dtype)
+        buf[n - 13:n] = 1
+        x = buf[:n]
+        count = float(torch.sum(x, dtype=torch.float64))
+        x2d = ops._to_tiles(x, chain * block_rows, M)
+        for square in (False, True):
+            if dtype == torch.float32:
+                for words in (2, 3):
+                    got = mc.ec_cuda(x, chain=chain, block_rows=block_rows,
+                                     split_words=words, square=square)
+                    want = mc.ec_plain(x2d, chain=chain,
+                                       block_rows=block_rows,
+                                       split_words=words, square=square)
+                    assert float(got) == float(want) == count, (n, words)
+            got = mc.dd_cuda(x, chain=chain, block_rows=block_rows,
+                             square=square)
+            want = mc.dd_plain(x2d, chain=chain, block_rows=block_rows,
+                               square=square)
+            assert got.tolist() == want.tolist() == [count, 0.0], n
+
+
+def test_tier_wrappers_count_launches_and_check_geometry(cuda):
+    x = torch.ones(1 << 20, device="cuda")
+    mc.reset_launches()
+    assert float(ops.mma_ec_reduce(x, split_words=3)) == float(1 << 20)
+    assert ops.mma_dd_squared_sum(x.double()).tolist() \
+        == [float(1 << 20), 0.0]
+    assert mc.LAUNCHES == {"b4_ec": 1, "b5_dd": 1}
+    with pytest.raises(ValueError, match="block_rows"):
+        mc.ec_cuda(x, chain=1, block_rows=24, split_words=2)
+    with pytest.raises(ValueError, match="split_words"):
+        mc.ec_cuda(x, chain=1, block_rows=32, split_words=4)
+    with pytest.raises(ValueError, match="dtype"):
+        mc.ec_cuda(x.double(), chain=1, block_rows=32, split_words=2)
+    with pytest.raises(ValueError, match="dtype"):
+        mc.dd_cuda(x.int(), chain=1, block_rows=32)
+    # A view off the 16-byte grid is copied before the launch.
+    assert float(ops.mma_ec_reduce(x[1:])) == float((1 << 20) - 1)
+    assert ops.mma_dd_reduce(x.double()[1:]).tolist() \
+        == [float((1 << 20) - 1), 0.0]
+
+
+def test_tier_entry_points_run_on_the_card(cuda):
+    x = np.random.default_rng(1).uniform(size=(64, 1000))
+    want = float(np.sum(x))
+    x32 = torch.from_numpy(x.astype(np.float32)).cuda()
+    for method in ("mma_ec", "pallas_ec"):
+        got = integration.reduce_sum(
+            x32, method=method, precision=precision.MmaPolicy(split_words=3))
+        assert got.is_cuda and got.dim() == 0
+        np.testing.assert_allclose(float(got), float(x32.double().sum()),
+                                   rtol=1e-6)
+    for method in ("mma_dd", "pallas_dd", "auto"):
+        got = integration.reduce_sum(torch.from_numpy(x).cuda(),
+                                     method=method,
+                                     precision=precision.F64_EQUIVALENT)
+        assert got.is_cuda and got.shape == (2,)
+        assert abs(precision.dd_value(got) - want) <= 1e-12 * want

@@ -147,6 +147,15 @@ def test_smoke_script_ceilings_are_the_reference_gates():
     want = {label: c for label, op, _, c in gates.GATES
             if op == "reduce_sum" and label in smoke.CEILINGS}
     assert smoke.CEILINGS == want
+    tier = {c for label, _, plan, c in gates.GATES
+            if plan.method in ("mma_ec", "pallas_ec", "mma_dd",
+                               "pallas_dd")}
+    assert tier == {smoke.EC_CEILING, smoke.DD_CEILING}
+    for label, _, plan, c in gates.GATES:
+        if "_ec" in plan.method:
+            assert c == smoke.EC_CEILING, label
+        if "_dd" in plan.method:
+            assert c == smoke.DD_CEILING, label
     assert smoke.N_MAIN == 1 << 28
 
 
@@ -176,15 +185,22 @@ def test_the_port_imports_neither_jax_nor_the_reference():
 
 def test_the_package_exports_this_slice():
     from repro_torch import core
-    assert {n for n in dir(tk) if n.startswith("mma")} \
-        == {"mma_reduce", "mma_reduce_partials", "mma_squared_sum"}
+    # Functions only: importing the package also binds its kernel
+    # modules (mma_compensated) as attributes.
+    assert {n for n in dir(tk) if n.startswith("mma")
+            and callable(getattr(tk, n))} \
+        == {"mma_reduce", "mma_reduce_partials", "mma_squared_sum",
+            "mma_ec_reduce", "mma_ec_squared_sum", "mma_dd_reduce",
+            "mma_dd_squared_sum"}
     for name in ("tc_reduce", "tc_contract", "tc_reduce_axes",
-                 "tc_reduce_lastdim", "tc_reduce_rows", "reduce_sum",
-                 "reduce_mean", "squared_sum", "masked_mean",
-                 "global_norm", "expert_counts", "MmaPolicy",
-                 "ACCUM_DTYPE", "dispatch", "theory", "precision"):
+                 "tc_reduce_lastdim", "tc_reduce_rows", "tc_reduce_ec",
+                 "tc_reduce_dd", "reduce_sum", "reduce_mean",
+                 "squared_sum", "masked_mean", "global_norm",
+                 "expert_counts", "MmaPolicy", "ACCUM_DTYPE", "dispatch",
+                 "theory", "precision"):
         assert hasattr(core, name), name
-    assert not hasattr(core, "tc_reduce_ec")
+    # The scan family is the next slice.
+    assert not hasattr(core, "tc_scan")
 
 
 def test_smoke_script_refuses_without_a_card():
