@@ -53,8 +53,29 @@ The compensated and double-double tier (kernels B4, B5; CUDA C++ in
       model's pick (with the constants as committed) held to 1.25x the
       measured best at each size.
 
+The prefix-scan path (kernel B6; CUDA C++ in ``csrc/mma_scan.cu``):
+``repro_torch.core.integration.cumsum`` / ``masked_cumsum`` ->
+``core.dispatch`` ops ``scan`` / ``masked_cumsum`` -> the engines
+``pallas`` (B6), ``mma_chained``, ``mma_ec`` and ``vpu``.  Its phases:
+
+  2c. B6 against ``scan_plain`` on the card at n = 2^20 and 2^20 + 13, in
+      f32, bf16 and fp16, over three (chain, block_rows), inclusive and
+      exclusive, within 2^-16 of the running sum|x| at every position;
+      and on counting inputs (n = 13, one tile + 13, 2^20 + 13, and
+      2^28 at the main geometry), where kernel, plain version and the
+      exact int64 prefix agree bit for bit;
+  3e. the scan path at n = 2^28 (uniform [0, 1] and normal, f32 and
+      bf16): ``cumsum`` and ``masked_cumsum`` (a 0/1 mask from the seed)
+      through every engine and ``auto``, each position's error relative
+      to the running sum|x| there, against an f64 cumsum of the cast
+      input, the maximum held to 5e-3 % (``vpu`` is ``torch.cumsum``:
+      printed, not gated); B6's counter is zeroed before it and must
+      have moved after it;
+  5c. B6 timed at 2^28 (f32, bf16; chain 4, block_rows 128) beside its
+      bound, ``scan_plain`` and ``torch.cumsum``.
+
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
-(B1-B5), and last ``{"ok": true, "device": {...}}``.  Details go to
+(B1-B6), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -174,6 +195,23 @@ FP64_FLOPS = 34e12
 B4_CUDA_OPS_PER_WORD = 4.25
 B4_TC_FLOPS_PER_WORD = 16
 B5_F32_OPS, B5_SQUARE_OPS, B5_F64_SPLIT_OPS = 11, 10, 3
+
+# The scan path (phases 2c, 3e, 5c).  Each prefix is a sum, so the
+# engines are held to the reduce family's mma / pallas ceiling, taken
+# at each position relative to the running sum|x| there (the reference
+# gates no scan).  vpu is torch.cumsum, not the port's arithmetic.
+SCAN_METHODS = ("pallas", "mma_chained", "mma_ec", "vpu", "auto")
+SCAN_CEILING = CEILINGS["pallas"]
+# B6 against scan_plain: |kernel - plain| <= 2^-16 of the running sum|x|
+# at every position (KERNEL_RTOL's reasoning: both take f32 sums in
+# another order; f32 input goes in as two TF32 words).
+SCAN_RTOL = KERNEL_RTOL
+# Operations per element B6 does, counted from csrc/mma_scan.cu: six
+# m16n8k8 TF32 MMAs per 16 x 16 slab in f32 (48 flops per element), two
+# m16n8k16 in 16 bits (32); on the CUDA cores two carry adds, and for
+# f32 the two-word split (a cvt, a subtract, a cvt).
+B6_TC_FLOPS = {torch.float32: 48, torch.bfloat16: 32, torch.float16: 32}
+B6_CUDA_OPS = {torch.float32: 5, torch.bfloat16: 2, torch.float16: 2}
 
 # Phase 6: sizes, repeats and the slack the model's pick may take.
 SWEEP_SIZES = (1 << 20, 1 << 24, 1 << 28)
@@ -451,6 +489,100 @@ def check_tier_counts(mc, ops, x: torch.Tensor, chain: int,
     return checks
 
 
+# ------------------------------------------ phase 2c: B6 kernel checks
+
+
+def shift(t: torch.Tensor) -> torch.Tensor:
+    """Inclusive -> exclusive: a leading zero."""
+    return torch.nn.functional.pad(t[:-1], (1, 0))
+
+
+def running_abs(x: torch.Tensor) -> torch.Tensor:
+    """The f64 running sum|x| at every position."""
+    return torch.cumsum(x.to(torch.float64).abs(), dim=0)
+
+
+def scan_ratio(got: torch.Tensor, want: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """|got - want| over the running sum|x|, at every position; where
+    that sum is 0, any difference counts as infinite."""
+    diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    return torch.where(scale > 0, diff / scale.clamp_min(1e-300),
+                       diff * math.inf).nan_to_num(0.0)
+
+
+def check_scan_kernel(ms, gen) -> dict:
+    """B6 against scan_plain on the same card inputs, and on counting
+    inputs; returns the worst |kernel - plain| (absolute and over the
+    running sum|x|)."""
+    worst = worst_abs = 0.0
+    rows = []
+    for n in N_CHECK:
+        base = torch.randn(n, device="cuda", generator=gen)
+        for dt in DTYPES:
+            x = base.to(dt)
+            run = running_abs(x)
+            for chain, block_rows in GEOMETRIES:
+                for inclusive in (True, False):
+                    got = ms.scan_cuda(x, chain=chain, block_rows=block_rows,
+                                       inclusive=inclusive)
+                    want = ms.scan_plain(x, chain=chain,
+                                         block_rows=block_rows,
+                                         inclusive=inclusive)
+                    check(got.shape == want.shape == (n,)
+                          and got.dtype == torch.float32,
+                          f"B6 result {tuple(got.shape)} {got.dtype}")
+                    ratio = float(scan_ratio(got, want, run if inclusive
+                                             else shift(run)).max())
+                    err = float((got.double() - want.double()).abs().max())
+                    worst, worst_abs = max(worst, ratio), max(worst_abs, err)
+                    rows.append(("b6_scan", n, name(dt), chain, block_rows,
+                                 inclusive, err, ratio))
+                    check(ratio <= SCAN_RTOL,
+                          f"B6 n={n} {dt} R={chain} B={block_rows} "
+                          f"inclusive={inclusive}: |kernel - plain| is "
+                          f"{ratio:.3g} of the running sum|x|")
+    counted = 0
+    for dt in DTYPES:
+        for chain, block_rows in GEOMETRIES:
+            tile = chain * block_rows * ms.M
+            for n in (TAIL, tile + TAIL, N_CHECK[1]):
+                x = count_input(n, dt, COUNT_SHARE_CHECK, gen)
+                counted += check_scan_counts(ms, x, chain, block_rows)
+        x = count_input(N_MAIN, dt, COUNT_SHARE_MAIN, gen)
+        counted += check_scan_counts(ms, x, CHAIN, BLOCK_ROWS)
+        del x
+    torch.cuda.synchronize()
+    print(f"phase 2c: {len(rows)} B6-vs-plain checks passed, worst |diff| "
+          f"{worst_abs:.3g} ({worst:.3g} of the running sum|x|); "
+          f"{counted} exact counts passed", flush=True)
+    return {"worst": worst, "worst_abs": worst_abs, "rows": rows,
+            "counted": counted}
+
+
+def check_scan_counts(ms, x: torch.Tensor, chain: int,
+                      block_rows: int) -> int:
+    """B6 on a counting input, inclusive and exclusive: kernel, plain
+    version and the exact int64 prefix must be equal at every position.
+    Returns the number of checks."""
+    n = x.numel()
+    exact = torch.cumsum(x.long(), dim=0)
+    check(int(exact[-1]) < 2 ** 24, f"count {int(exact[-1])} is not exact "
+                                    f"in f32")
+    where = f"n={n} {name(x.dtype)} R={chain} B={block_rows}"
+    for inclusive in (True, False):
+        want = exact if inclusive else shift(exact)
+        got = ms.scan_cuda(x, chain=chain, block_rows=block_rows,
+                           inclusive=inclusive)
+        plain = ms.scan_plain(x, chain=chain, block_rows=block_rows,
+                              inclusive=inclusive)
+        check(torch.equal(got.long(), want) and torch.equal(got, plain),
+              f"B6 count {where} inclusive={inclusive}: "
+              f"{int((got.long() != want).sum())} positions off the count, "
+              f"{int((got != plain).sum())} off the plain version")
+    return 2
+
+
 # --------------------------------------------------- phase 3: main path
 
 
@@ -627,6 +759,69 @@ def run_tier_path(integration, precision, autotune, gen) -> list:
                           f"{dist} {dt} {op}/{label}: {err:.3e}% > "
                           f"{ceiling:g}%")
             del x
+    return results
+
+
+def run_scan_path(integration, autotune, gen) -> list:
+    """cumsum / masked_cumsum through every scan engine at n = 2^28,
+    against an f64 cumsum of the cast (and masked) input."""
+    results = []
+    for dist in ("uniform", "normal"):
+        base = inputs(N_MAIN, dist, gen)
+        mask = (torch.rand(N_MAIN, device="cuda", generator=gen)
+                < 0.5).float()
+        for dt in (torch.float32, torch.bfloat16):
+            x = base if dt == torch.float32 else base.to(dt)
+            for op in ("scan", "masked_cumsum"):
+                # masked_cumsum scans values * mask in f32: exact, as
+                # the mask is 0 / 1.
+                xs = x.to(torch.float64)
+                if op == "masked_cumsum":
+                    xs = xs * mask.to(torch.float64)
+                want = torch.cumsum(xs, dim=0)
+                run = torch.cumsum(xs.abs(), dim=0)
+                del xs
+                for method in SCAN_METHODS:
+                    t0 = time.perf_counter()
+                    if op == "scan":
+                        out = integration.cumsum(x, method=method)
+                    else:
+                        out = integration.masked_cumsum(x, mask,
+                                                        method=method)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    check(out.is_cuda and out.dtype == torch.float32
+                          and out.shape == x.shape,
+                          f"{op}/{method}: result {out.device} {out.dtype} "
+                          f"{tuple(out.shape)}")
+                    check(bool(torch.all(torch.isfinite(out))),
+                          f"{op}/{method}: not finite")
+                    engine = method
+                    if method == "auto":
+                        engine = autotune.get_plan(
+                            N_MAIN, torch.float32 if op == "masked_cumsum"
+                            else dt, op=op, backend="cuda").method
+                    err = 100.0 * float(scan_ratio(out, want, run).max())
+                    gated = method != "vpu"
+                    results.append({"dist": dist, "dtype": name(dt),
+                                    "op": op, "method": method,
+                                    "engine": engine,
+                                    "max_pct_err_of_running_abs": err,
+                                    "ceiling_pct": SCAN_CEILING
+                                    if gated else None, "wall_s": wall})
+                    print(f"  {dist:7s} {name(dt):8s} {op:13s} "
+                          f"{method:11s} engine={engine:11s} max err "
+                          f"{err:.3e}% of the running sum|x| "
+                          + (f"(ceiling {SCAN_CEILING:g}%)" if gated
+                             else "(not gated)")
+                          + f" {wall * 1e3:.1f} ms", flush=True)
+                    check(not gated or err <= SCAN_CEILING,
+                          f"{dist} {dt} {op}/{method}: {err:.3e}% > "
+                          f"{SCAN_CEILING:g}%")
+                    del out
+                del want, run
+            del x
+        del base, mask
     return results
 
 
@@ -866,6 +1061,69 @@ def time_tier_kernels(mc, ops, gen, launches: dict, worst: dict) -> tuple:
     return entries, details
 
 
+def scan_bound(n: int, dt: torch.dtype) -> tuple:
+    """Least time in ms for one B6 call: the input read once and the f32
+    output written once at HBM rate, against its tensor-core flops and
+    CUDA-core ops at their peaks."""
+    itemsize = torch.empty((), dtype=dt).element_size()
+    bytes_ms = n * (itemsize + 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n * B6_TC_FLOPS[dt] / TC_FLOPS[dt],
+                 n * B6_CUDA_OPS[dt] / CUDA_CORE_FLOPS) * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes"
+    return ops_ms, "operations"
+
+
+def time_scan_kernel(ms, gen, launches: int, worst_abs: float) -> tuple:
+    """B6 at the main geometry and n = 2^28, f32 and bf16: held to
+    SCAN_RTOL of the running sum|x| against scan_plain on normal input,
+    then timed beside its bound, scan_plain and torch.cumsum.  f32 goes
+    to the ``kernels`` line, both to the details."""
+    base = torch.randn(N_MAIN, device="cuda", generator=gen)
+    geo = dict(chain=CHAIN, block_rows=BLOCK_ROWS)
+    entry, details = None, []
+    for dt in (torch.float32, torch.bfloat16):
+        x = base if dt == torch.float32 else base.to(dt)
+        got, want = ms.scan_cuda(x, **geo), ms.scan_plain(x, **geo)
+        ratio = float(scan_ratio(got, want, running_abs(x)).max())
+        diff = float((got.double() - want.double()).abs().max())
+        del got, want
+        check(ratio <= SCAN_RTOL, f"B6 {name(dt)} n=2^28: |kernel - plain| "
+                                  f"is {ratio:.3g} of the running sum|x|")
+        kern = lambda: ms.scan_cuda(x, **geo)  # noqa: E731
+        plain = lambda: ms.scan_plain(x, **geo)  # noqa: E731
+        p1 = median_ms(plain)
+        k1 = median_ms(kern)
+        k2 = median_ms(kern)
+        p2 = median_ms(plain)
+        lib_ms = median_ms(lambda: torch.cumsum(x, dim=0,
+                                                dtype=torch.float32))
+        bound_ms, bound_by = scan_bound(N_MAIN, dt)
+        row = {"name": "b6_scan", "dtype": name(dt), "n": N_MAIN, **geo,
+               "ms": min(k1, k2), "ms_runs": [k1, k2],
+               "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": diff,
+               "diff_over_running_abs": ratio}
+        details.append(row)
+        print(f"  b6_scan {name(dt):8s} kernel {row['ms']:.4f} ms plain "
+              f"{row['plain_ms']:.4f} ms torch.cumsum {lib_ms:.4f} ms bound "
+              f"{bound_ms:.4f} ms ({bound_by}) |diff| {diff:.3g} "
+              f"({ratio:.3g} of the running sum|x|)", flush=True)
+        if dt == torch.float32:
+            entry = {"name": "b6_scan", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/mma_scan.cu",
+                     "replaces": "src/repro/kernels/mma_scan.py:63",
+                     "launches": launches,
+                     "max_abs_err": max(diff, worst_abs),
+                     "ms": row["ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms}
+        del x
+    del base
+    return entry, details
+
+
 # ---------------------------------------- phase 6: the cost model's fit
 
 
@@ -1004,8 +1262,10 @@ def main() -> int:
     from repro_torch.core import autotune, dispatch, integration, precision
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import mma_compensated as mc
-    # The package exports the function mma_reduce under the module's
-    # name, so the kernel module is fetched by its full name.
+    ms = importlib.import_module("repro_torch.kernels.mma_scan")
+    # The package exports the functions mma_reduce and mma_scan under
+    # the modules' names, so the kernel modules are fetched by their
+    # full names.
     mr = importlib.import_module("repro_torch.kernels.mma_reduce")
 
     t_start = time.perf_counter()
@@ -1025,6 +1285,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = check_kernels(mr, ops, gen)
     tier_checks = check_tier_kernels(mc, ops, gen)
+    scan_checks = check_scan_kernel(ms, gen)
 
     print("phase 3: main path at n = 2^28", flush=True)
     mr.reset_launches()
@@ -1048,6 +1309,15 @@ def main() -> int:
     for kname, count in tier_launches.items():
         check(count > 0, f"kernel {kname} was not launched on the tier's "
                          f"path")
+    print("phase 3e: the scan path at n = 2^28", flush=True)
+    ms.reset_launches()
+    scan_rows = run_scan_path(integration, autotune, gen)
+    torch.cuda.synchronize()
+    scan_launches = ms.LAUNCHES["b6_scan"]
+    print(f"phase 3e: launches on the scan path {dict(ms.LAUNCHES)}",
+          flush=True)
+    check(scan_launches > 0, "kernel b6_scan was not launched on the scan "
+                             "path")
     print("phase 3d: the integration example on the card", flush=True)
     integrate_rows = run_integrate_example()
 
@@ -1071,6 +1341,10 @@ def main() -> int:
     tier_entries, tier_timing_rows = time_tier_kernels(
         mc, ops, gen, tier_launches, tier_checks["worst_abs"])
     entries += tier_entries
+    print("phase 5c: B6 timings at n = 2^28", flush=True)
+    scan_entry, scan_timing_rows = time_scan_kernel(
+        ms, gen, scan_launches, scan_checks["worst_abs"])
+    entries.append(scan_entry)
 
     print("phase 6: the cost model against measured times (f32)",
           flush=True)
@@ -1102,6 +1376,10 @@ def main() -> int:
                    "tier_path": tier_rows, "tier_launches": tier_launches,
                    "integrate": integrate_rows,
                    "tier_timings": tier_timing_rows,
+                   "scan_kernel_checks": scan_checks["rows"],
+                   "scan_exact_counts": scan_checks["counted"],
+                   "scan_path": scan_rows, "scan_launches": scan_launches,
+                   "scan_timings": scan_timing_rows,
                    "sweep_us": {str(n): [[p.method, p.chain, p.block_rows,
                                           us] for p, us in by.items()]
                                 for n, by in times.items()},

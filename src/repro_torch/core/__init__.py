@@ -1,6 +1,7 @@
 """Core of the PyTorch port: the paper's chained-MMA arithmetic
-reduction, its PRAM cost model, precision policy, and the hooks that
-make it a service of the framework.
+reduction, the triangular-MMA prefix scan, their PRAM cost model,
+precision policy, and the hooks that make them a service of the
+framework.
 """
 
 from repro_torch.core.reduction import (  # noqa: F401
@@ -12,13 +13,20 @@ from repro_torch.core.reduction import (  # noqa: F401
     tc_reduce_lastdim,
     tc_reduce_rows,
 )
+from repro_torch.core.scan import (  # noqa: F401
+    tc_cumprod,
+    tc_scan,
+    tc_scan_ec,
+)
 from repro_torch.core.precision import (  # noqa: F401
     ACCUM_DTYPE,
     MmaPolicy,
 )
 from repro_torch.core.integration import (  # noqa: F401
+    cumsum,
     expert_counts,
     global_norm,
+    masked_cumsum,
     masked_mean,
     reduce_mean,
     reduce_sum,

@@ -1,6 +1,7 @@
 """Reduction autotuner: pick (method, variant, chain, block_rows) per
 problem, the way the paper picks (R, B) per GPU geometry — the
-counterpart of ``repro.core.autotune`` for the reduce family.
+counterpart of ``repro.core.autotune`` for the reduce and scan
+families.
 
   * ``candidate_plans`` enumerates the paper's R in {1..5} x block
     geometry sweep off the TC-op registry (``repro_torch.core.dispatch``);
@@ -450,8 +451,53 @@ def _cost_dd(plan: ReductionPlan, n: int, *,
     return carry + math.log2(max(n, 2.0)) * _STEP_US + grid
 
 
+# The scan family (ops ``scan`` and ``masked_cumsum``), in the shape of
+# the reference's scan branches: the triangular-MMA depth
+# ``theory.t_tc_scan`` and ``theory.op_count_scan``; the plain chained
+# core's groups are ``chain`` rows of m, the kernel's ``chain *
+# block_rows`` rows; the vpu work carries the reference's Hillis-Steele
+# factor of log2(n) / 4 full-width passes.
+
+
+def _cost_scan_vpu(plan: ReductionPlan, n: int) -> float:
+    work = n / (_VPU_THROUGHPUT * _PARALLELISM) \
+        * max(math.log2(max(n, 2.0)) / 4.0, 1.0)
+    return theory.t_classic(n) * _STEP_US + work
+
+
+def _cost_scan_chained(plan: ReductionPlan, n: int, *,
+                       grid_walk: bool = False) -> float:
+    tile = plan.chain * plan.m * (plan.block_rows if grid_walk else 1)
+    groups = max(1, math.ceil(n / tile))
+    padded = groups * tile
+    depth = theory.t_tc_scan(n, plan.m, plan.chain)
+    oc = theory.op_count_scan(padded, m=plan.m, chain=plan.chain,
+                              variant=plan.variant)
+    work = oc.mma_ops * plan.m * plan.m / (_MXU_THROUGHPUT * _PARALLELISM)
+    grid = _grid(plan, n) if grid_walk else 0.0
+    waste = (padded - n) / (_MXU_THROUGHPUT * _PARALLELISM)
+    return depth * _STEP_US + work + grid + waste
+
+
+def _cost_scan_ec(plan: ReductionPlan, n: int) -> float:
+    # One triangular-MMA scan per bf16 word, the split (2w - 1 f32 ops
+    # per element) and the TwoSum cascade (6 ops per element and extra
+    # word).
+    w = max(int(plan.split_words), 1)
+    split = (2 * w - 1) * n / (_VPU_THROUGHPUT * _PARALLELISM)
+    combine = 6.0 * (w - 1) * n / (_VPU_THROUGHPUT * _PARALLELISM)
+    return w * _cost_scan_chained(plan, n) + split + combine
+
+
 # Per-engine scoring — keyed, not branched, so the only place engine
 # names select behaviour stays the dispatch registry.
+_SCAN_COSTS = {
+    "vpu": _cost_scan_vpu,
+    "mma_chained": _cost_scan_chained,
+    "mma_ec": _cost_scan_ec,
+    "pallas": functools.partial(_cost_scan_chained, grid_walk=True),
+}
+
 _ENGINE_COSTS = {
     "vpu": _cost_vpu,
     "mma": _cost_mma,
@@ -462,6 +508,8 @@ _ENGINE_COSTS = {
     "mma_dd": _cost_dd,
     "pallas_dd": functools.partial(_cost_dd, grid_walk=True),
 }
+
+_FAMILY_COSTS = {"reduce": _ENGINE_COSTS, "scan": _SCAN_COSTS}
 
 # Device-memory bytes an engine moves per element of f32 input, counted
 # from its runner (``core.dispatch``); the model scales them by the
@@ -474,11 +522,21 @@ _ENGINE_COSTS = {
 # ``mma_dd`` runs ~11 elementwise ops of 12 bytes per output of its
 # merge tree, n outputs in all, plus its lo plane (136; squares add the
 # ~25 ops of the dd square, 436).  ``mma_ec``: see ``_ec_bytes``.
+#
+# The scan family writes its f32 prefix besides: ``vpu`` reads x and
+# writes the cumsum (8), kernel B6 reads x twice and writes once (12),
+# ``mma_chained`` reads x, writes P, and builds the output in two
+# elementwise adds over P (24); ``mma_ec``: see ``_scan_ec_bytes``.
+# The model scales these by the input's itemsize too, though the f32
+# output does not shrink with it: a bf16 scan is charged too little.
 _BYTES_PER_ELEMENT = {
     ("reduce_sum", "mma"): 12.0, ("squared_sum", "mma"): 8.0,
     ("squared_sum", "vpu"): 12.0,
     ("reduce_sum", "mma_chained"): 4.5, ("squared_sum", "mma_chained"): 12.5,
     ("reduce_sum", "mma_dd"): 136.0, ("squared_sum", "mma_dd"): 436.0,
+    **{(op, method): b for op in ("scan", "masked_cumsum")
+       for method, b in (("vpu", 8.0), ("pallas", 12.0),
+                         ("mma_chained", 24.0))},
 }
 
 
@@ -491,9 +549,20 @@ def _ec_bytes(plan: ReductionPlan, op: str) -> float:
                                              else 0.0)
 
 
-def _bytes_per_element(plan: ReductionPlan, op: str) -> float:
+def _scan_ec_bytes(plan: ReductionPlan) -> float:
+    # The split as for the reduce family (24 per extra word, 6 for the
+    # last), a bf16 word's scan (reads 2, then as mma_chained: 22 per
+    # word), the TwoSum cascade (seven f32 elementwise ops of 12 bytes
+    # per extra word) and the final out + err with its zeroed err (16).
+    w = max(int(plan.split_words), 1)
+    return 24.0 * (w - 1) + 6.0 + 22.0 * w + 84.0 * (w - 1) + 16.0
+
+
+def _bytes_per_element(plan: ReductionPlan, op: str,
+                       family: str = "reduce") -> float:
     if plan.method == "mma_ec":
-        return _ec_bytes(plan, op)
+        return _scan_ec_bytes(plan) if family == "scan" \
+            else _ec_bytes(plan, op)
     return _BYTES_PER_ELEMENT.get((op, plan.method), 4.0)
 
 
@@ -552,10 +621,11 @@ def measured_percent_error(plan: ReductionPlan, n: int, dtype, *,
                            backend: Optional[str] = None) -> float:
     """Measured % error vs the fp64 oracle for one plan on a uniform
     [0,1] probe of the bucket size (capped at 2^22), run on ``backend``.
-    Ops with their own measurement inputs use the model."""
+    Reduce-family only: other families, and ops with their own
+    measurement inputs, use the model."""
     from repro_torch.core import dispatch, precision
     spec = dispatch.op_spec(op)
-    if spec.measure is not None:
+    if spec.family != "reduce" or spec.measure is not None:
         return model_percent_error(plan, n, dtype, op=op)
     probe_n = min(max(int(n), 1), 1 << 22)
     x = torch.from_numpy(precision.uniform_input(probe_n, seed=seed)
@@ -574,12 +644,16 @@ def model_cost(plan: ReductionPlan, n: int, dtype,
     """Analytical score in µs: depth + work/P + block overheads +
     padding, plus the time the engine's device-memory traffic takes
     (``_BYTES_PER_ELEMENT``: a kernel streams its input once, the plain
-    engines' intermediate tensors go through memory too)."""
+    engines' intermediate tensors go through memory too).  The op's
+    family (``dispatch.OpSpec.family``) picks the reduce or the scan
+    terms."""
+    from repro_torch.core import dispatch
+    family = dispatch.op_spec(op).family
     n = max(int(n), 1)
     itemsize = torch.empty((), dtype=as_dtype(dtype)).element_size()
-    mem = n * _bytes_per_element(plan, op) * itemsize / 4.0 \
+    mem = n * _bytes_per_element(plan, op, family) * itemsize / 4.0 \
         / _HBM_BYTES_PER_US
-    return _ENGINE_COSTS[plan.method](plan, n) + mem
+    return _FAMILY_COSTS[family][plan.method](plan, n) + mem
 
 
 def _measure_problem(op: str, n: int, dtype, seed: int, device: str):

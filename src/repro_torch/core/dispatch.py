@@ -1,11 +1,13 @@
 """The TC-op registry: one declarative dispatch layer for the reduce
-family — the counterpart of ``repro.core.dispatch`` for this slice.
+and scan families — the counterpart of ``repro.core.dispatch`` for the
+ported slices.
 
 Each op (``reduce_sum``, ``squared_sum``, ``masked_mean``,
-``expert_counts``) is an :class:`OpSpec` declaring its engines
-(:class:`EngineSpec`, each with a ``run(x, plan, **op_kwargs)``
-callable and capability flags), a plain reference oracle, and the
-autotuner hooks.  The engines keep the reference's spellings:
+``expert_counts``; ``scan`` and ``masked_cumsum``) is an
+:class:`OpSpec` declaring its family, its engines (:class:`EngineSpec`,
+each with a ``run(x, plan, **op_kwargs)`` callable and capability
+flags), alias spellings, a plain reference oracle, and the autotuner
+hooks.  The engines keep the reference's spellings:
 
   * ``'mma'``          one f32-accumulated ones-contraction (matmul),
                        axis-aware, distribution-safe;
@@ -20,6 +22,11 @@ autotuner hooks.  The engines keep the reference's spellings:
                        shape-(2,) f32 ``[hi, lo]`` pair, f64-equivalent;
   * ``'pallas_dd'``    kernel B5, the hand-written twin of ``mma_dd``;
   * ``'vpu'``          the classic f32 sum, the baseline.
+
+The scan family has ``mma_chained`` (``core.scan.tc_scan``; ``'mma'`` is
+its alias, a scan having no single-contraction form), ``mma_ec``
+(``tc_scan_ec``), ``pallas`` (kernel B6, flat inputs only) and ``vpu``
+(``torch.cumsum``).
 
 The dd engines declare ``accum_dtypes=('float64',)``: they run only
 under an explicit f64 policy (``precision.F64_EQUIVALENT``), and every
@@ -71,7 +78,8 @@ class DispatchContext:
     shape: tuple
     dtype: str
     multi_device: bool
-    axis: Optional[tuple] = None    # reduced-axis subset, None = all
+    axis: Optional[tuple] = None    # reduce family: reduced-axis subset
+    scan_axis: Optional[int] = None  # scan family: the scanned axis
     mesh_axes: Optional[tuple] = None  # None on a single device
     policy: Optional[MmaPolicy] = None
 
@@ -83,6 +91,16 @@ class DispatchContext:
     def axis_subset(self) -> bool:
         """True when only *some* axes are reduced (batched reduction)."""
         return self.axis is not None and len(self.axis) < self.ndim
+
+    @property
+    def flat(self) -> bool:
+        """Effectively 1-D: the op's axis walk IS the flattened order."""
+        if self.ndim <= 1:
+            return True
+        if self.scan_axis is None:
+            return False
+        return (self.scan_axis == self.ndim - 1
+                and all(d == 1 for d in self.shape[:-1]))
 
 
 def _live_mesh_axes() -> Optional[tuple]:
@@ -103,6 +121,7 @@ class EngineSpec:
     run: Callable
     multi_device_safe: bool = False
     axis_subsets: bool = False      # batched reductions (axis=...)
+    needs_flat: bool = False        # requires an effectively-1-D layout
     ndim: Optional[int] = None      # exact input rank, None = any
     sweep: tuple = ()               # of 'chain' / 'block_rows' / 'split_words'
     max_split_words: int = 1        # split-bf16 words the engine runs
@@ -120,6 +139,9 @@ def capability_reason(eng: EngineSpec, ctx: DispatchContext, *,
                 "multi-device mesh")
     if ctx.axis_subset and not eng.axis_subsets:
         return "flatten-only engine: no axis-subset (batched) support"
+    if eng.needs_flat and not ctx.flat:
+        return ("operates on the flattened input; use a batched engine "
+                "for multi-axis inputs")
     if eng.ndim is not None and ctx.ndim != eng.ndim:
         return f"requires an ndim == {eng.ndim} input"
     return _policy_reason(eng, ctx.policy)
@@ -150,14 +172,21 @@ def _policy_reason(eng: EngineSpec,
 
 @dataclasses.dataclass(frozen=True)
 class OpSpec:
-    """One registered TC-op: its ordered engines, the plain reference
-    oracle, and the autotuner's measurement-input builder."""
+    """One registered TC-op: its family (which picks the autotuner's
+    cost terms), its ordered engines, the accepted alias spellings, the
+    plain reference oracle, the problem size the plan registry keys on
+    (``size_of``; default every element) and the autotuner's
+    measurement-input builder."""
     name: str
+    family: str                     # 'reduce' | 'scan'
     engines: tuple                  # tuple[EngineSpec, ...]
     reference: Callable
+    aliases: Optional[dict] = None
+    size_of: Optional[Callable] = None   # (x, op_kwargs) -> int
     measure: Optional[Callable] = None   # (n, dtype, rng, device) -> (x, kw)
 
     def engine(self, name: str) -> Optional[EngineSpec]:
+        name = (self.aliases or {}).get(name, name)
         for eng in self.engines:
             if eng.name == name:
                 return eng
@@ -165,6 +194,11 @@ class OpSpec:
 
     def engine_names(self) -> tuple:
         return tuple(e.name for e in self.engines)
+
+    def problem_size(self, x, op_kwargs: dict) -> int:
+        if self.size_of is not None:
+            return self.size_of(x, op_kwargs)
+        return x.numel()
 
 
 _REGISTRY: dict[str, OpSpec] = {}
@@ -189,7 +223,7 @@ def op_spec(name: str) -> OpSpec:
     return spec
 
 
-def build_context(op: str, x, *, axis=None,
+def build_context(op: str, x, *, axis=None, scan_axis=None,
                   multi_device: Optional[bool] = None,
                   mesh_axes: Optional[tuple] = None,
                   policy: Optional[MmaPolicy] = None) -> DispatchContext:
@@ -199,8 +233,8 @@ def build_context(op: str, x, *, axis=None,
         multi_device = mesh_axes is not None
     return DispatchContext(
         op=op, shape=tuple(x.shape), dtype=dtype_name(x.dtype),
-        multi_device=multi_device, axis=axis, mesh_axes=mesh_axes,
-        policy=policy)
+        multi_device=multi_device, axis=axis, scan_axis=scan_axis,
+        mesh_axes=mesh_axes, policy=policy)
 
 
 def legal_engines(spec: OpSpec, ctx: DispatchContext) -> tuple:
@@ -210,7 +244,7 @@ def legal_engines(spec: OpSpec, ctx: DispatchContext) -> tuple:
 
 
 def _unknown_method(spec: OpSpec, method: str) -> ValueError:
-    accepted = spec.engine_names()
+    accepted = spec.engine_names() + tuple(spec.aliases or ())
     return ValueError(
         f"unknown {spec.name} method: {method!r} (accepted: 'auto', "
         + ", ".join(repr(a) for a in sorted(accepted)) + ")")
@@ -290,7 +324,7 @@ def dispatch(op: str, x, *, method: str = "auto", chain=None,
         sweepable = tuple(e.name for e in spec.engines
                           if _policy_reason(e, policy) is None)
         restrict = None if legal == sweepable else legal
-        plan = autotune.get_plan(x.numel(),
+        plan = autotune.get_plan(spec.problem_size(x, op_kwargs),
                                  x.dtype, op=op, engine=restrict,
                                  mesh=ctx.mesh_axes, policy=policy,
                                  objective=objective, bucket=bucket,
@@ -306,7 +340,7 @@ def dispatch(op: str, x, *, method: str = "auto", chain=None,
             f"engine {eng.name!r} cannot run op {op!r} here: {reason}")
     x = _cast_in(x, policy, spec, eng.name)
     if chain == "auto":
-        plan = autotune.get_plan(x.numel(),
+        plan = autotune.get_plan(spec.problem_size(x, op_kwargs),
                                  x.dtype, op=op, engine=(eng.name,),
                                  mesh=ctx.mesh_axes, policy=policy,
                                  objective=objective, bucket=bucket,
@@ -351,6 +385,10 @@ def _context_for(spec: OpSpec, x, op_kwargs: dict, *,
                  policy: Optional[MmaPolicy] = None) -> DispatchContext:
     if policy is None:
         policy = op_kwargs.get("policy")
+    if spec.family == "scan":
+        scan_axis = op_kwargs.get("axis", -1) % max(x.ndim, 1)
+        return build_context(spec.name, x, scan_axis=scan_axis,
+                             policy=policy)
     return build_context(spec.name, x, axis=op_kwargs.get("axis"),
                          policy=policy)
 
@@ -486,6 +524,38 @@ def _counts_vpu(x, plan, **_):
     return torch.sum(x, dim=0, dtype=ACCUM_DTYPE)
 
 
+# ---- scan family
+
+
+def _scan_chained(x, plan, *, axis=-1, inclusive=True, policy=None, **_):
+    from repro_torch.core import scan as S
+    return S.tc_scan(x, axis=axis, inclusive=inclusive,
+                     variant=plan.variant, chain=plan.chain, m=plan.m,
+                     precision=policy)
+
+
+def _scan_ec(x, plan, *, axis=-1, inclusive=True, **_):
+    from repro_torch.core import scan as S
+    return S.tc_scan_ec(x, axis=axis, inclusive=inclusive,
+                        split_words=plan.split_words, chain=plan.chain,
+                        m=plan.m)
+
+
+def _scan_pallas(x, plan, *, inclusive=True, **_):
+    from repro_torch.kernels import mma_scan
+    return mma_scan(x, inclusive=inclusive, chain=plan.chain,
+                    block_rows=plan.block_rows)
+
+
+def _scan_vpu(x, plan, *, axis=-1, inclusive=True, **_):
+    from repro_torch.core import scan as S
+    out = torch.cumsum(_f32(x), dim=axis)
+    if not inclusive:
+        out = torch.movedim(
+            S._shift_exclusive(torch.movedim(out, axis, -1)), -1, axis)
+    return out
+
+
 # ================================================= reference oracles
 #
 # The classic baseline IS each op's semantic reference, so the oracles
@@ -507,6 +577,10 @@ def _ref_masked_mean(values, *, mask, **_):
 
 def _ref_expert_counts(x, **kw):
     return _counts_vpu(x, None, **kw)
+
+
+def _ref_scan(x, **kw):
+    return _scan_vpu(x, None, **kw)
 
 
 # ----------------------------------------------- measurement inputs
@@ -539,6 +613,10 @@ def _measure_expert_counts(n, dtype, rng, device):
 #                ('float64',) — refused without an explicit f64 policy.
 #   pallas_dd    kernel B5, the twin of mma_dd.
 #   vpu          classic baseline: safe everywhere.
+#
+# The scan family: mma_chained (alias mma) is the triangular-MMA core,
+# batch axes untouched, so distribution-safe; mma_ec its compensated
+# twin; pallas kernel B6, on the flattened input only.
 
 _REDUCE_ENGINES = (
     EngineSpec("mma", _reduce_mma, multi_device_safe=True,
@@ -558,11 +636,11 @@ _REDUCE_ENGINES = (
 )
 
 register(OpSpec(
-    name="reduce_sum", engines=_REDUCE_ENGINES,
+    name="reduce_sum", family="reduce", engines=_REDUCE_ENGINES,
     reference=_ref_reduce_sum))
 
 register(OpSpec(
-    name="squared_sum",
+    name="squared_sum", family="reduce",
     engines=(
         EngineSpec("mma", _sq_mma, multi_device_safe=True,
                    axis_subsets=True),
@@ -583,7 +661,7 @@ register(OpSpec(
     reference=_ref_squared_sum))
 
 register(OpSpec(
-    name="masked_mean",
+    name="masked_mean", family="reduce",
     engines=(
         EngineSpec("mma", _masked_mean_mma, multi_device_safe=True),
         EngineSpec("mma_chained", _masked_mean_with(_reduce_chained),
@@ -596,9 +674,25 @@ register(OpSpec(
     reference=_ref_masked_mean, measure=_measure_masked_mean))
 
 register(OpSpec(
-    name="expert_counts",
+    name="expert_counts", family="reduce",
     engines=(
         EngineSpec("mma", _counts_mma, multi_device_safe=True, ndim=2),
         EngineSpec("vpu", _counts_vpu, multi_device_safe=True, ndim=2),
     ),
     reference=_ref_expert_counts, measure=_measure_expert_counts))
+
+_SCAN_ENGINES = (
+    EngineSpec("mma_chained", _scan_chained, multi_device_safe=True,
+               sweep=("chain",)),
+    EngineSpec("mma_ec", _scan_ec, max_split_words=3,
+               sweep=("chain", "split_words")),
+    EngineSpec("pallas", _scan_pallas, needs_flat=True,
+               sweep=("chain", "block_rows")),
+    EngineSpec("vpu", _scan_vpu, multi_device_safe=True),
+)
+
+for _op in ("scan", "masked_cumsum"):
+    register(OpSpec(
+        name=_op, family="scan", engines=_SCAN_ENGINES,
+        aliases={"mma": "mma_chained"}, reference=_ref_scan,
+        size_of=lambda x, kw: x.shape[kw.get("axis", -1)]))

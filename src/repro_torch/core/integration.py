@@ -1,5 +1,5 @@
-"""Framework hooks: the reduce family's entry points — the counterpart
-of ``repro.core.integration`` for this slice.
+"""Framework hooks: the reduce and scan families' entry points — the
+counterpart of ``repro.core.integration`` for the ported slices.
 
 Each hook is a thin wrapper over ONE dispatch path,
 ``repro_torch.core.dispatch.dispatch(op, x, method=..., **op_kwargs)``.
@@ -9,7 +9,10 @@ the default), ``'mma_chained'`` (the paper-structured core),
 ``'pallas'`` (the hand-written Hopper kernels B1-B3), ``'vpu'`` (the
 classic f32 baseline), or, for ``reduce_sum`` / ``squared_sum``, the
 compensated ``'mma_ec'`` / ``'pallas_ec'`` (kernel B4) and the
-double-double ``'mma_dd'`` / ``'pallas_dd'`` (kernel B5).  An engine
+double-double ``'mma_dd'`` / ``'pallas_dd'`` (kernel B5).  For the
+scans (``cumsum``, ``masked_cumsum``) ``'mma'`` is an alias of the
+chained triangular core, ``'pallas'`` is kernel B6 (flat inputs only)
+and ``'mma_ec'`` the compensated scan.  An engine
 the op does not declare, or one whose predicates reject the call,
 raises ``ValueError`` naming the reason.
 
@@ -160,3 +163,43 @@ def expert_counts(router_probs_onehot, *, method: Method = "mma",
     and vpu engines serve it; any other ``method`` raises."""
     return dispatch.dispatch("expert_counts", router_probs_onehot,
                              method=method, precision=precision)
+
+
+def cumsum(x, *, axis: int = -1, inclusive: bool = True,
+           method: Method = "mma", chain: int = 4,
+           precision=None) -> torch.Tensor:
+    """Prefix sum along ``axis``, f32, same shape.
+
+    ``'mma'`` / ``'mma_chained'`` run the chained triangular-MMA scan
+    (``core.scan.tc_scan``), ``'mma_ec'`` its compensated twin,
+    ``'pallas'`` kernel B6 (flat inputs only: a batched input is
+    refused), ``'vpu'`` ``torch.cumsum``; ``'auto'`` the plan tuned for
+    (op ``'scan'``, n, dtype, device) over the legal engines.
+    ``inclusive=False`` gives the exclusive scan (leading zero).
+
+    >>> cumsum(torch.ones(5)).tolist()
+    [1.0, 2.0, 3.0, 4.0, 5.0]
+    >>> cumsum(torch.ones(4), inclusive=False, method="vpu").tolist()
+    [0.0, 1.0, 2.0, 3.0]
+    """
+    return dispatch.dispatch("scan", x, method=method,
+                             chain=chain, axis=axis, inclusive=inclusive,
+                             precision=precision)
+
+
+def masked_cumsum(values, mask, *, axis: int = -1, inclusive: bool = True,
+                  method: Method = "mma", chain: int = 4,
+                  precision=None) -> torch.Tensor:
+    """Prefix sum of ``values`` where ``mask == 1``: masked-out positions
+    add 0 but still receive the running prefix (the packed-position /
+    token-budget scan).  f32, same shape.
+
+    >>> masked_cumsum(torch.ones(4), torch.tensor([1, 0, 1, 1])).tolist()
+    [1.0, 1.0, 2.0, 3.0]
+    """
+    values = dispatch.as_tensor(values)
+    mask = torch.as_tensor(mask, device=values.device)
+    masked = values.to(ACCUM_DTYPE) * mask.to(ACCUM_DTYPE)
+    return dispatch.dispatch("masked_cumsum", masked, method=method,
+                             chain=chain, axis=axis, inclusive=inclusive,
+                             precision=precision)

@@ -2,8 +2,9 @@
 
 ``csrc/`` holds the CUDA sources, ``_build`` compiles and loads them,
 each kernel module pairs a kernel's wrapper with its plain PyTorch
-version and a launch counter, ``ops`` exposes the public API and
-``ref`` the plain oracles.
+version and a launch counter (B1-B3 in ``mma_reduce``, B4-B5 in
+``mma_compensated``, B6 in ``mma_scan``), ``ops`` exposes the public
+API and ``ref`` the plain oracles.
 """
 
 from repro_torch.kernels.ops import (  # noqa: F401
@@ -14,5 +15,6 @@ from repro_torch.kernels.ops import (  # noqa: F401
     mma_ec_squared_sum,
     mma_reduce,
     mma_reduce_partials,
+    mma_scan,
     mma_squared_sum,
 )

@@ -1,5 +1,5 @@
-"""Public wrappers for the reduction kernels (B1-B5) — the counterpart
-of the reduction half of ``repro.kernels.ops``.
+"""Public wrappers for the reduction kernels (B1-B5) and the prefix-scan
+kernel B6 — the counterpart of those halves of ``repro.kernels.ops``.
 
 They flatten, resolve ``'auto'`` geometry and pick the variant.  Where
 the reference chose interpret mode off the TPU, the port chooses by the
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import mma_compensated as _mc
 from repro_torch.kernels import mma_reduce as _mr
+from repro_torch.kernels import mma_scan as _ms
 
 M = _mr.M
 
@@ -196,3 +197,22 @@ def mma_dd_squared_sum(x, *, chain=2, block_rows=128,
     chain, block_rows = _resolve_auto(x, chain, block_rows,
                                       op="squared_sum", engine="pallas_dd")
     return _dd(x, chain, block_rows, m, square=True)
+
+
+def mma_scan(x, *, inclusive: bool = True, chain=4, block_rows=128,
+             m: int = M) -> torch.Tensor:
+    """Prefix sum of the *flattened* ``x`` via triangular MMAs (kernel
+    B6).  Returns the f32 inclusive (or exclusive) prefix in x's
+    original shape, scanning in row-major flattened order — the kernel
+    twin of ``repro_torch.core.scan.tc_scan`` over one axis.
+    ``chain`` / ``block_rows`` accept 'auto' (plan registry, op
+    ``'scan'``, engine ``'pallas'``)."""
+    chain, block_rows = _resolve_auto(x, chain, block_rows, op="scan")
+    flat = _flat(x, m)
+    if flat.is_cuda:
+        out = _ms.scan_cuda(flat, chain=chain, block_rows=block_rows,
+                            inclusive=inclusive)
+    else:
+        out = _ms.scan_plain(flat, chain=chain, block_rows=block_rows,
+                             inclusive=inclusive)
+    return out.reshape(x.shape)

@@ -1,5 +1,5 @@
-"""Plain-PyTorch oracles for the reduction kernels — the counterpart of
-``repro.kernels.ref`` for the reduction kernels.
+"""Plain-PyTorch oracles for the reduction and prefix-scan kernels — the
+counterpart of ``repro.kernels.ref`` for those kernels.
 
 Each oracle states the *semantics* a kernel must have (including the
 f32 accumulation), not its implementation.
@@ -53,3 +53,23 @@ def dd_reduce_ref(x, *, square: bool = False) -> torch.Tensor:
     (hi, lo) pairs, dd-merged pairwise, as a shape-(2,) f32 pair."""
     from repro_torch.core.reduction import tc_reduce_dd
     return tc_reduce_dd(x, square=square)
+
+
+def ec_scan_ref(x, *, split_words: int = 2,
+                inclusive: bool = True) -> torch.Tensor:
+    """f32 prefix sum of the word-split reconstruction over the last
+    axis — the oracle of ``repro_torch.core.scan.tc_scan_ec``."""
+    parts = split_f32_words(x.to(ACCUM_DTYPE), split_words)
+    recon = sum(p.to(ACCUM_DTYPE) for p in parts)
+    out = torch.cumsum(recon, dim=-1)
+    if not inclusive:
+        out = torch.nn.functional.pad(out[..., :-1], (1, 0))
+    return out
+
+
+def scan_ref(x, *, inclusive: bool = True) -> torch.Tensor:
+    """f32 prefix sum of the flattened input, in the original shape."""
+    flat = torch.cumsum(x.reshape(-1).to(ACCUM_DTYPE), dim=0)
+    if not inclusive:
+        flat = torch.nn.functional.pad(flat[:-1], (1, 0))
+    return flat.reshape(x.shape)

@@ -1,4 +1,4 @@
-"""The port on the card: kernels B1-B5 against their plain PyTorch
+"""The port on the card: kernels B1-B6 against their plain PyTorch
 versions, the wrappers' checks and launch counters, and the entry
 points' device rule.  Every test here needs an NVIDIA card (and nvcc to
 build the kernels) and skips without one; this file imports nothing of
@@ -13,7 +13,9 @@ so the kernels are also run on counting inputs (0 and 1, partial sums
 integers below 2^24), where every order of adds is exact and kernel,
 plain version and count must be equal.  The compensated B4 agrees with
 its plain version to 2^-21 of sum|x| and the double-double B5 to 2^-40
-(the bounds ``chip_smoke.py`` states and justifies).
+(the bounds ``chip_smoke.py`` states and justifies).  The scan kernel
+B6 agrees with its plain version to 2^-16 of the running sum|x| at
+every position, and on counting inputs with the exact int64 prefix.
 """
 
 import importlib
@@ -27,6 +29,7 @@ from repro_torch.kernels import mma_compensated as mc
 from repro_torch.kernels import ops
 
 mr = importlib.import_module("repro_torch.kernels.mma_reduce")
+ms = importlib.import_module("repro_torch.kernels.mma_scan")
 
 M = 16
 RTOL = 2.0 ** -16
@@ -249,3 +252,91 @@ def test_tier_entry_points_run_on_the_card(cuda):
                                      precision=precision.F64_EQUIVALENT)
         assert got.is_cuda and got.shape == (2,)
         assert abs(precision.dd_value(got) - want) <= 1e-12 * want
+
+
+SCAN_GEOMETRIES = ((1, 32), (4, 128), (5, 512))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 13])
+def test_scan_kernel_matches_plain_on_card(cuda, dtype, n):
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    running = torch.cumsum(x.double().abs(), dim=0)
+    for chain, block_rows in SCAN_GEOMETRIES:
+        for inclusive in (True, False):
+            got = ms.scan_cuda(x, chain=chain, block_rows=block_rows,
+                               inclusive=inclusive)
+            want = ms.scan_plain(x, chain=chain, block_rows=block_rows,
+                                 inclusive=inclusive)
+            assert got.shape == want.shape == (n,)
+            assert got.dtype == torch.float32
+            scale = running if inclusive else torch.nn.functional.pad(
+                running[:-1], (1, 0))
+            diff = (got.double() - want.double()).abs()
+            assert bool(torch.all(diff <= RTOL * scale)), \
+                (chain, block_rows, inclusive, float(diff.max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("chain,block_rows", SCAN_GEOMETRIES)
+def test_scan_kernel_counts_exactly_with_a_ragged_tail(cuda, dtype, chain,
+                                                       block_rows):
+    tile = chain * block_rows * M
+    gen = torch.Generator(device="cuda").manual_seed(tile)
+    for n in (13, tile + 13, (1 << 16) + 13):
+        buf = torch.ones(n + 64, device="cuda", dtype=dtype)
+        buf[:n] = (torch.rand(n, device="cuda", generator=gen)
+                   < 0.25).to(dtype)
+        buf[n - 13:n] = 1
+        x = buf[:n]
+        exact = torch.cumsum(x.long(), dim=0)
+        for inclusive in (True, False):
+            want = exact if inclusive \
+                else torch.nn.functional.pad(exact[:-1], (1, 0))
+            got = ms.scan_cuda(x, chain=chain, block_rows=block_rows,
+                               inclusive=inclusive)
+            plain = ms.scan_plain(x, chain=chain, block_rows=block_rows,
+                                  inclusive=inclusive)
+            assert torch.equal(got, plain), (n, inclusive)
+            assert torch.equal(got.long(), want), (n, inclusive)
+
+
+def test_scan_wrapper_counts_launches_and_checks_geometry(cuda):
+    x = torch.ones(1 << 20, device="cuda")
+    ms.reset_launches()
+    got = ops.mma_scan(x.reshape(1024, 1024))
+    assert got.shape == (1024, 1024) and float(got[-1, -1]) == 1 << 20
+    assert ms.LAUNCHES == {"b6_scan": 1}
+    with pytest.raises(ValueError, match="block_rows"):
+        ms.scan_cuda(x, chain=1, block_rows=24)
+    with pytest.raises(ValueError, match="dtype"):
+        ms.scan_cuda(x.double(), chain=1, block_rows=32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ms.scan_cuda(x.cpu(), chain=1, block_rows=32)
+    # A view off the 16-byte grid is copied before the launch.
+    assert float(ops.mma_scan(x[1:])[-1]) == float((1 << 20) - 1)
+    assert ms.LAUNCHES == {"b6_scan": 2}
+
+
+def test_scan_entry_points_run_on_the_card(cuda):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=1 << 18).astype(np.float32)
+    mask = (rng.random(1 << 18) > 0.5).astype(np.float32)
+    want = np.cumsum(x, dtype=np.float64)
+    wmask = np.cumsum(x * mask, dtype=np.float64)
+    scale = np.cumsum(np.abs(x), dtype=np.float64)
+    ms.reset_launches()
+    for method in ("auto", "mma", "mma_chained", "mma_ec", "pallas", "vpu"):
+        got = integration.cumsum(x, method=method)
+        assert got.is_cuda and got.dtype == torch.float32
+        assert np.all(np.abs(got.cpu().numpy() - want) <= 1e-5 * scale)
+        got = integration.masked_cumsum(x, mask, method=method)
+        assert got.is_cuda
+        assert np.all(np.abs(got.cpu().numpy() - wmask) <= 1e-5 * scale)
+    assert ms.LAUNCHES["b6_scan"] >= 2
+    rows = integration.cumsum(torch.from_numpy(x).cuda().reshape(64, -1),
+                              axis=0, method="mma")
+    assert rows.shape == (64, (1 << 18) // 64)

@@ -30,7 +30,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import check_error_budget as gates  # noqa: E402
 
 N = 4_097
-PORT_OPS = ("expert_counts", "masked_mean", "reduce_sum", "squared_sum")
+PORT_OPS = ("expert_counts", "masked_cumsum", "masked_mean", "reduce_sum",
+            "scan", "squared_sum")
 DD_ENGINES = ("mma_dd", "pallas_dd")
 
 
@@ -82,11 +83,14 @@ def test_registry_mirrors_the_reference_for_this_slice():
         port = td.op_spec(op)
         want = ref.engines
         assert port.engine_names() == tuple(e.name for e in want)
+        assert (port.family, port.aliases) == (ref.family, ref.aliases)
         for pe, je in zip(port.engines, want):
-            assert (pe.multi_device_safe, pe.axis_subsets, pe.ndim,
-                    pe.sweep, pe.max_split_words, pe.accum_dtypes) \
-                == (je.multi_device_safe, je.axis_subsets, je.ndim,
-                    je.sweep, je.max_split_words, je.accum_dtypes), pe.name
+            assert (pe.multi_device_safe, pe.axis_subsets, pe.needs_flat,
+                    pe.ndim, pe.sweep, pe.max_split_words,
+                    pe.accum_dtypes) \
+                == (je.multi_device_safe, je.axis_subsets, je.needs_flat,
+                    je.ndim, je.sweep, je.max_split_words,
+                    je.accum_dtypes), pe.name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

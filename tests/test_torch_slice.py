@@ -191,16 +191,17 @@ def test_the_package_exports_this_slice():
             and callable(getattr(tk, n))} \
         == {"mma_reduce", "mma_reduce_partials", "mma_squared_sum",
             "mma_ec_reduce", "mma_ec_squared_sum", "mma_dd_reduce",
-            "mma_dd_squared_sum"}
+            "mma_dd_squared_sum", "mma_scan"}
     for name in ("tc_reduce", "tc_contract", "tc_reduce_axes",
                  "tc_reduce_lastdim", "tc_reduce_rows", "tc_reduce_ec",
-                 "tc_reduce_dd", "reduce_sum", "reduce_mean",
-                 "squared_sum", "masked_mean", "global_norm",
-                 "expert_counts", "MmaPolicy", "ACCUM_DTYPE", "dispatch",
-                 "theory", "precision"):
+                 "tc_reduce_dd", "tc_scan", "tc_scan_ec", "tc_cumprod",
+                 "reduce_sum", "reduce_mean", "squared_sum", "masked_mean",
+                 "global_norm", "expert_counts", "cumsum", "masked_cumsum",
+                 "MmaPolicy", "ACCUM_DTYPE", "dispatch", "theory",
+                 "precision"):
         assert hasattr(core, name), name
-    # The scan family is the next slice.
-    assert not hasattr(core, "tc_scan")
+    # The segmented half of the scan family is the next slice.
+    assert not hasattr(core, "tc_segment_reduce")
 
 
 def test_smoke_script_refuses_without_a_card():
