@@ -74,8 +74,33 @@ The prefix-scan path (kernel B6; CUDA C++ in ``csrc/mma_scan.cu``):
   5c. B6 timed at 2^28 (f32, bf16; chain 4, block_rows 128) beside its
       bound, ``scan_plain`` and ``torch.cumsum``.
 
+The segmented-sum path (kernel B7; CUDA C++ in ``csrc/mma_segment.cu``):
+``repro_torch.core.integration.segment_sum`` -> ``core.dispatch`` op
+``segment_sum`` -> the engines ``pallas`` (B7), ``mma`` (the one-hot
+contraction) and ``vpu`` (``index_add_``).  Its phases:
+
+  2d. B7 against ``segment_plain`` on the card at n from 1 to 2^24
+      (ragged tails included), S in {1, 19, 128, 256, 4096} (4096 runs
+      the pass loop), random and sorted ids with -1 and out-of-range ids
+      mixed in, f32, bf16 and fp16, within 2^-20 of each segment's
+      sum|x|; and on counting inputs, where kernel, plain version and
+      the exact count agree bit for bit, also at n = 2^28 with S = 128;
+  3f. the segment path at n = 2^28: 128 segments with random ids (the
+      reference's measured problem) and 256 with sorted ids in
+      contiguous runs (DeepSeek-V3's routed experts, tokens ordered by
+      expert), uniform [0, 1] and normal, f32 and bf16, through every
+      engine and ``auto``; each segment's error relative to its sum|x|
+      against the f64 segment sums, the maximum held to 5e-3 % (``vpu``
+      printed, not gated); B7's counter is zeroed before it and must
+      have moved after it;
+  5d. B7 timed at 2^28 in both configurations (f32, bf16) beside its
+      bound, ``segment_plain``, ``index_add_`` and the ``vpu`` engine,
+      bit-identical over two calls (every time the median of 15 CUDA
+      event timings); the cost model's two segment constants refitted
+      from the f32 random case.
+
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
-(B1-B6), and last ``{"ok": true, "device": {...}}``.  Details go to
+(B1-B7), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -212,6 +237,32 @@ SCAN_RTOL = KERNEL_RTOL
 # f32 the two-word split (a cvt, a subtract, a cvt).
 B6_TC_FLOPS = {torch.float32: 48, torch.bfloat16: 32, torch.float16: 32}
 B6_CUDA_OPS = {torch.float32: 5, torch.bfloat16: 2, torch.float16: 2}
+
+# The segmented-sum path (phases 2d, 3f, 5d).  Each segment's result is
+# a sum, so the engines are held to the reduce family's mma / pallas
+# ceiling, relative to that segment's sum|x| (the reference gates no
+# segment sum).  vpu is index_add_ with float atomics, sequential per
+# segment and in no fixed order: printed, not gated.
+SEG_METHODS = ("pallas", "mma", "vpu", "auto")
+SEG_CEILING = CEILINGS["pallas"]
+# B7 against segment_plain: |kernel - plain| <= 2^-20 of the segment's
+# sum|x|.  Three bf16 words rebuild each f32 value exactly and every
+# one-hot product is exact, so both sum the same words and differ only
+# in the order of their f32 adds inside a warp (the tensor cores' 16
+# per MMA, then the warp's running slot): a few roundings of 2^-24
+# each, far under 2^-20.
+SEG_RTOL = 2.0 ** -20
+SEG_N_CHECK = (1, 13, 4096 + 13, (1 << 20) + 13, 1 << 24)
+SEG_COUNTS = (1, 19, 128, 256, 4096)   # 4096 > one pass at 8 warps in f32
+SEG_BLOCK_ROWS = (16, 128, 512)
+# The path's two configurations: the reference's measured problem (128
+# segments, random ids: src/repro/core/autotune.py:718,
+# benchmarks/bench_scan.py:32) and DeepSeek-V3's 256 routed experts
+# with tokens ordered by expert (sorted ids in contiguous runs).
+SEG_CONFIGS = (("random", 128), ("sorted", 256))
+# Tensor-core flops per one-hot entry an MMA covers: m16n8k16 is 4096
+# flops per 16 segments x 16 elements.
+B7_TC_FLOPS_PER_ENTRY = 16
 
 # Phase 6: sizes, repeats and the slack the model's pick may take.
 SWEEP_SIZES = (1 << 20, 1 << 24, 1 << 28)
@@ -583,6 +634,121 @@ def check_scan_counts(ms, x: torch.Tensor, chain: int,
     return 2
 
 
+# ------------------------------------------ phase 2d: B7 kernel checks
+
+
+def seg_ids(n: int, s: int, kind: str, gen: torch.Generator,
+            stray: bool = False) -> torch.Tensor:
+    """n int32 ids in [0, s): random, or sorted into contiguous runs.
+    With ``stray``, about 1 in 16 becomes -1 or an id past s (s, s + 3,
+    2^30), which must add nothing."""
+    ids = torch.randint(0, s, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    if kind == "sorted":
+        ids = torch.sort(ids).values
+    if stray:
+        pick = torch.rand(n, device="cuda", generator=gen) < 1 / 16
+        bad = torch.tensor([-1, s, s + 3, 1 << 30], device="cuda",
+                           dtype=torch.int32)
+        which = torch.randint(0, 4, (n,), device="cuda", generator=gen)
+        ids = torch.where(pick, bad[which], ids)
+    return ids
+
+
+def seg_exact(x: torch.Tensor, ids: torch.Tensor, s: int) -> tuple:
+    """The f64 segment sums of x and of |x| (ids outside [0, s) drop)."""
+    keep = (ids >= 0) & (ids < s)
+    idx = ids[keep].long()
+    xs = x[keep].to(torch.float64)
+    zero = torch.zeros(s, dtype=torch.float64, device="cuda")
+    return zero.index_add(0, idx, xs), zero.index_add(0, idx, xs.abs())
+
+
+def seg_ratio(got: torch.Tensor, want: torch.Tensor,
+              scale: torch.Tensor) -> float:
+    """max over segments of |got - want| / the segment's sum|x|; a
+    segment whose sum|x| is 0 must match exactly."""
+    diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    return float(torch.where(scale > 0, diff / scale.clamp_min(1e-300),
+                             diff * math.inf).nan_to_num(0.0).max())
+
+
+def check_segment_kernel(sg, gen) -> dict:
+    """B7 against segment_plain on the same card inputs (random and
+    sorted ids with strays, every dtype, three block_rows), and on
+    counting inputs where kernel, plain version and the exact count
+    agree bit for bit (also at n = 2^28, S = 128)."""
+    worst = worst_abs = 0.0
+    rows = []
+    for n in SEG_N_CHECK:
+        base = torch.randn(n, device="cuda", generator=gen)
+        for s in SEG_COUNTS:
+            for kind in ("random", "sorted"):
+                ids = seg_ids(n, s, kind, gen, stray=True)
+                for dt in DTYPES:
+                    x = base.to(dt)
+                    _, scale = seg_exact(x, ids, s)
+                    for block_rows in SEG_BLOCK_ROWS:
+                        if n == SEG_N_CHECK[-1] and block_rows != BLOCK_ROWS:
+                            continue
+                        blocks = sg.grid_blocks(n, block_rows, "cuda")
+                        got = sg.segment_cuda(x, ids, s,
+                                              block_rows=block_rows)
+                        want = sg.segment_plain(x, ids, s,
+                                                block_rows=block_rows,
+                                                blocks=blocks)
+                        check(got.shape == want.shape == (s,)
+                              and got.dtype == torch.float32,
+                              f"B7 result {tuple(got.shape)} {got.dtype}")
+                        ratio = seg_ratio(got, want, scale)
+                        err = float((got.double() - want.double()).abs()
+                                    .max())
+                        worst, worst_abs = max(worst, ratio), \
+                            max(worst_abs, err)
+                        rows.append(("b7_segment_sum", n, s, kind, name(dt),
+                                     block_rows, err, ratio))
+                        check(ratio <= SEG_RTOL,
+                              f"B7 n={n} S={s} {kind} {dt} B={block_rows}: "
+                              f"|kernel - plain| is {ratio:.3g} of the "
+                              f"segment's sum|x|")
+    counted = 0
+    for dt in DTYPES:
+        for n in (TAIL, 4096 + TAIL, N_CHECK[1]):
+            for s in (19, 128, 4096):
+                x = count_input(n, dt, COUNT_SHARE_CHECK, gen)
+                counted += check_segment_counts(
+                    sg, x, seg_ids(n, s, "random", gen, stray=True), s)
+        x = torch.ones(N_MAIN, device="cuda", dtype=dt)
+        counted += check_segment_counts(sg, x, seg_ids(N_MAIN, 128, "random",
+                                                       gen), 128)
+        del x
+    torch.cuda.synchronize()
+    print(f"phase 2d: {len(rows)} B7-vs-plain checks passed, worst |diff| "
+          f"{worst_abs:.3g} ({worst:.3g} of the segment's sum|x|); "
+          f"{counted} exact counts passed", flush=True)
+    return {"worst": worst, "worst_abs": worst_abs, "rows": rows,
+            "counted": counted}
+
+
+def check_segment_counts(sg, x: torch.Tensor, ids: torch.Tensor,
+                         s: int) -> int:
+    """B7 on a counting input: kernel, plain version and the exact int64
+    count per segment must be equal.  Returns the number of checks."""
+    n = x.numel()
+    keep = (ids >= 0) & (ids < s)
+    exact = torch.zeros(s, dtype=torch.int64, device="cuda").index_add_(
+        0, ids[keep].long(), x[keep].long())
+    check(int(exact.max()) < 2 ** 24, "count is not exact in f32")
+    got = sg.segment_cuda(x, ids, s, block_rows=BLOCK_ROWS)
+    plain = sg.segment_plain(x, ids, s, block_rows=BLOCK_ROWS,
+                             blocks=sg.grid_blocks(n, BLOCK_ROWS, "cuda"))
+    check(torch.equal(got.long(), exact) and torch.equal(got, plain),
+          f"B7 count n={n} S={s} {name(x.dtype)}: "
+          f"{int((got.long() != exact).sum())} segments off the count, "
+          f"{int((got != plain).sum())} off the plain version")
+    return 1
+
+
 # --------------------------------------------------- phase 3: main path
 
 
@@ -782,6 +948,8 @@ def run_scan_path(integration, autotune, gen) -> list:
                 run = torch.cumsum(xs.abs(), dim=0)
                 del xs
                 for method in SCAN_METHODS:
+                    # Let the asynchronous oracle above finish first.
+                    torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     if op == "scan":
                         out = integration.cumsum(x, method=method)
@@ -822,6 +990,59 @@ def run_scan_path(integration, autotune, gen) -> list:
                 del want, run
             del x
         del base, mask
+    return results
+
+
+def run_segment_path(integration, autotune, gen) -> list:
+    """segment_sum through every engine at n = 2^28 in both
+    configurations, against the f64 segment sums of the cast input."""
+    results = []
+    for kind, s in SEG_CONFIGS:
+        ids = seg_ids(N_MAIN, s, kind, gen)
+        for dist in ("uniform", "normal"):
+            base = inputs(N_MAIN, dist, gen)
+            for dt in (torch.float32, torch.bfloat16):
+                x = base if dt == torch.float32 else base.to(dt)
+                want, scale = seg_exact(x, ids, s)
+                for method in SEG_METHODS:
+                    # Let the asynchronous oracle above finish first.
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = integration.segment_sum(x, ids, s, method=method)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    check(out.is_cuda and out.dtype == torch.float32
+                          and tuple(out.shape) == (s,),
+                          f"segment_sum/{method}: result {out.device} "
+                          f"{out.dtype} {tuple(out.shape)}")
+                    check(bool(torch.all(torch.isfinite(out))),
+                          f"segment_sum/{method}: not finite")
+                    engine = method
+                    if method == "auto":
+                        engine = autotune.get_plan(
+                            N_MAIN, dt, op="segment_sum",
+                            backend="cuda").method
+                    err = 100.0 * seg_ratio(out, want, scale)
+                    gated = method != "vpu"
+                    results.append({"ids": kind, "segments": s,
+                                    "dist": dist, "dtype": name(dt),
+                                    "method": method, "engine": engine,
+                                    "max_pct_err_of_segment_abs": err,
+                                    "ceiling_pct": SEG_CEILING
+                                    if gated else None, "wall_s": wall})
+                    print(f"  {kind:6s} S={s:<4d} {dist:7s} {name(dt):8s} "
+                          f"{method:6s} engine={engine:6s} max err "
+                          f"{err:.3e}% of the segment's sum|x| "
+                          + (f"(ceiling {SEG_CEILING:g}%)" if gated
+                             else "(not gated)")
+                          + f" {wall * 1e3:.1f} ms", flush=True)
+                    check(not gated or err <= SEG_CEILING,
+                          f"{kind} S={s} {dist} {dt} segment_sum/{method}: "
+                          f"{err:.3e}% > {SEG_CEILING:g}%")
+                    del out
+                del x, want, scale
+            del base
+        del ids
     return results
 
 
@@ -1124,6 +1345,127 @@ def time_scan_kernel(ms, gen, launches: int, worst_abs: float) -> tuple:
     return entry, details
 
 
+def seg_bound(x: torch.Tensor, ids: torch.Tensor, s: int) -> tuple:
+    """Least time in ms for one B7 call on these inputs: values and ids
+    read once and S floats written at HBM rate, against the tensor-core
+    flops of the MMAs this data needs, one per group of 16 elements and
+    16-segment tile that the group's valid ids hit (at 989 TFLOP/s: f32
+    runs bf16 words).  Returns (ms, what bounds it, MMAs)."""
+    n = x.numel()
+    bytes_ms = (n * (x.element_size() + ids.element_size()) + 4 * s) \
+        / HBM_BYTES_PER_S * 1e3
+    keep = (ids >= 0) & (ids < s)
+    group = torch.arange(n, device="cuda")[keep] // 16
+    tiles = -(-s // 16)
+    mmas = torch.unique(group * tiles + ids[keep].long() // 16).numel()
+    ops_ms = mmas * 16 * 16 * B7_TC_FLOPS_PER_ENTRY \
+        / TC_FLOPS[torch.bfloat16] * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", mmas
+    return ops_ms, "operations", mmas
+
+
+def time_segment_kernel(sg, autotune, dispatch, gen, launches: int,
+                        worst_abs: float) -> tuple:
+    """B7 at n = 2^28 in both configurations, f32 and bf16: held to
+    SEG_RTOL against segment_plain and to the same bits over two calls,
+    then timed beside its bound, segment_plain, the library's index_add_
+    and the vpu engine.  The f32 random S = 128 case (the reference's
+    measured problem) goes to the ``kernels`` line, every case to the
+    details; that case also refits the cost model's two segment
+    constants."""
+    entry, details, fit = None, [], {}
+    for kind, s in SEG_CONFIGS:
+        ids = seg_ids(N_MAIN, s, kind, gen)
+        base = torch.randn(N_MAIN, device="cuda", generator=gen)
+        blocks = sg.grid_blocks(N_MAIN, BLOCK_ROWS, "cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            x = base if dt == torch.float32 else base.to(dt)
+            kern = lambda: sg.segment_cuda(  # noqa: E731
+                x, ids, s, block_rows=BLOCK_ROWS)
+            plain = lambda: sg.segment_plain(  # noqa: E731
+                x, ids, s, block_rows=BLOCK_ROWS, blocks=blocks)
+            got, again, want = kern(), kern(), plain()
+            _, scale = seg_exact(x, ids, s)
+            ratio = seg_ratio(got, want, scale)
+            diff = float((got.double() - want.double()).abs().max())
+            check(ratio <= SEG_RTOL, f"B7 {kind} S={s} {name(dt)} n=2^28: "
+                                     f"|kernel - plain| is {ratio:.3g} of "
+                                     f"the segment's sum|x|")
+            check(torch.equal(got, again), f"B7 {kind} S={s} {name(dt)}: "
+                                           f"two calls differ")
+            del got, again, want, scale
+            vpu_plan = autotune.ReductionPlan(method="vpu")
+            p1 = median_ms(plain)
+            k1 = median_ms(kern)
+            k2 = median_ms(kern)
+            p2 = median_ms(plain)
+            lib_ms = median_ms(lambda: torch.zeros(
+                s, device="cuda").index_add_(
+                    0, ids, x if dt == torch.float32 else x.float()))
+            vpu_ms = median_ms(lambda: dispatch.execute(
+                "segment_sum", x, vpu_plan, segment_ids=ids,
+                num_segments=s))
+            bound_ms, bound_by, mmas = seg_bound(x, ids, s)
+            row = {"name": "b7_segment_sum", "ids": kind, "segments": s,
+                   "dtype": name(dt), "n": N_MAIN, "block_rows": BLOCK_ROWS,
+                   "blocks": blocks, "mmas": mmas,
+                   "tc_flops": mmas * 16 * 16 * B7_TC_FLOPS_PER_ENTRY,
+                   "passes": sg.passes(s, dt, BLOCK_ROWS),
+                   "ms": min(k1, k2), "ms_runs": [k1, k2],
+                   "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+                   "library_ms": lib_ms, "vpu_ms": vpu_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "max_abs_err": diff, "diff_over_segment_abs": ratio}
+            details.append(row)
+            print(f"  b7 {kind:6s} S={s:<4d} {name(dt):8s} kernel "
+                  f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+                  f"index_add_ {lib_ms:.4f} ms vpu engine {vpu_ms:.4f} ms "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; {mmas} MMAs, "
+                  f"{row['tc_flops']:.4g} tensor-core flops) "
+                  f"|diff| {diff:.3g} ({ratio:.3g} of the segment's "
+                  f"sum|x|)", flush=True)
+            if (kind, s, dt) == ("random", 128, torch.float32):
+                entry = {"name": "b7_segment_sum", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "mma_segment.cu",
+                         "replaces": "src/repro/kernels/mma_scan.py:86",
+                         "launches": launches,
+                         "max_abs_err": max(diff, worst_abs),
+                         "ms": row["ms"], "plain_ms": row["plain_ms"],
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib_ms}
+                fit = fit_segment_constants(autotune, row, vpu_plan)
+            del x
+        del ids, base
+    return entry, details, fit
+
+
+def fit_segment_constants(autotune, row: dict, vpu_plan) -> dict:
+    """The segment family's two fitted constants from the f32 random
+    S = 128 times: B7's us per one-hot entry, and the vpu engine's us
+    per element beyond the rest of its modelled cost."""
+    n, s = row["n"], row["segments"]
+    saved = autotune._SEG_ATOMIC_US
+    try:
+        autotune._SEG_ATOMIC_US = 0.0
+        rest = autotune.model_cost(vpu_plan, n, torch.float32,
+                                   op="segment_sum")
+    finally:
+        autotune._SEG_ATOMIC_US = saved
+    fit = {"b7_entry_us": row["ms"] * 1e3 / (n * s),
+           "seg_atomic_us": max(row["vpu_ms"] * 1e3 - rest, 0.0) / n}
+    pick = autotune.autotune(n, torch.float32, op="segment_sum",
+                             backend="cuda")
+    fit["model_pick"] = pick.method
+    print(f"phase 5d: fitted _B7_ENTRY_US {fit['b7_entry_us']:.6g} us, "
+          f"_SEG_ATOMIC_US {fit['seg_atomic_us']:.6g} us; committed "
+          f"{autotune._B7_ENTRY_US}, {autotune._SEG_ATOMIC_US}; the model "
+          f"picks {pick.method} for segment_sum at n = 2^28 f32",
+          flush=True)
+    return fit
+
+
 # ---------------------------------------- phase 6: the cost model's fit
 
 
@@ -1263,6 +1605,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import mma_compensated as mc
     ms = importlib.import_module("repro_torch.kernels.mma_scan")
+    sg = importlib.import_module("repro_torch.kernels.mma_segment")
     # The package exports the functions mma_reduce and mma_scan under
     # the modules' names, so the kernel modules are fetched by their
     # full names.
@@ -1286,6 +1629,7 @@ def main() -> int:
     checks = check_kernels(mr, ops, gen)
     tier_checks = check_tier_kernels(mc, ops, gen)
     scan_checks = check_scan_kernel(ms, gen)
+    seg_checks = check_segment_kernel(sg, gen)
 
     print("phase 3: main path at n = 2^28", flush=True)
     mr.reset_launches()
@@ -1318,6 +1662,17 @@ def main() -> int:
           flush=True)
     check(scan_launches > 0, "kernel b6_scan was not launched on the scan "
                              "path")
+    print("phase 3f: the segmented-sum path at n = 2^28", flush=True)
+    sg.reset_launches()
+    seg_rows = run_segment_path(integration, autotune, gen)
+    torch.cuda.synchronize()
+    seg_launches = sg.LAUNCHES["b7_segment_sum"]
+    auto_engines = sorted({r["engine"] for r in seg_rows
+                           if r["method"] == "auto"})
+    print(f"phase 3f: launches on the segment path {dict(sg.LAUNCHES)}; "
+          f"auto resolved to {auto_engines}", flush=True)
+    check(seg_launches > 0, "kernel b7_segment_sum was not launched on the "
+                            "segment path")
     print("phase 3d: the integration example on the card", flush=True)
     integrate_rows = run_integrate_example()
 
@@ -1345,6 +1700,10 @@ def main() -> int:
     scan_entry, scan_timing_rows = time_scan_kernel(
         ms, gen, scan_launches, scan_checks["worst_abs"])
     entries.append(scan_entry)
+    print("phase 5d: B7 timings at n = 2^28", flush=True)
+    seg_entry, seg_timing_rows, seg_fit = time_segment_kernel(
+        sg, autotune, dispatch, gen, seg_launches, seg_checks["worst_abs"])
+    entries.append(seg_entry)
 
     print("phase 6: the cost model against measured times (f32)",
           flush=True)
@@ -1380,11 +1739,19 @@ def main() -> int:
                    "scan_exact_counts": scan_checks["counted"],
                    "scan_path": scan_rows, "scan_launches": scan_launches,
                    "scan_timings": scan_timing_rows,
+                   "segment_kernel_checks": seg_checks["rows"],
+                   "segment_exact_counts": seg_checks["counted"],
+                   "segment_path": seg_rows,
+                   "segment_launches": seg_launches,
+                   "segment_timings": seg_timing_rows,
+                   "segment_fit": seg_fit,
                    "sweep_us": {str(n): [[p.method, p.chain, p.block_rows,
                                           us] for p, us in by.items()]
                                 for n, by in times.items()},
                    "fit": fit, "model_picks": picks, "sweep_s": sweep_s,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
 """Core of the PyTorch port: the paper's chained-MMA arithmetic
-reduction, the triangular-MMA prefix scan, their PRAM cost model,
+reduction, the triangular-MMA prefix scan, the one-hot segmented sum,
+the chunked linear recurrence, their PRAM cost model,
 precision policy, and the hooks that make them a service of the
 framework.
 """
@@ -15,8 +16,10 @@ from repro_torch.core.reduction import (  # noqa: F401
 )
 from repro_torch.core.scan import (  # noqa: F401
     tc_cumprod,
+    tc_linear_recurrence,
     tc_scan,
     tc_scan_ec,
+    tc_segment_reduce,
 )
 from repro_torch.core.precision import (  # noqa: F401
     ACCUM_DTYPE,
@@ -30,6 +33,7 @@ from repro_torch.core.integration import (  # noqa: F401
     masked_mean,
     reduce_mean,
     reduce_sum,
+    segment_sum,
     squared_sum,
 )
 from repro_torch.core import dispatch, theory, precision  # noqa: F401

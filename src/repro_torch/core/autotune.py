@@ -82,6 +82,21 @@ _STEP_US = 0.0
 # Device-memory bytes per µs: 3.35 TB/s.
 _HBM_BYTES_PER_US = 3.35e6
 
+# Segment count when timing and modelling segment_sum candidates (the
+# plan key does not carry it): 128, the segment count of the
+# reference's scan benchmark (benchmarks/bench_scan.py) and the routed
+# experts of Arctic (src/repro/configs/arctic_480b.py).
+_MEASURE_SEGMENTS = 128
+# Two fitted constants of the segment family: chip_smoke.py (phase 5d)
+# times kernel B7 and the vpu engine at n = 2^28 f32 with 128 random
+# segments on one H100 80GB HBM3 (700 W) and prints them.  µs per
+# one-hot entry (element x segment) of B7, whose integer work to build
+# the one-hot bounds it:
+_B7_ENTRY_US = 1.87e-7
+# µs per element the vpu engine's float atomics add beyond its memory
+# traffic (contention on S addresses):
+_SEG_ATOMIC_US = 1.96e-4
+
 
 @dataclasses.dataclass(frozen=True)
 class ReductionPlan:
@@ -366,15 +381,18 @@ def candidate_plans(n: int, dtype, *, chains=CHAINS, blocks=BLOCK_ROWS,
         if not eng.sweep:
             yield ReductionPlan(method=eng.name)
             continue
+        # An engine that sweeps no chain (B7) runs one plan per
+        # block_rows, at chain 1, as in the reference.
+        eng_chains = chains if "chain" in eng.sweep else (1,)
         if "block_rows" not in eng.sweep:
-            for chain in chains:
+            for chain in eng_chains:
                 for words in words_opts:
                     yield ReductionPlan(method=eng.name, chain=chain, m=m,
                                         split_words=words)
             continue
         for words in words_opts:
             prev_tile = 0
-            for chain in chains:
+            for chain in eng_chains:
                 for block_rows in blocks:
                     if not block_rows_ok(block_rows):
                         continue
@@ -509,7 +527,37 @@ _ENGINE_COSTS = {
     "pallas_dd": functools.partial(_cost_dd, grid_walk=True),
 }
 
-_FAMILY_COSTS = {"reduce": _ENGINE_COSTS, "scan": _SCAN_COSTS}
+# The segment family (op ``segment_sum``).  The plan key carries no
+# segment count, so the model prices S = _MEASURE_SEGMENTS.  ``mma``
+# builds the (n, S) one-hot (one compare per entry) and contracts it in
+# full f32 (one FMA per entry) on the CUDA cores; ``pallas`` (B7) takes
+# _B7_ENTRY_US per entry of its one-hot; ``vpu`` is one scatter add per
+# element, plus _SEG_ATOMIC_US per element for the float atomics'
+# contention on S addresses.
+
+
+def _cost_segment_vpu(plan: ReductionPlan, n: int) -> float:
+    return _cost_vpu(plan, n) + n * _SEG_ATOMIC_US
+
+
+def _cost_segment_mma(plan: ReductionPlan, n: int) -> float:
+    entries = n * _MEASURE_SEGMENTS
+    return _cost_mma(plan, n) \
+        + 2.0 * entries / (_VPU_THROUGHPUT * _PARALLELISM)
+
+
+def _cost_segment_pallas(plan: ReductionPlan, n: int) -> float:
+    return _B7_ENTRY_US * n * _MEASURE_SEGMENTS + _grid(plan, n)
+
+
+_SEGMENT_COSTS = {
+    "vpu": _cost_segment_vpu,
+    "mma": _cost_segment_mma,
+    "pallas": _cost_segment_pallas,
+}
+
+_FAMILY_COSTS = {"reduce": _ENGINE_COSTS, "scan": _SCAN_COSTS,
+                 "segment": _SEGMENT_COSTS}
 
 # Device-memory bytes an engine moves per element of f32 input, counted
 # from its runner (``core.dispatch``); the model scales them by the
@@ -529,6 +577,14 @@ _FAMILY_COSTS = {"reduce": _ENGINE_COSTS, "scan": _SCAN_COSTS}
 # elementwise adds over P (24); ``mma_ec``: see ``_scan_ec_bytes``.
 # The model scales these by the input's itemsize too, though the f32
 # output does not shrink with it: a bf16 scan is charged too little.
+#
+# The segment family reads values and int32 ids (8): ``pallas`` (B7)
+# that once per pass of segments; ``vpu`` also writes and rereads an
+# in-range flag and a slot index (22 in all); ``mma`` writes its bool
+# compare and f32 one-hot and rereads both, 9 bytes per entry, S =
+# _MEASURE_SEGMENTS entries per element (8 + 9 S).  The ids do not
+# shrink with a 16-bit input, so a bf16 segment sum is charged too
+# little.
 _BYTES_PER_ELEMENT = {
     ("reduce_sum", "mma"): 12.0, ("squared_sum", "mma"): 8.0,
     ("squared_sum", "vpu"): 12.0,
@@ -537,6 +593,7 @@ _BYTES_PER_ELEMENT = {
     **{(op, method): b for op in ("scan", "masked_cumsum")
        for method, b in (("vpu", 8.0), ("pallas", 12.0),
                          ("mma_chained", 24.0))},
+    ("segment_sum", "pallas"): 8.0, ("segment_sum", "vpu"): 22.0,
 }
 
 
@@ -560,6 +617,8 @@ def _scan_ec_bytes(plan: ReductionPlan) -> float:
 
 def _bytes_per_element(plan: ReductionPlan, op: str,
                        family: str = "reduce") -> float:
+    if family == "segment" and plan.method == "mma":
+        return 8.0 + 9.0 * _MEASURE_SEGMENTS
     if plan.method == "mma_ec":
         return _scan_ec_bytes(plan) if family == "scan" \
             else _ec_bytes(plan, op)
@@ -645,8 +704,8 @@ def model_cost(plan: ReductionPlan, n: int, dtype,
     padding, plus the time the engine's device-memory traffic takes
     (``_BYTES_PER_ELEMENT``: a kernel streams its input once, the plain
     engines' intermediate tensors go through memory too).  The op's
-    family (``dispatch.OpSpec.family``) picks the reduce or the scan
-    terms."""
+    family (``dispatch.OpSpec.family``) picks the reduce, scan or
+    segment terms."""
     from repro_torch.core import dispatch
     family = dispatch.op_spec(op).family
     n = max(int(n), 1)
@@ -665,7 +724,12 @@ def _measure_problem(op: str, n: int, dtype, seed: int, device: str):
     if spec.measure is not None:
         return spec.measure(n, dtype, rng, device)
     x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-    return x.to(device).to(as_dtype(dtype)), {}
+    kwargs = {}
+    if spec.family == "segment":
+        kwargs = {"segment_ids": torch.from_numpy(
+            rng.integers(0, _MEASURE_SEGMENTS, n).astype(np.int32))
+            .to(device), "num_segments": _MEASURE_SEGMENTS}
+    return x.to(device).to(as_dtype(dtype)), kwargs
 
 
 def measure_cost(plan: ReductionPlan, n: int, dtype, *, iters: int = 5,

@@ -1,9 +1,9 @@
-"""The TC-op registry: one declarative dispatch layer for the reduce
-and scan families — the counterpart of ``repro.core.dispatch`` for the
-ported slices.
+"""The TC-op registry: one declarative dispatch layer for the reduce,
+scan and segment families — the counterpart of ``repro.core.dispatch``
+for the ported slices.
 
 Each op (``reduce_sum``, ``squared_sum``, ``masked_mean``,
-``expert_counts``; ``scan`` and ``masked_cumsum``) is an
+``expert_counts``; ``scan`` and ``masked_cumsum``; ``segment_sum``) is an
 :class:`OpSpec` declaring its family, its engines (:class:`EngineSpec`,
 each with a ``run(x, plan, **op_kwargs)`` callable and capability
 flags), alias spellings, a plain reference oracle, and the autotuner
@@ -26,7 +26,10 @@ hooks.  The engines keep the reference's spellings:
 The scan family has ``mma_chained`` (``core.scan.tc_scan``; ``'mma'`` is
 its alias, a scan having no single-contraction form), ``mma_ec``
 (``tc_scan_ec``), ``pallas`` (kernel B6, flat inputs only) and ``vpu``
-(``torch.cumsum``).
+(``torch.cumsum``).  The segment family (``segment_sum``) has ``mma``
+(``core.scan.tc_segment_reduce``; ``'mma_chained'`` is its alias),
+``pallas`` (kernel B7) and ``vpu`` (``index_add_`` after dropping the ids
+outside [0, S), which torch would refuse and JAX drops).
 
 The dd engines declare ``accum_dtypes=('float64',)``: they run only
 under an explicit f64 policy (``precision.F64_EQUIVALENT``), and every
@@ -178,7 +181,7 @@ class OpSpec:
     (``size_of``; default every element) and the autotuner's
     measurement-input builder."""
     name: str
-    family: str                     # 'reduce' | 'scan'
+    family: str                     # 'reduce' | 'scan' | 'segment'
     engines: tuple                  # tuple[EngineSpec, ...]
     reference: Callable
     aliases: Optional[dict] = None
@@ -556,6 +559,33 @@ def _scan_vpu(x, plan, *, axis=-1, inclusive=True, **_):
     return out
 
 
+# ---- segment family
+
+
+def _segment_mma(values, plan, *, segment_ids, num_segments, **_):
+    from repro_torch.core import scan as S
+    return S.tc_segment_reduce(values, segment_ids, num_segments,
+                               m=plan.m)
+
+
+def _segment_pallas(values, plan, *, segment_ids, num_segments, **_):
+    from repro_torch.kernels import mma_segment_sum
+    return mma_segment_sum(values, segment_ids, num_segments,
+                           block_rows=plan.block_rows)
+
+
+def _segment_vpu(values, plan, *, segment_ids, num_segments, **_):
+    # The scatter-add baseline.  index_add_ raises on an index outside
+    # [0, S) where jax.ops.segment_sum drops it, so such ids go to a
+    # spare slot S that is cut off.
+    s = int(num_segments)
+    v = _f32(values).reshape(-1)
+    ids = torch.as_tensor(segment_ids, device=v.device).reshape(-1)
+    slot = torch.where((ids >= 0) & (ids < s), ids, s)
+    out = torch.zeros(s + 1, dtype=ACCUM_DTYPE, device=v.device)
+    return out.index_add_(0, slot, v)[:s]
+
+
 # ================================================= reference oracles
 #
 # The classic baseline IS each op's semantic reference, so the oracles
@@ -581,6 +611,10 @@ def _ref_expert_counts(x, **kw):
 
 def _ref_scan(x, **kw):
     return _scan_vpu(x, None, **kw)
+
+
+def _ref_segment_sum(values, **kw):
+    return _segment_vpu(values, None, **kw)
 
 
 # ----------------------------------------------- measurement inputs
@@ -617,6 +651,9 @@ def _measure_expert_counts(n, dtype, rng, device):
 # The scan family: mma_chained (alias mma) is the triangular-MMA core,
 # batch axes untouched, so distribution-safe; mma_ec its compensated
 # twin; pallas kernel B6, on the flattened input only.
+#
+# The segment family: mma is the one-hot contraction, batch-free and
+# distribution-safe; pallas kernel B7; vpu the scatter-add baseline.
 
 _REDUCE_ENGINES = (
     EngineSpec("mma", _reduce_mma, multi_device_safe=True,
@@ -696,3 +733,12 @@ for _op in ("scan", "masked_cumsum"):
         name=_op, family="scan", engines=_SCAN_ENGINES,
         aliases={"mma": "mma_chained"}, reference=_ref_scan,
         size_of=lambda x, kw: x.shape[kw.get("axis", -1)]))
+
+register(OpSpec(
+    name="segment_sum", family="segment",
+    engines=(
+        EngineSpec("mma", _segment_mma, multi_device_safe=True),
+        EngineSpec("pallas", _segment_pallas, sweep=("block_rows",)),
+        EngineSpec("vpu", _segment_vpu, multi_device_safe=True),
+    ),
+    aliases={"mma_chained": "mma"}, reference=_ref_segment_sum))

@@ -1,5 +1,5 @@
-"""Framework hooks: the reduce and scan families' entry points — the
-counterpart of ``repro.core.integration`` for the ported slices.
+"""Framework hooks: the reduce, scan and segment families' entry points
+— the counterpart of ``repro.core.integration`` for the ported slices.
 
 Each hook is a thin wrapper over ONE dispatch path,
 ``repro_torch.core.dispatch.dispatch(op, x, method=..., **op_kwargs)``.
@@ -12,7 +12,9 @@ compensated ``'mma_ec'`` / ``'pallas_ec'`` (kernel B4) and the
 double-double ``'mma_dd'`` / ``'pallas_dd'`` (kernel B5).  For the
 scans (``cumsum``, ``masked_cumsum``) ``'mma'`` is an alias of the
 chained triangular core, ``'pallas'`` is kernel B6 (flat inputs only)
-and ``'mma_ec'`` the compensated scan.  An engine
+and ``'mma_ec'`` the compensated scan.  For ``segment_sum``, ``'mma'``
+is the one-hot contraction (``'mma_chained'`` its alias), ``'pallas'``
+kernel B7 and ``'vpu'`` the scatter-add baseline.  An engine
 the op does not declare, or one whose predicates reject the call,
 raises ``ValueError`` naming the reason.
 
@@ -203,3 +205,25 @@ def masked_cumsum(values, mask, *, axis: int = -1, inclusive: bool = True,
     return dispatch.dispatch("masked_cumsum", masked, method=method,
                              chain=chain, axis=axis, inclusive=inclusive,
                              precision=precision)
+
+
+def segment_sum(values, segment_ids, num_segments: int, *,
+                method: Method = "mma", precision=None) -> torch.Tensor:
+    """Segmented sum: ``out[s]`` = the sum of the values whose id is
+    ``s``, shape (num_segments,) f32.  Empty segments are 0 and an id
+    outside [0, num_segments), -1 included, adds nothing.
+
+    ``'mma'`` contracts against the one-hot segment matrix
+    (``core.scan.tc_segment_reduce``), ``'pallas'`` runs kernel B7,
+    ``'vpu'`` the ``index_add_`` baseline; ``'auto'`` the plan tuned for
+    (op ``'segment_sum'``, n, dtype, device).  The ids follow the
+    values' device.
+
+    >>> segment_sum(torch.ones(5), torch.tensor([0, 2, 2, -1, 9]), 3).tolist()
+    [1.0, 0.0, 2.0]
+    """
+    values = dispatch.as_tensor(values)
+    ids = torch.as_tensor(segment_ids).to(values.device)
+    return dispatch.dispatch("segment_sum", values, method=method,
+                             precision=precision, segment_ids=ids,
+                             num_segments=int(num_segments))

@@ -1,5 +1,5 @@
-"""Prefix scans as chained triangular MMAs in plain PyTorch — the
-counterpart of the prefix-scan half of ``repro.core.scan``.
+"""Prefix scans, segmented sums and the linear recurrence as MMAs in
+plain PyTorch — the counterpart of ``repro.core.scan``.
 
 Multiplying a row tile by the upper-triangular one-matrix computes
 every prefix of the tile in one MMA (Dakkak et al., "Accelerating
@@ -24,7 +24,8 @@ These are plain contractions outside any kernel, so they go to torch's
 matmul through ``core.reduction._mm`` (16-bit operands accumulate in
 f32; f32 operands run in full f32, TF32 being off).  Every partial is
 f32 and every public function returns f32.  The hand-written Hopper
-kernel of the flat scan is B6 (``repro_torch.kernels.mma_scan``).
+kernel of the flat scan is B6 (``repro_torch.kernels.mma_scan``), that
+of the segmented sum B7 (``repro_torch.kernels.mma_segment``).
 
 Precision: the reference forwards ``precision`` to its einsums, where
 the MXU would otherwise truncate f32 multiplicands to bf16.  The port's
@@ -173,3 +174,103 @@ def tc_cumprod(x, *, axis: int = -1, inclusive: bool = True,
     logs = torch.clamp(torch.log(x.to(ACCUM_DTYPE)), min=_LOG_FLOOR)
     return torch.exp(tc_scan(logs, axis=axis, inclusive=inclusive,
                              variant=variant, chain=chain, m=m))
+
+
+def tc_linear_recurrence(log_a, b, h0, *, chunk: int = 16):
+    """First-order linear recurrence ``h_t = a_t h_{t-1} + b_t`` as
+    chunked triangular MMAs.  Returns ``(h, h_final)`` in f32: the
+    (B, S, W) states and the (B, W) final state.
+
+    ``log_a`` and ``b`` are (B, S, W) per-channel log-decays
+    (``a_t = exp(log_a_t)``, ``log_a <= 0``) and inputs, ``h0`` the
+    (B, W) initial state.  Within a chunk of ``c`` steps the recurrence
+    is densified into the per-channel lower-triangular decay matrix
+    ``L[t, s] = exp(ca_t - ca_s)`` for s <= t, ``ca`` the chunk's
+    triangular-MMA scan of ``log_a``, and solved as one batched
+    contraction ``h_local = L x b``; the chunk-boundary states follow a
+    Python loop over the S / c chunks.  The reference rematerialises
+    ``L`` in its backward pass (``jax.checkpoint``); gradients through
+    this function wait for the port's training slice.
+    """
+    bsz, s, w = log_a.shape
+    c = int(chunk)
+    la = torch.clamp(log_a.to(ACCUM_DTYPE), min=_LOG_FLOOR)
+    bf = b.to(ACCUM_DTYPE)
+    nc = int(math.ceil(max(s, 1) / c))
+    pad = nc * c - s
+    if pad:
+        # a = 1, b = 0 padding: the state is constant through the tail.
+        la = torch.nn.functional.pad(la, (0, 0, 0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, pad))
+    la = la.reshape(bsz, nc, c, w)
+    bf = bf.reshape(bsz, nc, c, w)
+
+    # ca_t = sum_{u<=t} log a_u within the chunk; m = 16 for c >= 16
+    # (the reference's own call resolves to the same tile).
+    ca = tc_scan(la, axis=2, chain=1, m=min(DEFAULT_M, max(c, 8)))
+    diff = ca[:, :, :, None, :] - ca[:, :, None, :, :]
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=la.device))
+    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                  _LOG_FLOOR))
+    h_local = torch.einsum("bntsw,bnsw->bntw", l_mat, bf)
+
+    # Chunk-boundary carries: h_in_{k+1} = D_k h_in_k + local_last_k.
+    decay = torch.exp(ca[:, :, -1, :])                # (B, nc, W)
+    last = h_local[:, :, -1, :]                       # (B, nc, W)
+    h = h0.to(ACCUM_DTYPE)
+    incoming = []
+    for k in range(nc):
+        incoming.append(h)
+        h = decay[:, k] * h + last[:, k]
+    h_in = torch.stack(incoming, dim=1)               # (B, nc, W)
+
+    # Each step adds its decayed view of the chunk's incoming state.
+    out = h_local + torch.exp(ca) * h_in[:, :, None, :]
+    return out.reshape(bsz, nc * c, w)[:, :s, :], h
+
+
+# Bytes of the f32 one-hot mask one step of tc_segment_reduce builds.
+# On the card the mask is a tensor in device memory that a Python loop
+# streams: each step writes it (and its bool compare) and reads it back
+# for the contraction, about 9 bytes per entry, so a 256 MiB mask keeps
+# a step near 0.7 ms at 3.35 TB/s, far above the few tens of us of host
+# time each step's five launches cost, while n = 2^28 at S = 128 takes
+# 512 steps.  A smaller mask would make the loop's host time show; a
+# larger one only holds more memory.  (The reference's 32 MiB was the
+# TPU's VMEM-sized tile.)
+_MASK_BUDGET = 256 * 2**20
+
+
+def tc_segment_reduce(values, segment_ids, num_segments: int, *,
+                      m: int = DEFAULT_M) -> torch.Tensor:
+    """Segmented sum as MMAs against the one-hot segment matrix:
+    ``out[s]`` = the sum of the values whose id is ``s``.  Returns
+    (num_segments,) f32; empty segments are 0, and an id outside
+    [0, num_segments), -1 included, matches no column.
+
+    The one-hot E (E[i, s] = 1 iff segment_ids[i] == s) generalises the
+    paper's all-ones matrix; for sorted ids it is block diagonal, and
+    ``values^T x E`` is the ones-MMA of each block.  The mask is built
+    in blocks of at most ``_MASK_BUDGET`` bytes, each contracted by
+    ``core.reduction._mm`` (16-bit operands accumulate in f32, f32 runs
+    in full f32 with TF32 off, so the contraction keeps every bit of the
+    values).  Integer values are cast to f32.  ``m`` is accepted for the
+    reference's signature; the contraction has no tile.
+    """
+    s = int(num_segments)
+    flat = values.reshape(-1)
+    if not flat.is_floating_point():
+        flat = flat.to(ACCUM_DTYPE)
+    ids = torch.as_tensor(segment_ids, device=flat.device).reshape(-1)
+    n = flat.shape[0]
+    if n == 0 or s == 0:
+        return torch.zeros(s, dtype=ACCUM_DTYPE, device=flat.device)
+    block = min(n, max(1, (_MASK_BUDGET // 4) // s))
+    seg_iota = torch.arange(s, dtype=ids.dtype, device=flat.device)
+    out = torch.zeros(s, dtype=ACCUM_DTYPE, device=flat.device)
+    for start in range(0, n, block):
+        v = flat[start:start + block]
+        mask = (ids[start:start + block, None] == seg_iota[None, :]) \
+            .to(v.dtype)
+        out = out + _mm(v[None, :], mask)[0]
+    return out

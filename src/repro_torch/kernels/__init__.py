@@ -3,8 +3,8 @@
 ``csrc/`` holds the CUDA sources, ``_build`` compiles and loads them,
 each kernel module pairs a kernel's wrapper with its plain PyTorch
 version and a launch counter (B1-B3 in ``mma_reduce``, B4-B5 in
-``mma_compensated``, B6 in ``mma_scan``), ``ops`` exposes the public
-API and ``ref`` the plain oracles.
+``mma_compensated``, B6 in ``mma_scan``, B7 in ``mma_segment``),
+``ops`` exposes the public API and ``ref`` the plain oracles.
 """
 
 from repro_torch.kernels.ops import (  # noqa: F401
@@ -16,5 +16,6 @@ from repro_torch.kernels.ops import (  # noqa: F401
     mma_reduce,
     mma_reduce_partials,
     mma_scan,
+    mma_segment_sum,
     mma_squared_sum,
 )

@@ -1,5 +1,6 @@
-"""Public wrappers for the reduction kernels (B1-B5) and the prefix-scan
-kernel B6 — the counterpart of those halves of ``repro.kernels.ops``.
+"""Public wrappers for the reduction kernels (B1-B5), the prefix-scan
+kernel B6 and the segmented-sum kernel B7 — the counterpart of those
+parts of ``repro.kernels.ops``.
 
 They flatten, resolve ``'auto'`` geometry and pick the variant.  Where
 the reference chose interpret mode off the TPU, the port chooses by the
@@ -18,6 +19,7 @@ import torch
 from repro_torch.kernels import mma_compensated as _mc
 from repro_torch.kernels import mma_reduce as _mr
 from repro_torch.kernels import mma_scan as _ms
+from repro_torch.kernels import mma_segment as _mseg
 
 M = _mr.M
 
@@ -216,3 +218,45 @@ def mma_scan(x, *, inclusive: bool = True, chain=4, block_rows=128,
         out = _ms.scan_plain(flat, chain=chain, block_rows=block_rows,
                              inclusive=inclusive)
     return out.reshape(x.shape)
+
+
+def _ids_for_kernel(ids, num_segments: int):
+    """B7's ids: int32, contiguous, 16-byte aligned.  int32 ids are read
+    as given; wider ones are clamped to [-1, S] and cast in one pass, so
+    an id past int32 cannot wrap into a segment."""
+    if ids.dtype != torch.int32:
+        ids = ids.clamp(-1, num_segments).to(torch.int32)
+    if not ids.is_contiguous() or ids.data_ptr() % 16:
+        ids = ids.contiguous().clone()
+    return ids
+
+
+def mma_segment_sum(values, segment_ids, num_segments: int, *,
+                    block_rows=128, m: int = M) -> torch.Tensor:
+    """Segmented sum via MMAs against the one-hot segment matrix (kernel
+    B7).  ``values`` and ``segment_ids`` are flattened together; returns
+    (num_segments,) f32 on values' device.  Empty segments are 0 and an
+    id outside [0, num_segments), -1 included, adds nothing.
+
+    ``block_rows`` (rows of 16 elements a block takes per step; one warp
+    per 16 rows) accepts 'auto' (plan registry, op ``'segment_sum'``).
+    No segment count clamps it: the per-block accumulator holds
+    ``kernels.mma_segment.pass_segments`` segments (227 KB of shared
+    memory per block), and more segments run in passes.  Integer and
+    other float values are cast to f32.
+    """
+    _, block_rows = _resolve_auto(values, 1, block_rows, op="segment_sum")
+    s = int(num_segments)
+    flat = _flat(values, m)
+    ids = torch.as_tensor(segment_ids, device=flat.device).reshape(-1)
+    if ids.numel() != flat.numel():
+        raise ValueError(f"{ids.numel()} ids for {flat.numel()} values")
+    if flat.is_cuda:
+        return _mseg.segment_cuda(flat, _ids_for_kernel(ids, s), s,
+                                  block_rows=block_rows)
+    if not _mr.block_rows_ok(block_rows):
+        raise ValueError(f"block_rows={block_rows} is not a multiple of "
+                         f"{M} in [{M}, {_mr.MAX_BLOCK_ROWS}]")
+    return _mseg.segment_plain(
+        flat, ids, s, block_rows=block_rows,
+        blocks=_mseg.grid_blocks(flat.numel(), block_rows, flat.device))

@@ -1,5 +1,5 @@
-"""Plain-PyTorch oracles for the reduction and prefix-scan kernels — the
-counterpart of ``repro.kernels.ref`` for those kernels.
+"""Plain-PyTorch oracles for the reduction, prefix-scan and segmented-sum
+kernels — the counterpart of ``repro.kernels.ref`` for those kernels.
 
 Each oracle states the *semantics* a kernel must have (including the
 f32 accumulation), not its implementation.
@@ -73,3 +73,13 @@ def scan_ref(x, *, inclusive: bool = True) -> torch.Tensor:
     if not inclusive:
         flat = torch.nn.functional.pad(flat[:-1], (1, 0))
     return flat.reshape(x.shape)
+
+
+def segment_sum_ref(values, segment_ids, num_segments: int) -> torch.Tensor:
+    """f32 segmented sum (empty segments are 0); an id outside
+    [0, num_segments) is dropped, as ``jax.ops.segment_sum`` drops it."""
+    v = values.reshape(-1).to(ACCUM_DTYPE)
+    ids = torch.as_tensor(segment_ids, device=v.device).reshape(-1)
+    keep = (ids >= 0) & (ids < num_segments)
+    out = torch.zeros(int(num_segments), dtype=ACCUM_DTYPE, device=v.device)
+    return out.index_add_(0, ids[keep].to(torch.int64), v[keep])

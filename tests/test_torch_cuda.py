@@ -1,4 +1,4 @@
-"""The port on the card: kernels B1-B6 against their plain PyTorch
+"""The port on the card: kernels B1-B7 against their plain PyTorch
 versions, the wrappers' checks and launch counters, and the entry
 points' device rule.  Every test here needs an NVIDIA card (and nvcc to
 build the kernels) and skips without one; this file imports nothing of
@@ -16,6 +16,10 @@ its plain version to 2^-21 of sum|x| and the double-double B5 to 2^-40
 (the bounds ``chip_smoke.py`` states and justifies).  The scan kernel
 B6 agrees with its plain version to 2^-16 of the running sum|x| at
 every position, and on counting inputs with the exact int64 prefix.
+The segmented-sum kernel B7 agrees with its plain version to 2^-20 of
+each segment's sum|x| (both sum the same exact bf16 words, in another
+order), on counting inputs with the exact count, and with itself bit
+for bit.
 """
 
 import importlib
@@ -30,6 +34,7 @@ from repro_torch.kernels import ops
 
 mr = importlib.import_module("repro_torch.kernels.mma_reduce")
 ms = importlib.import_module("repro_torch.kernels.mma_scan")
+sg = importlib.import_module("repro_torch.kernels.mma_segment")
 
 M = 16
 RTOL = 2.0 ** -16
@@ -340,3 +345,142 @@ def test_scan_entry_points_run_on_the_card(cuda):
     rows = integration.cumsum(torch.from_numpy(x).cuda().reshape(64, -1),
                               axis=0, method="mma")
     assert rows.shape == (64, (1 << 18) // 64)
+
+
+SEG_RTOL = 2.0 ** -20
+
+
+def _seg_ids(n: int, s: int, gen, sort: bool = False) -> torch.Tensor:
+    """int32 ids in [0, s), about 1 in 16 of them -1 or past s."""
+    ids = torch.randint(0, s, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    if sort:
+        ids = torch.sort(ids).values
+    stray = torch.rand(n, device="cuda", generator=gen) < 1 / 16
+    bad = torch.tensor([-1, s, s + 3, 1 << 30], device="cuda",
+                       dtype=torch.int32)
+    pick = torch.randint(0, 4, (n,), device="cuda", generator=gen)
+    return torch.where(stray, bad[pick], ids)
+
+
+def _seg_scale(x, ids, s: int) -> torch.Tensor:
+    keep = (ids >= 0) & (ids < s)
+    return torch.zeros(s, dtype=torch.float64, device="cuda").index_add_(
+        0, ids[keep].long(), x[keep].double().abs())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 13])
+def test_segment_kernel_matches_plain_on_card(cuda, dtype, n):
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    for s in (1, 19, 128, 4096):
+        for sort in (False, True):
+            ids = _seg_ids(n, s, gen, sort)
+            scale = _seg_scale(x, ids, s)
+            for block_rows in (16, 128, 512):
+                got = sg.segment_cuda(x, ids, s, block_rows=block_rows)
+                want = sg.segment_plain(
+                    x, ids, s, block_rows=block_rows,
+                    blocks=sg.grid_blocks(n, block_rows, "cuda"))
+                assert got.shape == want.shape == (s,)
+                assert got.dtype == torch.float32
+                diff = (got.double() - want.double()).abs()
+                assert bool(torch.all(diff <= SEG_RTOL * scale)), \
+                    (s, sort, block_rows, float(diff.max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_segment_kernel_counts_exactly_with_a_ragged_tail(cuda, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for n in (13, 4096 + 13, (1 << 16) + 13):
+        buf = torch.ones(n + 64, device="cuda", dtype=dtype)
+        buf[:n] = (torch.rand(n, device="cuda", generator=gen)
+                   < 0.25).to(dtype)
+        buf[n - 13:n] = 1
+        x = buf[:n]
+        for s in (19, 128, 4096):
+            ids = _seg_ids(n, s, gen)
+            keep = (ids >= 0) & (ids < s)
+            exact = torch.zeros(s, dtype=torch.int64, device="cuda") \
+                .index_add_(0, ids[keep].long(), x[keep].long())
+            got = sg.segment_cuda(x, ids, s, block_rows=128)
+            plain = sg.segment_plain(x, ids, s, block_rows=128,
+                                     blocks=sg.grid_blocks(n, 128, "cuda"))
+            assert torch.equal(got, plain), (n, s)
+            assert torch.equal(got.long(), exact), (n, s)
+
+
+def test_segment_kernel_runs_passes_and_repeats_its_bits(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = (1 << 20) + 5
+    x = torch.rand(n, device="cuda", generator=gen)
+    lib = sg._lib()
+    for dt in (torch.float32, torch.bfloat16):
+        for block_rows in (16, 128, 512):
+            per = sg.pass_segments(dt, block_rows)
+            assert per == lib.b7_pass_segments(
+                {torch.float32: 0, torch.bfloat16: 1}[dt], block_rows)
+    # One segment past a pass: the last one comes from a second pass.
+    s = sg.pass_segments(torch.float32, 512) + 1
+    ids = _seg_ids(n, s, gen, sort=True)
+    got = sg.segment_cuda(x, ids, s, block_rows=512)
+    want = sg.segment_plain(x, ids, s, block_rows=512,
+                            blocks=sg.grid_blocks(n, 512, "cuda"))
+    diff = (got.double() - want.double()).abs()
+    assert bool(torch.all(diff <= SEG_RTOL * _seg_scale(x, ids, s)))
+    assert float(got[-1]) > 0
+    ids = _seg_ids(n, 128, gen)
+    first = sg.segment_cuda(x, ids, 128, block_rows=128)
+    for _ in range(3):
+        assert torch.equal(sg.segment_cuda(x, ids, 128, block_rows=128),
+                           first)
+
+
+def test_segment_wrapper_counts_launches_and_raises(cuda):
+    x = torch.ones(1 << 20, device="cuda")
+    ids = torch.arange(1 << 20, device="cuda") % 7
+    sg.reset_launches()
+    got = ops.mma_segment_sum(x, ids, 5)
+    assert got.tolist() == [float(((1 << 20) + 6 - k) // 7)
+                            for k in range(5)]
+    assert sg.LAUNCHES == {"b7_segment_sum": 1}
+    i32 = ids.to(torch.int32)
+    with pytest.raises(ValueError, match="block_rows"):
+        sg.segment_cuda(x, i32, 5, block_rows=24)
+    with pytest.raises(ValueError, match="dtype"):
+        sg.segment_cuda(x.double(), i32, 5, block_rows=128)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sg.segment_cuda(x.cpu(), i32.cpu(), 5, block_rows=128)
+    with pytest.raises(ValueError, match="int32"):
+        sg.segment_cuda(x, ids, 5, block_rows=128)
+    # A launch the card refuses (an empty grid) raises; nothing counts.
+    with pytest.raises(RuntimeError, match="b7_segment_sum launch failed"):
+        sg.segment_cuda(x, i32, 5, block_rows=128, blocks=0)
+    assert sg.LAUNCHES == {"b7_segment_sum": 1}
+    # int64 ids past int32 are clamped before the cast, never wrapped.
+    far = torch.full((1 << 20,), (1 << 32) + 2, device="cuda")
+    assert float(ops.mma_segment_sum(x, far, 5).sum()) == 0.0
+    # Views off the 16-byte grid are copied before the launch.
+    got = ops.mma_segment_sum(x[1:], ids[1:], 5)
+    assert float(got.sum()) == float((1 << 20) - 1 - (ids[1:] >= 5).sum())
+
+
+def test_segment_entry_points_run_on_the_card(cuda):
+    rng = np.random.default_rng(4)
+    n, s = 1 << 18, 37
+    x = rng.normal(size=n).astype(np.float32)
+    ids = rng.integers(-1, s + 1, n)
+    keep = (ids >= 0) & (ids < s)
+    want, scale = np.zeros(s), np.zeros(s)
+    np.add.at(want, ids[keep], x[keep].astype(np.float64))
+    np.add.at(scale, ids[keep], np.abs(x[keep]).astype(np.float64))
+    sg.reset_launches()
+    for method in ("auto", "mma", "mma_chained", "pallas", "vpu"):
+        got = integration.segment_sum(x, ids, s, method=method)
+        assert got.is_cuda and got.dtype == torch.float32
+        assert got.shape == (s,)
+        assert np.all(np.abs(got.cpu().numpy() - want) <= 1e-5 * scale)
+    assert sg.LAUNCHES["b7_segment_sum"] >= 1

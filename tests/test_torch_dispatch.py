@@ -31,7 +31,7 @@ import check_error_budget as gates  # noqa: E402
 
 N = 4_097
 PORT_OPS = ("expert_counts", "masked_cumsum", "masked_mean", "reduce_sum",
-            "scan", "squared_sum")
+            "scan", "segment_sum", "squared_sum")
 DD_ENGINES = ("mma_dd", "pallas_dd")
 
 
@@ -60,6 +60,11 @@ def _op_inputs(op: str, dtype: str = "float32", seed: int = 0):
     tx = torch.from_numpy(x.copy()).to(tdt)
     jkw = {k: jnp.asarray(v).astype(jdt) for k, v in kw.items()}
     tkw = {k: torch.from_numpy(v.copy()).to(tdt) for k, v in kw.items()}
+    if op == "segment_sum":
+        # Integer ids (-1 and one past the end add nothing) and a count.
+        ids = rng.integers(-1, 38, N).astype(np.int32)
+        jkw = {"segment_ids": jnp.asarray(ids), "num_segments": 37}
+        tkw = {"segment_ids": torch.from_numpy(ids), "num_segments": 37}
     return (jx, jkw), (tx, tkw)
 
 

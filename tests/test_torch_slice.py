@@ -191,7 +191,7 @@ def test_the_package_exports_this_slice():
             and callable(getattr(tk, n))} \
         == {"mma_reduce", "mma_reduce_partials", "mma_squared_sum",
             "mma_ec_reduce", "mma_ec_squared_sum", "mma_dd_reduce",
-            "mma_dd_squared_sum", "mma_scan"}
+            "mma_dd_squared_sum", "mma_scan", "mma_segment_sum"}
     for name in ("tc_reduce", "tc_contract", "tc_reduce_axes",
                  "tc_reduce_lastdim", "tc_reduce_rows", "tc_reduce_ec",
                  "tc_reduce_dd", "tc_scan", "tc_scan_ec", "tc_cumprod",
@@ -200,8 +200,10 @@ def test_the_package_exports_this_slice():
                  "MmaPolicy", "ACCUM_DTYPE", "dispatch", "theory",
                  "precision"):
         assert hasattr(core, name), name
-    # The segmented half of the scan family is the next slice.
-    assert not hasattr(core, "tc_segment_reduce")
+    # The segmented half of the scan family, ported with kernel B7.
+    for name in ("tc_segment_reduce", "tc_linear_recurrence",
+                 "segment_sum"):
+        assert callable(getattr(core, name)), name
 
 
 def test_smoke_script_refuses_without_a_card():
