@@ -99,8 +99,40 @@ contraction) and ``vpu`` (``index_add_``).  Its phases:
       event timings); the cost model's two segment constants refitted
       from the f32 random case.
 
+The norm path (kernel B8; CUDA C++ in ``csrc/mma_rmsnorm.cu``):
+``repro_torch.models.layers.rmsnorm`` / ``norm_matmul`` ->
+``core.dispatch`` op ``norm_matmul`` -> the engines ``fused_pallas``
+(B8, the norm-only form), ``unfused_mma`` and ``vpu``.  Its phases:
+
+  2e. B8 against ``rmsnorm_plain`` on the card, rows in {1, 17, 64, 4099}
+      and d in {40, 256, 2304, 4096, 7168}, f32 and bf16, weight_offset 0
+      and 1, on values of magnitude [0.5, 1] with random signs: f32
+      within 2^-20 relative plus 2^-24, bf16 within one ulp, two calls
+      the same bits;
+  3g. ``layers.rmsnorm`` through fused_pallas, unfused_mma, mma, vpu and
+      auto, and the norm-only ``layers.norm_matmul`` through each of its
+      engines and auto, at 65536 x 2304 (Gemma-2 2B prefill) and
+      16384 x 7168 (DeepSeek-V3's width), f32 and bf16: Frobenius %
+      error against the f64 oracle within the reference's NM_GATES
+      (bf16 plus 100 * 2^-8 %); B8's counter must move; at the Gemma
+      shape norm_matmul's auto plan runs within 1.25x of its fastest
+      engine;
+  3h. ``norm_matmul`` with w given (``layers.norm_matmul`` with a gelu
+      gate and ``layers.fused_mlp``) at Gemma-2 2B's MLP width in f32
+      and bf16, and on the reference's own problem, through
+      unfused_mma, vpu and auto, within NM_GATES (bf16 plus the unit
+      roundoff per rounding to bf16 on the path); auto within 1.25x of
+      the fastest engine in each dtype; fused_pallas refuses w, naming
+      B10; unfused_mma equals the two-op path bit for bit;
+  5e. B8 timed at 65536 x 2304, 16384 x 7168 and 64 x 2304 (f32, bf16)
+      beside its bound, ``rmsnorm_plain`` and ``F.rms_norm``;
+  6b. ``cumsum``'s engines and the plan ``auto`` resolves to, timed at
+      2^20, 2^24 and 2^28 in f32 and bf16: the pick within 1.25x of the
+      fastest; the model's host time per scan call refitted at 2^12;
+      B6's R x B grid timed in bf16 at 2^24, 2^26 and 2^28 (printed).
+
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
-(B1-B7), and last ``{"ok": true, "device": {...}}``.  Details go to
+(B1-B8), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -116,6 +148,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -263,6 +296,55 @@ SEG_CONFIGS = (("random", 128), ("sorted", 256))
 # Tensor-core flops per one-hot entry an MMA covers: m16n8k16 is 4096
 # flops per 16 segments x 16 elements.
 B7_TC_FLOPS_PER_ENTRY = 16
+
+# The norm path (phases 2e, 3g, 3h, 5e).  B8 against rmsnorm_plain:
+# |kernel - plain| <= 2^-20 * |plain| + 2^-24 per f32 output.  Both sum
+# the same exact bf16 words of the f32 squares, in another order inside
+# an MMA (a few roundings of 2^-24 of the row's sum), and rsqrtf is
+# within 2 ulp of torch.rsqrt's; x * rstd * w then adds at most ~2^-22
+# relative.  bf16 outputs: within one bf16 ulp (a rounding boundary may
+# fall between the two).
+B8_RTOL, B8_ATOL = 2.0 ** -20, 2.0 ** -24
+B8_ROWS = (1, 17, 64, 4099)
+B8_DS = (40, 256, 2304, 4096, 7168)
+# Full-width shapes: Gemma-2 2B prefill, 16 x 4096 tokens at d = 2304
+# (src/repro/configs/gemma2_2b.py:13), DeepSeek-V3's width 7168
+# (src/repro/configs/deepseek_v3_671b.py:18) at 16384 tokens, and a
+# decode step of 64 slots (timed only, phase 5e).
+NORM_SHAPES = ((65536, 2304), (16384, 7168))
+B8_TIMED_SHAPES = NORM_SHAPES + ((64, 2304),)
+NORM_METHODS = ("fused_pallas", "unfused_mma", "mma", "vpu", "auto")
+NM_ENGINES = ("fused_pallas", "unfused_mma", "vpu")
+# scripts/check_error_budget.py NM_GATES (copied): Frobenius % error
+# against the f64 oracle; the reduce engine 'mma' that rmsnorm's
+# statistic runs on is held to the plain-MMA tier as unfused_mma.
+NM_CEILINGS = {"fused_pallas": 5e-3, "unfused_mma": 5e-3, "mma": 5e-3,
+               "vpu": 5e-4}
+NM_EPS = 1e-6
+# Phase 3h: Gemma-2 2B's MLP (d 2304, d_ff 9216, gemma2_2b.py:17) at 4096
+# tokens, and the reference's own problem (nm_problem, copied from
+# scripts/check_error_budget.py:115-145).
+NM_MLP_SHAPE = (4096, 2304, 9216)
+NM_METHODS = ("unfused_mma", "vpu", "auto")
+# Roundings to bf16 along each bf16 path of phase 3h, each up to the
+# unit roundoff: unfused_mma rounds the normalized rows, both
+# projections, the activation and the product (5), vpu only its output
+# (1); fused_mlp's down projection in bf16 adds one to each.
+NM_BF16_ROUNDINGS = {("norm_matmul", "unfused_mma"): 5,
+                     ("norm_matmul", "vpu"): 1,
+                     ("fused_mlp", "unfused_mma"): 6,
+                     ("fused_mlp", "vpu"): 2}
+NM_SEEDS = (0, 1)
+NM_ROWS, NM_D, NM_DOUT = 64, 256, 128
+
+# Phase 6b: the scan family's pick, at these sizes, in f32 and bf16.
+SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
+SCAN_HOST_N = 1 << 12
+SCAN_ITERS = {1 << 12: 50, 1 << 20: 50, 1 << 24: 10, 1 << 26: 5,
+              1 << 28: 3}
+# ... and B6's whole R x B grid in bf16 at these sizes, where the card
+# rather than the host bounds a scan.
+SCAN_GRID_SIZES = (1 << 24, 1 << 26, 1 << 28)
 
 # Phase 6: sizes, repeats and the slack the model's pick may take.
 SWEEP_SIZES = (1 << 20, 1 << 24, 1 << 28)
@@ -1066,6 +1148,295 @@ def run_integrate_example() -> list:
     return rows
 
 
+# ------------------------------------------ phase 2e: B8 kernel checks
+
+
+def signed_input(rows: int, d: int, dt: torch.dtype,
+                 gen: torch.Generator) -> torch.Tensor:
+    """Values of magnitude in [0.5, 1] with random signs: every square is
+    at least a quarter of the largest, so a lost or repeated column
+    moves a row's mean of squares by at least 2^-15 of it at d = 7168."""
+    mag = 0.5 + 0.5 * torch.rand(rows, d, device="cuda", generator=gen)
+    sign = torch.randint(0, 2, (rows, d), device="cuda", generator=gen)
+    return (mag * (2 * sign - 1)).to(dt)
+
+
+def rmsnorm_diff(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |got - want|, whether every element is within B8's tolerance
+    of its plain version)."""
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    if want.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30)))
+                         - 7)
+        ok = bool(torch.all(diff <= ulp))
+    else:
+        ok = bool(torch.all(diff <= B8_RTOL * w.abs() + B8_ATOL))
+    return float(diff.max()), ok
+
+
+def check_rmsnorm_kernel(mrn, gen) -> dict:
+    """B8 against rmsnorm_plain on the same card inputs, every shape of
+    B8_ROWS x B8_DS, f32 and bf16, weight_offset 0 and 1; two calls give
+    the same bits."""
+    worst_abs, rows_out = 0.0, []
+    for rows in B8_ROWS:
+        for d in B8_DS:
+            for dt in (torch.float32, torch.bfloat16):
+                x = signed_input(rows, d, dt, gen)
+                w = 0.1 * torch.randn(d, device="cuda", generator=gen)
+                for offset in (0.0, 1.0):
+                    got = mrn.rmsnorm_cuda(x, w, weight_offset=offset)
+                    again = mrn.rmsnorm_cuda(x, w, weight_offset=offset)
+                    want = mrn.rmsnorm_plain(x, w, weight_offset=offset)
+                    check(got.shape == x.shape and got.dtype == dt,
+                          f"B8 result {tuple(got.shape)} {got.dtype}")
+                    diff, ok = rmsnorm_diff(got, want)
+                    worst_abs = max(worst_abs, diff)
+                    rows_out.append(("b8_rmsnorm", rows, d, name(dt), offset,
+                                     diff))
+                    check(ok, f"B8 rows={rows} d={d} {name(dt)} offset="
+                              f"{offset}: |kernel - plain| {diff:.3g} over "
+                              f"its tolerance")
+                    check(torch.equal(got, again),
+                          f"B8 rows={rows} d={d} {name(dt)}: two calls "
+                          f"differ")
+    torch.cuda.synchronize()
+    print(f"phase 2e: {len(rows_out)} B8-vs-plain checks passed, worst "
+          f"|diff| {worst_abs:.3g} (f32 within 2^-20 relative + 2^-24, bf16 "
+          f"within one ulp; two calls the same bits)", flush=True)
+    return {"worst_abs": worst_abs, "rows": rows_out}
+
+
+# ------------------------------------ phase 3g / 3h: the norm path
+
+
+def frob_pct(got: torch.Tensor, want64: torch.Tensor) -> float:
+    return 100.0 * float(torch.linalg.vector_norm(got.double() - want64)
+                         / torch.linalg.vector_norm(want64))
+
+
+def norm_oracle(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """nm_oracle's form with no w: the f64 norm of the cast input."""
+    x64 = x.double()
+    ms = torch.mean(x64 * x64, dim=-1, keepdim=True)
+    return x64 / torch.sqrt(ms + NM_EPS) * (1.0 + scale.double())
+
+
+def nm_ceiling(engine: str, dt: torch.dtype, roundings: int = 1) -> float:
+    """NM_GATES' ceiling for the engine; a bf16 path adds the unit
+    roundoff, 100 * 2^-8 %, for each of its ``roundings`` to bf16."""
+    ceiling = NM_CEILINGS[engine]
+    return ceiling + (roundings * 100.0 * 2.0 ** -8
+                      if dt == torch.bfloat16 else 0.0)
+
+
+def norm_calls(layers, params, x) -> dict:
+    """label -> call: layers.rmsnorm under every spelling (its own
+    routes) and the norm-only norm_matmul under each engine and auto."""
+    calls = {f"rmsnorm:{m}": (lambda m=m: layers.rmsnorm(params, x,
+                                                         method=m))
+             for m in NORM_METHODS}
+    calls.update({f"norm_matmul:{m}": (lambda m=m: layers.norm_matmul(
+        params, x, None, method=m)) for m in NM_ENGINES + ("auto",)})
+    return calls
+
+
+def norm_engine(label: str, x, params, autotune, dispatch) -> str:
+    """The engine a label runs: its spelling, or the plan auto takes."""
+    route, method = label.split(":")
+    if method != "auto":
+        return method
+    if route == "rmsnorm":
+        return autotune.get_plan(x.numel(), torch.float32, op="reduce_sum",
+                                 engine=("mma", "vpu"),
+                                 backend="cuda").method
+    return dispatch.auto_plan("norm_matmul", x, w=None,
+                              scale=params["scale"]).method
+
+
+def run_norm_path(layers, param, dispatch, autotune, gen) -> tuple:
+    """layers.rmsnorm through every spelling, and the norm-only
+    norm_matmul through each engine and auto, at full width; Frobenius %
+    error against the f64 oracle, held to NM_GATES; at the Gemma shape
+    norm_matmul's auto plan against its fastest engine."""
+    rows_out, picks = [], []
+    rng = np.random.default_rng(SEED)
+    for rows, d in NORM_SHAPES:
+        scale_np = (0.1 * rng.standard_normal(d)).astype(np.float32)
+        params = param.from_numpy({"scale": scale_np}, device="cuda")
+        base = torch.randn(rows, d, device="cuda", generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            x = base if dt == torch.float32 else base.to(dt)
+            want = norm_oracle(x, params["scale"])
+            times = {}
+            for label, fn in norm_calls(layers, params, x).items():
+                torch.cuda.synchronize()
+                out = fn()
+                torch.cuda.synchronize()
+                check(out.shape == x.shape and out.dtype == dt
+                      and bool(torch.all(torch.isfinite(out))),
+                      f"{label}: {out.dtype} {tuple(out.shape)}")
+                err = frob_pct(out, want)
+                engine = norm_engine(label, x, params, autotune, dispatch)
+                ceiling = nm_ceiling(engine, dt)
+                del out
+                times[label] = median_ms(fn, reps=5, warmup=1)
+                rows_out.append({"rows": rows, "d": d, "dtype": name(dt),
+                                 "method": label, "engine": engine,
+                                 "frob_pct_err": err, "ceiling_pct": ceiling,
+                                 "ms": times[label]})
+                print(f"  {rows}x{d} {name(dt):8s} {label:24s} "
+                      f"engine={engine:12s} err={err:.3e}% (ceiling "
+                      f"{ceiling:.3g}%) {times[label]:.4f} ms", flush=True)
+                check(err <= ceiling, f"{rows}x{d} {dt} {label}: "
+                                      f"{err:.3e}% > {ceiling:.3g}%")
+            if (rows, d) == NORM_SHAPES[0]:
+                picks.append(check_pick(
+                    f"{rows}x{d} {name(dt)} norm_matmul (w=None)",
+                    {m: times[f"norm_matmul:{m}"] for m in NM_ENGINES},
+                    times["norm_matmul:auto"]))
+                picks[-1].update(rows=rows, d=d, dtype=name(dt))
+            del x, want
+        del base
+    return rows_out, picks
+
+
+def check_pick(what: str, engines: dict, auto_ms: float) -> dict:
+    """auto's time within PICK_SLACK of the fastest engine's."""
+    best = min(engines, key=engines.get)
+    ratio = auto_ms / engines[best]
+    print(f"  {what}: auto {auto_ms:.4f} ms; fastest engine {best} "
+          f"{engines[best]:.4f} ms; ratio {ratio:.3f}", flush=True)
+    check(ratio <= PICK_SLACK, f"{what}: auto runs {ratio:.2f}x the "
+                               f"fastest engine (> {PICK_SLACK})")
+    return {"auto_ms": auto_ms, "engine_ms": engines, "best": best,
+            "best_ms": engines[best], "ratio": ratio}
+
+
+def gelu_gate_oracle(x, scale, w_up, w_gate) -> torch.Tensor:
+    """act(xh @ w_gate) * (xh @ w_up) in f64, gelu's tanh form."""
+    xh = norm_oracle(x, scale)
+    g = xh @ w_gate.double()
+    return torch.nn.functional.gelu(g, approximate="tanh") \
+        * (xh @ w_up.double())
+
+
+def nm_two_op(dispatch, autotune, x, s, w) -> torch.Tensor:
+    """The port's two-op path, written as nm_two_op writes it
+    (scripts/check_error_budget.py): the statistic on the 'mma' reduce
+    engine, then the matmul in the input dtype."""
+    ms = dispatch.execute("reduce_sum", x * x,
+                          autotune.ReductionPlan(method="mma"),
+                          axis=(1,))[..., None] / x.shape[-1]
+    rstd = torch.rsqrt(ms + NM_EPS)
+    return (x * rstd * (1.0 + s)).to(torch.float32) @ w
+
+
+def run_norm_matmul_path(layers, param, dispatch, autotune, gen) -> tuple:
+    """norm_matmul with w given at Gemma-2 2B's MLP width in f32 and
+    bf16, and the reference's own problem, through unfused_mma, vpu and
+    auto, against f64 oracles of the cast inputs within NM_GATES (bf16:
+    plus a unit roundoff per rounding to bf16, NM_BF16_ROUNDINGS); at
+    the MLP width norm_matmul's auto plan against its fastest engine;
+    fused_pallas refuses w (kernel B10); unfused_mma equals the two-op
+    path bit for bit."""
+    rows_out, picks = [], []
+    rng = np.random.default_rng(SEED + 1)
+    rows, d, dff = NM_MLP_SHAPE
+    params = param.from_numpy(
+        {"scale": (0.1 * rng.standard_normal(d)).astype(np.float32)},
+        device="cuda")
+    x32 = torch.randn(rows, d, device="cuda", generator=gen)
+    mlp32 = {k: torch.randn(*shape, device="cuda", generator=gen)
+             / math.sqrt(shape[0]) for k, shape in
+             (("wi_up", (d, dff)), ("wi_gate", (d, dff)), ("wo", (dff, d)))}
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        mlp = {k: v.to(dt) for k, v in mlp32.items()}
+        kw = dict(w_gate=mlp["wi_gate"], act="gelu")
+        want = gelu_gate_oracle(x, params["scale"], mlp["wi_up"],
+                                mlp["wi_gate"])
+        want_mlp = want @ mlp["wo"].double()
+        times = {}
+        for method in NM_METHODS:
+            engine = method if method != "auto" else dispatch.auto_plan(
+                "norm_matmul", x, w=mlp["wi_up"], scale=params["scale"],
+                **kw).method
+            for label, fn, ref in (
+                    ("norm_matmul", lambda: layers.norm_matmul(
+                        params, x, mlp["wi_up"], method=method, **kw), want),
+                    ("fused_mlp", lambda: layers.fused_mlp(
+                        params, mlp, x, act="gelu", method=method),
+                     want_mlp)):
+                ceiling = nm_ceiling(engine, dt,
+                                     NM_BF16_ROUNDINGS[(label, engine)])
+                torch.cuda.synchronize()
+                out = fn()
+                torch.cuda.synchronize()
+                err = frob_pct(out, ref)
+                del out
+                ms = median_ms(fn, reps=5, warmup=1)
+                if label == "norm_matmul":
+                    times[method] = ms
+                rows_out.append({"problem": f"{rows}x{d}x{dff}",
+                                 "dtype": name(dt), "op": label,
+                                 "method": method, "engine": engine,
+                                 "frob_pct_err": err,
+                                 "ceiling_pct": ceiling, "ms": ms})
+                print(f"  {rows}x{d}x{dff} {name(dt):8s} {label:11s} "
+                      f"{method:11s} engine={engine:11s} err={err:.3e}% "
+                      f"(ceiling {ceiling:.3g}%) {ms:.4f} ms", flush=True)
+                check(math.isfinite(err) and err <= ceiling,
+                      f"{label}/{method} {dt}: {err:.3e}% > {ceiling:.3g}%")
+        picks.append(check_pick(
+            f"{rows}x{d}x{dff} {name(dt)} norm_matmul (w, gelu gate)",
+            {m: times[m] for m in NM_METHODS if m != "auto"},
+            times["auto"]))
+        picks[-1].update(problem=f"{rows}x{d}x{dff}", dtype=name(dt))
+        try:
+            dispatch.dispatch("norm_matmul", x, method="fused_pallas",
+                              w=mlp["wi_up"], scale=params["scale"])
+            check(False, "fused_pallas accepted w given")
+        except ValueError as err:
+            check("B10" in str(err), f"fused_pallas refused w without "
+                                     f"naming B10: {err}")
+        del x, mlp, want, want_mlp
+    del x32, mlp32
+    for seed in NM_SEEDS:
+        prng = np.random.default_rng(seed)
+        x32 = prng.standard_normal((NM_ROWS, NM_D)).astype(np.float32)
+        s32 = (0.1 * prng.standard_normal(NM_D)).astype(np.float32)
+        w32 = (prng.standard_normal((NM_D, NM_DOUT))
+               / np.sqrt(NM_D)).astype(np.float32)
+        x, s, w = (param.from_numpy(a, device="cuda")
+                   for a in (x32, s32, w32))
+        ref = norm_oracle(x, s) @ w.double()
+        kw = {"w": w, "scale": s, "eps": NM_EPS}
+        for method in NM_METHODS:
+            out = dispatch.dispatch("norm_matmul", x, method=method, **kw)
+            err = frob_pct(out, ref)
+            engine = method if method != "auto" else dispatch.auto_plan(
+                "norm_matmul", x, **kw).method
+            ceiling = nm_ceiling(engine, x.dtype)
+            rows_out.append({"problem": f"nm_problem seed {seed}",
+                             "op": "norm_matmul", "method": method,
+                             "engine": engine, "frob_pct_err": err,
+                             "ceiling_pct": ceiling})
+            print(f"  nm_problem seed={seed} {method:11s} err={err:.3e}% "
+                  f"(ceiling {ceiling:g}%)", flush=True)
+            check(err <= ceiling, f"nm_problem {seed} {method}: {err:.3e}%")
+        got = dispatch.execute("norm_matmul", x,
+                               autotune.ReductionPlan(method="unfused_mma"),
+                               **kw)
+        two = nm_two_op(dispatch, autotune, x, s, w)
+        check(torch.equal(got, two), f"nm_problem {seed}: unfused_mma is not "
+                                     f"bit-identical to the two-op path")
+        print(f"  nm_problem seed={seed}: unfused_mma == the two-op path, "
+              f"bit for bit", flush=True)
+    return rows_out, picks
+
+
 # ----------------------------------------------------- phase 5: timings
 
 
@@ -1466,6 +1837,76 @@ def fit_segment_constants(autotune, row: dict, vpu_plan) -> dict:
     return fit
 
 
+def rmsnorm_bound(rows: int, d: int, dt: torch.dtype) -> tuple:
+    """Least time in ms for one B8 call: x read once, out written once
+    and d f32 weights read at HBM rate, against the statistic's
+    tensor-core flops (16 per element and bf16 word) at 989 TFLOP/s."""
+    itemsize = torch.empty((), dtype=dt).element_size()
+    words = 3 if dt == torch.float32 else 2
+    bytes_ms = (2 * rows * d * itemsize + 4 * d) / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * d * 16 * words / TC_FLOPS[torch.bfloat16] * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes"
+    return ops_ms, "operations"
+
+
+def time_rmsnorm_kernel(mrn, gen, launches: int, worst_abs: float) -> tuple:
+    """B8 at the timed shapes, f32 and bf16: held to its tolerance against
+    rmsnorm_plain and to the same bits over two calls, then timed beside
+    its bound, rmsnorm_plain and F.rms_norm (the library call computing
+    the same function, never called by the port).  The Gemma prefill f32
+    case goes to the ``kernels`` line, every case to the details."""
+    entry, details = None, []
+    for rows, d in B8_TIMED_SHAPES:
+        base = torch.randn(rows, d, device="cuda", generator=gen)
+        w = 0.1 * torch.randn(d, device="cuda", generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            x = base if dt == torch.float32 else base.to(dt)
+            kern = lambda: mrn.rmsnorm_cuda(  # noqa: E731
+                x, w, weight_offset=1.0)
+            plain = lambda: mrn.rmsnorm_plain(  # noqa: E731
+                x, w, weight_offset=1.0)
+            got, again, want = kern(), kern(), plain()
+            diff, ok = rmsnorm_diff(got, want)
+            check(ok, f"B8 {rows}x{d} {name(dt)}: |kernel - plain| {diff:.3g}")
+            check(torch.equal(got, again), f"B8 {rows}x{d} {name(dt)}: two "
+                                           f"calls differ")
+            del got, again, want
+            lib_w = (w + 1.0).to(dt)
+            p1 = median_ms(plain)
+            k1 = median_ms(kern)
+            k2 = median_ms(kern)
+            p2 = median_ms(plain)
+            lib_ms = median_ms(lambda: torch.nn.functional.rms_norm(
+                x, (d,), weight=lib_w, eps=NM_EPS))
+            bound_ms, bound_by = rmsnorm_bound(rows, d, dt)
+            row = {"name": "b8_rmsnorm", "rows": rows, "d": d,
+                   "dtype": name(dt), "ms": min(k1, k2), "ms_runs": [k1, k2],
+                   "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+                   "library_ms": lib_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "max_abs_err": diff,
+                   "share_of_bound": bound_ms / min(k1, k2)}
+            details.append(row)
+            print(f"  b8 {rows}x{d} {name(dt):8s} kernel {row['ms']:.4f} ms "
+                  f"plain {row['plain_ms']:.4f} ms F.rms_norm {lib_ms:.4f} ms "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{100 * row['share_of_bound']:.1f} % of it) |diff| "
+                  f"{diff:.3g}", flush=True)
+            if (rows, d, dt) == (*NORM_SHAPES[0], torch.float32):
+                entry = {"name": "b8_rmsnorm", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "mma_rmsnorm.cu",
+                         "replaces": "src/repro/kernels/mma_rmsnorm.py:27",
+                         "launches": launches,
+                         "max_abs_err": max(diff, worst_abs),
+                         "ms": row["ms"], "plain_ms": row["plain_ms"],
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib_ms}
+            del x
+        del base
+    return entry, details
+
+
 # ---------------------------------------- phase 6: the cost model's fit
 
 
@@ -1587,6 +2028,118 @@ def check_model_picks(autotune, dispatch, times: dict, gen) -> list:
     return rows
 
 
+# ------------------------------------ phase 6b: the scan family's pick
+
+
+def scan_plans_us(dispatch, x: torch.Tensor, plans: list) -> list:
+    """µs a call of each plan costs in a stream of calls through the
+    executor: CUDA events around SCAN_ITERS calls, the median of
+    SWEEP_ROUNDS rounds (the host's time where it exceeds the card's).
+    The rounds take the plans in turn, each round starting one plan
+    later, so a burst of load on the shared host, and what the plan
+    timed before leaves behind, fall on all of them alike (on one H100,
+    a B6 plan timed right after mma_ec ran ~20 us slower at 2^24 bf16
+    than in B6's grid)."""
+    iters = SCAN_ITERS[x.numel()]
+    for plan in plans:
+        for _ in range(2):
+            dispatch.execute("scan", x, plan)
+    runs = [[] for _ in plans]
+    for r in range(SWEEP_ROUNDS):
+        for j in range(len(plans)):
+            k = (r + j) % len(plans)
+            plan = plans[k]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                dispatch.execute("scan", x, plan)
+            end.record()
+            end.synchronize()
+            runs[k].append(start.elapsed_time(end) * 1e3 / iters)
+    return [statistics.median(r) for r in runs]
+
+
+def plan_knobs(dispatch, plan) -> tuple:
+    """A scan plan's engine and the knobs that engine sweeps: two plans
+    with the same knobs run the same code."""
+    sweep = dispatch.op_spec("scan").engine(plan.method).sweep
+    return (plan.method,) + tuple(getattr(plan, k) for k in sweep)
+
+
+def check_scan_picks(autotune, dispatch, gen) -> dict:
+    """cumsum's engines, each at the plan its explicit method runs, and
+    the plan ``auto`` resolves to, timed at SCAN_PICK_SIZES in f32 and
+    bf16; the auto plan must run within PICK_SLACK of the fastest.  At
+    n = 2^12, where the card's work is negligible, the same timings fit
+    the model's host time per call (``_SCAN_HOST_US``)."""
+    engines = ("vpu", "pallas", "mma_chained", "mma_ec")
+    plans = {m: autotune.ReductionPlan(method=m, chain=CHAIN) for m in engines}
+    x = torch.randn(SCAN_HOST_N, device="cuda", generator=gen)
+    host = dict(zip(plans, scan_plans_us(dispatch, x, list(plans.values()))))
+    print(f"phase 6b: fitted _SCAN_HOST_US "
+          + ", ".join(f"{m} {us:.1f}" for m, us in host.items())
+          + f" us; committed {autotune._SCAN_HOST_US}", flush=True)
+    grid = scan_grid(autotune, dispatch, gen)
+    rows = []
+    for n in SCAN_PICK_SIZES:
+        base = torch.randn(n, device="cuda", generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            x = base if dt == torch.float32 else base.to(dt)
+            pick = autotune.get_plan(n, dt, op="scan", backend="cuda")
+            same = next((m for m, p in plans.items()
+                         if plan_knobs(dispatch, p) == plan_knobs(dispatch,
+                                                                  pick)),
+                        None)
+            timed = list(plans.values()) + ([] if same else [pick])
+            us = scan_plans_us(dispatch, x, timed)
+            times = dict(zip(plans, us))
+            pick_us = times[same] if same else us[-1]
+            best = min(times, key=times.get)
+            best_us = min(times[best], pick_us)
+            ratio = pick_us / best_us
+            rows.append({"n": n, "dtype": name(dt), "us": times,
+                         "pick": [pick.method, pick.chain, pick.block_rows],
+                         "pick_us": pick_us, "best": best,
+                         "ratio": ratio})
+            print(f"  n=2^{n.bit_length() - 1} {name(dt):8s} "
+                  + " ".join(f"{m} {us:.1f}" for m, us in times.items())
+                  + f" us; auto picks {pick.method} (R={pick.chain}, "
+                  f"B={pick.block_rows}) {pick_us:.1f} us; ratio {ratio:.3f}",
+                  flush=True)
+            check(ratio <= PICK_SLACK,
+                  f"scan n={n} {dt}: the pick runs {ratio:.2f}x the fastest "
+                  f"engine (> {PICK_SLACK})")
+            del x
+        del base
+    return {"host_us": host, "picks": rows, "grid": grid}
+
+
+def scan_grid(autotune, dispatch, gen) -> list:
+    """B6's R x B grid timed in bf16 at SCAN_GRID_SIZES, beside each
+    plan's count of blocks: the record of whether a grid whose last wave
+    of blocks runs part-empty costs time (the model does not price it:
+    on one H100 at 2^24, 78 % fill, the R5 plans ran within 4 % of the
+    fastest)."""
+    rows = []
+    for n in SCAN_GRID_SIZES:
+        x = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
+        plans = list(autotune.candidate_plans(n, torch.bfloat16, op="scan",
+                                              engine=("pallas",)))
+        us = scan_plans_us(dispatch, x, plans)
+        grid = [{"chain": p.chain, "block_rows": p.block_rows,
+                 "blocks": math.ceil(n / (p.chain * p.block_rows * p.m)),
+                 "us": t} for p, t in zip(plans, us)]
+        fastest = min(us)
+        rows.append({"n": n, "plans": grid})
+        print(f"  B6 grid n=2^{n.bit_length() - 1} bf16 (us / fastest, "
+              f"blocks): " + " ".join(
+                  f"R{g['chain']}B{g['block_rows']} {g['us'] / fastest:.3f}"
+                  f"/{g['blocks']}" for g in grid), flush=True)
+        del x
+    return rows
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1606,6 +2159,8 @@ def main() -> int:
     from repro_torch.kernels import mma_compensated as mc
     ms = importlib.import_module("repro_torch.kernels.mma_scan")
     sg = importlib.import_module("repro_torch.kernels.mma_segment")
+    mrn = importlib.import_module("repro_torch.kernels.mma_rmsnorm")
+    from repro_torch.models import layers, param
     # The package exports the functions mma_reduce and mma_scan under
     # the modules' names, so the kernel modules are fetched by their
     # full names.
@@ -1630,6 +2185,7 @@ def main() -> int:
     tier_checks = check_tier_kernels(mc, ops, gen)
     scan_checks = check_scan_kernel(ms, gen)
     seg_checks = check_segment_kernel(sg, gen)
+    norm_checks = check_rmsnorm_kernel(mrn, gen)
 
     print("phase 3: main path at n = 2^28", flush=True)
     mr.reset_launches()
@@ -1673,6 +2229,19 @@ def main() -> int:
           f"auto resolved to {auto_engines}", flush=True)
     check(seg_launches > 0, "kernel b7_segment_sum was not launched on the "
                             "segment path")
+    print("phase 3g: the norm path at full width", flush=True)
+    mrn.reset_launches()
+    norm_rows, norm_picks = run_norm_path(layers, param, dispatch, autotune,
+                                          gen)
+    torch.cuda.synchronize()
+    norm_launches = mrn.LAUNCHES["b8_rmsnorm"]
+    print(f"phase 3g: launches on the norm path {dict(mrn.LAUNCHES)}",
+          flush=True)
+    check(norm_launches > 0, "kernel b8_rmsnorm was not launched on the "
+                             "norm path")
+    print("phase 3h: norm_matmul with w given", flush=True)
+    nm_rows, nm_picks = run_norm_matmul_path(layers, param, dispatch,
+                                             autotune, gen)
     print("phase 3d: the integration example on the card", flush=True)
     integrate_rows = run_integrate_example()
 
@@ -1704,6 +2273,10 @@ def main() -> int:
     seg_entry, seg_timing_rows, seg_fit = time_segment_kernel(
         sg, autotune, dispatch, gen, seg_launches, seg_checks["worst_abs"])
     entries.append(seg_entry)
+    print("phase 5e: B8 timings", flush=True)
+    norm_entry, norm_timing_rows = time_rmsnorm_kernel(
+        mrn, gen, norm_launches, norm_checks["worst_abs"])
+    entries.append(norm_entry)
 
     print("phase 6: the cost model against measured times (f32)",
           flush=True)
@@ -1718,6 +2291,9 @@ def main() -> int:
           f"{autotune._GRID_STEP_OVERHEAD}", flush=True)
     picks = check_model_picks(autotune, dispatch, times, gen)
     sweep_s = time.perf_counter() - t0
+    print("phase 6b: the cost model's scan pick against measured times",
+          flush=True)
+    scan_picks = check_scan_picks(autotune, dispatch, gen)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -1745,6 +2321,13 @@ def main() -> int:
                    "segment_launches": seg_launches,
                    "segment_timings": seg_timing_rows,
                    "segment_fit": seg_fit,
+                   "norm_kernel_checks": norm_checks["rows"],
+                   "norm_path": norm_rows, "norm_picks": norm_picks,
+                   "norm_launches": norm_launches,
+                   "norm_matmul_path": nm_rows,
+                   "norm_matmul_picks": nm_picks,
+                   "norm_timings": norm_timing_rows,
+                   "scan_picks": scan_picks,
                    "sweep_us": {str(n): [[p.method, p.chain, p.block_rows,
                                           us] for p, us in by.items()]
                                 for n, by in times.items()},

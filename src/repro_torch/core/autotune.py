@@ -97,6 +97,20 @@ _B7_ENTRY_US = 1.87e-7
 # traffic (contention on S addresses):
 _SEG_ATOMIC_US = 1.96e-4
 
+# µs of host time one call of a scan engine costs (Python, allocations,
+# launches), whatever n is.  Calls queue on the card, so the host's time
+# and the device's overlap: a call costs the larger of the two.  Below
+# ~2^22 elements the host's sets a scan's time, and without it the
+# model picked the kernel (fewer bytes) where torch.cumsum (one launch)
+# ran faster.  chip_smoke.py (phase 6b) times each engine at n = 2^12,
+# where the device's work is negligible, and prints the fit; these are
+# its values on one H100 80GB HBM3 (700 W).  They move with the load on
+# the host the card shares: another run on the same kind of machine fit
+# vpu 39.0 and pallas 96.3.  Below the crossover only their order
+# decides the pick; their size sets where the crossover falls.
+_SCAN_HOST_US = {"vpu": 17.2, "pallas": 38.2, "mma_chained": 177.0,
+                 "mma_ec": 528.9}
+
 
 @dataclasses.dataclass(frozen=True)
 class ReductionPlan:
@@ -241,6 +255,11 @@ def _mesh_tag(mesh: MeshArg) -> str:
     return f"|mesh:{sig}" if sig else ""
 
 
+def _form_tag(form: tuple) -> str:
+    return "|form:" + ",".join(f"{k}={v}" for k, v in form) if form \
+        else ""
+
+
 def _engine_methods(engine: Engine) -> Optional[tuple]:
     if engine is None:
         return None
@@ -325,14 +344,16 @@ def plan_key(op: str, n: int, dtype, backend: Optional[str] = None,
              engine: Engine = None, mesh: MeshArg = None,
              policy: PolicyArg = None,
              objective: ObjectiveArg = None,
-             bucket: BucketArg = DEFAULT_BUCKET) -> str:
+             bucket: BucketArg = DEFAULT_BUCKET, form: tuple = ()) -> str:
     """Registry key: op|n-bucket|dtype|backend[|engine][|prec:sig]
-    [|lat:sig][|mesh:sig] — the reference's grammar and ordering."""
+    [|lat:sig][|mesh:sig] — the reference's grammar and ordering — and
+    last, for an op whose calls differ in form beyond their size
+    (``dispatch.OpSpec.form_of``), ``|form:k=v,...``."""
     if backend is None:
         backend = default_backend()
     return (f"{op}|{bucket_cap(n, bucket)}|{dtype_name(dtype)}|{backend}"
             f"{_engine_tag(engine)}{_prec_tag(policy)}"
-            f"{_lat_tag(objective)}{_mesh_tag(mesh)}")
+            f"{_lat_tag(objective)}{_mesh_tag(mesh)}{_form_tag(form)}")
 
 
 # The split-word counts the compensated engines sweep when no policy
@@ -556,44 +577,103 @@ _SEGMENT_COSTS = {
     "pallas": _cost_segment_pallas,
 }
 
+# The norm_matmul family (op ``norm_matmul``), counted from the runners
+# (``core.dispatch``); the call's form (``dispatch._norm_matmul_form``)
+# says whether a projection follows the norm.  The norm's bytes per
+# element of x (itemsize s): ``fused_pallas`` is B8, one launch that
+# reads x twice (the scaling pass re-reads its rows) and writes once,
+# 3 s.  ``unfused_mma`` squares x (reads x, writes 4), contracts the
+# squares against ones (reads 4), multiplies x by rstd (reads x, writes
+# 4), forms 1 + scale and multiplies (reads 4, writes 4): 28 bytes in
+# f32; a 16-bit x adds its f32 copy and the cast back (s + 4 and 4 + s).
+# ``vpu`` moves the same bytes, but with w given keeps the normalized
+# rows in f32 (no cast back).  The projection, per (d, dout) weight and
+# with a second one for the gate: each matmul reads the normalized rows
+# (in x.dtype for unfused_mma, f32 for vpu) and the weight (vpu first
+# writes and rereads an f32 copy of a 16-bit one, 8 bytes more), and
+# does 2 d dout flops per row: on the tensor cores when unfused_mma
+# multiplies 16-bit words, else in f32 on the CUDA cores (TF32 is off).
+# The outputs: unfused_mma writes up in x.dtype, and a gate adds g, its
+# activation and the product (read 2 s, write s each: 1 + 6 outputs'
+# worth); vpu does the same in f32 and casts a 16-bit result (4 + s).
+# Not priced: a bias (one pass over the output in either engine) and
+# the kernel launches, a few µs that no pick turns on: B8 has both the
+# fewest bytes and one launch, and the engines that serve w given
+# differ by two launches beside the projection.  In f32 with w given
+# the two tie, and the first, unfused_mma, wins as in the reference.
+_TC_FLOPS_PER_US = _MXU_THROUGHPUT * 2 * DEFAULT_M * _PARALLELISM
+_F32_FLOPS_PER_US = 2 * _VPU_THROUGHPUT * _PARALLELISM
+
+
+def _cost_nm(plan: ReductionPlan, n: int, itemsize: int,
+             form: dict) -> float:
+    dout = form.get("dout", 0)
+    if plan.method == "fused_pallas":
+        # The fused projection is kernel B10 (ROADMAP item 9b).
+        return 3.0 * itemsize * n / _HBM_BYTES_PER_US if not dout \
+            else math.inf
+    wide = itemsize >= 4
+    vpu = plan.method == "vpu"
+    norm = 28.0 if wide else 28.0 + 2.0 * (itemsize + 4.0)
+    if dout and vpu and not wide:
+        norm -= 4.0 + itemsize
+    if not dout:
+        return n * norm / _HBM_BYTES_PER_US
+    d, mats = form["d"], 1 + form.get("gate", 0)
+    rows_in = 4.0 if vpu else itemsize
+    weight = itemsize + (8.0 if vpu and not wide else 0.0)
+    outputs = rows_in * (1 + 6 * form.get("gate", 0)) \
+        + (4.0 + itemsize if vpu and not wide else 0.0)
+    nbytes = n * norm + mats * (n * rows_in + d * dout * weight) \
+        + n / d * dout * outputs
+    rate = _TC_FLOPS_PER_US if not (vpu or wide) else _F32_FLOPS_PER_US
+    return nbytes / _HBM_BYTES_PER_US + 2.0 * n * dout * mats / rate
+
+
 _FAMILY_COSTS = {"reduce": _ENGINE_COSTS, "scan": _SCAN_COSTS,
                  "segment": _SEGMENT_COSTS}
 
-# Device-memory bytes an engine moves per element of f32 input, counted
-# from its runner (``core.dispatch``); the model scales them by the
-# input's itemsize over 4.  The kernels read their input once (4).  The
-# plain engines run each step as its own PyTorch kernel, which streams
-# its operands from device memory and writes its result back: ``mma``
-# writes a ones tensor and reads it beside x (12; squares read x twice,
-# 8), ``vpu`` squares write and reread x * x (12), ``mma_chained``
-# writes and rereads its (n / 16) row sums (4.5; squares 12.5),
-# ``mma_dd`` runs ~11 elementwise ops of 12 bytes per output of its
-# merge tree, n outputs in all, plus its lo plane (136; squares add the
-# ~25 ops of the dd square, 436).  ``mma_ec``: see ``_ec_bytes``.
-#
-# The scan family writes its f32 prefix besides: ``vpu`` reads x and
-# writes the cumsum (8), kernel B6 reads x twice and writes once (12),
-# ``mma_chained`` reads x, writes P, and builds the output in two
-# elementwise adds over P (24); ``mma_ec``: see ``_scan_ec_bytes``.
-# The model scales these by the input's itemsize too, though the f32
-# output does not shrink with it: a bf16 scan is charged too little.
-#
-# The segment family reads values and int32 ids (8): ``pallas`` (B7)
-# that once per pass of segments; ``vpu`` also writes and rereads an
-# in-range flag and a slot index (22 in all); ``mma`` writes its bool
-# compare and f32 one-hot and rereads both, 9 bytes per entry, S =
-# _MEASURE_SEGMENTS entries per element (8 + 9 S).  The ids do not
-# shrink with a 16-bit input, so a bf16 segment sum is charged too
-# little.
+# Device-memory bytes an engine moves per element, counted from its
+# runner (``core.dispatch``).  The reduce family's counts are per element
+# of f32 input and scale by the input's itemsize over 4.  The kernels
+# read their input once (4).  The plain engines run each step as its own
+# PyTorch kernel, which streams its operands from device memory and
+# writes its result back: ``mma`` writes a ones tensor and reads it
+# beside x (12; squares read x twice, 8), ``vpu`` squares write and
+# reread x * x (12), ``mma_chained`` writes and rereads its (n / 16) row
+# sums (4.5; squares 12.5), ``mma_dd`` runs ~11 elementwise ops of 12
+# bytes per output of its merge tree, n outputs in all, plus its lo
+# plane (136; squares add the ~25 ops of the dd square, 436).
+# ``mma_ec``: see ``_ec_bytes``.
 _BYTES_PER_ELEMENT = {
     ("reduce_sum", "mma"): 12.0, ("squared_sum", "mma"): 8.0,
     ("squared_sum", "vpu"): 12.0,
     ("reduce_sum", "mma_chained"): 4.5, ("squared_sum", "mma_chained"): 12.5,
     ("reduce_sum", "mma_dd"): 136.0, ("squared_sum", "mma_dd"): 436.0,
-    **{(op, method): b for op in ("scan", "masked_cumsum")
-       for method, b in (("vpu", 8.0), ("pallas", 12.0),
-                         ("mma_chained", 24.0))},
-    ("segment_sum", "pallas"): 8.0, ("segment_sum", "vpu"): 22.0,
+}
+
+# The scan and segment families write f32 whatever the input's dtype, so
+# their bytes per element come in three parts: reads of the input (which
+# scale with its itemsize), f32 bytes (which do not), and whether the
+# runner first writes an f32 copy of a 16-bit input and rereads it
+# (``_f32(x)`` / ``split_f32_words``: 8 more bytes).  Scans: ``vpu``
+# reads x and writes the cumsum (1, 4, copy: 8 in f32, 14 in bf16),
+# kernel B6 reads x twice and writes once (2, 4: 12 / 8), ``mma_chained``
+# reads x in its first matmul, writes P and builds the output in two
+# elementwise adds over P (1, 20: 24 / 22); ``mma_ec`` see
+# ``_scan_ec_bytes`` (its split starts from an f32 copy).  Segment sums
+# read the values and int32 ids, which do not shrink: ``pallas`` (B7) the
+# two once per pass of segments (1, 4: 8 / 6), ``vpu`` also writes and
+# rereads an in-range flag and a slot index and adds an f32 copy of the
+# values (1, 18, copy: 22 / 28), ``mma`` writes its bool compare and f32
+# one-hot and rereads both, 9 bytes per entry, S = _MEASURE_SEGMENTS
+# entries per element (1, 4 + 9 S).
+_F32_OUT_BYTES = {
+    ("scan", "vpu"): (1, 4.0, True), ("scan", "pallas"): (2, 4.0, False),
+    ("scan", "mma_chained"): (1, 20.0, False),
+    ("segment", "pallas"): (1, 4.0, False),
+    ("segment", "vpu"): (1, 18.0, True),
+    ("segment", "mma"): (1, 4.0 + 9.0 * _MEASURE_SEGMENTS, False),
 }
 
 
@@ -610,19 +690,27 @@ def _scan_ec_bytes(plan: ReductionPlan) -> float:
     # The split as for the reduce family (24 per extra word, 6 for the
     # last), a bf16 word's scan (reads 2, then as mma_chained: 22 per
     # word), the TwoSum cascade (seven f32 elementwise ops of 12 bytes
-    # per extra word) and the final out + err with its zeroed err (16).
+    # per extra word) and the final out + err with its zeroed err (16);
+    # in f32, the input's one read (4) included.
     w = max(int(plan.split_words), 1)
     return 24.0 * (w - 1) + 6.0 + 22.0 * w + 84.0 * (w - 1) + 16.0
 
 
-def _bytes_per_element(plan: ReductionPlan, op: str,
-                       family: str = "reduce") -> float:
-    if family == "segment" and plan.method == "mma":
-        return 8.0 + 9.0 * _MEASURE_SEGMENTS
-    if plan.method == "mma_ec":
-        return _scan_ec_bytes(plan) if family == "scan" \
-            else _ec_bytes(plan, op)
-    return _BYTES_PER_ELEMENT.get((op, plan.method), 4.0)
+def _bytes_per_element(plan: ReductionPlan, op: str, family: str,
+                       itemsize: int) -> float:
+    """Device-memory bytes one element costs ``plan`` on an input of
+    ``itemsize`` bytes."""
+    if family == "reduce":
+        per_f32 = _ec_bytes(plan, op) if plan.method == "mma_ec" \
+            else _BYTES_PER_ELEMENT.get((op, plan.method), 4.0)
+        return per_f32 * itemsize / 4.0
+    if (family, plan.method) == ("scan", "mma_ec"):
+        parts = (1, _scan_ec_bytes(plan) - 4.0, True)
+    else:
+        parts = _F32_OUT_BYTES[(family, plan.method)]
+    reads, f32_bytes, copies = parts
+    return reads * itemsize + f32_bytes \
+        + (8.0 if copies and itemsize < 4 else 0.0)
 
 
 # ------------------------------------------------------- error model
@@ -639,16 +727,26 @@ _DOUBLE_DOUBLE = frozenset({"mma_dd", "pallas_dd"})
 # plain matmuls run in full f32 (TF32 off), the kernels B1-B3 in
 # TF32_WORDS TF32 words of 11 bits; None marks the split family, whose
 # width is 8 bits per bf16 word.
+# The norm_matmul family's roundings after the statistic, each up to
+# eps32 relative: the square, / d, + eps, rsqrt (2 ulp, halved through
+# the root: 1), x * rstd, 1 + scale and the scale's multiply.
+_NM_EPILOGUE_ROUNDINGS = 6
 _ENGINE_BITS = {"vpu": _F32_BITS, "mma": _F32_BITS,
                 "mma_chained": _F32_BITS, "pallas": 11 * TF32_WORDS,
                 "mma_ec": None, "pallas_ec": None}
 
 
-def _multiplicand_bits(plan: ReductionPlan, dtype) -> int:
+def _multiplicand_bits(plan: ReductionPlan, dtype,
+                       op: str = "reduce_sum") -> int:
     """Effective significand bits the engine's multiplicands carry; a
-    16-bit input caps every engine at its own width."""
+    16-bit input caps every engine at its own width.  An op whose
+    registry entry declares ``engine_bits`` overrides the table per
+    engine (norm_matmul's ``unfused_mma``)."""
+    from repro_torch.core import dispatch
     in_bits = _INPUT_BITS.get(dtype_name(dtype), _F32_BITS)
-    eng_bits = _ENGINE_BITS.get(plan.method, _F32_BITS)
+    over = dispatch.op_spec(op).engine_bits or {}
+    eng_bits = over.get(plan.method,
+                        _ENGINE_BITS.get(plan.method, _F32_BITS))
     if eng_bits is None:
         eng_bits = min(_BF16_BITS * max(int(plan.split_words), 1),
                        _F32_BITS)
@@ -662,15 +760,20 @@ def model_percent_error(plan: ReductionPlan, n: int, dtype,
     accumulation term, ~eps32 * sqrt(n) of random-walk rounding for the
     plain engines, ~eps32^2 * n plus one final rounding for the
     compensated family; the dd family carries no multiplicand
-    truncation and ~log2(n) second-order terms, 2^-48 (4 + log2 n)."""
+    truncation and ~log2(n) second-order terms, 2^-48 (4 + log2 n).
+    The norm_matmul family adds its epilogue's roundings
+    (``_NM_EPILOGUE_ROUNDINGS`` of eps32)."""
     n = max(int(n), 1)
     if plan.method in _DOUBLE_DOUBLE:
         return 100.0 * (2.0 ** -48) * (4.0 + math.log2(n))
-    rep = 2.0 ** -(_multiplicand_bits(plan, dtype) + 1)
+    rep = 2.0 ** -(_multiplicand_bits(plan, dtype, op) + 1)
     if plan.method in _COMPENSATED:
         acc = _EPS32 * _EPS32 * n + 2.0 ** -25
     else:
         acc = _EPS32 * math.sqrt(n)
+    from repro_torch.core import dispatch
+    if dispatch.op_spec(op).family == "norm_matmul":
+        acc += _NM_EPILOGUE_ROUNDINGS * _EPS32
     return 100.0 * (rep + acc)
 
 
@@ -699,30 +802,39 @@ def measured_percent_error(plan: ReductionPlan, n: int, dtype, *,
 
 
 def model_cost(plan: ReductionPlan, n: int, dtype,
-               op: str = "reduce_sum") -> float:
+               op: str = "reduce_sum", form: tuple = ()) -> float:
     """Analytical score in µs: depth + work/P + block overheads +
     padding, plus the time the engine's device-memory traffic takes
-    (``_BYTES_PER_ELEMENT``: a kernel streams its input once, the plain
-    engines' intermediate tensors go through memory too).  The op's
-    family (``dispatch.OpSpec.family``) picks the reduce, scan or
-    segment terms."""
+    (``_bytes_per_element``: a kernel streams its input once, the plain
+    engines' intermediate tensors go through memory too); a scan engine
+    costs at least its host time per call.  The op's family
+    (``dispatch.OpSpec.family``) picks the reduce, scan, segment or
+    norm_matmul terms (the last: bytes and, for the projection that
+    ``form`` names, flops; ``_cost_nm``)."""
     from repro_torch.core import dispatch
     family = dispatch.op_spec(op).family
     n = max(int(n), 1)
     itemsize = torch.empty((), dtype=as_dtype(dtype)).element_size()
-    mem = n * _bytes_per_element(plan, op, family) * itemsize / 4.0 \
+    if family == "norm_matmul":
+        return _cost_nm(plan, n, itemsize, dict(form))
+    mem = n * _bytes_per_element(plan, op, family, itemsize) \
         / _HBM_BYTES_PER_US
-    return _FAMILY_COSTS[family][plan.method](plan, n) + mem
+    device = _FAMILY_COSTS[family][plan.method](plan, n) + mem
+    if family == "scan":
+        return max(device, _SCAN_HOST_US[plan.method])
+    return device
 
 
-def _measure_problem(op: str, n: int, dtype, seed: int, device: str):
-    """The op-representative timed problem (input + op kwargs)."""
+def _measure_problem(op: str, n: int, dtype, seed: int, device: str,
+                     form: tuple = ()):
+    """The op-representative timed problem (input + op kwargs) of the
+    call's ``form``."""
     import numpy as np
     from repro_torch.core import dispatch
     spec = dispatch.op_spec(op)
     rng = np.random.default_rng(seed)
     if spec.measure is not None:
-        return spec.measure(n, dtype, rng, device)
+        return spec.measure(n, dtype, rng, device, **dict(form))
     x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
     kwargs = {}
     if spec.family == "segment":
@@ -736,7 +848,8 @@ def measure_cost(plan: ReductionPlan, n: int, dtype, *, iters: int = 5,
                  warmup: int = 2, seed: int = 0,
                  op: str = "reduce_sum", mesh: MeshArg = None,
                  policy: PolicyArg = None,
-                 backend: Optional[str] = None) -> float:
+                 backend: Optional[str] = None,
+                 form: tuple = ()) -> float:
     """Microseconds for one plan on ``backend`` (default: the card when
     present): CUDA events around ``iters`` runs on the card, the host
     clock on the CPU.  Measuring for a backend this host lacks raises."""
@@ -747,7 +860,7 @@ def measure_cost(plan: ReductionPlan, n: int, dtype, *, iters: int = 5,
     if backend not in _live_backends():
         raise ValueError(f"cannot measure for backend {backend!r} on "
                          f"this host (live: {_live_backends()})")
-    x, kwargs = _measure_problem(op, n, dtype, seed, backend)
+    x, kwargs = _measure_problem(op, n, dtype, seed, backend, form)
     if policy is not None:
         kwargs = dict(kwargs, policy=policy)
     for _ in range(warmup):
@@ -963,11 +1076,13 @@ def autotune(n: int, dtype, *, op: str = "reduce_sum",
              mesh: MeshArg = None, policy: PolicyArg = None,
              objective: ObjectiveArg = None,
              bucket: BucketArg = DEFAULT_BUCKET,
-             backend: Optional[str] = None) -> ReductionPlan:
+             backend: Optional[str] = None,
+             form: tuple = ()) -> ReductionPlan:
     """Sweep the candidate space for one problem and return the winner.
 
     Scored at ``bucket_cap(n, bucket)`` by the model, or timed on
-    ``backend`` when ``measure=True``.  A policy with an
+    ``backend`` when ``measure=True``, for a call of ``form``
+    (``dispatch.OpSpec.form_of``).  A policy with an
     ``error_budget_pct`` makes the winner the fastest candidate within
     the budget (the most accurate one when none meets it); an
     ``objective`` makes it the most accurate candidate within the SLO
@@ -987,10 +1102,10 @@ def autotune(n: int, dtype, *, op: str = "reduce_sum",
                                 policy=policy):
         if measure:
             cost = measure_cost(cand, nb, dtype, op=op, policy=policy,
-                                backend=backend)
+                                backend=backend, form=form)
             cand = dataclasses.replace(cand, source="measured", cost=cost)
         else:
-            cost = model_cost(cand, nb, dtype, op=op)
+            cost = model_cost(cand, nb, dtype, op=op, form=form)
             cand = dataclasses.replace(cand, source="model", cost=cost)
         if objective is not None:
             cand = dataclasses.replace(
@@ -1024,7 +1139,8 @@ def get_plan(n: int, dtype, *, op: str = "reduce_sum",
              measure: bool = False, engine: Engine = None,
              mesh: MeshArg = None, policy: PolicyArg = None,
              objective: ObjectiveArg = None,
-             bucket: BucketArg = DEFAULT_BUCKET) -> ReductionPlan:
+             bucket: BucketArg = DEFAULT_BUCKET,
+             form: tuple = ()) -> ReductionPlan:
     """Cached plan lookup — the entry point of ``method='auto'``.
 
     A registry hit is returned (a model entry is re-tuned when
@@ -1035,7 +1151,7 @@ def get_plan(n: int, dtype, *, op: str = "reduce_sum",
     backend = backend or default_backend()
     reg = registry if registry is not None else default_registry()
     key = plan_key(op, n, dtype, backend, engine, mesh, policy,
-                   objective, bucket)
+                   objective, bucket, form)
     plan = reg.get(key)
     if plan is None or (measure and plan.source != "measured"):
         if measure and backend not in _live_backends():
@@ -1045,6 +1161,6 @@ def get_plan(n: int, dtype, *, op: str = "reduce_sum",
                 f"(measure=False) or tune on the target hardware")
         plan = autotune(n, dtype, op=op, measure=measure, engine=engine,
                         mesh=mesh, policy=policy, objective=objective,
-                        bucket=bucket, backend=backend)
+                        bucket=bucket, backend=backend, form=form)
         reg.put(key, plan)
     return plan

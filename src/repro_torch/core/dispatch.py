@@ -1,9 +1,10 @@
 """The TC-op registry: one declarative dispatch layer for the reduce,
-scan and segment families — the counterpart of ``repro.core.dispatch``
-for the ported slices.
+scan, segment and norm_matmul families — the counterpart of
+``repro.core.dispatch`` for the ported slices.
 
 Each op (``reduce_sum``, ``squared_sum``, ``masked_mean``,
-``expert_counts``; ``scan`` and ``masked_cumsum``; ``segment_sum``) is an
+``expert_counts``; ``scan`` and ``masked_cumsum``; ``segment_sum``;
+``norm_matmul``) is an
 :class:`OpSpec` declaring its family, its engines (:class:`EngineSpec`,
 each with a ``run(x, plan, **op_kwargs)`` callable and capability
 flags), alias spellings, a plain reference oracle, and the autotuner
@@ -29,7 +30,11 @@ its alias, a scan having no single-contraction form), ``mma_ec``
 (``torch.cumsum``).  The segment family (``segment_sum``) has ``mma``
 (``core.scan.tc_segment_reduce``; ``'mma_chained'`` is its alias),
 ``pallas`` (kernel B7) and ``vpu`` (``index_add_`` after dropping the ids
-outside [0, S), which torch would refuse and JAX drops).
+outside [0, S), which torch would refuse and JAX drops).  The
+``norm_matmul`` family (``rmsnorm(x) @ w``, or the norm alone with
+``w=None``) has ``fused_pallas`` (kernel B8, the norm-only form only,
+until kernel B10 is ported), ``unfused_mma`` (the two-op path) and
+``vpu`` (all f32); ``'pallas'`` and ``'mma'`` are their aliases.
 
 The dd engines declare ``accum_dtypes=('float64',)``: they run only
 under an explicit f64 policy (``precision.F64_EQUIVALENT``), and every
@@ -54,6 +59,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.precision import (ACCUM_DTYPE, MmaPolicy, as_dtype,
                                         as_policy, dtype_name)
@@ -85,6 +91,14 @@ class DispatchContext:
     scan_axis: Optional[int] = None  # scan family: the scanned axis
     mesh_axes: Optional[tuple] = None  # None on a single device
     policy: Optional[MmaPolicy] = None
+    extras: Optional[tuple] = None  # op-family facts: ((key, value), ...)
+
+    def extra(self, key: str, default=None):
+        """Look up one op-family fact recorded in ``extras``."""
+        for k, v in self.extras or ():
+            if k == key:
+                return v
+        return default
 
     @property
     def ndim(self) -> int:
@@ -126,9 +140,11 @@ class EngineSpec:
     axis_subsets: bool = False      # batched reductions (axis=...)
     needs_flat: bool = False        # requires an effectively-1-D layout
     ndim: Optional[int] = None      # exact input rank, None = any
+    dtypes: Optional[tuple] = None  # allowed input dtype names, None = any
     sweep: tuple = ()               # of 'chain' / 'block_rows' / 'split_words'
     max_split_words: int = 1        # split-bf16 words the engine runs
     accum_dtypes: tuple = ("float32",)  # accumulators it can honour
+    predicate: Optional[Callable] = None  # (ctx) -> reason or None
 
 
 def capability_reason(eng: EngineSpec, ctx: DispatchContext, *,
@@ -147,7 +163,14 @@ def capability_reason(eng: EngineSpec, ctx: DispatchContext, *,
                 "for multi-axis inputs")
     if eng.ndim is not None and ctx.ndim != eng.ndim:
         return f"requires an ndim == {eng.ndim} input"
-    return _policy_reason(eng, ctx.policy)
+    if eng.dtypes is not None and ctx.dtype not in eng.dtypes:
+        return f"dtype {ctx.dtype} not in {eng.dtypes}"
+    reason = _policy_reason(eng, ctx.policy)
+    if reason is not None:
+        return reason
+    if eng.predicate is not None:
+        return eng.predicate(ctx)
+    return None
 
 
 def _policy_reason(eng: EngineSpec,
@@ -178,15 +201,22 @@ class OpSpec:
     """One registered TC-op: its family (which picks the autotuner's
     cost terms), its ordered engines, the accepted alias spellings, the
     plain reference oracle, the problem size the plan registry keys on
-    (``size_of``; default every element) and the autotuner's
-    measurement-input builder."""
+    (``size_of``; default every element), the problem's form beyond its
+    size (``form_of``: facts that key its plans and that its cost model
+    and measurement input read) and the autotuner's measurement-input
+    builder."""
     name: str
     family: str                     # 'reduce' | 'scan' | 'segment'
     engines: tuple                  # tuple[EngineSpec, ...]
     reference: Callable
     aliases: Optional[dict] = None
     size_of: Optional[Callable] = None   # (x, op_kwargs) -> int
-    measure: Optional[Callable] = None   # (n, dtype, rng, device) -> (x, kw)
+    form_of: Optional[Callable] = None   # (x, op_kwargs) -> ((k, v), ...)
+    # (n, dtype, rng, device, **form) -> (x, kw)
+    measure: Optional[Callable] = None
+    # Per-op override of the autotuner's engine -> multiplicand-bits
+    # table (autotune._ENGINE_BITS), as in the reference.
+    engine_bits: Optional[dict] = None   # {engine name: bits}
 
     def engine(self, name: str) -> Optional[EngineSpec]:
         name = (self.aliases or {}).get(name, name)
@@ -202,6 +232,9 @@ class OpSpec:
         if self.size_of is not None:
             return self.size_of(x, op_kwargs)
         return x.numel()
+
+    def problem_form(self, x, op_kwargs: dict) -> tuple:
+        return () if self.form_of is None else self.form_of(x, op_kwargs)
 
 
 _REGISTRY: dict[str, OpSpec] = {}
@@ -229,7 +262,8 @@ def op_spec(name: str) -> OpSpec:
 def build_context(op: str, x, *, axis=None, scan_axis=None,
                   multi_device: Optional[bool] = None,
                   mesh_axes: Optional[tuple] = None,
-                  policy: Optional[MmaPolicy] = None) -> DispatchContext:
+                  policy: Optional[MmaPolicy] = None,
+                  extras: Optional[tuple] = None) -> DispatchContext:
     if multi_device is None:
         if mesh_axes is None:
             mesh_axes = _live_mesh_axes()
@@ -237,7 +271,7 @@ def build_context(op: str, x, *, axis=None, scan_axis=None,
     return DispatchContext(
         op=op, shape=tuple(x.shape), dtype=dtype_name(x.dtype),
         multi_device=multi_device, axis=axis, scan_axis=scan_axis,
-        mesh_axes=mesh_axes, policy=policy)
+        mesh_axes=mesh_axes, policy=policy, extras=extras)
 
 
 def legal_engines(spec: OpSpec, ctx: DispatchContext) -> tuple:
@@ -251,6 +285,12 @@ def _unknown_method(spec: OpSpec, method: str) -> ValueError:
     return ValueError(
         f"unknown {spec.name} method: {method!r} (accepted: 'auto', "
         + ", ".join(repr(a) for a in sorted(accepted)) + ")")
+
+
+def known_method(op: str, method: str) -> bool:
+    """Does ``method`` spell an engine (or alias, or ``'auto'``) the op
+    declares, whatever its capabilities?"""
+    return method == "auto" or op_spec(op).engine(method) is not None
 
 
 def _plan_words(policy: Optional[MmaPolicy]) -> dict:
@@ -310,9 +350,7 @@ def dispatch(op: str, x, *, method: str = "auto", chain=None,
     """
     from repro_torch.core import autotune
     x = as_tensor(x)
-    op_kwargs = {k: torch.as_tensor(v, device=x.device)
-                 if isinstance(v, np.ndarray) else v
-                 for k, v in op_kwargs.items()}
+    op_kwargs = _tensor_kwargs(x, op_kwargs)
     spec = op_spec(op)
     policy = as_policy(precision)
     ctx = _context_for(spec, x, op_kwargs, policy=policy)
@@ -320,18 +358,8 @@ def dispatch(op: str, x, *, method: str = "auto", chain=None,
         op_kwargs = dict(op_kwargs, policy=policy)
     backend = x.device.type
     if method == "auto":
-        legal = legal_engines(spec, ctx)
-        if not legal:
-            raise ValueError(f"no engine of op {op!r} supports this "
-                             f"input: shape={ctx.shape}")
-        sweepable = tuple(e.name for e in spec.engines
-                          if _policy_reason(e, policy) is None)
-        restrict = None if legal == sweepable else legal
-        plan = autotune.get_plan(spec.problem_size(x, op_kwargs),
-                                 x.dtype, op=op, engine=restrict,
-                                 mesh=ctx.mesh_axes, policy=policy,
-                                 objective=objective, bucket=bucket,
-                                 backend=backend)
+        plan = _auto_plan(spec, x, ctx, op_kwargs, policy, objective,
+                          bucket)
         return execute(op, _cast_in(x, policy, spec, plan.method),
                        plan, **op_kwargs)
     eng = spec.engine(method)
@@ -347,12 +375,49 @@ def dispatch(op: str, x, *, method: str = "auto", chain=None,
                                  x.dtype, op=op, engine=(eng.name,),
                                  mesh=ctx.mesh_axes, policy=policy,
                                  objective=objective, bucket=bucket,
-                                 backend=backend)
+                                 backend=backend,
+                                 form=spec.problem_form(x, op_kwargs))
         return execute(op, x, plan, **op_kwargs)
     overrides = {} if chain is None else {"chain": int(chain)}
     overrides.update(_plan_words(policy))
     plan = autotune.ReductionPlan(method=eng.name, **overrides)
     return eng.run(x, plan, **op_kwargs)
+
+
+def _tensor_kwargs(x, op_kwargs: dict) -> dict:
+    return {k: torch.as_tensor(v, device=x.device)
+            if isinstance(v, np.ndarray) else v
+            for k, v in op_kwargs.items()}
+
+
+def _auto_plan(spec: OpSpec, x, ctx: DispatchContext, op_kwargs: dict,
+               policy: Optional[MmaPolicy], objective, bucket: str):
+    from repro_torch.core import autotune
+    legal = legal_engines(spec, ctx)
+    if not legal:
+        raise ValueError(f"no engine of op {spec.name!r} supports this "
+                         f"input: shape={ctx.shape}")
+    sweepable = tuple(e.name for e in spec.engines
+                      if _policy_reason(e, policy) is None)
+    restrict = None if legal == sweepable else legal
+    return autotune.get_plan(spec.problem_size(x, op_kwargs), x.dtype,
+                             op=spec.name, engine=restrict,
+                             mesh=ctx.mesh_axes, policy=policy,
+                             objective=objective, bucket=bucket,
+                             backend=x.device.type,
+                             form=spec.problem_form(x, op_kwargs))
+
+
+def auto_plan(op: str, x, *, precision=None, objective=None,
+              bucket: str = "pow2", **op_kwargs):
+    """The plan ``dispatch(op, x, method='auto', ...)`` runs for this
+    call, without running it."""
+    x = as_tensor(x)
+    op_kwargs = _tensor_kwargs(x, op_kwargs)
+    spec = op_spec(op)
+    policy = as_policy(precision)
+    ctx = _context_for(spec, x, op_kwargs, policy=policy)
+    return _auto_plan(spec, x, ctx, op_kwargs, policy, objective, bucket)
 
 
 def _cast_in(x, policy: Optional[MmaPolicy], spec: OpSpec,
@@ -392,8 +457,32 @@ def _context_for(spec: OpSpec, x, op_kwargs: dict, *,
         scan_axis = op_kwargs.get("axis", -1) % max(x.ndim, 1)
         return build_context(spec.name, x, scan_axis=scan_axis,
                              policy=policy)
+    if spec.family == "norm_matmul":
+        return build_context(spec.name, x, policy=policy,
+                             extras=_norm_matmul_extras(x, op_kwargs))
     return build_context(spec.name, x, axis=op_kwargs.get("axis"),
                          policy=policy)
+
+
+def _norm_matmul_form(x, op_kwargs: dict) -> tuple:
+    """The projection the cost model prices beside the norm: none for
+    the norm-only form (w=None), else (d, dout, gate)."""
+    w = op_kwargs.get("w")
+    if w is None:
+        return ()
+    return (("d", int(x.shape[-1])), ("dout", int(w.shape[-1])),
+            ("gate", int(op_kwargs.get("w_gate") is not None)))
+
+
+def _norm_matmul_extras(x, op_kwargs: dict) -> tuple:
+    """The norm_matmul family's context facts (shapes and flags only)."""
+    w = op_kwargs.get("w")
+    return (
+        ("d_model", int(x.shape[-1])),
+        ("d_out", int(w.shape[-1]) if w is not None else 0),
+        ("has_gate", op_kwargs.get("w_gate") is not None),
+        ("has_bias", op_kwargs.get("bias") is not None),
+    )
 
 
 # ===================================================== engine runners
@@ -586,6 +675,91 @@ def _segment_vpu(values, plan, *, segment_ids, num_segments, **_):
     return out.index_add_(0, slot, v)[:s]
 
 
+# ---- norm_matmul family: rmsnorm(x) @ W
+#
+# Op surface (all engines): x (..., d), scale (d,) with gemma
+# (1 + scale) weighting, w (d, dout) or None for the norm-only form
+# (output = the normalized activations), optional bias (dout,), optional
+# w_gate (d, dout) + act for the MLP up/gate pair
+# act(xh @ w_gate) * (xh @ w [+ bias]).  Output in x.dtype.
+
+
+def _nm_apply_act(g, act):
+    if act is None:
+        return g
+    if act == "silu":
+        return F.silu(g)
+    if act == "gelu":
+        return F.gelu(g, approximate="tanh")
+    raise ValueError(f"unknown norm_matmul act: {act!r}")
+
+
+def _nm_weight(w, policy):
+    # policy.cast_in on the weight operand: dispatch's _cast_in handles
+    # x, but the weight never passes through it.
+    return w if policy is None else policy.cast_in(w)
+
+
+def _nm_scale(scale, x):
+    return _f32(torch.as_tensor(scale, device=x.device))
+
+
+def _nm_vpu(x, plan, *, w, scale, w_gate=None, bias=None, act=None,
+            eps=1e-6, policy=None, **_):
+    xf = _f32(x)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    rstd = torch.rsqrt(ms + eps)
+    xh = xf * rstd * (1.0 + _nm_scale(scale, x))
+    if w is None:
+        return xh.to(x.dtype)
+    up = xh @ _f32(_nm_weight(w, policy))
+    if bias is not None:
+        up = up + _f32(torch.as_tensor(bias, device=x.device))
+    if w_gate is not None:
+        g = xh @ _f32(_nm_weight(w_gate, policy))
+        up = _nm_apply_act(g, act) * up
+    return up.to(x.dtype)
+
+
+def _nm_unfused(x, plan, *, w, scale, w_gate=None, bias=None, act=None,
+                eps=1e-6, policy=None, **_):
+    # The two-op path, spelled to stay BIT-identical to
+    # layers.rmsnorm(method='mma') followed by the layers.mlp-style
+    # matmul in x.dtype: the same reduction primitive (tc_reduce_axes on
+    # the last dim), the same multiply association, the same casts.
+    from repro_torch.core import reduction as R
+    xf = _f32(x)
+    ms = R.tc_reduce_axes(xf * xf, (x.ndim - 1,))[..., None] \
+        / x.shape[-1]
+    rstd = torch.rsqrt(ms + eps)
+    xh = (xf * rstd * (1.0 + _nm_scale(scale, x))).to(x.dtype)
+    if w is None:
+        return xh
+    up = xh @ _nm_weight(w, policy).to(x.dtype)
+    if bias is not None:
+        up = up + torch.as_tensor(bias, device=x.device).to(x.dtype)
+    if w_gate is not None:
+        g = xh @ _nm_weight(w_gate, policy).to(x.dtype)
+        up = _nm_apply_act(g, act) * up
+    return up
+
+
+def _nm_fused(x, plan, *, w, scale, eps=1e-6, **_):
+    # The norm-only form is kernel B8 (its predicate refuses w given).
+    from repro_torch.kernels import ops
+    return ops.mma_rmsnorm(x, scale, eps=eps, weight_offset=1.0)
+
+
+def _nm_fused_predicate(ctx: DispatchContext) -> Optional[str]:
+    # B8 serves any d_model >= 1; the fused projection is kernel B10,
+    # which derives its own d_model limit when it is ported.
+    if ctx.extra("d_out", 0):
+        return ("the fused norm->matmul kernel B10 is not ported yet "
+                "(ROADMAP item 9b): fused_pallas serves only the "
+                "norm-only form (w=None); use the unfused engines")
+    return None
+
+
 # ================================================= reference oracles
 #
 # The classic baseline IS each op's semantic reference, so the oracles
@@ -617,6 +791,10 @@ def _ref_segment_sum(values, **kw):
     return _segment_vpu(values, None, **kw)
 
 
+def _ref_norm_matmul(x, **kw):
+    return _nm_vpu(x, None, **kw)
+
+
 # ----------------------------------------------- measurement inputs
 
 
@@ -632,6 +810,32 @@ def _measure_expert_counts(n, dtype, rng, device):
     t = max(n // e, 1)
     onehot = torch.eye(e)[torch.from_numpy(rng.integers(0, e, t))]
     return onehot.to(device, as_dtype(dtype)), {}
+
+
+# A representative problem of ~n input elements in the call's form
+# (``_norm_matmul_form``): the norm-only form at Gemma-2 2B's width
+# (d = 2304, src/repro/configs/gemma2_2b.py) when the form is empty,
+# else rows x d activations with (d, dout) projections, a gelu-gated
+# pair when ``gate``.
+_MEASURE_NM_D = 2304
+
+
+def _measure_norm_matmul(n, dtype, rng, device, d=_MEASURE_NM_D, dout=0,
+                         gate=0):
+    dt = as_dtype(dtype)
+    rows = max(int(n) // d, 1)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+    scale = torch.from_numpy((0.1 * rng.standard_normal(d))
+                             .astype(np.float32))
+    kw = {"w": None, "scale": scale.to(device)}
+    if dout:
+        def weight():
+            w = rng.standard_normal((d, dout)) / np.sqrt(d)
+            return torch.from_numpy(w.astype(np.float32)).to(device, dt)
+        kw["w"] = weight()
+        if gate:
+            kw.update(w_gate=weight(), act="gelu")
+    return x.to(device, dt), kw
 
 
 # ==================================================== registrations
@@ -742,3 +946,31 @@ register(OpSpec(
         EngineSpec("vpu", _segment_vpu, multi_device_safe=True),
     ),
     aliases={"mma_chained": "mma"}, reference=_ref_segment_sum))
+
+
+# norm_matmul engines:
+#   fused_pallas  kernel B8 for the norm-only form (w=None): f32 and bf16,
+#                 any d_model; w given is refused until kernel B10.
+#   unfused_mma   the two-op path (the statistic through tc_reduce_axes,
+#                 the matmul in x.dtype), distribution-safe.
+#   vpu           the all-f32 baseline, safe everywhere.
+
+register(OpSpec(
+    name="norm_matmul", family="norm_matmul",
+    engines=(
+        # B8's geometry is fixed (16 rows, 8 warps a block): no sweep
+        # until B10 gives the fused engine a geometry to tune.
+        EngineSpec("fused_pallas", _nm_fused,
+                   dtypes=("float32", "bfloat16"),
+                   predicate=_nm_fused_predicate),
+        EngineSpec("unfused_mma", _nm_unfused, multi_device_safe=True),
+        EngineSpec("vpu", _nm_vpu, multi_device_safe=True),
+    ),
+    aliases={"pallas": "fused_pallas", "mma": "unfused_mma"},
+    reference=_ref_norm_matmul, form_of=_norm_matmul_form,
+    measure=_measure_norm_matmul,
+    # The unfused statistic and matmul run in full f32 (TF32 off).  B8's
+    # squares go into the tensor cores as exact bf16 words, so
+    # fused_pallas also carries 24 bits (the autotuner's default here),
+    # not the reference's TPU default of 8.
+    engine_bits={"unfused_mma": 24}))

@@ -141,7 +141,11 @@ def squared_sum(x, *, axis=None, keepdims: bool = False,
 
 
 def _leaves(tree) -> list:
-    """The tensors of nested dicts, lists and tuples, in order."""
+    """The tensors of nested dicts, lists and tuples, in order.  A
+    ``None`` is an empty subtree, as in ``jax.tree_util.tree_leaves``
+    (a frozen parameter's gradient)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -152,9 +156,19 @@ def _leaves(tree) -> list:
 def global_norm(tree, *, method: Method = "mma",
                 precision=None) -> torch.Tensor:
     """L2 norm over nested dicts, lists and tuples of tensors (gradient
-    clipping / monitoring); 'auto' tunes per leaf."""
-    total = sum(squared_sum(leaf, method=method, precision=precision)
-                for leaf in _leaves(tree))
+    clipping / monitoring); 'auto' tunes per leaf.  ``None`` leaves are
+    skipped; a tree without a tensor has norm 0 (an f32 CPU scalar).
+
+    >>> float(global_norm({"a": torch.ones(4), "b": [None]}))
+    2.0
+    """
+    parts = [squared_sum(leaf, method=method, precision=precision)
+             for leaf in _leaves(tree)]
+    if not parts:
+        return torch.zeros((), dtype=ACCUM_DTYPE)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
     return torch.sqrt(total)
 
 

@@ -3,7 +3,8 @@
 ``csrc/`` holds the CUDA sources, ``_build`` compiles and loads them,
 each kernel module pairs a kernel's wrapper with its plain PyTorch
 version and a launch counter (B1-B3 in ``mma_reduce``, B4-B5 in
-``mma_compensated``, B6 in ``mma_scan``, B7 in ``mma_segment``),
+``mma_compensated``, B6 in ``mma_scan``, B7 in ``mma_segment``, B8 in
+``mma_rmsnorm``),
 ``ops`` exposes the public API and ``ref`` the plain oracles.
 """
 
@@ -15,6 +16,7 @@ from repro_torch.kernels.ops import (  # noqa: F401
     mma_ec_squared_sum,
     mma_reduce,
     mma_reduce_partials,
+    mma_rmsnorm,
     mma_scan,
     mma_segment_sum,
     mma_squared_sum,

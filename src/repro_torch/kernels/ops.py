@@ -1,6 +1,6 @@
 """Public wrappers for the reduction kernels (B1-B5), the prefix-scan
-kernel B6 and the segmented-sum kernel B7 — the counterpart of those
-parts of ``repro.kernels.ops``.
+kernel B6, the segmented-sum kernel B7 and the fused RMSNorm kernel B8
+— the counterpart of those parts of ``repro.kernels.ops``.
 
 They flatten, resolve ``'auto'`` geometry and pick the variant.  Where
 the reference chose interpret mode off the TPU, the port chooses by the
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import mma_compensated as _mc
 from repro_torch.kernels import mma_reduce as _mr
+from repro_torch.kernels import mma_rmsnorm as _mrn
 from repro_torch.kernels import mma_scan as _ms
 from repro_torch.kernels import mma_segment as _mseg
 
@@ -260,3 +261,34 @@ def mma_segment_sum(values, segment_ids, num_segments: int, *,
     return _mseg.segment_plain(
         flat, ids, s, block_rows=block_rows,
         blocks=_mseg.grid_blocks(flat.numel(), block_rows, flat.device))
+
+
+def mma_rmsnorm(x, weight, *, eps: float = 1e-6,
+                weight_offset: float = 0.0) -> torch.Tensor:
+    """Fused RMSNorm over the last dim of ``x`` (any leading dims),
+    ``(x * rsqrt(mean(x^2) + eps)) * (weight + weight_offset)`` with the
+    statistic in f32 whatever x's dtype; returns x.dtype in x's shape.
+
+    A CUDA tensor (f32 or bf16) launches kernel B8, a CPU tensor runs
+    its plain version; there is no fallback from one to the other.  The
+    geometry is fixed by the card, not tuned: a block takes 16 rows, the
+    m of the m16n8k16 MMA, and keeps only 16 row sums and 16 ``rstd`` in
+    shared memory, so any d >= 1 fits the 227 KB a block may use (the
+    reference's 8 MiB VMEM row budget and its row padding are TPU
+    facts: B8 masks ragged rows and columns itself, and this wrapper
+    copies nothing but a non-contiguous input).
+
+    Folded behind the ``norm_matmul`` registry entry as the
+    ``fused_pallas`` engine's norm-only (``w=None``) form; callers go
+    through ``repro_torch.models.layers.rmsnorm`` / ``norm_matmul``.
+    """
+    d = x.shape[-1]
+    x2d = x.reshape(-1, d)
+    weight = torch.as_tensor(weight, device=x.device)
+    if x2d.is_cuda:
+        out = _mrn.rmsnorm_cuda(x2d.contiguous(), weight, eps=eps,
+                                weight_offset=weight_offset)
+    else:
+        out = _mrn.rmsnorm_plain(x2d, weight, eps=eps,
+                                 weight_offset=weight_offset)
+    return out.reshape(x.shape)

@@ -1,5 +1,5 @@
-"""Plain-PyTorch oracles for the reduction, prefix-scan and segmented-sum
-kernels — the counterpart of ``repro.kernels.ref`` for those kernels.
+"""Plain-PyTorch oracles for the reduction, prefix-scan, segmented-sum
+and RMSNorm kernels — the counterpart of ``repro.kernels.ref`` for those kernels.
 
 Each oracle states the *semantics* a kernel must have (including the
 f32 accumulation), not its implementation.
@@ -83,3 +83,14 @@ def segment_sum_ref(values, segment_ids, num_segments: int) -> torch.Tensor:
     keep = (ids >= 0) & (ids < num_segments)
     out = torch.zeros(int(num_segments), dtype=ACCUM_DTYPE, device=v.device)
     return out.index_add_(0, ids[keep].to(torch.int64), v[keep])
+
+
+def rmsnorm_ref(x2d, weight, *, eps: float = 1e-6,
+                weight_offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm over the last dim: f32 mean of squares, ``rsqrt``, the
+    ``(weight + weight_offset)`` scale, cast to x's dtype."""
+    xf = x2d.to(ACCUM_DTYPE)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    rstd = torch.rsqrt(ms + eps)
+    w = weight.to(ACCUM_DTYPE) + weight_offset
+    return (xf * rstd * w).to(x2d.dtype)

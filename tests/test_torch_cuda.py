@@ -19,7 +19,9 @@ every position, and on counting inputs with the exact int64 prefix.
 The segmented-sum kernel B7 agrees with its plain version to 2^-20 of
 each segment's sum|x| (both sum the same exact bf16 words, in another
 order), on counting inputs with the exact count, and with itself bit
-for bit.
+for bit.  The RMSNorm kernel B8 agrees with its plain version to 2^-20
+of each f32 output plus 2^-24 (sums in another order, ``rsqrtf``
+within 2 ulp), within one ulp in bf16, and with itself bit for bit.
 """
 
 import importlib
@@ -35,6 +37,7 @@ from repro_torch.kernels import ops
 mr = importlib.import_module("repro_torch.kernels.mma_reduce")
 ms = importlib.import_module("repro_torch.kernels.mma_scan")
 sg = importlib.import_module("repro_torch.kernels.mma_segment")
+mrn = importlib.import_module("repro_torch.kernels.mma_rmsnorm")
 
 M = 16
 RTOL = 2.0 ** -16
@@ -484,3 +487,75 @@ def test_segment_entry_points_run_on_the_card(cuda):
         assert got.shape == (s,)
         assert np.all(np.abs(got.cpu().numpy() - want) <= 1e-5 * scale)
     assert sg.LAUNCHES["b7_segment_sum"] >= 1
+
+
+# ------------------------------------------------ B8: fused RMSNorm
+
+
+def _rmsnorm_close(got, want):
+    g, w = got.double(), want.double()
+    if want.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30)))
+                         - 7)
+        assert bool(torch.all((g - w).abs() <= ulp))
+    else:
+        assert bool(torch.all((g - w).abs() <= 2.0 ** -20 * w.abs()
+                              + 2.0 ** -24))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1, 40), (17, 256), (64, 2304),
+                                    (129, 7168), (33, 1)])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, rows, d):
+    gen = torch.Generator(device="cuda").manual_seed(rows * d)
+    mag = 0.5 + 0.5 * torch.rand(rows, d, device="cuda", generator=gen)
+    sign = torch.randint(0, 2, (rows, d), device="cuda", generator=gen)
+    x = (mag * (2 * sign - 1)).to(dtype)
+    w = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    for offset in (0.0, 1.0):
+        got = mrn.rmsnorm_cuda(x, w, weight_offset=offset)
+        assert got.dtype == dtype and got.shape == x.shape
+        _rmsnorm_close(got, mrn.rmsnorm_plain(x, w, weight_offset=offset))
+        assert torch.equal(got, mrn.rmsnorm_cuda(x, w,
+                                                 weight_offset=offset))
+
+
+def test_rmsnorm_wrapper_counts_launches_and_raises(cuda):
+    x = torch.randn(2, 3, 40, device="cuda")
+    mrn.reset_launches()
+    got = ops.mma_rmsnorm(x, torch.zeros(40, device="cuda"),
+                          weight_offset=1.0)
+    assert mrn.LAUNCHES["b8_rmsnorm"] == 1 and got.shape == x.shape
+    _rmsnorm_close(got, mrn.rmsnorm_plain(x.reshape(-1, 40),
+                                          torch.zeros(40, device="cuda"),
+                                          weight_offset=1.0).reshape(x.shape))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        mrn.rmsnorm_cuda(x.reshape(-1, 40).half(),
+                         torch.zeros(40, device="cuda"))
+    with pytest.raises(ValueError, match="weight"):
+        mrn.rmsnorm_cuda(x.reshape(-1, 40), torch.zeros(39, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        mrn.rmsnorm_cuda(x.reshape(-1, 40).T, torch.zeros(6, device="cuda"))
+    assert mrn.LAUNCHES["b8_rmsnorm"] == 1
+
+
+def test_norm_entry_points_run_on_the_card(cuda):
+    from repro_torch.core import dispatch
+    from repro_torch.models import layers
+    x = torch.randn(4, 8, 2304, device="cuda")
+    params = {"scale": 0.1 * torch.randn(2304, device="cuda")}
+    mrn.reset_launches()
+    fused = layers.rmsnorm(params, x, method="fused_pallas")
+    assert fused.is_cuda and mrn.LAUNCHES["b8_rmsnorm"] == 1
+    plain = layers.rmsnorm(params, x, method="unfused_mma")
+    assert float((fused - plain).abs().max()) < 1e-5
+    got = dispatch.dispatch("norm_matmul", x.cpu().numpy(),
+                            method="fused_pallas", w=None,
+                            scale=params["scale"])
+    assert got.is_cuda and mrn.LAUNCHES["b8_rmsnorm"] == 2
+    w = torch.randn(2304, 64, device="cuda") / 48.0
+    with pytest.raises(ValueError, match="B10"):
+        dispatch.dispatch("norm_matmul", x, method="fused_pallas", w=w,
+                          scale=params["scale"])
+    out = layers.norm_matmul(params, x, w, method="fused_pallas")
+    assert out.is_cuda and out.shape == (4, 8, 64)

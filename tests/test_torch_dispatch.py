@@ -9,6 +9,10 @@ inputs: 2e-2 and 2e-2 * sqrt(n)).  The reference's error ceilings
 (``scripts/check_error_budget.py`` GATES) hold for every engine the port
 registers, at the gate's probe size.  The double-double engines return
 a (hi, lo) pair and run under the f64 policy, as the gate runs them.
+The norm_matmul op runs the reference's full-surface problem (d = 40,
+gate, bias, silu); its ``fused_pallas`` engine serves only the norm-only
+form until kernel B10 is ported, so with ``w`` given it must refuse,
+naming B10.
 """
 
 import os
@@ -30,8 +34,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import check_error_budget as gates  # noqa: E402
 
 N = 4_097
-PORT_OPS = ("expert_counts", "masked_cumsum", "masked_mean", "reduce_sum",
-            "scan", "segment_sum", "squared_sum")
+PORT_OPS = ("expert_counts", "masked_cumsum", "masked_mean", "norm_matmul",
+            "reduce_sum", "scan", "segment_sum", "squared_sum")
 DD_ENGINES = ("mma_dd", "pallas_dd")
 
 
@@ -49,6 +53,14 @@ def _op_inputs(op: str, dtype: str = "float32", seed: int = 0):
     if op == "expert_counts":
         x = np.eye(16, dtype=np.float32)[rng.integers(0, 16, 300)]
         kw = {}
+    elif op == "norm_matmul":
+        # tests/test_dispatch.py's full surface: d and dout off any tile,
+        # gate + bias + act.
+        def t(*shape):
+            return rng.normal(size=shape).astype(np.float32)
+        x = t(6, 40)
+        kw = {"w": t(40, 24), "scale": t(40) * 0.1, "w_gate": t(40, 24),
+              "bias": t(24)}
     else:
         x = rng.normal(size=N).astype(np.float32)
         kw = {}
@@ -60,6 +72,8 @@ def _op_inputs(op: str, dtype: str = "float32", seed: int = 0):
     tx = torch.from_numpy(x.copy()).to(tdt)
     jkw = {k: jnp.asarray(v).astype(jdt) for k, v in kw.items()}
     tkw = {k: torch.from_numpy(v.copy()).to(tdt) for k, v in kw.items()}
+    if op == "norm_matmul":
+        jkw["act"] = tkw["act"] = "silu"
     if op == "segment_sum":
         # Integer ids (-1 and one past the end add nothing) and a count.
         ids = rng.integers(-1, 38, N).astype(np.int32)
@@ -89,13 +103,21 @@ def test_registry_mirrors_the_reference_for_this_slice():
         want = ref.engines
         assert port.engine_names() == tuple(e.name for e in want)
         assert (port.family, port.aliases) == (ref.family, ref.aliases)
+        assert port.engine_bits == ref.engine_bits, op
         for pe, je in zip(port.engines, want):
+            # The one knob that differs: the reference sweeps its fused
+            # norm_matmul kernel's Pallas grid, while the port's
+            # fused_pallas is kernel B8, whose geometry is fixed (16 rows,
+            # 8 warps a block), so it sweeps nothing until the fused
+            # projection (B10) brings a geometry to tune.
+            sweep = () if (op, je.name) == ("norm_matmul", "fused_pallas") \
+                else je.sweep
             assert (pe.multi_device_safe, pe.axis_subsets, pe.needs_flat,
-                    pe.ndim, pe.sweep, pe.max_split_words,
-                    pe.accum_dtypes) \
+                    pe.ndim, pe.dtypes, pe.sweep, pe.max_split_words,
+                    pe.accum_dtypes, pe.predicate is None) \
                 == (je.multi_device_safe, je.axis_subsets, je.needs_flat,
-                    je.ndim, je.sweep, je.max_split_words,
-                    je.accum_dtypes), pe.name
+                    je.ndim, je.dtypes, sweep, je.max_split_words,
+                    je.accum_dtypes, je.predicate is None), pe.name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -108,11 +130,18 @@ def test_every_engine_matches_oracle_and_reference(op, dtype,
     np.testing.assert_allclose(want, _np(jd.op_spec(op).reference(jx, **jkw)),
                                **_tol(dtype))
     for method in spec.engine_names() + ("auto",):
+        if op == "norm_matmul" and method == "fused_pallas":
+            # w is given: the fused projection is kernel B10, not ported.
+            with pytest.raises(ValueError, match="B10"):
+                td.dispatch(op, tx, method=method, **tkw)
+            continue
         dd = method in DD_ENGINES
         tpol = {"precision": tp.F64_EQUIVALENT} if dd else {}
         jpol = {"precision": jp.F64_EQUIVALENT} if dd else {}
         got = td.dispatch(op, tx, method=method, **tpol, **tkw)
-        assert got.device.type == "cpu" and got.dtype == torch.float32
+        # norm_matmul returns x.dtype, every reduction f32.
+        out_dtype = tx.dtype if op == "norm_matmul" else torch.float32
+        assert got.device.type == "cpu" and got.dtype == out_dtype
         if dd:
             assert got.shape == (2,)
             got = torch.tensor(tp.dd_value(got))

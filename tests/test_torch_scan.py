@@ -335,3 +335,29 @@ def test_scan_costs_rank_like_their_bytes():
         assert methods == {"mma_chained", "mma_ec", "pallas", "vpu"}
     assert tat.model_cost(tat.ReductionPlan(method="vpu"), n, "float32") \
         < vpu
+
+
+def test_scan_cost_counts_the_f32_output_and_copy_of_a_16_bit_input():
+    """The model prices a 16-bit scan from its runners: the input read
+    scales with its itemsize, the f32 output does not, and vpu's f32
+    copy of the input is written and reread.  So ``auto`` resolves to
+    the kernel B6 for a bf16 scan at 2^28 (8 bytes an element against
+    vpu's 14; on one H100 0.85 ms against torch.cumsum's 1.87) and still
+    to vpu in f32 (8 against 12; 1.05 against 1.21 ms)."""
+    n = 1 << 28
+    bytes_of = {m: tat._bytes_per_element(tat.ReductionPlan(method=m),
+                                          "scan", "scan", 2)
+                for m in ("vpu", "pallas", "mma_chained")}
+    assert bytes_of == {"vpu": 14.0, "pallas": 8.0, "mma_chained": 22.0}
+    assert tat._bytes_per_element(tat.ReductionPlan(method="pallas"),
+                                  "scan", "scan", 4) == 12.0
+    for op in SCAN_OPS:
+        for dtype, want in (("bfloat16", "pallas"), ("float32", "vpu")):
+            assert tat.autotune(n, dtype, op=op,
+                                backend="cuda").method == want, (op, dtype)
+            reg = tat.PlanRegistry()
+            assert tat.get_plan(n, dtype, op=op, backend="cuda",
+                                registry=reg).method == want
+    # The segment family's int32 ids do not shrink with the values.
+    assert tat._bytes_per_element(tat.ReductionPlan(method="pallas"),
+                                  "segment_sum", "segment", 2) == 6.0
