@@ -99,16 +99,24 @@ contraction) and ``vpu`` (``index_add_``).  Its phases:
       event timings); the cost model's two segment constants refitted
       from the f32 random case.
 
-The norm path (kernel B8; CUDA C++ in ``csrc/mma_rmsnorm.cu``):
-``repro_torch.models.layers.rmsnorm`` / ``norm_matmul`` ->
-``core.dispatch`` op ``norm_matmul`` -> the engines ``fused_pallas``
-(B8, the norm-only form), ``unfused_mma`` and ``vpu``.  Its phases:
+The norm path (kernels B8 and B10; CUDA C++ in ``csrc/mma_rmsnorm.cu``
+and ``csrc/mma_norm_matmul.cu``): ``repro_torch.models.layers.rmsnorm``
+/ ``norm_matmul`` / ``fused_mlp`` -> ``core.dispatch`` op
+``norm_matmul`` -> the engines ``fused_pallas`` (B8 for the norm-only
+form, B10 with ``w`` given), ``unfused_mma`` and ``vpu``.  Its phases:
 
   2e. B8 against ``rmsnorm_plain`` on the card, rows in {1, 17, 64, 4099}
       and d in {40, 256, 2304, 4096, 7168}, f32 and bf16, weight_offset 0
       and 1, on values of magnitude [0.5, 1] with random signs: f32
       within 2^-20 relative plus 2^-24, bf16 within one ulp, two calls
       the same bits;
+  2f. B10 against ``norm_matmul_plain`` on the card, rows in {1, 17, 128}
+      x d in {40, 256, 2304, 7168} x dout in {8, 100, 9216}, without a
+      gate, with a silu gate and a bias, with a gelu gate, then 4099
+      rows at d 2304 and 7168 and dout 9216; x and weights in f32, in
+      bf16, and bf16 x with f32 weights: within 2^-20 of each output's
+      absolute-value scale (bf16 plus one ulp), two calls the same bits,
+      rows 0..16 of a 4099-row call the bits of a 17-row call;
   3g. ``layers.rmsnorm`` through fused_pallas, unfused_mma, mma, vpu and
       auto, and the norm-only ``layers.norm_matmul`` through each of its
       engines and auto, at 65536 x 2304 (Gemma-2 2B prefill) and
@@ -117,22 +125,32 @@ The norm path (kernel B8; CUDA C++ in ``csrc/mma_rmsnorm.cu``):
       (bf16 plus 100 * 2^-8 %); B8's counter must move; at the Gemma
       shape norm_matmul's auto plan runs within 1.25x of its fastest
       engine;
-  3h. ``norm_matmul`` with w given (``layers.norm_matmul`` with a gelu
-      gate and ``layers.fused_mlp``) at Gemma-2 2B's MLP width in f32
-      and bf16, and on the reference's own problem, through
-      unfused_mma, vpu and auto, within NM_GATES (bf16 plus the unit
-      roundoff per rounding to bf16 on the path); auto within 1.25x of
-      the fastest engine in each dtype; fused_pallas refuses w, naming
-      B10; unfused_mma equals the two-op path bit for bit;
+  3h. ``norm_matmul`` with w given (``layers.norm_matmul`` with the
+      config's gate and ``layers.fused_mlp``) at the MLP widths of the
+      ported configs: Gemma-2 2B (2304 -> 9216, gelu) in f32, bf16 and
+      bf16 rows with f32 weights, DeepSeek-V3's dense MLP (7168 ->
+      18432, silu) in bf16, each at 4096 rows (prefill) and 128 (a
+      decode step), and on the reference's own problem, through
+      fused_pallas (B10), unfused_mma, vpu and auto, within NM_GATES
+      (bf16 plus the unit roundoff per rounding to bf16 on the path:
+      B10 rounds only its output); B10's counter must move; auto within
+      1.25x of the fastest engine at each Gemma shape and dtype;
+      unfused_mma equals the two-op path bit for bit;
   5e. B8 timed at 65536 x 2304, 16384 x 7168 and 64 x 2304 (f32, bf16)
       beside its bound, ``rmsnorm_plain`` and ``F.rms_norm``;
+  5f. B10 timed at 3h's shapes beside its bound (bytes / 3.35 TB/s or
+      flops / 989 TFLOP/s for bf16 weights, 495 TF32 for f32 ones),
+      ``norm_matmul_plain`` and the ``unfused_mma`` engine as the
+      yardstick (no single PyTorch call computes the function); the
+      cost model's B10 rate refitted per weight dtype, and its host time
+      per call with w given per engine at 8 x 256 x 256;
   6b. ``cumsum``'s engines and the plan ``auto`` resolves to, timed at
       2^20, 2^24 and 2^28 in f32 and bf16: the pick within 1.25x of the
       fastest; the model's host time per scan call refitted at 2^12;
       B6's R x B grid timed in bf16 at 2^24, 2^26 and 2^28 (printed).
 
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
-(B1-B8), and last ``{"ok": true, "device": {...}}``.  Details go to
+(B1-B8, B10), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -321,19 +339,49 @@ NM_ENGINES = ("fused_pallas", "unfused_mma", "vpu")
 NM_CEILINGS = {"fused_pallas": 5e-3, "unfused_mma": 5e-3, "mma": 5e-3,
                "vpu": 5e-4}
 NM_EPS = 1e-6
-# Phase 3h: Gemma-2 2B's MLP (d 2304, d_ff 9216, gemma2_2b.py:17) at 4096
-# tokens, and the reference's own problem (nm_problem, copied from
+# Phase 3h / 5f: the MLPs of two of the repo's configs
+# (src/repro_torch/configs), read in main(): Gemma-2 2B (d_model 2304 ->
+# d_ff 9216, gelu) in f32, bf16, and bf16 rows with f32 weights (the
+# transformer's own case: f32 parameters, bf16 activations), and
+# DeepSeek-V3's dense MLP (7168 -> 18432, silu) in bf16; each at prefill
+# (one sequence of SHAPES["train_4k"].seq_len = 4096 tokens) and at a
+# decode step (SHAPES["decode_32k"].global_batch = 128 rows).  And the
+# reference's own problem (nm_problem, copied from
 # scripts/check_error_budget.py:115-145).
-NM_MLP_SHAPE = (4096, 2304, 9216)
-NM_METHODS = ("unfused_mma", "vpu", "auto")
+NM_CONFIGS = (("gemma2-2b", ("f32", "bf16", "mixed")),
+              ("deepseek-v3-671b", ("bf16",)))
+NM_PICK_ARCH = "gemma2-2b"      # where auto is held to its fastest engine
+NM_KINDS = {"f32": (torch.float32, torch.float32),
+            "bf16": (torch.bfloat16, torch.bfloat16),
+            "mixed": (torch.bfloat16, torch.float32)}   # (x, weights)
+NM_METHODS = ("fused_pallas", "unfused_mma", "vpu", "auto")
 # Roundings to bf16 along each bf16 path of phase 3h, each up to the
 # unit roundoff: unfused_mma rounds the normalized rows, both
-# projections, the activation and the product (5), vpu only its output
-# (1); fused_mlp's down projection in bf16 adds one to each.
-NM_BF16_ROUNDINGS = {("norm_matmul", "unfused_mma"): 5,
-                     ("norm_matmul", "vpu"): 1,
-                     ("fused_mlp", "unfused_mma"): 6,
-                     ("fused_mlp", "vpu"): 2}
+# projections, the activation and the product (5), vpu and B10 only
+# their output (1); fused_mlp's down projection in bf16 adds one to
+# each.  With f32 weights beside bf16 rows, unfused_mma also rounds the
+# two weights it casts (2 more), and fused_mlp the down projection's
+# weight (1 more for every engine).
+NM_BF16_ROUNDINGS = {"unfused_mma": 5, "vpu": 1, "fused_pallas": 1}
+# B10 against norm_matmul_plain: |kernel - plain| <= 2^-20 of each
+# output's absolute-value scale S (nm_scale: rstd |x (1 + scale)| |w|,
+# plus |bias|, and for the gate pair |act(g) up|'s sensitivity with
+# |act'| <= 1.2 and |act(g)| <= |g| + 0.3), plus one ulp for a bf16
+# output (a rounding boundary may fall between the two).  Both take the
+# same exact TF32 products and bf16 words of the squares and differ in
+# the order of their f32 adds (in an MMA or a matmul, per 32-column
+# step) and in rsqrtf's and the activations' last bits: a few roundings
+# of 2^-24 of S.  The largest ratio seen in the first run was 2^-24.1.
+B10_RTOL = 2.0 ** -20
+B10_ROWS = (1, 17, 128)
+B10_DS = (40, 256, 2304, 7168)
+B10_DOUTS = (8, 100, 9216)
+B10_FORMS = ((None, False), ("silu", True), ("gelu", False))   # act, bias
+B10_BIG_ROWS = 4099
+# Phase 5f fits the host time of a norm_matmul call with w given
+# (autotune._NM_HOST_US) at this toy size (rows, d, dout) with a gelu
+# gate, where the card's work is negligible.
+NM_HOST_SHAPE = (8, 256, 256)
 NM_SEEDS = (0, 1)
 NM_ROWS, NM_D, NM_DOUT = 64, 256, 128
 
@@ -1208,6 +1256,96 @@ def check_rmsnorm_kernel(mrn, gen) -> dict:
     return {"worst_abs": worst_abs, "rows": rows_out}
 
 
+# ------------------------------------------ phase 2f: B10 kernel checks
+
+
+def nm_inputs(rows: int, d: int, dout: int, act, bias: bool, kind: str,
+              gen: torch.Generator) -> tuple:
+    """x, scale, w, w_gate (None without act) and bias (or None) on the
+    card, in the (x, weights) dtypes of ``kind``."""
+    xdt, wdt = NM_KINDS[kind]
+    x = torch.randn(rows, d, device="cuda", generator=gen).to(xdt)
+    s = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    w, wg = ((torch.randn(d, dout, device="cuda", generator=gen)
+              / math.sqrt(d)).to(wdt) for _ in range(2))
+    b = torch.randn(dout, device="cuda", generator=gen) if bias else None
+    return x, s, w, (wg if act else None), b
+
+
+def nm_scale(x, s, w, wg, b) -> torch.Tensor:
+    """Each B10 output's absolute-value scale (see B10_RTOL), in f64."""
+    xf = x.double()
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + NM_EPS)
+    xs = (xf * (1.0 + s.double())).abs()
+    up = rstd * (xs @ w.double().abs())
+    if b is not None:
+        up = up + b.double().abs()
+    if wg is None:
+        return up
+    return up * (2.2 * rstd * (xs @ wg.double().abs()) + 0.3)
+
+
+def nm_diff(got, want, scale) -> tuple:
+    """(max |got - want| / scale, max |got - want|, whether every element
+    is within B10's tolerance of its plain version)."""
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    bound = B10_RTOL * scale
+    if want.dtype == torch.bfloat16:
+        bound = bound + torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(1e-30))) - 7)
+    return (float((diff / scale.clamp_min(1e-300)).max()), float(diff.max()),
+            bool(torch.all(diff <= bound)))
+
+
+def check_norm_matmul_kernel(mnm, gen) -> dict:
+    """B10 against norm_matmul_plain on the same card inputs: rows in
+    B10_ROWS x d in B10_DS x dout in B10_DOUTS, without a gate, with a
+    silu gate and a bias, with a gelu gate, for f32, bf16, and bf16 rows
+    with f32 weights; then 4099 rows at d 2304 and 7168 and dout 9216.
+    Two calls give the same bits, and at 4099 rows the first 17 rows
+    equal a 17-row call's bit for bit."""
+    worst = {"f32_ratio": 0.0, "abs": 0.0}
+    rows_out = []
+    cases = [(r, d, n, act, bias) for d in B10_DS for n in B10_DOUTS
+             for act, bias in B10_FORMS for r in B10_ROWS]
+    cases += [(B10_BIG_ROWS, d, 9216, act, bias) for d in (2304, 7168)
+              for act, bias in (("gelu", False), ("silu", True))]
+    for kind in NM_KINDS:
+        for rows, d, dout, act, bias in cases:
+            x, s, w, wg, b = nm_inputs(rows, d, dout, act, bias, kind, gen)
+            call = dict(w_gate=wg, bias=b, act=act)
+            got = mnm.norm_matmul_cuda(x, s, w, **call)
+            again = mnm.norm_matmul_cuda(x, s, w, **call)
+            want = mnm.norm_matmul_plain(x, s, w, **call)
+            what = f"B10 {rows}x{d}x{dout} act={act} bias={bias} {kind}"
+            check(got.shape == (rows, dout) and got.dtype == x.dtype
+                  and bool(torch.all(torch.isfinite(got))),
+                  f"{what}: {got.dtype} {tuple(got.shape)}")
+            ratio, diff, ok = nm_diff(got, want, nm_scale(x, s, w, wg, b))
+            if x.dtype == torch.float32:
+                worst["f32_ratio"] = max(worst["f32_ratio"], ratio)
+            worst["abs"] = max(worst["abs"], diff)
+            rows_out.append(("b10_norm_matmul", rows, d, dout, act, bias,
+                             kind, ratio, diff))
+            check(ok, f"{what}: |kernel - plain| {diff:.3g} "
+                      f"({ratio:.3g} of its scale) over its tolerance")
+            check(torch.equal(got, again), f"{what}: two calls differ")
+            if rows == B10_BIG_ROWS:
+                part = mnm.norm_matmul_cuda(x[:17].contiguous(), s, w, **call)
+                check(torch.equal(part, got[:17]),
+                      f"{what}: rows 0..16 differ from a 17-row call")
+            del x, w, wg, got, again, want
+    torch.cuda.synchronize()
+    print(f"phase 2f: {len(rows_out)} B10-vs-plain checks passed, worst "
+          f"|diff| {worst['abs']:.3g}, worst f32 |diff| / scale "
+          f"{worst['f32_ratio']:.3g} (within 2^-20 of each output's scale, "
+          f"bf16 plus one ulp; two calls the same bits; a row's bits "
+          f"independent of the row count)", flush=True)
+    return {"worst_abs": worst["abs"], "worst_f32_ratio": worst["f32_ratio"],
+            "rows": rows_out}
+
+
 # ------------------------------------ phase 3g / 3h: the norm path
 
 
@@ -1314,12 +1452,47 @@ def check_pick(what: str, engines: dict, auto_ms: float) -> dict:
             "best_ms": engines[best], "ratio": ratio}
 
 
-def gelu_gate_oracle(x, scale, w_up, w_gate) -> torch.Tensor:
-    """act(xh @ w_gate) * (xh @ w_up) in f64, gelu's tanh form."""
+def gate_oracle(x, scale, w_up, w_gate, act: str) -> torch.Tensor:
+    """act(xh @ w_gate) * (xh @ w_up) in f64 (gelu in its tanh form)."""
     xh = norm_oracle(x, scale)
     g = xh @ w_gate.double()
-    return torch.nn.functional.gelu(g, approximate="tanh") \
-        * (xh @ w_up.double())
+    gate = torch.nn.functional.silu(g) if act == "silu" \
+        else torch.nn.functional.gelu(g, approximate="tanh")
+    return gate * (xh @ w_up.double())
+
+
+def nm_roundings(label: str, engine: str, kind: str) -> int:
+    """Roundings to bf16 on a bf16 path of phase 3h (NM_BF16_ROUNDINGS)."""
+    n = NM_BF16_ROUNDINGS[engine]
+    if kind == "mixed" and engine == "unfused_mma":
+        n += 2
+    if label == "fused_mlp":
+        n += 1 + (kind == "mixed")
+    return n
+
+
+def balanced_orders(items: tuple) -> list:
+    """Orders of ``items`` in which each item follows every other exactly
+    once (a Williams design; odd lengths also take the rows reversed)."""
+    n = len(items)
+    first = [0] + [(k + 1) // 2 if k % 2 else n - k // 2
+                   for k in range(1, n)]
+    rows = [[(f + i) % n for f in first] for i in range(n)]
+    if n % 2:
+        rows += [row[::-1] for row in rows]
+    return [tuple(items[j] for j in row) for row in rows]
+
+
+def nm_problems(registry, base) -> list:
+    """Phase 3h's (arch, d_model, d_ff, act, rows, kinds), from the
+    ported configs and shapes: prefill and decode rows per config."""
+    out = []
+    for arch, kinds in NM_CONFIGS:
+        cfg = registry.get_config(arch)
+        for rows in (base.SHAPES["train_4k"].seq_len,
+                     base.SHAPES["decode_32k"].global_batch):
+            out.append((arch, cfg.d_model, cfg.d_ff, cfg.act, rows, kinds))
+    return out
 
 
 def nm_two_op(dispatch, autotune, x, s, w) -> torch.Tensor:
@@ -1333,76 +1506,96 @@ def nm_two_op(dispatch, autotune, x, s, w) -> torch.Tensor:
     return (x * rstd * (1.0 + s)).to(torch.float32) @ w
 
 
-def run_norm_matmul_path(layers, param, dispatch, autotune, gen) -> tuple:
-    """norm_matmul with w given at Gemma-2 2B's MLP width in f32 and
-    bf16, and the reference's own problem, through unfused_mma, vpu and
-    auto, against f64 oracles of the cast inputs within NM_GATES (bf16:
-    plus a unit roundoff per rounding to bf16, NM_BF16_ROUNDINGS); at
-    the MLP width norm_matmul's auto plan against its fastest engine;
-    fused_pallas refuses w (kernel B10); unfused_mma equals the two-op
-    path bit for bit."""
+def run_norm_matmul_path(layers, param, dispatch, autotune, problems,
+                         gen) -> tuple:
+    """norm_matmul with w given (layers.norm_matmul with the config's
+    gate and layers.fused_mlp) at the MLP widths of ``problems``, and the
+    reference's own problem, through fused_pallas (B10), unfused_mma,
+    vpu and auto, against f64 oracles of the cast inputs within
+    NM_GATES (bf16: plus a unit roundoff per rounding to bf16,
+    nm_roundings); at the Gemma shapes norm_matmul's auto plan against
+    its fastest engine; unfused_mma equals the two-op path bit for
+    bit."""
     rows_out, picks = [], []
     rng = np.random.default_rng(SEED + 1)
-    rows, d, dff = NM_MLP_SHAPE
-    params = param.from_numpy(
-        {"scale": (0.1 * rng.standard_normal(d)).astype(np.float32)},
-        device="cuda")
-    x32 = torch.randn(rows, d, device="cuda", generator=gen)
-    mlp32 = {k: torch.randn(*shape, device="cuda", generator=gen)
-             / math.sqrt(shape[0]) for k, shape in
-             (("wi_up", (d, dff)), ("wi_gate", (d, dff)), ("wo", (dff, d)))}
-    for dt in (torch.float32, torch.bfloat16):
-        x = x32.to(dt)
-        mlp = {k: v.to(dt) for k, v in mlp32.items()}
-        kw = dict(w_gate=mlp["wi_gate"], act="gelu")
-        want = gelu_gate_oracle(x, params["scale"], mlp["wi_up"],
-                                mlp["wi_gate"])
-        want_mlp = want @ mlp["wo"].double()
-        times = {}
-        for method in NM_METHODS:
-            engine = method if method != "auto" else dispatch.auto_plan(
-                "norm_matmul", x, w=mlp["wi_up"], scale=params["scale"],
-                **kw).method
-            for label, fn, ref in (
-                    ("norm_matmul", lambda: layers.norm_matmul(
-                        params, x, mlp["wi_up"], method=method, **kw), want),
-                    ("fused_mlp", lambda: layers.fused_mlp(
-                        params, mlp, x, act="gelu", method=method),
-                     want_mlp)):
-                ceiling = nm_ceiling(engine, dt,
-                                     NM_BF16_ROUNDINGS[(label, engine)])
-                torch.cuda.synchronize()
-                out = fn()
-                torch.cuda.synchronize()
-                err = frob_pct(out, ref)
-                del out
-                ms = median_ms(fn, reps=5, warmup=1)
-                if label == "norm_matmul":
-                    times[method] = ms
-                rows_out.append({"problem": f"{rows}x{d}x{dff}",
-                                 "dtype": name(dt), "op": label,
-                                 "method": method, "engine": engine,
-                                 "frob_pct_err": err,
-                                 "ceiling_pct": ceiling, "ms": ms})
-                print(f"  {rows}x{d}x{dff} {name(dt):8s} {label:11s} "
-                      f"{method:11s} engine={engine:11s} err={err:.3e}% "
-                      f"(ceiling {ceiling:.3g}%) {ms:.4f} ms", flush=True)
-                check(math.isfinite(err) and err <= ceiling,
-                      f"{label}/{method} {dt}: {err:.3e}% > {ceiling:.3g}%")
-        picks.append(check_pick(
-            f"{rows}x{d}x{dff} {name(dt)} norm_matmul (w, gelu gate)",
-            {m: times[m] for m in NM_METHODS if m != "auto"},
-            times["auto"]))
-        picks[-1].update(problem=f"{rows}x{d}x{dff}", dtype=name(dt))
-        try:
-            dispatch.dispatch("norm_matmul", x, method="fused_pallas",
-                              w=mlp["wi_up"], scale=params["scale"])
-            check(False, "fused_pallas accepted w given")
-        except ValueError as err:
-            check("B10" in str(err), f"fused_pallas refused w without "
-                                     f"naming B10: {err}")
-        del x, mlp, want, want_mlp
-    del x32, mlp32
+    for arch, d, dff, act, rows, kinds in problems:
+        params = param.from_numpy(
+            {"scale": (0.1 * rng.standard_normal(d)).astype(np.float32)},
+            device="cuda")
+        x32 = torch.randn(rows, d, device="cuda", generator=gen)
+        mlp32 = {k: torch.randn(*shape, device="cuda", generator=gen)
+                 / math.sqrt(shape[0]) for k, shape in
+                 (("wi_up", (d, dff)), ("wi_gate", (d, dff)),
+                  ("wo", (dff, d)))}
+        for kind in kinds:
+            xdt, wdt = NM_KINDS[kind]
+            x = x32.to(xdt)
+            mlp = {k: v.to(wdt) for k, v in mlp32.items()}
+            kw = dict(w_gate=mlp["wi_gate"], act=act)
+            want = gate_oracle(x, params["scale"], mlp["wi_up"],
+                               mlp["wi_gate"], act)
+            want_mlp = want @ mlp["wo"].double()
+            problem = f"{arch} {rows}x{d}x{dff} {kind}"
+            calls, found = {}, []
+            for method in NM_METHODS:
+                engine = method if method != "auto" else dispatch.auto_plan(
+                    "norm_matmul", x, w=mlp["wi_up"], scale=params["scale"],
+                    **kw).method
+                for label, fn, ref in (
+                        ("norm_matmul", lambda m=method: layers.norm_matmul(
+                            params, x, mlp["wi_up"], method=m, **kw), want),
+                        ("fused_mlp", lambda m=method: layers.fused_mlp(
+                            params, mlp, x, act=act, method=m), want_mlp)):
+                    ceiling = nm_ceiling(engine, xdt,
+                                         nm_roundings(label, engine, kind))
+                    torch.cuda.synchronize()
+                    out = fn()
+                    torch.cuda.synchronize()
+                    check(out.shape == ref.shape and out.dtype == xdt,
+                          f"{problem} {label}/{method}: {out.dtype} "
+                          f"{tuple(out.shape)}")
+                    err = frob_pct(out, ref)
+                    del out
+                    check(math.isfinite(err) and err <= ceiling,
+                          f"{problem} {label}/{method}: {err:.3e}% > "
+                          f"{ceiling:.3g}%")
+                    calls[(label, method)] = fn
+                    found.append({"problem": problem, "arch": arch,
+                                  "rows": rows, "d": d, "d_ff": dff,
+                                  "kind": kind, "op": label,
+                                  "method": method, "engine": engine,
+                                  "frob_pct_err": err,
+                                  "ceiling_pct": ceiling})
+            # norm_matmul's engines and auto in rounds whose orders make
+            # each method follow every other once (balanced_orders), each
+            # the fastest of its medians: a card slowed by the f32 matmuls
+            # just before, or a host burst, then lands on no one method;
+            # fused_mlp once.
+            times = dict.fromkeys(NM_METHODS, math.inf)
+            for order in balanced_orders(NM_METHODS):
+                for method in order:
+                    times[method] = min(times[method], median_ms(
+                        calls[("norm_matmul", method)], reps=5, warmup=1))
+            for row in found:
+                row["ms"] = times[row["method"]] \
+                    if row["op"] == "norm_matmul" else median_ms(
+                        calls[("fused_mlp", row["method"])], reps=5,
+                        warmup=1)
+                rows_out.append(row)
+                print(f"  {problem:36s} {row['op']:11s} {row['method']:12s} "
+                      f"engine={row['engine']:12s} err="
+                      f"{row['frob_pct_err']:.3e}% (ceiling "
+                      f"{row['ceiling_pct']:.3g}%) {row['ms']:.4f} ms",
+                      flush=True)
+            pick = {"auto_ms": times["auto"], "engine_ms": {
+                m: times[m] for m in NM_METHODS if m != "auto"}}
+            if arch == NM_PICK_ARCH:
+                pick = check_pick(f"{problem} norm_matmul (w, {act} gate)",
+                                  pick["engine_ms"], times["auto"])
+            pick.update(problem=problem)
+            picks.append(pick)
+            del x, mlp, want, want_mlp
+        del x32, mlp32
     for seed in NM_SEEDS:
         prng = np.random.default_rng(seed)
         x32 = prng.standard_normal((NM_ROWS, NM_D)).astype(np.float32)
@@ -1907,6 +2100,125 @@ def time_rmsnorm_kernel(mrn, gen, launches: int, worst_abs: float) -> tuple:
     return entry, details
 
 
+def nm_bound(rows: int, d: int, dout: int, xdt: torch.dtype,
+             wdt: torch.dtype) -> tuple:
+    """Least time in ms for one B10 call with a gate: x, both weights, the
+    d scale values and the output moved once at HBM rate, against its
+    flops (2 rows d dout per projection) at the tensor cores' peak for
+    the weights' type (989 TFLOP/s bf16, 495 TF32 for f32).  Returns
+    (ms, what bounds it, bytes, flops)."""
+    xi = torch.empty((), dtype=xdt).element_size()
+    wi = torch.empty((), dtype=wdt).element_size()
+    nbytes = rows * d * xi + 2 * d * dout * wi + 4 * d + rows * dout * xi
+    flops = 2.0 * rows * d * dout * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / TC_FLOPS[wdt] * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", nbytes, flops
+    return ops_ms, "operations", nbytes, flops
+
+
+def time_norm_matmul_kernel(mnm, dispatch, autotune, problems, gen,
+                            launches: int, worst_abs: float) -> tuple:
+    """B10 at phase 3h's shapes (the config's gate, no bias): held to its
+    tolerance against norm_matmul_plain and to the same bits over two
+    calls, then timed (median of 15 CUDA-event timings, in turns with
+    the plain version) beside its bound, the plain version and the
+    unfused_mma engine, the yardstick (no single PyTorch call computes
+    this function).  The cost model's B10 rate (_B10_FLOPS_PER_US) is
+    refitted from the prefill shapes: flops over the time the bytes
+    leave, per weight dtype.  Gemma-2 2B's prefill in f32 goes to the
+    ``kernels`` line, every case to the details."""
+    entry, details, fits = None, [], {}
+    for arch, d, dff, act, rows, kinds in problems:
+        for kind in kinds:
+            x, s, w, wg, _ = nm_inputs(rows, d, dff, act, False, kind, gen)
+            kern = lambda: mnm.norm_matmul_cuda(  # noqa: E731
+                x, s, w, w_gate=wg, act=act)
+            plain = lambda: mnm.norm_matmul_plain(  # noqa: E731
+                x, s, w, w_gate=wg, act=act)
+            plan = autotune.ReductionPlan(method="unfused_mma")
+            unfused = lambda: dispatch.execute(  # noqa: E731
+                "norm_matmul", x, plan, w=w, scale=s, w_gate=wg, act=act)
+            got, again, want = kern(), kern(), plain()
+            ratio, diff, ok = nm_diff(got, want, nm_scale(x, s, w, wg, None))
+            what = f"B10 {arch} {rows}x{d}x{dff} {kind}"
+            check(ok, f"{what}: |kernel - plain| {diff:.3g}")
+            check(torch.equal(got, again), f"{what}: two calls differ")
+            del got, again, want
+            p1 = median_ms(plain, reps=3, warmup=1)
+            k1 = median_ms(kern)
+            k2 = median_ms(kern)
+            p2 = median_ms(plain, reps=3, warmup=1)
+            u_ms = median_ms(unfused)
+            bound_ms, bound_by, nbytes, flops = nm_bound(rows, d, dff,
+                                                         x.dtype, w.dtype)
+            ms = min(k1, k2)
+            row = {"name": "b10_norm_matmul", "arch": arch, "rows": rows,
+                   "d": d, "d_ff": dff, "act": act, "kind": kind,
+                   "x_dtype": name(x.dtype), "w_dtype": name(w.dtype),
+                   "ms": ms, "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+                   "plain_ms_runs": [p1, p2], "unfused_mma_ms": u_ms,
+                   "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "max_abs_err": diff,
+                   "share_of_bound": bound_ms / ms,
+                   "tflops": flops / ms * 1e-9}
+            details.append(row)
+            print(f"  b10 {arch:16s} {rows}x{d}x{dff} {kind:5s} kernel "
+                  f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s) plain "
+                  f"{row['plain_ms']:.4f} ms unfused_mma {u_ms:.4f} ms bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; "
+                  f"{100 * row['share_of_bound']:.1f} % of it) |diff| "
+                  f"{diff:.3g}", flush=True)
+            if rows > 1024:
+                left = ms * 1e3 - nbytes / (HBM_BYTES_PER_S * 1e-6)
+                fits.setdefault(name(w.dtype), []).append(flops / left)
+            if (arch, rows, kind) == (NM_PICK_ARCH, problems[0][4], "f32"):
+                entry = {"name": "b10_norm_matmul", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "mma_norm_matmul.cu",
+                         "replaces": "src/repro/kernels/"
+                                     "mma_norm_matmul.py:70",
+                         "launches": launches,
+                         "max_abs_err": max(diff, worst_abs),
+                         "ms": ms, "plain_ms": row["plain_ms"],
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
+            del x, s, w, wg
+    fit = {k: statistics.fmean(v) for k, v in fits.items()}
+    print(f"phase 5f: fitted _B10_FLOPS_PER_US "
+          f"{ {k: round(v / 1e6, 2) for k, v in fit.items()} } x 1e6 "
+          f"(per prefill case {fits}); committed "
+          f"{autotune._B10_FLOPS_PER_US}", flush=True)
+    return entry, details, fit
+
+
+def fit_nm_host(dispatch, autotune, gen) -> dict:
+    """µs of host time per norm_matmul call with w given, per kind and
+    engine: each engine at NM_HOST_SHAPE with a gelu gate, the fastest
+    CUDA-event median of 50 calls over the rounds of balanced_orders."""
+    rows, d, dout = NM_HOST_SHAPE
+    fit = {}
+    for kind in NM_KINDS:
+        x, s, w, wg, _ = nm_inputs(rows, d, dout, "gelu", False, kind, gen)
+        calls = {m: (lambda p=autotune.ReductionPlan(method=m):
+                     dispatch.execute("norm_matmul", x, p, w=w, scale=s,
+                                      w_gate=wg, act="gelu"))
+                 for m in NM_ENGINES}
+        us = dict.fromkeys(NM_ENGINES, math.inf)
+        for order in balanced_orders(NM_ENGINES):
+            for m in order:
+                us[m] = min(us[m], 1e3 * median_ms(calls[m], reps=50,
+                                                   warmup=5))
+        fit[kind] = us
+    print(f"phase 5f: fitted _NM_HOST_US (us a call, per kind) "
+          + "; ".join(f"{k}: " + ", ".join(f"{m} {v:.1f}" for m, v in
+                                          us.items())
+                      for k, us in fit.items())
+          + f"; committed {autotune._NM_HOST_US}", flush=True)
+    return fit
+
+
 # ---------------------------------------- phase 6: the cost model's fit
 
 
@@ -2033,21 +2345,21 @@ def check_model_picks(autotune, dispatch, times: dict, gen) -> list:
 
 def scan_plans_us(dispatch, x: torch.Tensor, plans: list) -> list:
     """µs a call of each plan costs in a stream of calls through the
-    executor: CUDA events around SCAN_ITERS calls, the median of
-    SWEEP_ROUNDS rounds (the host's time where it exceeds the card's).
-    The rounds take the plans in turn, each round starting one plan
-    later, so a burst of load on the shared host, and what the plan
-    timed before leaves behind, fall on all of them alike (on one H100,
-    a B6 plan timed right after mma_ec ran ~20 us slower at 2^24 bf16
-    than in B6's grid)."""
+    executor: CUDA events around SCAN_ITERS calls, the median over the
+    rounds of balanced_orders (the host's time where it exceeds the
+    card's).  Each plan follows every other in as many rounds, so a
+    burst of load on the shared host, and what the plan timed before
+    leaves behind, fall on all of them alike (on one H100, a B6 plan
+    timed right after mma_ec ran ~20 us slower at 2^24 bf16 than in B6's
+    grid; rounds that only rotated the order kept the last plan after
+    mma_ec in all but one)."""
     iters = SCAN_ITERS[x.numel()]
     for plan in plans:
         for _ in range(2):
             dispatch.execute("scan", x, plan)
     runs = [[] for _ in plans]
-    for r in range(SWEEP_ROUNDS):
-        for j in range(len(plans)):
-            k = (r + j) % len(plans)
+    for order in balanced_orders(tuple(range(len(plans)))):
+        for k in order:
             plan = plans[k]
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2160,6 +2472,8 @@ def main() -> int:
     ms = importlib.import_module("repro_torch.kernels.mma_scan")
     sg = importlib.import_module("repro_torch.kernels.mma_segment")
     mrn = importlib.import_module("repro_torch.kernels.mma_rmsnorm")
+    mnm = importlib.import_module("repro_torch.kernels.mma_norm_matmul")
+    from repro_torch.configs import base, registry
     from repro_torch.models import layers, param
     # The package exports the functions mma_reduce and mma_scan under
     # the modules' names, so the kernel modules are fetched by their
@@ -2186,6 +2500,7 @@ def main() -> int:
     scan_checks = check_scan_kernel(ms, gen)
     seg_checks = check_segment_kernel(sg, gen)
     norm_checks = check_rmsnorm_kernel(mrn, gen)
+    nm_checks = check_norm_matmul_kernel(mnm, gen)
 
     print("phase 3: main path at n = 2^28", flush=True)
     mr.reset_launches()
@@ -2239,9 +2554,18 @@ def main() -> int:
           flush=True)
     check(norm_launches > 0, "kernel b8_rmsnorm was not launched on the "
                              "norm path")
-    print("phase 3h: norm_matmul with w given", flush=True)
+    print("phase 3h: norm_matmul with w given at the configs' MLP widths",
+          flush=True)
+    problems = nm_problems(registry, base)
+    mnm.reset_launches()
     nm_rows, nm_picks = run_norm_matmul_path(layers, param, dispatch,
-                                             autotune, gen)
+                                             autotune, problems, gen)
+    torch.cuda.synchronize()
+    nm_launches = mnm.LAUNCHES["b10_norm_matmul"]
+    print(f"phase 3h: launches on the norm_matmul path {dict(mnm.LAUNCHES)}",
+          flush=True)
+    check(nm_launches > 0, "kernel b10_norm_matmul was not launched on the "
+                           "norm_matmul path")
     print("phase 3d: the integration example on the card", flush=True)
     integrate_rows = run_integrate_example()
 
@@ -2277,6 +2601,12 @@ def main() -> int:
     norm_entry, norm_timing_rows = time_rmsnorm_kernel(
         mrn, gen, norm_launches, norm_checks["worst_abs"])
     entries.append(norm_entry)
+    print("phase 5f: B10 timings at phase 3h's shapes", flush=True)
+    nm_entry, nm_timing_rows, nm_fit = time_norm_matmul_kernel(
+        mnm, dispatch, autotune, problems, gen, nm_launches,
+        nm_checks["worst_abs"])
+    entries.append(nm_entry)
+    nm_host = fit_nm_host(dispatch, autotune, gen)
 
     print("phase 6: the cost model against measured times (f32)",
           flush=True)
@@ -2324,9 +2654,13 @@ def main() -> int:
                    "norm_kernel_checks": norm_checks["rows"],
                    "norm_path": norm_rows, "norm_picks": norm_picks,
                    "norm_launches": norm_launches,
+                   "norm_matmul_kernel_checks": nm_checks["rows"],
                    "norm_matmul_path": nm_rows,
                    "norm_matmul_picks": nm_picks,
+                   "norm_matmul_launches": nm_launches,
                    "norm_timings": norm_timing_rows,
+                   "norm_matmul_timings": nm_timing_rows,
+                   "b10_fit": nm_fit, "nm_host_us": nm_host,
                    "scan_picks": scan_picks,
                    "sweep_us": {str(n): [[p.method, p.chain, p.block_rows,
                                           us] for p, us in by.items()]

@@ -596,22 +596,61 @@ _SEGMENT_COSTS = {
 # The outputs: unfused_mma writes up in x.dtype, and a gate adds g, its
 # activation and the product (read 2 s, write s each: 1 + 6 outputs'
 # worth); vpu does the same in f32 and casts a 16-bit result (4 + s).
-# Not priced: a bias (one pass over the output in either engine) and
-# the kernel launches, a few µs that no pick turns on: B8 has both the
-# fewest bytes and one launch, and the engines that serve w given
-# differ by two launches beside the projection.  In f32 with w given
-# the two tie, and the first, unfused_mma, wins as in the reference.
+# A weight whose dtype is not x's (the form's ``w_dtype``, itemsize w):
+# unfused_mma casts it to x's dtype first (reads w, writes s) and its
+# matmul reads the cast (s); vpu reads an f32 weight as it is and makes
+# an f32 copy of a 16-bit one (w + 8).  ``fused_pallas`` with w given is
+# kernel B10: one launch that reads x once, each weight once and writes
+# the output once, and does its flops at _B10_FLOPS_PER_US for the
+# weight's dtype.  Not priced: a bias (one pass over the output in the
+# unfused engines).  With w given a call costs its device time plus its
+# host time (_NM_HOST_US): the unfused engines' first launches are
+# small kernels that keep the card waiting on the host, and the matmuls
+# come last, so at a decode step's 128 rows the two add up (the times
+# phase 3h measured there are their sum, not the larger).  In f32 at
+# prefill unfused_mma and vpu tie on the card and vpu's fewer launches
+# decide.
 _TC_FLOPS_PER_US = _MXU_THROUGHPUT * 2 * DEFAULT_M * _PARALLELISM
 _F32_FLOPS_PER_US = 2 * _VPU_THROUGHPUT * _PARALLELISM
+# Kernel B10's useful flops (2 rows d dout per projection) per µs, by the
+# weight's dtype: it spends three TF32 MMAs per product on an f32 weight
+# and two on a bf16 one.  Fitted, not from a data sheet: chip_smoke.py
+# (phase 5f) times B10 at Gemma-2 2B's and DeepSeek-V3's MLP widths on one
+# H100 80GB HBM3 (700 W) and prints the fit, flops over the time the
+# bytes leave.
+_B10_FLOPS_PER_US = {"float32": 26.4e6, "bfloat16": 23.5e6}
+# µs of host time one norm_matmul call with w given costs (Python, the
+# casts' and the kernels' launches), whatever its size: chip_smoke.py
+# (phase 5f) times each engine at 8 x 256 x 256 with a gelu gate, where
+# the card's work is negligible, in f32, bf16 and bf16 rows with f32
+# weights, and prints the fit; these are the means of its three values
+# on one H100 80GB HBM3 (700 W).  Later runs on the same kind of machine
+# fit values up to ~1.5x away (the host the card shares); the order of
+# the engines held.  The norm-only form is not priced so: B8 is one
+# launch and the fewest bytes, and its picks are the card's.
+_NM_HOST_US = {"fused_pallas": 82.6, "unfused_mma": 260.3, "vpu": 182.8}
 
 
-def _cost_nm(plan: ReductionPlan, n: int, itemsize: int,
+def _cost_b10(n: int, itemsize: int, w_item: int, w_dtype: str,
+              form: dict) -> float:
+    rate = _B10_FLOPS_PER_US.get(w_dtype)
+    if rate is None:        # a weight B10 does not take
+        return math.inf
+    d, dout, mats = form["d"], form["dout"], 1 + form.get("gate", 0)
+    nbytes = n * itemsize + mats * d * dout * w_item \
+        + n / d * dout * itemsize
+    return nbytes / _HBM_BYTES_PER_US + 2.0 * n * dout * mats / rate
+
+
+def _cost_nm(plan: ReductionPlan, n: int, itemsize: int, dtype,
              form: dict) -> float:
     dout = form.get("dout", 0)
+    w_dtype = form.get("w_dtype", dtype_name(dtype))
+    w_item = torch.empty((), dtype=as_dtype(w_dtype)).element_size()
     if plan.method == "fused_pallas":
-        # The fused projection is kernel B10 (ROADMAP item 9b).
-        return 3.0 * itemsize * n / _HBM_BYTES_PER_US if not dout \
-            else math.inf
+        if not dout:        # the norm-only form: kernel B8
+            return 3.0 * itemsize * n / _HBM_BYTES_PER_US
+        return _cost_b10(n, itemsize, w_item, w_dtype, form)
     wide = itemsize >= 4
     vpu = plan.method == "vpu"
     norm = 28.0 if wide else 28.0 + 2.0 * (itemsize + 4.0)
@@ -621,13 +660,24 @@ def _cost_nm(plan: ReductionPlan, n: int, itemsize: int,
         return n * norm / _HBM_BYTES_PER_US
     d, mats = form["d"], 1 + form.get("gate", 0)
     rows_in = 4.0 if vpu else itemsize
-    weight = itemsize + (8.0 if vpu and not wide else 0.0)
+    if vpu:
+        weight = 4.0 if w_item >= 4 else w_item + 8.0
+    else:
+        weight = w_item if w_item == itemsize else w_item + 2.0 * itemsize
     outputs = rows_in * (1 + 6 * form.get("gate", 0)) \
         + (4.0 + itemsize if vpu and not wide else 0.0)
     nbytes = n * norm + mats * (n * rows_in + d * dout * weight) \
         + n / d * dout * outputs
     rate = _TC_FLOPS_PER_US if not (vpu or wide) else _F32_FLOPS_PER_US
     return nbytes / _HBM_BYTES_PER_US + 2.0 * n * dout * mats / rate
+
+
+def _cost_norm_matmul(plan: ReductionPlan, n: int, itemsize: int, dtype,
+                      form: dict) -> float:
+    device = _cost_nm(plan, n, itemsize, dtype, form)
+    if not form.get("dout", 0):
+        return device
+    return device + _NM_HOST_US[plan.method]
 
 
 _FAMILY_COSTS = {"reduce": _ENGINE_COSTS, "scan": _SCAN_COSTS,
@@ -807,7 +857,8 @@ def model_cost(plan: ReductionPlan, n: int, dtype,
     padding, plus the time the engine's device-memory traffic takes
     (``_bytes_per_element``: a kernel streams its input once, the plain
     engines' intermediate tensors go through memory too); a scan engine
-    costs at least its host time per call.  The op's family
+    costs at least its host time per call, a norm_matmul engine with w
+    given its host time on top.  The op's family
     (``dispatch.OpSpec.family``) picks the reduce, scan, segment or
     norm_matmul terms (the last: bytes and, for the projection that
     ``form`` names, flops; ``_cost_nm``)."""
@@ -816,7 +867,7 @@ def model_cost(plan: ReductionPlan, n: int, dtype,
     n = max(int(n), 1)
     itemsize = torch.empty((), dtype=as_dtype(dtype)).element_size()
     if family == "norm_matmul":
-        return _cost_nm(plan, n, itemsize, dict(form))
+        return _cost_norm_matmul(plan, n, itemsize, dtype, dict(form))
     mem = n * _bytes_per_element(plan, op, family, itemsize) \
         / _HBM_BYTES_PER_US
     device = _FAMILY_COSTS[family][plan.method](plan, n) + mem
@@ -948,6 +999,11 @@ class PlanRegistry:
         self._plans: dict[str, ReductionPlan] = {}
         self._mu = threading.Lock()
         self.path = path
+        # The plan ``dispatch``'s auto resolved per call context, so that
+        # a repeated call skips the engine checks and the plan key (tens
+        # of µs of host time, a tenth of a decode step's); emptied
+        # whenever a plan changes.
+        self.auto_memo: dict = {}
 
     def get(self, key: str) -> Optional[ReductionPlan]:
         return self._plans.get(key)
@@ -955,6 +1011,7 @@ class PlanRegistry:
     def put(self, key: str, plan: ReductionPlan) -> None:
         with self._mu:
             self._plans[key] = plan
+            self.auto_memo.clear()
 
     def items(self):
         with self._mu:
@@ -963,6 +1020,7 @@ class PlanRegistry:
     def clear(self) -> None:
         with self._mu:
             self._plans.clear()
+            self.auto_memo.clear()
 
     def __len__(self) -> int:
         return len(self._plans)
@@ -976,6 +1034,7 @@ class PlanRegistry:
                 ours = self._plans.get(key)
                 if ours is None or _prefer_incoming(ours, theirs):
                     self._plans[key] = theirs
+                    self.auto_memo.clear()
                     adopted += 1
         return adopted
 

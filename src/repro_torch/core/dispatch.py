@@ -32,9 +32,9 @@ its alias, a scan having no single-contraction form), ``mma_ec``
 ``pallas`` (kernel B7) and ``vpu`` (``index_add_`` after dropping the ids
 outside [0, S), which torch would refuse and JAX drops).  The
 ``norm_matmul`` family (``rmsnorm(x) @ w``, or the norm alone with
-``w=None``) has ``fused_pallas`` (kernel B8, the norm-only form only,
-until kernel B10 is ported), ``unfused_mma`` (the two-op path) and
-``vpu`` (all f32); ``'pallas'`` and ``'mma'`` are their aliases.
+``w=None``) has ``fused_pallas`` (kernel B10 with ``w`` given, kernel B8
+for the norm-only form), ``unfused_mma`` (the two-op path) and ``vpu``
+(all f32); ``'pallas'`` and ``'mma'`` are their aliases.
 
 The dd engines declare ``accum_dtypes=('float64',)``: they run only
 under an explicit f64 policy (``precision.F64_EQUIVALENT``), and every
@@ -55,11 +55,11 @@ CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.precision import (ACCUM_DTYPE, MmaPolicy, as_dtype,
                                         as_policy, dtype_name)
@@ -393,6 +393,27 @@ def _tensor_kwargs(x, op_kwargs: dict) -> dict:
 def _auto_plan(spec: OpSpec, x, ctx: DispatchContext, op_kwargs: dict,
                policy: Optional[MmaPolicy], objective, bucket: str):
     from repro_torch.core import autotune
+    # The context holds every fact the plan is chosen from (op, shape,
+    # dtype, axes, mesh, policy, the op's form), so a repeated call takes
+    # the registry's memo of it.
+    memo = autotune.default_registry().auto_memo
+    try:
+        key = (ctx, objective, bucket, x.device.type)
+        plan = memo.get(key)
+    except TypeError:                   # an unhashable objective
+        key = plan = None
+    if plan is None:
+        plan = _resolve_auto_plan(spec, x, ctx, op_kwargs, policy,
+                                  objective, bucket)
+        if key is not None:
+            memo[key] = plan
+    return plan
+
+
+def _resolve_auto_plan(spec: OpSpec, x, ctx: DispatchContext,
+                       op_kwargs: dict, policy: Optional[MmaPolicy],
+                       objective, bucket: str):
+    from repro_torch.core import autotune
     legal = legal_engines(spec, ctx)
     if not legal:
         raise ValueError(f"no engine of op {spec.name!r} supports this "
@@ -466,22 +487,31 @@ def _context_for(spec: OpSpec, x, op_kwargs: dict, *,
 
 def _norm_matmul_form(x, op_kwargs: dict) -> tuple:
     """The projection the cost model prices beside the norm: none for
-    the norm-only form (w=None), else (d, dout, gate)."""
+    the norm-only form (w=None), else (d, dout, gate), and the weight's
+    dtype when it is not x's (a model's f32 weights beside bf16
+    activations: B10 multiplies them in f32, unfused_mma casts them)."""
     w = op_kwargs.get("w")
     if w is None:
         return ()
-    return (("d", int(x.shape[-1])), ("dout", int(w.shape[-1])),
+    form = (("d", int(x.shape[-1])), ("dout", int(w.shape[-1])),
             ("gate", int(op_kwargs.get("w_gate") is not None)))
+    if w.dtype != x.dtype:
+        form += (("w_dtype", dtype_name(w.dtype)),)
+    return form
 
 
 def _norm_matmul_extras(x, op_kwargs: dict) -> tuple:
-    """The norm_matmul family's context facts (shapes and flags only)."""
+    """The norm_matmul family's context facts (shapes, dtypes and flags
+    only)."""
     w = op_kwargs.get("w")
+    weights = tuple(dtype_name(wi.dtype) for wi in
+                    (w, op_kwargs.get("w_gate")) if wi is not None)
     return (
         ("d_model", int(x.shape[-1])),
         ("d_out", int(w.shape[-1]) if w is not None else 0),
         ("has_gate", op_kwargs.get("w_gate") is not None),
         ("has_bias", op_kwargs.get("bias") is not None),
+        ("w_dtypes", weights),
     )
 
 
@@ -684,16 +714,6 @@ def _segment_vpu(values, plan, *, segment_ids, num_segments, **_):
 # act(xh @ w_gate) * (xh @ w [+ bias]).  Output in x.dtype.
 
 
-def _nm_apply_act(g, act):
-    if act is None:
-        return g
-    if act == "silu":
-        return F.silu(g)
-    if act == "gelu":
-        return F.gelu(g, approximate="tanh")
-    raise ValueError(f"unknown norm_matmul act: {act!r}")
-
-
 def _nm_weight(w, policy):
     # policy.cast_in on the weight operand: dispatch's _cast_in handles
     # x, but the weight never passes through it.
@@ -706,6 +726,7 @@ def _nm_scale(scale, x):
 
 def _nm_vpu(x, plan, *, w, scale, w_gate=None, bias=None, act=None,
             eps=1e-6, policy=None, **_):
+    from repro_torch.kernels.mma_norm_matmul import apply_act
     xf = _f32(x)
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     rstd = torch.rsqrt(ms + eps)
@@ -717,7 +738,7 @@ def _nm_vpu(x, plan, *, w, scale, w_gate=None, bias=None, act=None,
         up = up + _f32(torch.as_tensor(bias, device=x.device))
     if w_gate is not None:
         g = xh @ _f32(_nm_weight(w_gate, policy))
-        up = _nm_apply_act(g, act) * up
+        up = apply_act(g, act) * up
     return up.to(x.dtype)
 
 
@@ -728,6 +749,7 @@ def _nm_unfused(x, plan, *, w, scale, w_gate=None, bias=None, act=None,
     # matmul in x.dtype: the same reduction primitive (tc_reduce_axes on
     # the last dim), the same multiply association, the same casts.
     from repro_torch.core import reduction as R
+    from repro_torch.kernels.mma_norm_matmul import apply_act
     xf = _f32(x)
     ms = R.tc_reduce_axes(xf * xf, (x.ndim - 1,))[..., None] \
         / x.shape[-1]
@@ -740,24 +762,44 @@ def _nm_unfused(x, plan, *, w, scale, w_gate=None, bias=None, act=None,
         up = up + torch.as_tensor(bias, device=x.device).to(x.dtype)
     if w_gate is not None:
         g = xh @ _nm_weight(w_gate, policy).to(x.dtype)
-        up = _nm_apply_act(g, act) * up
+        up = apply_act(g, act) * up
     return up
 
 
-def _nm_fused(x, plan, *, w, scale, eps=1e-6, **_):
-    # The norm-only form is kernel B8 (its predicate refuses w given).
+def _nm_fused(x, plan, *, w, scale, w_gate=None, bias=None, act=None,
+              eps=1e-6, policy=None, **_):
     from repro_torch.kernels import ops
-    return ops.mma_rmsnorm(x, scale, eps=eps, weight_offset=1.0)
+    if w is None:
+        # The norm-only form: kernel B8.
+        return ops.mma_rmsnorm(x, scale, eps=eps, weight_offset=1.0)
+    wg = None if w_gate is None else _nm_weight(w_gate, policy)
+    return ops.mma_norm_matmul(x, scale, _nm_weight(w, policy), w_gate=wg,
+                               bias=bias, act=act, eps=eps)
+
+
+# The reference capped the fused kernel at a padded d_model of 512
+# (_NM_FUSED_MAX_D): its TPU kernel held the whole (rows, dout) f32
+# accumulator and a 128-lane k-block of the weights in VMEM.  Kernel B10
+# walks k in 32-column steps inside its loop and holds one 128 x 64
+# output tile's accumulator, so its shared memory (74 KB) does not grow
+# with d or dout; only its int indexing bounds them
+# (kernels.mma_norm_matmul.refusal).
 
 
 def _nm_fused_predicate(ctx: DispatchContext) -> Optional[str]:
-    # B8 serves any d_model >= 1; the fused projection is kernel B10,
-    # which derives its own d_model limit when it is ported.
-    if ctx.extra("d_out", 0):
-        return ("the fused norm->matmul kernel B10 is not ported yet "
-                "(ROADMAP item 9b): fused_pallas serves only the "
-                "norm-only form (w=None); use the unfused engines")
-    return None
+    # B8 (w=None) serves any d_model >= 1; B10 (w given) what its
+    # refusal allows (x's dtype is the engine's dtypes check).
+    dout = int(ctx.extra("d_out", 0))
+    if not dout:
+        return None
+    policy_dtype = None if ctx.policy is None else ctx.policy.input_dtype
+    weights = ctx.extra("w_dtypes", ()) if policy_dtype is None \
+        else (dtype_name(policy_dtype),)
+    from repro_torch.kernels.mma_norm_matmul import refusal
+    reason = refusal(math.prod(ctx.shape[:-1]),
+                     int(ctx.extra("d_model", 0)), dout,
+                     bool(ctx.extra("has_gate")), weights)
+    return None if reason is None else f"{reason}; use the unfused engines"
 
 
 # ================================================= reference oracles
@@ -814,15 +856,16 @@ def _measure_expert_counts(n, dtype, rng, device):
 
 # A representative problem of ~n input elements in the call's form
 # (``_norm_matmul_form``): the norm-only form at Gemma-2 2B's width
-# (d = 2304, src/repro/configs/gemma2_2b.py) when the form is empty,
-# else rows x d activations with (d, dout) projections, a gelu-gated
-# pair when ``gate``.
+# (d = 2304, repro_torch/configs/gemma2_2b.py) when the form is empty,
+# else rows x d activations with (d, dout) projections in x's dtype or
+# ``w_dtype``, a gelu-gated pair when ``gate``.
 _MEASURE_NM_D = 2304
 
 
 def _measure_norm_matmul(n, dtype, rng, device, d=_MEASURE_NM_D, dout=0,
-                         gate=0):
+                         gate=0, w_dtype=None):
     dt = as_dtype(dtype)
+    wdt = dt if w_dtype is None else as_dtype(w_dtype)
     rows = max(int(n) // d, 1)
     x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
     scale = torch.from_numpy((0.1 * rng.standard_normal(d))
@@ -831,7 +874,7 @@ def _measure_norm_matmul(n, dtype, rng, device, d=_MEASURE_NM_D, dout=0,
     if dout:
         def weight():
             w = rng.standard_normal((d, dout)) / np.sqrt(d)
-            return torch.from_numpy(w.astype(np.float32)).to(device, dt)
+            return torch.from_numpy(w.astype(np.float32)).to(device, wdt)
         kw["w"] = weight()
         if gate:
             kw.update(w_gate=weight(), act="gelu")
@@ -949,8 +992,9 @@ register(OpSpec(
 
 
 # norm_matmul engines:
-#   fused_pallas  kernel B8 for the norm-only form (w=None): f32 and bf16,
-#                 any d_model; w given is refused until kernel B10.
+#   fused_pallas  kernel B10 with w given (x f32 or bf16, weights f32 or
+#                 bf16, any d_model: _nm_fused_predicate), kernel B8 for
+#                 the norm-only form (w=None): f32 and bf16, any d_model.
 #   unfused_mma   the two-op path (the statistic through tc_reduce_axes,
 #                 the matmul in x.dtype), distribution-safe.
 #   vpu           the all-f32 baseline, safe everywhere.
@@ -958,8 +1002,8 @@ register(OpSpec(
 register(OpSpec(
     name="norm_matmul", family="norm_matmul",
     engines=(
-        # B8's geometry is fixed (16 rows, 8 warps a block): no sweep
-        # until B10 gives the fused engine a geometry to tune.
+        # B8's and B10's geometries are fixed by the card (16 rows a B8
+        # block; one 128 x 64 tile a B10 block): nothing to sweep.
         EngineSpec("fused_pallas", _nm_fused,
                    dtypes=("float32", "bfloat16"),
                    predicate=_nm_fused_predicate),
@@ -969,8 +1013,10 @@ register(OpSpec(
     aliases={"pallas": "fused_pallas", "mma": "unfused_mma"},
     reference=_ref_norm_matmul, form_of=_norm_matmul_form,
     measure=_measure_norm_matmul,
-    # The unfused statistic and matmul run in full f32 (TF32 off).  B8's
-    # squares go into the tensor cores as exact bf16 words, so
-    # fused_pallas also carries 24 bits (the autotuner's default here),
-    # not the reference's TPU default of 8.
-    engine_bits={"unfused_mma": 24}))
+    # The unfused statistic and matmul run in full f32 (TF32 off).  The
+    # fused kernels' statistics take exact bf16 words of the squares (24
+    # bits), and B10 multiplies in 3xTF32: two TF32 words of
+    # x * (1 + scale) and of an f32 weight, the lo x lo product dropped,
+    # about 2^-22 relative per product, 21 bits; the reference's TPU
+    # kernel carried 8 (its default).
+    engine_bits={"unfused_mma": 24, "fused_pallas": 21}))

@@ -4,7 +4,7 @@
 each kernel module pairs a kernel's wrapper with its plain PyTorch
 version and a launch counter (B1-B3 in ``mma_reduce``, B4-B5 in
 ``mma_compensated``, B6 in ``mma_scan``, B7 in ``mma_segment``, B8 in
-``mma_rmsnorm``),
+``mma_rmsnorm``, B10 in ``mma_norm_matmul``),
 ``ops`` exposes the public API and ``ref`` the plain oracles.
 """
 
@@ -14,6 +14,7 @@ from repro_torch.kernels.ops import (  # noqa: F401
     mma_dd_squared_sum,
     mma_ec_reduce,
     mma_ec_squared_sum,
+    mma_norm_matmul,
     mma_reduce,
     mma_reduce_partials,
     mma_rmsnorm,

@@ -59,8 +59,10 @@ def words_of(dtype: torch.dtype) -> int:
     return 2 if dtype == torch.bfloat16 else 3
 
 
-def row_sums_plain(x2d: torch.Tensor) -> torch.Tensor:
-    """The kernel's statistic: f32 sum of squares per row, (rows,)."""
+def tile_sums_plain(x2d: torch.Tensor) -> torch.Tensor:
+    """Each 16-column tile's f32 sum of squares, (rows, tiles): the exact
+    bf16 words of the f32 squares summed through f32 matmuls against
+    ones, ``(hi + mid) + lo`` per tile (B8's and B10's statistic)."""
     rows, d = x2d.shape
     xf = x2d.to(ACCUM_DTYPE)
     sq = xf * xf
@@ -72,6 +74,13 @@ def row_sums_plain(x2d: torch.Tensor) -> torch.Tensor:
         part = torch.matmul(word.to(ACCUM_DTYPE).reshape(rows, tiles, TILE),
                             ones)[..., 0]
         tile_sum = part if tile_sum is None else tile_sum + part
+    return tile_sum
+
+
+def row_sums_plain(x2d: torch.Tensor) -> torch.Tensor:
+    """The kernel's statistic: f32 sum of squares per row, (rows,)."""
+    tile_sum = tile_sums_plain(x2d)
+    rows, tiles = tile_sum.shape
     # Warp w takes tiles w, w + WARPS, ... in order; then warp order.
     steps = -(-tiles // WARPS)
     tile_sum = torch.nn.functional.pad(tile_sum,

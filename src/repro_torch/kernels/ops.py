@@ -1,6 +1,7 @@
 """Public wrappers for the reduction kernels (B1-B5), the prefix-scan
-kernel B6, the segmented-sum kernel B7 and the fused RMSNorm kernel B8
-— the counterpart of those parts of ``repro.kernels.ops``.
+kernel B6, the segmented-sum kernel B7, the fused RMSNorm kernel B8 and
+the fused RMSNorm -> matmul kernel B10 — the counterpart of those parts
+of ``repro.kernels.ops`` and ``repro.kernels.mma_norm_matmul``.
 
 They flatten, resolve ``'auto'`` geometry and pick the variant.  Where
 the reference chose interpret mode off the TPU, the port chooses by the
@@ -17,6 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels import mma_compensated as _mc
+from repro_torch.kernels import mma_norm_matmul as _mnm
 from repro_torch.kernels import mma_reduce as _mr
 from repro_torch.kernels import mma_rmsnorm as _mrn
 from repro_torch.kernels import mma_scan as _ms
@@ -292,3 +294,37 @@ def mma_rmsnorm(x, weight, *, eps: float = 1e-6,
         out = _mrn.rmsnorm_plain(x2d, weight, eps=eps,
                                  weight_offset=weight_offset)
     return out.reshape(x.shape)
+
+
+def mma_norm_matmul(x, scale, w, *, w_gate=None, bias=None, act=None,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """Fused ``rmsnorm(x) @ w``: x (..., d), scale (d,) with the gemma
+    ``(1 + scale)`` weighting, w (d, dout) -> (..., dout) in x.dtype,
+    without materialising the normalised rows.  ``bias`` (dout,) is
+    added to the plain projection; with ``w_gate`` (d, dout) the output
+    is the MLP pair ``act(rmsnorm(x) @ w_gate) * (rmsnorm(x) @ w
+    [+ bias])``, ``act`` None, 'silu' or 'gelu' (tanh form).
+
+    A CUDA tensor (f32 or bf16; weights f32 or bf16, independently of x)
+    launches kernel B10, a CPU tensor runs its plain version; there is
+    no fallback from one to the other.  The geometry is fixed by the
+    card, not tuned (the reference's ``chain`` / ``block_rows`` knobs
+    shaped its TPU grid): a block holds one 128 x 64 output tile and
+    walks k in a loop, so any d fits, where the reference padded d to
+    128 lanes and held the whole (rows, dout) accumulator in VMEM.
+
+    Reached through the ``norm_matmul`` registry entry as the
+    ``fused_pallas`` engine with ``w`` given; callers go through
+    ``repro_torch.models.layers.norm_matmul`` / ``fused_mlp``.
+    """
+    d = x.shape[-1]
+    x2d = x.reshape(-1, d)
+    scale = torch.as_tensor(scale, device=x.device)
+    if x2d.is_cuda:
+        out = _mnm.norm_matmul_cuda(x2d.contiguous(), scale, w,
+                                    w_gate=w_gate, bias=bias, act=act,
+                                    eps=eps)
+    else:
+        out = _mnm.norm_matmul_plain(x2d, scale, w, w_gate=w_gate,
+                                     bias=bias, act=act, eps=eps)
+    return out.reshape(*x.shape[:-1], out.shape[-1])

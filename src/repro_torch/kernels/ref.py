@@ -1,5 +1,6 @@
-"""Plain-PyTorch oracles for the reduction, prefix-scan, segmented-sum
-and RMSNorm kernels — the counterpart of ``repro.kernels.ref`` for those kernels.
+"""Plain-PyTorch oracles for the reduction, prefix-scan, segmented-sum,
+RMSNorm and fused RMSNorm -> matmul kernels — the counterpart of
+``repro.kernels.ref`` for those kernels.
 
 Each oracle states the *semantics* a kernel must have (including the
 f32 accumulation), not its implementation.
@@ -94,3 +95,21 @@ def rmsnorm_ref(x2d, weight, *, eps: float = 1e-6,
     rstd = torch.rsqrt(ms + eps)
     w = weight.to(ACCUM_DTYPE) + weight_offset
     return (xf * rstd * w).to(x2d.dtype)
+
+
+def norm_matmul_ref(x2d, scale, w, *, w_gate=None, bias=None, act=None,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm(x) @ w`` with the gemma ``(1 + scale)`` weighting: f32
+    mean of squares, the f32 projection of ``x * (1 + scale)`` scaled by
+    ``rsqrt`` afterwards, ``+ bias``, ``act(g) * up`` with a gate; cast
+    to x's dtype."""
+    from repro_torch.kernels.mma_norm_matmul import apply_act
+    xf = x2d.to(ACCUM_DTYPE)
+    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xs = xf * (1.0 + scale.to(ACCUM_DTYPE))
+    up = (xs @ w.to(ACCUM_DTYPE)) * rstd
+    if bias is not None:
+        up = up + bias.to(ACCUM_DTYPE)
+    if w_gate is not None:
+        up = apply_act((xs @ w_gate.to(ACCUM_DTYPE)) * rstd, act) * up
+    return up.to(x2d.dtype)

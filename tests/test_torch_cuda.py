@@ -1,4 +1,4 @@
-"""The port on the card: kernels B1-B7 against their plain PyTorch
+"""The port on the card: kernels B1-B8 and B10 against their plain PyTorch
 versions, the wrappers' checks and launch counters, and the entry
 points' device rule.  Every test here needs an NVIDIA card (and nvcc to
 build the kernels) and skips without one; this file imports nothing of
@@ -22,6 +22,11 @@ order), on counting inputs with the exact count, and with itself bit
 for bit.  The RMSNorm kernel B8 agrees with its plain version to 2^-20
 of each f32 output plus 2^-24 (sums in another order, ``rsqrtf``
 within 2 ulp), within one ulp in bf16, and with itself bit for bit.
+The fused RMSNorm -> matmul kernel B10 agrees with its plain version to
+2^-20 of each output's absolute-value scale (its f32 sums and
+``rsqrtf`` in another order; the scale is ``_nm_scale``'s), plus one ulp
+in bf16, with itself bit for bit, and a row's bits do not depend on how
+many rows came with it.
 """
 
 import importlib
@@ -38,6 +43,7 @@ mr = importlib.import_module("repro_torch.kernels.mma_reduce")
 ms = importlib.import_module("repro_torch.kernels.mma_scan")
 sg = importlib.import_module("repro_torch.kernels.mma_segment")
 mrn = importlib.import_module("repro_torch.kernels.mma_rmsnorm")
+mnm = importlib.import_module("repro_torch.kernels.mma_norm_matmul")
 
 M = 16
 RTOL = 2.0 ** -16
@@ -554,8 +560,129 @@ def test_norm_entry_points_run_on_the_card(cuda):
                             scale=params["scale"])
     assert got.is_cuda and mrn.LAUNCHES["b8_rmsnorm"] == 2
     w = torch.randn(2304, 64, device="cuda") / 48.0
-    with pytest.raises(ValueError, match="B10"):
-        dispatch.dispatch("norm_matmul", x, method="fused_pallas", w=w,
-                          scale=params["scale"])
+    mnm.reset_launches()
+    got = dispatch.dispatch("norm_matmul", x, method="fused_pallas", w=w,
+                            scale=params["scale"])
+    assert got.is_cuda and mnm.LAUNCHES["b10_norm_matmul"] == 1
     out = layers.norm_matmul(params, x, w, method="fused_pallas")
     assert out.is_cuda and out.shape == (4, 8, 64)
+    assert torch.equal(out, got) and mnm.LAUNCHES["b10_norm_matmul"] == 2
+
+
+# ------------------------------------- B10: fused RMSNorm -> matmul
+
+NM_RTOL = 2.0 ** -20
+
+
+def _nm_inputs(rows, d, dout, act, bias, x_dtype, w_dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, d, device="cuda", generator=gen).to(x_dtype)
+    s = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    w, wg = ((torch.randn(d, dout, device="cuda", generator=gen)
+              / d ** 0.5).to(w_dtype) for _ in range(2))
+    b = torch.randn(dout, device="cuda", generator=gen) if bias else None
+    return x, s, w, (wg if act else None), b
+
+
+def _nm_scale(x, s, w, wg, b):
+    """What each output's rounding errors scale with: rstd times the
+    absolute-value projections, |bias|, and for the gate pair
+    |act(g) up|'s sensitivity, |act'| <= 1.2 and |act(g)| <= |g| + 0.3."""
+    xf = x.double()
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+    xs = (xf * (1.0 + s.double())).abs()
+    up = rstd * (xs @ w.double().abs())
+    if b is not None:
+        up = up + b.double().abs()
+    if wg is None:
+        return up
+    return up * (2.2 * rstd * (xs @ wg.double().abs()) + 0.3)
+
+
+def _nm_close(got, want, scale):
+    g, w = got.double(), want.double()
+    bound = NM_RTOL * scale
+    if want.dtype == torch.bfloat16:
+        bound = bound + torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(1e-30))) - 7)
+    assert bool(torch.all((g - w).abs() <= bound)), \
+        float(((g - w).abs() - bound).max())
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("rows,d,dout,act,bias", [
+    (1, 40, 8, None, False), (17, 256, 100, "silu", True),
+    (130, 2304, 100, "gelu", False), (64, 7168, 300, "silu", False),
+    (257, 33, 129, None, True)])
+def test_norm_matmul_kernel_matches_plain_on_card(cuda, rows, d, dout, act,
+                                                  bias, x_dtype, w_dtype):
+    x, s, w, wg, b = _nm_inputs(rows, d, dout, act, bias, x_dtype, w_dtype,
+                                rows * d + dout)
+    got = mnm.norm_matmul_cuda(x, s, w, w_gate=wg, bias=b, act=act)
+    assert got.dtype == x_dtype and got.shape == (rows, dout)
+    _nm_close(got, mnm.norm_matmul_plain(x, s, w, w_gate=wg, bias=b,
+                                         act=act), _nm_scale(x, s, w, wg, b))
+    assert torch.equal(got, mnm.norm_matmul_cuda(x, s, w, w_gate=wg,
+                                                 bias=b, act=act))
+
+
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_norm_matmul_kernel_is_batch_independent(cuda, act):
+    x, s, w, wg, b = _nm_inputs(4099, 2304, 200, act, True, torch.bfloat16,
+                                torch.float32, 7)
+    full = mnm.norm_matmul_cuda(x, s, w, w_gate=wg, bias=b, act=act)
+    for rows in (1, 17, 129):
+        part = mnm.norm_matmul_cuda(x[:rows].contiguous(), s, w, w_gate=wg,
+                                    bias=b, act=act)
+        assert torch.equal(part, full[:rows]), rows
+
+
+def test_norm_matmul_wrapper_counts_launches_and_raises(cuda, monkeypatch):
+    x, s, w, wg, b = _nm_inputs(6, 40, 24, "silu", True, torch.float32,
+                                torch.bfloat16, 3)
+    mnm.reset_launches()
+    got = ops.mma_norm_matmul(x.reshape(2, 3, 40), s, w, w_gate=wg.float(),
+                              bias=b, act="silu")
+    assert mnm.LAUNCHES["b10_norm_matmul"] == 1 and got.shape == (2, 3, 24)
+    _nm_close(got.reshape(6, 24),
+              mnm.norm_matmul_plain(x, s, w, w_gate=wg.float(), bias=b,
+                                    act="silu"),
+              _nm_scale(x, s, w, wg.float(), b))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        mnm.norm_matmul_cuda(x.half(), s, w)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        mnm.norm_matmul_cuda(x, s, w.half())
+    with pytest.raises(ValueError, match="w_gate"):
+        mnm.norm_matmul_cuda(x, s, w, w_gate=wg[:, :5])
+    with pytest.raises(ValueError, match="scale"):
+        mnm.norm_matmul_cuda(x, s[:39], w)
+    with pytest.raises(ValueError, match="contiguous"):
+        mnm.norm_matmul_cuda(x.T, s, w)
+    with pytest.raises(ValueError, match="act"):
+        mnm.norm_matmul_cuda(x, s, w, w_gate=wg, act="relu")
+    # A launch the kernel refuses (an activation code it does not know)
+    # raises with CUDA's error string and counts nothing.
+    monkeypatch.setitem(mnm._ACTS, "silu", 7)
+    with pytest.raises(RuntimeError, match="b10_norm_matmul launch failed"):
+        mnm.norm_matmul_cuda(x, s, w, w_gate=wg, act="silu")
+    assert mnm.LAUNCHES["b10_norm_matmul"] == 1
+
+
+def test_fused_mlp_runs_b10_on_the_card(cuda):
+    """The model's case: bf16 rows, f32 weights, through layers.fused_mlp
+    with fused_pallas; B10 multiplies the f32 weights as they are."""
+    from repro_torch.models import layers
+    x, s, w, wg, _ = _nm_inputs(64, 256, 512, "gelu", False, torch.bfloat16,
+                                torch.float32, 11)
+    wo = torch.randn(512, 256, device="cuda") / 512 ** 0.5
+    mnm.reset_launches()
+    out = layers.fused_mlp({"scale": s}, {"wi_up": w, "wi_gate": wg,
+                                          "wo": wo}, x.reshape(4, 16, 256),
+                           act="gelu", method="fused_pallas")
+    assert mnm.LAUNCHES["b10_norm_matmul"] == 1
+    h = mnm.norm_matmul_cuda(x, s, w, w_gate=wg, act="gelu")
+    assert torch.equal(out.reshape(64, 256), h @ wo.to(torch.bfloat16))
+    _nm_close(h, mnm.norm_matmul_plain(x, s, w, w_gate=wg, act="gelu"),
+              _nm_scale(x, s, w, wg, None))

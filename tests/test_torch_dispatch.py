@@ -103,13 +103,19 @@ def test_registry_mirrors_the_reference_for_this_slice():
         want = ref.engines
         assert port.engine_names() == tuple(e.name for e in want)
         assert (port.family, port.aliases) == (ref.family, ref.aliases)
-        assert port.engine_bits == ref.engine_bits, op
+        # The one precision that differs: the port's fused norm_matmul
+        # kernel B10 multiplies in 3xTF32 (21 bits), where the
+        # reference's TPU kernel took its default (8).
+        bits = dict(ref.engine_bits or {})
+        if op == "norm_matmul":
+            bits["fused_pallas"] = 21
+        assert port.engine_bits == (bits or ref.engine_bits), op
         for pe, je in zip(port.engines, want):
             # The one knob that differs: the reference sweeps its fused
             # norm_matmul kernel's Pallas grid, while the port's
-            # fused_pallas is kernel B8, whose geometry is fixed (16 rows,
-            # 8 warps a block), so it sweeps nothing until the fused
-            # projection (B10) brings a geometry to tune.
+            # fused_pallas is kernel B8 (w=None; 16 rows, 8 warps a
+            # block) or B10 (w given; one 128 x 64 tile a block), whose
+            # geometries are fixed by the card, so it sweeps nothing.
             sweep = () if (op, je.name) == ("norm_matmul", "fused_pallas") \
                 else je.sweep
             assert (pe.multi_device_safe, pe.axis_subsets, pe.needs_flat,
@@ -130,11 +136,8 @@ def test_every_engine_matches_oracle_and_reference(op, dtype,
     np.testing.assert_allclose(want, _np(jd.op_spec(op).reference(jx, **jkw)),
                                **_tol(dtype))
     for method in spec.engine_names() + ("auto",):
-        if op == "norm_matmul" and method == "fused_pallas":
-            # w is given: the fused projection is kernel B10, not ported.
-            with pytest.raises(ValueError, match="B10"):
-                td.dispatch(op, tx, method=method, **tkw)
-            continue
+        # (norm_matmul's fused_pallas with w given is kernel B10's plain
+        # version here, held to the reference's kernel in interpret mode.)
         dd = method in DD_ENGINES
         tpol = {"precision": tp.F64_EQUIVALENT} if dd else {}
         jpol = {"precision": jp.F64_EQUIVALENT} if dd else {}

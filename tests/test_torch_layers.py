@@ -260,7 +260,8 @@ def test_mlp_matches_the_reference(act, dtype):
             np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
 
 
-@pytest.mark.parametrize("method", ["unfused_mma", "vpu", "auto"])
+@pytest.mark.parametrize("method", ["fused_pallas", "unfused_mma", "vpu",
+                                    "auto"])
 def test_fused_mlp_and_norm_matmul_match_the_reference(method,
                                                        fresh_plan_registry):
     x = np.random.default_rng(9).normal(size=(2, 3, 24)).astype(np.float32)

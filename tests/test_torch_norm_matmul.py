@@ -1,5 +1,5 @@
-"""The port's ``norm_matmul`` op and kernel B8's plain version against the
-JAX package, on the CPU.
+"""The port's ``norm_matmul`` op and the plain versions of kernels B8
+and B10 against the JAX package, on the CPU.
 
   * every engine against its oracle and against ``repro.core.dispatch``
     on the reference's full-surface problem (``tests/test_dispatch.py``:
@@ -7,19 +7,23 @@ JAX package, on the CPU.
     file's tolerances (f32: 1e-4 relative and 1e-4 * sqrt(n) absolute;
     bf16: 2e-2 and 2e-2 * sqrt(n));
   * the reference's NM_GATES (``scripts/check_error_budget.py``,
-    Frobenius percent error against an f64 oracle) for the port's
+    Frobenius percent error against an f64 oracle) for all three
     engines, and the bit contract ``unfused_mma == the two-op path``;
-  * the capability predicate: ``fused_pallas`` with ``w`` given refuses,
-    naming kernel B10, and the stay-trainable resolver takes
-    ``unfused_mma`` (as it does for an fp16 input, which B8 does not
-    serve);
+  * the capability predicate: ``fused_pallas`` with ``w`` given takes
+    f32 and bf16 weights at any d (kernel B10), refuses an fp16 weight
+    naming B10, and the stay-trainable resolver then takes
+    ``unfused_mma`` (as it does for an fp16 input, which B8 and B10 do
+    not serve);
   * B8's plain version ``rmsnorm_plain`` against the reference's
     ``mma_rmsnorm`` run as ``tests/test_kernels.py`` runs it on the CPU
-    (interpret mode), under that file's tolerances;
+    (interpret mode), under that file's tolerances, and B10's plain
+    version ``norm_matmul_plain`` against the reference's
+    ``mma_norm_matmul`` in interpret mode (tolerance below);
   * the cost model's picks for the op, in the norm-only form and with
     the projection that ``w`` adds.
 """
 
+import dataclasses
 import importlib
 import os
 import sys
@@ -33,6 +37,7 @@ from repro.core import autotune as jat
 from repro.core import dispatch as jd
 from repro.core.precision import MmaPolicy as JPolicy
 from repro.kernels import mma_rmsnorm as j_mma_rmsnorm
+from repro.kernels.mma_norm_matmul import mma_norm_matmul as j_mma_nm
 from repro.kernels import ref as jref
 from repro_torch.core import autotune as tat
 from repro_torch.core import dispatch as td
@@ -44,6 +49,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import check_error_budget as gates  # noqa: E402
 
 mrn = importlib.import_module("repro_torch.kernels.mma_rmsnorm")
+mnm = importlib.import_module("repro_torch.kernels.mma_norm_matmul")
 
 
 @pytest.fixture()
@@ -102,11 +108,6 @@ def test_every_engine_matches_oracle_and_reference(dtype, norm_only,
         **_tol(dtype, n))
     spellings = spec.engine_names() + tuple(spec.aliases) + ("auto",)
     for method in spellings:
-        if not norm_only and spec.engine(method) is spec.engine(
-                "fused_pallas"):
-            with pytest.raises(ValueError, match="B10"):
-                td.dispatch("norm_matmul", tx, method=method, **tkw)
-            continue
         got = td.dispatch("norm_matmul", tx, method=method, **tkw)
         assert got.dtype == tx.dtype and got.shape == want.shape
         np.testing.assert_allclose(_np(got), want, err_msg=method,
@@ -126,14 +127,16 @@ def test_reference_nm_gates_hold_for_the_port_engines(seed):
           "eps": gates.NM_EPS}
     checked = []
     for label, plan, ceiling in gates.NM_GATES:
-        if plan.method == "fused_pallas":
-            continue        # the fused projection is kernel B10
         got = td.execute("norm_matmul", torch.from_numpy(x32),
                          tat.ReductionPlan(method=plan.method), **kw)
         err = gates.nm_percent_error(_np(got), want64)
         assert err <= ceiling, (label, err, ceiling)
         checked.append(label)
-    assert checked == ["nm_unfused_mma", "nm_vpu"]
+    assert checked == ["nm_fused_pallas", "nm_unfused_mma", "nm_vpu"]
+    # ... and through dispatch's explicit spelling, B10's plain version.
+    got = td.dispatch("norm_matmul", torch.from_numpy(x32),
+                      method="fused_pallas", **kw)
+    assert gates.nm_percent_error(_np(got), want64) <= 5e-3
     # The norm-only form, B8's plain version included, against the f64
     # norm of the cast input at the same ceilings.
     norm64 = gates.nm_oracle(x32, s32, np.eye(gates.NM_D, dtype=np.float32))
@@ -174,18 +177,46 @@ def test_unfused_mma_is_bit_identical_to_the_two_op_path(seed):
 
 def test_fused_pallas_refuses_w_given_and_resolves_unfused(
         fresh_registries):
+    """With w given fused_pallas is kernel B10: it takes f32 and bf16
+    weights, beside an x of either dtype, at any d (the reference's
+    512-lane VMEM cap is a TPU fact); it refuses a weight it does not
+    take, naming B10, and the stay-trainable resolver then takes
+    unfused_mma."""
     (_, _), (tx, tkw) = _problem()
-    with pytest.raises(ValueError, match="B10"):
-        td.dispatch("norm_matmul", tx, method="fused_pallas", **tkw)
-    with pytest.raises(ValueError, match="B10"):
-        td.dispatch("norm_matmul", tx, method="pallas", **tkw)
-    assert not td.supported_method("norm_matmul", tx, "fused_pallas", **tkw)
+    for x in (tx, tx.bfloat16()):
+        for wdt in (torch.float32, torch.bfloat16):
+            kw = dict(tkw, w=tkw["w"].to(wdt), w_gate=tkw["w_gate"].to(wdt))
+            assert td.supported_method("norm_matmul", x, "fused_pallas",
+                                       **kw)
+            assert td.resolve_method("norm_matmul", x, "pallas",
+                                     fallback="unfused_mma",
+                                     **kw) == "pallas"
+    wide = torch.ones(2, 7168)
+    assert td.supported_method("norm_matmul", wide, "fused_pallas",
+                               w=torch.ones(7168, 16),
+                               scale=torch.zeros(7168))
+    half = dict(tkw, w=tkw["w"].half())
+    for spelling in ("fused_pallas", "pallas"):
+        with pytest.raises(ValueError, match="B10"):
+            td.dispatch("norm_matmul", tx, method=spelling, **half)
+    assert not td.supported_method("norm_matmul", tx, "fused_pallas",
+                                   **half)
     assert td.resolve_method("norm_matmul", tx, "fused_pallas",
-                             fallback="unfused_mma", **tkw) == "unfused_mma"
+                             fallback="unfused_mma", **half) == "unfused_mma"
+    # ... an fp16 policy casts the weights to what B10 does not take.
+    assert not td.supported_method(
+        "norm_matmul", tx, "fused_pallas",
+        precision=tp.MmaPolicy(input_dtype=torch.float16), **tkw)
+    # The index limits: an (rows x dout) grid past 2^31 blocks.
+    huge = td.build_context("norm_matmul", torch.empty(0), extras=(
+        ("d_model", 64), ("d_out", 2 ** 30), ("has_gate", True),
+        ("w_dtypes", ("float32",))))
+    huge = dataclasses.replace(huge, shape=(1 << 20, 64))
+    assert "B10" in td._nm_fused_predicate(huge)
     td.dispatch("norm_matmul", tx, method="auto", **tkw)
     keys = [k for k, _ in tat.default_registry().items()]
-    assert keys == ["norm_matmul|256|float32|cpu|unfused_mma+vpu"
-                    "|form:d=40,dout=24,gate=1"], keys
+    assert keys == ["norm_matmul|256|float32|cpu|form:d=40,dout=24,"
+                    "gate=1"], keys
     # The norm-only form: B8 serves any d_model, and only f32 / bf16.
     wide = torch.ones(2, 7168)
     assert td.supported_method("norm_matmul", wide, "fused_pallas", w=None,
@@ -217,11 +248,11 @@ def test_fp16_fused_pallas_falls_back_to_unfused(fresh_registries):
 
 
 def test_norm_matmul_auto_error_budget(fresh_registries):
-    """The tight half of tests/test_dispatch.py's test: a 1e-4 % budget
-    that no engine meets falls back to the most accurate engine, the
-    full-f32 unfused two-op path.  The loose half (0.5 % admits the
-    fused kernel with w given) waits for kernel B10: until then
-    fused_pallas refuses w, and 0.5 % resolves to an unfused engine."""
+    """tests/test_dispatch.py's test: a 0.5 % budget admits the fused
+    kernel with w given (B10) and picks it as the cheaper plan (it
+    moves the fewest bytes at this size), while a 1e-4 % budget that no
+    engine meets falls back to the most accurate engine, the full-f32
+    unfused two-op path (24 bits against B10's 21)."""
     (jx, jkw), (tx, tkw) = _problem()
     want = _np(td.op_spec("norm_matmul").reference(tx, **tkw))
     for budget in (0.5, 1e-4):
@@ -234,12 +265,16 @@ def test_norm_matmul_auto_error_budget(fresh_registries):
     tight = {p.method for k, p in plans.items() if ".b0.0001|" in k}
     loose = {p.method for k, p in plans.items() if ".b0.5|" in k}
     assert tight == {"unfused_mma"}, plans
-    assert loose <= {"unfused_mma", "vpu"}, plans
-    # The reference agrees on the tight half.
-    jd.dispatch("norm_matmul", jx, method="auto",
-                precision=JPolicy(error_budget_pct=1e-4), **jkw)
-    assert {p.method for k, p in jat.default_registry().items()
+    assert loose == {"fused_pallas"}, plans
+    # The reference agrees on both halves.
+    for budget in (0.5, 1e-4):
+        jd.dispatch("norm_matmul", jx, method="auto",
+                    precision=JPolicy(error_budget_pct=budget), **jkw)
+    jplans = dict(jat.default_registry().items())
+    assert {p.method for k, p in jplans.items()
             if k.endswith("b0.0001")} == {"unfused_mma"}
+    assert {p.method for k, p in jplans.items()
+            if k.endswith("b0.5")} == {"fused_pallas"}
 
 
 def test_cost_model_picks_b8_for_the_norm_only_form():
@@ -252,10 +287,12 @@ def test_cost_model_picks_b8_for_the_norm_only_form():
         restricted = tat.autotune(n, dtype, op="norm_matmul",
                                   engine=("unfused_mma", "vpu"))
         assert restricted.method == "unfused_mma", (dtype, restricted)
-    # B8 squares in exact bf16 words: 24 bits, as the f32 engines.
-    for method in ("fused_pallas", "unfused_mma", "vpu"):
+    # The unfused engines carry f32's 24 bits; fused_pallas 21, what
+    # B10's 3xTF32 products keep (B8's exact bf16 words would keep 24).
+    for method, bits in (("fused_pallas", 21), ("unfused_mma", 24),
+                         ("vpu", 24)):
         assert tat._multiplicand_bits(tat.ReductionPlan(method=method),
-                                      torch.float32, "norm_matmul") == 24
+                                      torch.float32, "norm_matmul") == bits
     x, kw = tat._measure_problem("norm_matmul", 1 << 14, torch.float32, 0,
                                  "cpu")
     assert x.shape == (7, 2304) and kw["w"] is None
@@ -267,8 +304,11 @@ def test_cost_model_prices_the_projection_with_w_given(gate,
     """With w given the projection's flops dominate: in bf16 unfused_mma
     multiplies on the tensor cores and vpu in f32 on the CUDA cores, so
     auto resolves to unfused_mma (the reference's order); in f32 the
-    two tie and unfused_mma, the first, wins.  fused_pallas cannot serve
-    the form (kernel B10)."""
+    two tie on the card and differ by their host time per call.
+    fused_pallas (kernel B10) is priced: x, each weight and the output
+    once, its flops at the fitted rate of the weight's dtype, and its
+    host time, so an f32 weight beside bf16 rows is priced at the f32
+    weights' rate and bytes."""
     d, dout = 2304, 9216        # Gemma-2 2B's MLP (gemma2_2b.py:17)
     n = 4096 * d
     form = (("d", d), ("dout", dout), ("gate", gate))
@@ -276,23 +316,42 @@ def test_cost_model_prices_the_projection_with_w_given(gate,
         cost = {m: tat.model_cost(tat.ReductionPlan(method=m), n, dtype,
                                   op="norm_matmul", form=form)
                 for m in ("fused_pallas", "unfused_mma", "vpu")}
-        assert cost["fused_pallas"] == float("inf")
+        flops = 2.0 * n * dout * (1 + gate)
+        rate = tat._B10_FLOPS_PER_US[tp.dtype_name(dtype)]
+        assert flops / rate < cost["fused_pallas"] < float("inf"), cost
         if dtype == torch.bfloat16:
             assert cost["vpu"] > 5 * cost["unfused_mma"], cost
         else:
-            assert cost["vpu"] == cost["unfused_mma"], cost
-    # Through dispatch: the call's form keys the plan.
+            host = tat._NM_HOST_US
+            assert cost["unfused_mma"] - cost["vpu"] == pytest.approx(
+                host["unfused_mma"] - host["vpu"]), cost
+    mixed = form + (("w_dtype", "float32"),)
+    for f, w_dtype, w_item in ((form, "bfloat16", 2), (mixed, "float32", 4)):
+        nbytes = 2 * n + (1 + gate) * d * dout * w_item + n / d * dout * 2
+        want = nbytes / tat._HBM_BYTES_PER_US \
+            + 2.0 * n * dout * (1 + gate) / tat._B10_FLOPS_PER_US[w_dtype] \
+            + tat._NM_HOST_US["fused_pallas"]
+        got = tat.model_cost(tat.ReductionPlan(method="fused_pallas"), n,
+                             torch.bfloat16, op="norm_matmul", form=f)
+        assert got == pytest.approx(want), (f, got, want)
+    # Through dispatch: the call's form keys the plan.  At this toy size
+    # B10, which moves the fewest bytes, is the pick; a weight of
+    # another dtype than x's keys plans of its own.
     rng = np.random.default_rng(gate)
     x = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
     kw = {"w": w.bfloat16(), "scale": torch.zeros(64)}
     if gate:
         kw.update(w_gate=w.bfloat16(), act="gelu")
-    plan = td.auto_plan("norm_matmul", x.bfloat16(), **kw)
-    assert plan.method == "unfused_mma", plan
-    assert tat.default_registry().items()[0][0] == (
-        f"norm_matmul|512|bfloat16|cpu|unfused_mma+vpu"
-        f"|form:d=64,dout=32,gate={gate}")
+    mixed_kw = {k: (v.float() if k in ("w", "w_gate") else v)
+                for k, v in kw.items()}
+    for call in (kw, mixed_kw):
+        plan = td.auto_plan("norm_matmul", x.bfloat16(), **call)
+        assert plan.method == "fused_pallas", plan
+    keys = [k for k, _ in tat.default_registry().items()]
+    form_tag = f"|form:d=64,dout=32,gate={gate}"
+    assert keys == [f"norm_matmul|512|bfloat16|cpu{form_tag}{suffix}"
+                    for suffix in ("", ",w_dtype=float32")], keys
     assert td.auto_plan("norm_matmul", x.bfloat16(), w=None,
                         scale=kw["scale"]).method == "fused_pallas"
     # The measured problem has the call's form.
@@ -301,6 +360,9 @@ def test_cost_model_prices_the_projection_with_w_given(gate,
     assert mx.shape == (7, d) and mkw["w"].shape == (d, dout)
     assert mx.dtype == mkw["w"].dtype == torch.bfloat16
     assert ("w_gate" in mkw) == bool(gate)
+    mx, mkw = tat._measure_problem("norm_matmul", 1 << 14, torch.bfloat16,
+                                   0, "cpu", mixed)
+    assert mx.dtype == torch.bfloat16 and mkw["w"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("rows,d", [(8, 128), (64, 512), (129, 384),
@@ -356,3 +418,116 @@ def test_rmsnorm_plain_statistic_is_the_sum_of_squares(d):
         want = sq.sum(dim=1)
         got = mrn.row_sums_plain(tx).to(torch.float64)
         assert torch.all((got - want).abs() <= 2.0 ** -20 * want), dt
+
+
+# ------------------------------------------------------------ B10 plain
+
+# B10's plain version against the reference's fused kernel run in
+# interpret mode on the CPU (its dispatch predicate refuses d > 512 on
+# the TPU; the kernel itself runs at any d).  Both multiply
+# x * (1 + scale) by the weights with f32 accumulation: the reference in
+# f32, the port in 3xTF32 (about 2^-22 relative per product) and
+# another order of adds.  f32 output: the Frobenius distance between
+# the two within 2^-17 of the output's norm (seen: 3e-7 relative).
+# bf16 output: every element within one bf16 ulp (2^-7 relative at
+# most) plus 1e-5, since the f32 values before the rounding differ by
+# far less than an ulp, and a rounding boundary may fall between them.
+# Against the f64 oracle of the cast inputs: f32 within NM_GATES' 5e-3
+# % (seen: 2.6e-5 %), bf16 within 5e-3 % plus the output's unit
+# roundoff, 100 * 2^-8 % (seen: 0.18 %).
+NM_CASES = [(64, 256, 128, None, False), (37, 200, 100, "silu", True),
+            (37, 200, 100, "gelu", True), (37, 200, 100, "gelu", False)]
+NM_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
+             ("bfloat16", "float32")]
+
+
+def _nm_inputs(rows, d, dout, act, bias, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    s = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    w = (rng.standard_normal((d, dout)) / np.sqrt(d)).astype(np.float32)
+    wg = (rng.standard_normal((d, dout)) / np.sqrt(d)).astype(np.float32) \
+        if act else None
+    b = rng.standard_normal(dout).astype(np.float32) if bias else None
+    return x, s, w, wg, b
+
+
+def _nm_oracle(x, s, w, wg, b, act):
+    """f64 rmsnorm(x) @ w of the cast inputs, with the gate pair."""
+    x64 = torch.as_tensor(x).double()
+    ms = torch.mean(x64 * x64, dim=-1, keepdim=True)
+    xh = x64 / torch.sqrt(ms + 1e-6) * (1.0 + torch.as_tensor(s).double())
+    up = xh @ torch.as_tensor(w).double()
+    if b is not None:
+        up = up + torch.as_tensor(b).double()
+    if wg is not None:
+        up = mnm.apply_act(xh @ torch.as_tensor(wg).double(), act) * up
+    return up
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", NM_DTYPES)
+@pytest.mark.parametrize("rows,d,dout,act,bias", NM_CASES)
+def test_norm_matmul_plain_matches_the_reference_kernel(rows, d, dout, act,
+                                                       bias, x_dtype,
+                                                       w_dtype):
+    x, s, w, wg, b = _nm_inputs(rows, d, dout, act, bias, rows * d)
+    jx, jw = (jnp.asarray(x).astype(x_dtype), jnp.asarray(w).astype(w_dtype))
+    tx = torch.from_numpy(x).to(tp.as_dtype(x_dtype))
+    tw = torch.from_numpy(w).to(tp.as_dtype(w_dtype))
+    twg = None if wg is None else torch.from_numpy(wg).to(tw.dtype)
+    tb = None if b is None else torch.from_numpy(b)
+    got = ops.mma_norm_matmul(tx, torch.from_numpy(s), tw, w_gate=twg,
+                              bias=tb, act=act)
+    assert got.dtype == tx.dtype and got.shape == (rows, dout)
+    want = j_mma_nm(jx, jnp.asarray(s), jw,
+                    w_gate=None if wg is None
+                    else jnp.asarray(wg).astype(w_dtype),
+                    bias=None if b is None else jnp.asarray(b), act=act,
+                    interpret=True)
+    want = np.asarray(want, np.float64)
+    if x_dtype == "float32":
+        assert np.linalg.norm(_np(got) - want) \
+            <= 2.0 ** -17 * np.linalg.norm(want)
+    else:
+        np.testing.assert_allclose(_np(got), want, rtol=2.0 ** -7, atol=1e-5)
+    # Both against the f64 oracle of the cast inputs, within NM_GATES.
+    oracle = _nm_oracle(tx, s, tw, twg, tb, act).numpy()
+    ceiling = 5e-3 + (100.0 * 2.0 ** -8 if x_dtype == "bfloat16" else 0.0)
+    for out in (_np(got), want):
+        assert gates.nm_percent_error(out, oracle) <= ceiling
+    # ... and the plain oracle of kernels.ref.
+    ref = tref.norm_matmul_ref(tx, torch.from_numpy(s), tw, w_gate=twg,
+                               bias=tb, act=act)
+    assert gates.nm_percent_error(_np(ref), oracle) <= ceiling
+
+
+def test_norm_matmul_plain_decomposition():
+    """The TF32 words keep 22 bits (hi has 11 significant bits, ties
+    round away from zero), the statistic is the sum of squares to a few
+    f32 roundings at any d, and leading dims pass through ops."""
+    v = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -12, 3.0e-5])
+    hi, lo = mnm.tf32_words(v)
+    assert hi.tolist()[:3] == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                               1.0 + 2.0 ** -10]
+    assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = mnm.tf32_words(x)
+    assert torch.all((hi.double() + lo.double() - x.double()).abs()
+                     <= 2.0 ** -22 * x.double().abs())
+    for d in (1, 17, 40, 7168):
+        xs = np.random.default_rng(d).uniform(0.5, 1.0, size=(5, d))
+        for dt in (torch.float32, torch.bfloat16):
+            tx = torch.from_numpy(xs.astype(np.float32)).to(dt)
+            want = (tx.double() ** 2).sum(dim=1)
+            got = mnm.row_sums_plain(tx).double()
+            assert torch.all((got - want).abs() <= 2.0 ** -20 * want), dt
+    x3, s, w, wg, _ = _nm_inputs(6, 40, 24, "silu", False, 3)
+    tx3 = torch.from_numpy(x3).reshape(2, 3, 40)
+    got = ops.mma_norm_matmul(tx3, torch.from_numpy(s), torch.from_numpy(w),
+                              w_gate=torch.from_numpy(wg), act="silu")
+    flat = mnm.norm_matmul_plain(torch.from_numpy(x3), torch.from_numpy(s),
+                                 torch.from_numpy(w),
+                                 w_gate=torch.from_numpy(wg), act="silu")
+    assert got.shape == (2, 3, 24) and torch.equal(got.reshape(6, 24), flat)

@@ -192,7 +192,7 @@ def test_the_package_exports_this_slice():
         == {"mma_reduce", "mma_reduce_partials", "mma_squared_sum",
             "mma_ec_reduce", "mma_ec_squared_sum", "mma_dd_reduce",
             "mma_dd_squared_sum", "mma_scan", "mma_segment_sum",
-            "mma_rmsnorm"}
+            "mma_rmsnorm", "mma_norm_matmul"}
     for name in ("tc_reduce", "tc_contract", "tc_reduce_axes",
                  "tc_reduce_lastdim", "tc_reduce_rows", "tc_reduce_ec",
                  "tc_reduce_dd", "tc_scan", "tc_scan_ec", "tc_cumprod",
