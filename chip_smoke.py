@@ -149,8 +149,40 @@ form, B10 with ``w`` given), ``unfused_mma`` and ``vpu``.  Its phases:
       fastest; the model's host time per scan call refitted at 2^12;
       B6's R x B grid timed in bf16 at 2^24, 2^26 and 2^28 (printed).
 
+The attention path (kernel B9; CUDA C++ in ``csrc/mma_attention.cu``):
+``repro_torch.models.attention.attention`` -> ``core.dispatch`` op
+``attention`` -> the engines ``fused_pallas`` (B9), ``unfused_mma``
+(the KV-chunked online softmax) and ``vpu`` (the unchunked oracle).  Its
+phases:
+
+  2g. B9 against ``attention_plain`` on the card (B9_CASES): f32, bf16
+      and f32 q beside a bf16 cache; hd 256 with G 2 and KV 4, 128, and
+      192 / 128; Sq G and Sk ragged against the tiles; causal, window,
+      softcap 50, per-row qpos with kv_len, rows at qpos -1: within
+      2^-20 (1 + sigma) of each output's absolute-value scale (bf16 v
+      2^-8 of it more and one ulp; B9_RTOL), two calls the same bits, a
+      row's bits those of a one-row call, rows with no key exactly 0;
+  3i. Gemma-2 2B's attention layer at full width (weights from the
+      seed) through ``models.attention.attention`` with attn_method
+      fused_pallas (B9), unfused_mma, vpu and auto: the global layer at
+      4096 tokens and the local one at 8192 (f32 and bf16), and a decode
+      step of 128 slots at per-row positions over [0, 32768) against
+      bf16 ring caches of 32768 and 4096 slots (f32 and bf16
+      activations; unfused_mma refuses decode); each engine's attention
+      output held to the f64 oracle of its own qg / k / v within
+      ATTN_CEILINGS plus 100 * 2^-8 % per rounding to bf16; B9's
+      counter must move; auto within 1.25x of the fastest engine at
+      every shape, the layer timed in balanced orders;
+  5g. B9 timed at 3i's shapes beside its bound (bytes / 3.35 TB/s or 2
+      (hd + hd_v) flops per live score / 495 TF32 or 989 bf16 TFLOP/s),
+      ``attention_plain`` and ``unfused_mma``; with cap=None B9 beside
+      ``F.scaled_dot_product_attention``, the library yardstick (no
+      softcap there), at the global prefill and decode shapes; the cost
+      model's B9 flop and byte rates and its attention host times per
+      call refitted.
+
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
-(B1-B8, B10), and last ``{"ok": true, "device": {...}}``.  Details go to
+(B1-B10), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -384,6 +416,58 @@ B10_BIG_ROWS = 4099
 NM_HOST_SHAPE = (8, 256, 256)
 NM_SEEDS = (0, 1)
 NM_ROWS, NM_D, NM_DOUT = 64, 256, 128
+
+# Phase 2g / 3i / 5g: the attention path (kernel B9).  B9 against
+# attention_plain: |kernel - plain| <= 2^-20 (1 + sigma_i) A_i, where A_i
+# = sum_j p_ij |v_j| / l_i is each output's absolute-value scale and
+# sigma_i = scale max_j sum_h |q_ih k_jh| its row's score scale (both in
+# f64, attn_scales).  Both take the same TF32 words in the same chains and
+# key blocks and differ in the order of the f32 adds inside an MMA or a
+# matmul and in expf / tanhf's last bits: a score moves by a few 2^-24
+# sigma, which exp turns into that relative error of p, and the output's
+# own sums add a few 2^-24 A.  With a bf16 v both round p to bf16 for
+# p v, and a p within those bits of a rounding boundary may round the
+# other way, up to 2^-8 of its term: 2^-8 A more, and one bf16 ulp of
+# the bf16 output.  The largest f32 ratio of the first runs was 2^-19.8
+# of A alone (sigma ~10), ~2^-23 of (1 + sigma) A.
+B9_RTOL = 2.0 ** -20
+ATTN_KINDS = {"f32": (torch.float32, torch.float32),
+              "bf16": (torch.bfloat16, torch.bfloat16),
+              "mixed": (torch.float32, torch.bfloat16)}   # (q, k and v)
+# (B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos, kv_len): Sq G
+# and Sk ragged against the 64-row and 32-key tiles; 'padded' rows sit
+# at position -1 (no key under the causal mask: exactly 0); kv_len
+# draws per-row lengths and puts each row's query at its last key.
+B9_CASES = (
+    (2, 37, 45, 4, 2, 256, 256, True, None, 50.0, "tail", False),
+    (1, 301, 300, 4, 2, 256, 256, True, 40, 50.0, "tail", False),
+    (2, 70, 130, 2, 1, 128, 128, True, 16, None, "tail", False),
+    (3, 129, 257, 8, 1, 128, 128, False, None, None, "tail", False),
+    (2, 33, 100, 2, 2, 192, 128, True, None, None, "tail", False),
+    (5, 1, 1000, 4, 2, 256, 256, False, None, 50.0, "tail", True),
+    (3, 1, 300, 2, 2, 192, 128, False, None, None, "tail", True),
+    (2, 5, 9, 1, 3, 16, 8, True, None, None, "padded", False),
+    (2, 67, 75, 2, 3, 12, 8, True, 20, None, "padded", False),
+)
+# Phase 3i: Gemma-2 2B's attention layer at full width
+# (repro_torch/configs/gemma2_2b.py: d_model 2304, 8 heads over 4 KV
+# heads, head_dim 256, softcap 50, window 4096), weights from the seed.
+# Prefill: the global layer at SHAPES["train_4k"].seq_len = 4096 tokens
+# and the local layer at twice that, so that the window masks; decode:
+# one step of SHAPES["decode_32k"].global_batch = 128 slots at per-row
+# positions over [0, 32768) against bf16 ring caches of 32768 (global)
+# and 4096 (local) slots.  Each engine's attention output is held to an
+# f64 oracle of the qg / k / v it was given (Frobenius % error), with
+# the reduce tiers' ceilings (CEILINGS: fused_pallas and unfused_mma
+# 5e-3 %, vpu 5e-4 %) plus 100 * 2^-8 % for each rounding to bf16 on the
+# engine's path: with a bf16 v each engine rounds p and its output (2).
+ATTN_ARCH = "gemma2-2b"
+ATTN_METHODS = ("fused_pallas", "unfused_mma", "vpu", "auto")
+ATTN_CEILINGS = {"fused_pallas": 5e-3, "unfused_mma": 5e-3, "vpu": 5e-4}
+ATTN_BF16_ROUNDINGS = 2
+# Phase 5g fits the attention host time per call at this toy size
+# (B, S, KV, G, hd), where the card's work is negligible.
+ATTN_HOST_SHAPE = (1, 64, 4, 2, 256)
 
 # Phase 6b: the scan family's pick, at these sizes, in f32 and bf16.
 SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
@@ -2219,6 +2303,473 @@ def fit_nm_host(dispatch, autotune, gen) -> dict:
     return fit
 
 
+# ------------------------------------------ phase 2g: B9 kernel checks
+
+
+def attn_inputs(B, Sq, Sk, KV, G, hd, hd_v, kind, qpos, kv_len,
+                gen) -> tuple:
+    """qg, k, v on the card in ``kind``'s dtypes, qpos (B, Sq) int32 and
+    kv_len (B,) int32 or None."""
+    qd, kd = ATTN_KINDS[kind]
+    qg = torch.randn(B, Sq, KV, G, hd, device="cuda", generator=gen).to(qd)
+    k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(kd)
+    v = torch.randn(B, Sk, KV, hd_v, device="cuda", generator=gen).to(kd)
+    pos = (torch.arange(Sq, device="cuda") + max(Sk - Sq, 0))
+    pos = pos.to(torch.int32).expand(B, Sq).contiguous()
+    kvl = None
+    if kv_len:
+        kvl = torch.randint(0, Sk + 1, (B,), device="cuda",
+                            generator=gen).to(torch.int32)
+        pos = (kvl[:, None] - 1).expand(B, Sq).contiguous()
+    if qpos == "padded":
+        pos = pos.clone()
+        pos[:, 0] = -1
+    return qg, k, v, pos, kvl
+
+
+def attn_oracle(ma, qg, k, v, *, qpos, causal, window, kv_len, scale, cap,
+                abs_v: bool = False, rows_per_chunk: int = 8) -> torch.Tensor:
+    """f64 attention of these operands (with abs_v, sum_j p_ij |v_j| /
+    l_i, the absolute-value scale), (B, Sq, KV, G, hd_v), a few batch rows
+    at a time so that a decode cache is never widened whole."""
+    qpos = torch.as_tensor(qpos, device=qg.device)
+    if qpos.ndim == 1:
+        qpos = qpos.expand(qg.shape[0], -1)
+    outs = []
+    for b0 in range(0, qg.shape[0], rows_per_chunk):
+        sl = slice(b0, b0 + rows_per_chunk)
+        s = torch.einsum("bqkgh,bckh->bkgqc", qg[sl].double(),
+                         k[sl].double()) * scale
+        if cap is not None:
+            s = cap * torch.tanh(s / cap)
+        lo, hi = ma.row_bounds(qpos[sl], None if kv_len is None
+                               else kv_len[sl], sk=k.shape[1],
+                               causal=causal, window=window)
+        j = torch.arange(k.shape[1], device=qg.device)
+        valid = ((j >= lo[..., None]) & (j < hi[..., None]))[:, None, None]
+        p = torch.softmax(torch.where(valid, s, -1e300), -1) * valid
+        del s
+        vv = v[sl].double()
+        outs.append(torch.einsum("bkgqc,bckh->bqkgh", p,
+                                 vv.abs() if abs_v else vv))
+        del p, vv
+    return torch.cat(outs)
+
+
+def attn_sigma(qg, k, scale, rows_per_chunk: int = 8) -> torch.Tensor:
+    """Each row's score scale scale max_j sum_h |q_ih k_jh|, as
+    (B, Sq, KV, G, 1) f64, a few batch rows at a time."""
+    sig = torch.cat([torch.einsum(
+        "bqkgh,bckh->bkgqc", qg[b0:b0 + rows_per_chunk].double().abs(),
+        k[b0:b0 + rows_per_chunk].double().abs()).amax(-1)
+        for b0 in range(0, qg.shape[0], rows_per_chunk)]) * scale
+    return sig.permute(0, 3, 1, 2)[..., None]
+
+
+def attn_diff(got, want, a, sigma) -> tuple:
+    """(max |got - want| / ((1 + sigma) A), max |got - want|, whether
+    every element is within B9's tolerance of its plain version)."""
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    scale = (1.0 + sigma) * a
+    bound = B9_RTOL * scale
+    if want.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * a + torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(1e-30))) - 7)
+    return (float((diff / scale.clamp_min(1e-300)).max()), float(diff.max()),
+            bool(torch.all(diff <= bound)))
+
+
+def check_attention_kernel(ma, gen) -> dict:
+    """B9 against attention_plain on the same card inputs: B9_CASES for
+    f32, bf16 and f32 q beside a bf16 cache; two calls give the same bits,
+    rows 0..k of a B-row call equal a (k + 1)-row call, and rows with no
+    valid key are exactly 0."""
+    worst = {"f32_ratio": 0.0, "abs": 0.0}
+    rows_out = []
+    for kind in ATTN_KINDS:
+        for (B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos,
+             kv_len) in B9_CASES:
+            qg, k, v, pos, kvl = attn_inputs(B, Sq, Sk, KV, G, hd, hd_v,
+                                             kind, qpos, kv_len, gen)
+            kw = dict(qpos=pos, causal=causal, window=window, kv_len=kvl,
+                      scale=hd ** -0.5, cap=cap)
+            got = ma.attention_cuda(qg, k, v, **kw)
+            again = ma.attention_cuda(qg, k, v, **kw)
+            want = ma.attention_plain(qg, k, v, **kw)
+            what = (f"B9 {B}x{Sq}x{Sk} kv{KV} g{G} hd {hd}/{hd_v} causal="
+                    f"{causal} window={window} cap={cap} {qpos} kv_len="
+                    f"{kv_len} {kind}")
+            check(got.shape == (B, Sq, KV, G, hd_v) and got.dtype == v.dtype
+                  and bool(torch.all(torch.isfinite(got))),
+                  f"{what}: {got.dtype} {tuple(got.shape)}")
+            a = attn_oracle(ma, qg, k, v, abs_v=True, **kw)
+            ratio, diff, ok = attn_diff(got, want, a,
+                                        attn_sigma(qg, k, kw["scale"]))
+            if kind == "f32":
+                worst["f32_ratio"] = max(worst["f32_ratio"], ratio)
+            worst["abs"] = max(worst["abs"], diff)
+            rows_out.append(("b9_attention", B, Sq, Sk, KV, G, hd, hd_v,
+                             causal, window, cap, qpos, kv_len, kind, ratio,
+                             diff))
+            check(ok, f"{what}: |kernel - plain| {diff:.3g} ({ratio:.3g} "
+                      f"of its scale) over its tolerance")
+            check(torch.equal(got, again), f"{what}: two calls differ")
+            if qpos == "padded":
+                check(torch.equal(got[:, 0], torch.zeros_like(got[:, 0])),
+                      f"{what}: a row with no valid key is not exactly 0")
+            if B > 1:
+                part = ma.attention_cuda(
+                    qg[:1].contiguous(), k[:1].contiguous(),
+                    v[:1].contiguous(), **dict(
+                        kw, qpos=pos[:1].contiguous(),
+                        kv_len=None if kvl is None else kvl[:1].contiguous()))
+                check(torch.equal(part, got[:1]),
+                      f"{what}: row 0 differs from a one-row call")
+            del qg, k, v, got, again, want, a
+    torch.cuda.synchronize()
+    print(f"phase 2g: {len(rows_out)} B9-vs-plain checks passed, worst "
+          f"|diff| {worst['abs']:.3g}, worst f32 |diff| / ((1 + sigma) A) "
+          f"{worst['f32_ratio']:.3g} (within 2^-20 of it, bf16 v plus 2^-8 "
+          f"A and one ulp; two calls the same bits; a row's bits "
+          f"independent of the batch; rows with no key exactly 0)",
+          flush=True)
+    return {"worst_abs": worst["abs"], "worst_f32_ratio": worst["f32_ratio"],
+            "rows": rows_out}
+
+
+# ---------------------------- phase 3i: the attention layer at full width
+
+
+class AttnCapture:
+    """Records the qg / k / v / kwargs that ``models.attention``'s
+    registry call receives and what it returns, so that phase 3i holds
+    each engine's attention output to an oracle of its own operands."""
+
+    def __init__(self, attention_module):
+        self.mod = attention_module
+        self.inner = attention_module._registry_attn
+        self.seen = {}
+
+    def __enter__(self):
+        def spy(cfg, qg, k, v, **kw):
+            out = self.inner(cfg, qg, k, v, **kw)
+            self.seen = dict(qg=qg, k=k, v=v, kw=kw, out=out)
+            return out
+        self.mod._registry_attn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._registry_attn = self.inner
+        return False
+
+
+def attn_problems(registry, base) -> list:
+    """Phase 3i's (label, kind, phase, tokens or slots, capacity, dtypes):
+    the global and local layers at prefill and at a decode step."""
+    seq = base.SHAPES["train_4k"].seq_len
+    slots = base.SHAPES["decode_32k"].global_batch
+    cache = base.SHAPES["decode_32k"].seq_len
+    cfg = registry.get_config(ATTN_ARCH)
+    return [("prefill global", "global", "prefill", seq, None,
+             ("f32", "bf16")),
+            ("prefill local", "local", "prefill", 2 * seq, None,
+             ("f32", "bf16")),
+            ("decode global", "global", "decode", slots, cache,
+             ("mixed", "bf16")),
+            ("decode local", "local", "decode", slots, cfg.window,
+             ("mixed", "bf16"))]
+
+
+def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
+    """models.attention.attention with attn_method per engine at Gemma-2
+    2B's full width (attn_problems): each engine's attention output
+    against the f64 oracle of its own qg / k / v within ATTN_CEILINGS
+    (+ 100 * 2^-8 % per rounding to bf16); auto within PICK_SLACK of the
+    fastest engine, the layer timed in balanced_orders.  Returns (rows,
+    picks, shapes) where shapes keeps each problem's operands for 5g."""
+    import dataclasses
+    cfg0 = registry.get_config(ATTN_ARCH)
+    params = param.init_tree(gen, A.attn_specs(cfg0), device="cuda")
+    rows_out, picks, shapes = [], [], []
+    for label, kind, phase, n, capacity, kinds in attn_problems(registry,
+                                                                base):
+        decode = phase == "decode"
+        if decode:
+            cache = A.make_cache(cfg0, n, capacity)
+            cache["k"].copy_(torch.randn(cache["k"].shape, device="cuda",
+                                         generator=gen,
+                                         dtype=torch.bfloat16))
+            cache["v"].copy_(torch.randn(cache["v"].shape, device="cuda",
+                                         generator=gen,
+                                         dtype=torch.bfloat16))
+            positions = torch.randint(0, base.SHAPES["decode_32k"].seq_len,
+                                      (n, 1), device="cuda", generator=gen)
+            x32 = torch.randn(n, 1, cfg0.d_model, device="cuda",
+                              generator=gen)
+        else:
+            cache = None
+            positions = torch.arange(n, device="cuda")
+            x32 = torch.randn(1, n, cfg0.d_model, device="cuda",
+                              generator=gen)
+        for dkind in kinds:
+            x = x32.to(ATTN_KINDS[dkind][0])
+            problem = f"{label} {dkind}"
+            methods = tuple(m for m in ATTN_METHODS
+                            if not (decode and m == "unfused_mma"))
+            calls, found, operands = {}, [], None
+            for method in methods:
+                cfg = dataclasses.replace(cfg0, attn_method=method)
+                call = (lambda c=cfg: A.attention(
+                    params, c, x, positions=positions, kind=kind,
+                    cache=cache, decode=decode)[0])
+                torch.cuda.synchronize()
+                with AttnCapture(A) as cap:
+                    out = call()
+                torch.cuda.synchronize()
+                seen = cap.seen
+                kw = {key: seen["kw"][key] for key in
+                      ("qpos", "causal", "window", "kv_len", "scale")}
+                kw["cap"] = cfg0.attn_softcap
+                engine = method if method != "auto" else dispatch.auto_plan(
+                    "attention", seen["qg"], k=seen["k"], v=seen["v"],
+                    cap=cfg0.attn_softcap, chunk=cfg0.attn_chunk,
+                    **{key: kw[key] for key in ("qpos", "causal", "window",
+                                                "kv_len", "scale")}).method
+                o = seen["out"]
+                check(out.shape == x.shape and o.dtype == seen["v"].dtype
+                      and bool(torch.all(torch.isfinite(o))),
+                      f"{problem} {method}: {o.dtype} {tuple(o.shape)}")
+                kl = kw["kv_len"]
+                kl = None if kl is None else torch.as_tensor(
+                    kl, device="cuda").reshape(-1).expand(n if decode
+                                                          else 1)
+                want = attn_oracle(ma, seen["qg"], seen["k"], seen["v"],
+                                   **dict(kw, kv_len=kl))
+                err = frob_pct(o, want)
+                ceiling = ATTN_CEILINGS[engine] + (
+                    ATTN_BF16_ROUNDINGS * 100.0 * 2.0 ** -8
+                    if seen["v"].dtype == torch.bfloat16 else 0.0)
+                check(math.isfinite(err) and err <= ceiling,
+                      f"{problem} {method}: {err:.3e}% > {ceiling:.3g}%")
+                if operands is None:
+                    operands = dict(qg=seen["qg"], k=seen["k"],
+                                    v=seen["v"], kw=dict(kw, kv_len=kl))
+                del o, want, out, seen
+                cap.seen = {}
+                calls[method] = call
+                found.append({"problem": problem, "kind": kind,
+                              "phase": phase, "n": n, "dtype": dkind,
+                              "method": method, "engine": engine,
+                              "frob_pct_err": err, "ceiling_pct": ceiling})
+            times = dict.fromkeys(methods, math.inf)
+            for order in balanced_orders(methods):
+                for method in order:
+                    times[method] = min(times[method], median_ms(
+                        calls[method], reps=3, warmup=1))
+            for row in found:
+                row["ms"] = times[row["method"]]
+                rows_out.append(row)
+                print(f"  {problem:22s} {row['method']:12s} engine="
+                      f"{row['engine']:12s} err={row['frob_pct_err']:.3e}% "
+                      f"(ceiling {row['ceiling_pct']:.3g}%) "
+                      f"{row['ms']:.4f} ms", flush=True)
+            pick = check_pick(f"{problem} attention", {
+                m: times[m] for m in methods if m != "auto"}, times["auto"])
+            pick.update(problem=problem)
+            picks.append(pick)
+            shapes.append((problem, dkind, decode, operands))
+            del x
+        del cache, x32
+    return rows_out, picks, shapes
+
+
+# ------------------------------------------------- phase 5g: B9 timings
+
+
+def attn_bound(qg, k, v, kw) -> tuple:
+    """Least time in ms for one B9 call: q, the keys and values each row
+    reads (up to its kv_len, all of them at prefill) and o moved once
+    at HBM rate, against 2 (hd + hd_v) flops per live score at the tensor
+    cores' peak (TF32's 495 TFLOP/s when an operand is f32, else bf16's
+    989).  Returns (ms, what bounds it, bytes, flops)."""
+    import importlib
+    ma = importlib.import_module("repro_torch.kernels.mma_attention")
+    B, Sq, KV, G, hd = qg.shape
+    Sk, hd_v = k.shape[1], v.shape[-1]
+    qpos = torch.as_tensor(kw["qpos"], device="cuda")
+    if qpos.ndim == 1:
+        qpos = qpos.expand(B, -1)
+    lo, hi = ma.row_bounds(qpos, kw["kv_len"], sk=Sk, causal=kw["causal"],
+                           window=kw["window"])
+    live = float((hi - lo).clamp_min(0).sum()) * KV * G
+    keys = float(hi.amax(1).sum()) * KV if kw["kv_len"] is not None \
+        else float(B * Sk * KV)
+    nbytes = qg.numel() * qg.element_size() \
+        + keys * (hd + hd_v) * k.element_size() \
+        + B * Sq * KV * G * hd_v * v.element_size()
+    flops = 2.0 * (hd + hd_v) * live
+    peak = TC_FLOPS[torch.float32 if torch.float32 in (qg.dtype, k.dtype)
+                    else torch.bfloat16]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", nbytes, flops
+    return ops_ms, "operations", nbytes, flops
+
+
+def sdpa_call(qg, k, v, kw):
+    """F.scaled_dot_product_attention on the same operands (no softcap:
+    SDPA has none), q in the cache's dtype, the kv_len mask as a boolean
+    attn_mask; the operands are laid out (B, heads, S, hd) beforehand."""
+    import torch.nn.functional as F
+    B, Sq, KV, G, hd = qg.shape
+    q = qg.to(k.dtype).permute(0, 2, 3, 1, 4).reshape(B, KV * G, Sq, hd)
+    kk = k.permute(0, 2, 1, 3).contiguous()
+    vv = v.permute(0, 2, 1, 3).contiguous()
+    mask = None
+    if kw["kv_len"] is not None:
+        j = torch.arange(k.shape[1], device="cuda")
+        mask = (j[None] < kw["kv_len"].reshape(-1, 1))[:, None, None]
+    causal = kw["causal"] and mask is None and kw["window"] is None
+    return lambda: F.scaled_dot_product_attention(
+        q, kk, vv, attn_mask=mask, is_causal=causal, scale=kw["scale"],
+        enable_gqa=True)
+
+
+def time_attention_kernel(ma, dispatch, autotune, shapes, launches: int,
+                          worst_abs: float) -> tuple:
+    """B9 at phase 3i's shapes, on the operands the layer gave it: held
+    to its tolerance against attention_plain and to the same bits over two
+    calls, then timed (median CUDA-event time, in turns with the plain
+    version) beside its bound, the plain version and unfused_mma (at
+    prefill; it refuses decode); and, with cap=None, beside B9 without
+    the softcap and F.scaled_dot_product_attention, the library
+    yardstick (global prefill and decode).  The cost model's B9 rates
+    are refitted: _B9_FLOPS_PER_US from the prefill shapes,
+    _B9_BYTES_PER_US from the decode ones.  The bf16 global prefill goes
+    to the ``kernels`` line, every case to the details."""
+    entry, details, fits = None, [], {}
+    for problem, dkind, decode, op in shapes:
+        qg, k, v, kw = op["qg"], op["k"], op["v"], dict(op["kw"])
+        qpos = torch.as_tensor(kw["qpos"], device="cuda").to(torch.int32)
+        qpos = qpos.expand(qg.shape[0], qg.shape[1]).contiguous()
+        kl = kw["kv_len"]
+        kk = dict(kw, qpos=qpos, kv_len=None if kl is None
+                  else kl.to(torch.int32).contiguous())
+        kern = lambda: ma.attention_cuda(qg, k, v, **kk)  # noqa: E731
+        plain = lambda: ma.attention_plain(qg, k, v, **kk)  # noqa: E731
+        got, again, want = kern(), kern(), plain()
+        a = attn_oracle(ma, qg, k, v, abs_v=True, **kk)
+        ratio, diff, ok = attn_diff(got, want, a,
+                                    attn_sigma(qg, k, kk["scale"]))
+        check(ok, f"B9 {problem}: |kernel - plain| {diff:.3g}")
+        check(torch.equal(got, again), f"B9 {problem}: two calls differ")
+        del got, again, want, a
+        p1 = median_ms(plain, reps=1, warmup=0)
+        k1 = median_ms(kern, reps=5, warmup=1)
+        k2 = median_ms(kern, reps=5, warmup=1)
+        p2 = median_ms(plain, reps=1, warmup=0)
+        u_ms = None
+        if not decode:
+            plan = autotune.ReductionPlan(method="unfused_mma")
+            u_ms = median_ms(lambda: dispatch.execute(
+                "attention", qg, plan, k=k, v=v, chunk=1024,
+                **{key: kw[key] for key in kw if key != "kv_len"}),
+                reps=3, warmup=1)
+        lib_ms = nocap_ms = None
+        if problem.startswith(("prefill global", "decode global")):
+            nocap = dict(kk, cap=None)
+            nocap_ms = median_ms(lambda: ma.attention_cuda(qg, k, v,
+                                                           **nocap),
+                                 reps=5, warmup=1)
+            lib_ms = median_ms(sdpa_call(qg, k, v, kk), reps=5, warmup=1)
+        bound_ms, bound_by, nbytes, flops = attn_bound(qg, k, v, kk)
+        ms = min(k1, k2)
+        row = {"name": "b9_attention", "problem": problem, "dtype": dkind,
+               "ms": ms, "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+               "plain_ms_runs": [p1, p2], "unfused_mma_ms": u_ms,
+               "nocap_ms": nocap_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "flops": flops, "max_abs_err": diff,
+               "share_of_bound": bound_ms / ms,
+               "tflops": flops / ms * 1e-9,
+               "gbps": nbytes / ms * 1e-6}
+        details.append(row)
+        print(f"  b9 {problem:22s} kernel {ms:.4f} ms ({row['tflops']:.1f} "
+              f"TFLOP/s, {row['gbps']:.0f} GB/s) plain {row['plain_ms']:.3f}"
+              f" ms unfused_mma {u_ms if u_ms is None else round(u_ms, 4)} "
+              f"ms; cap=None: B9 {nocap_ms if nocap_ms is None else round(nocap_ms, 4)}"
+              f" ms, SDPA {lib_ms if lib_ms is None else round(lib_ms, 4)} "
+              f"ms; bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{100 * row['share_of_bound']:.1f} % of it) |diff| "
+              f"{diff:.3g}", flush=True)
+        if decode:
+            # the model's bytes: every slot of the cache, q and o
+            B, Sq, KV, G, hd = qg.shape
+            io = B * k.shape[1] * KV * (hd + v.shape[-1]) * k.element_size() \
+                + B * Sq * KV * G * (hd * qg.element_size()
+                                     + v.shape[-1] * v.element_size())
+            fits.setdefault("bytes", []).append(io / (ms * 1e3))
+        else:
+            fits.setdefault({"f32": "float32", "bf16": "bfloat16"}[dkind],
+                            []).append(flops / (ms * 1e3))
+        if problem == "prefill global bf16":
+            entry = {"name": "b9_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "mma_attention.cu",
+                     "replaces": "src/repro/kernels/mma_attention.py:64",
+                     "launches": launches,
+                     "max_abs_err": max(diff, worst_abs),
+                     "ms": ms, "plain_ms": row["plain_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms}
+    fit = {key: statistics.fmean(val) for key, val in fits.items()
+           if key != "bytes"}
+    fit["bytes"] = min(fits["bytes"])
+    print(f"phase 5g: fitted _B9_FLOPS_PER_US "
+          f"{ {key: round(val / 1e6, 2) for key, val in fit.items() if key != 'bytes'} }"
+          f" x 1e6 (flops over time, per prefill case {fits}), "
+          f"_B9_BYTES_PER_US {fit['bytes'] / 1e6:.4g} x 1e6 (the model's "
+          f"bytes over time, the slowest decode case); committed "
+          f"{autotune._B9_FLOPS_PER_US}, {autotune._B9_BYTES_PER_US}",
+          flush=True)
+    return entry, details, fit
+
+
+def fit_attn_host(dispatch, autotune, gen) -> dict:
+    """µs of host time per attention call, per engine: each at
+    ATTN_HOST_SHAPE (causal, softcap, one chunk), the fastest CUDA-event
+    median of 50 calls over the rounds of balanced_orders."""
+    B, S, KV, G, hd = ATTN_HOST_SHAPE
+    fit = {}
+    for kind in ("f32", "bf16"):
+        dt = ATTN_KINDS[kind][0]
+        qg = torch.randn(B, S, KV, G, hd, device="cuda", generator=gen).to(dt)
+        k = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dt)
+        v = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dt)
+        kw = dict(k=k, v=v, qpos=torch.arange(S, device="cuda"),
+                  causal=True, scale=hd ** -0.5, cap=50.0, chunk=1024)
+        calls = {m: (lambda p=autotune.ReductionPlan(method=m):
+                     dispatch.execute("attention", qg, p, **kw))
+                 for m in ATTN_CEILINGS}
+        us = dict.fromkeys(ATTN_CEILINGS, math.inf)
+        for order in balanced_orders(tuple(ATTN_CEILINGS)):
+            for m in order:
+                us[m] = min(us[m], 1e3 * median_ms(calls[m], reps=50,
+                                                   warmup=5))
+        fit[kind] = us
+    mean = {m: statistics.fmean(fit[k][m] for k in fit)
+            for m in ATTN_CEILINGS}
+    print(f"phase 5g: fitted _ATTN_HOST_US (us a call, per kind) "
+          + "; ".join(f"{k}: " + ", ".join(f"{m} {v:.1f}" for m, v in
+                                          us.items())
+                      for k, us in fit.items())
+          + f"; means {({m: round(v, 1) for m, v in mean.items()})}; "
+          f"committed {autotune._ATTN_HOST_US}", flush=True)
+    return fit
+
+
 # ---------------------------------------- phase 6: the cost model's fit
 
 
@@ -2473,7 +3024,9 @@ def main() -> int:
     sg = importlib.import_module("repro_torch.kernels.mma_segment")
     mrn = importlib.import_module("repro_torch.kernels.mma_rmsnorm")
     mnm = importlib.import_module("repro_torch.kernels.mma_norm_matmul")
+    ma = importlib.import_module("repro_torch.kernels.mma_attention")
     from repro_torch.configs import base, registry
+    from repro_torch.models import attention as attn_layer
     from repro_torch.models import layers, param
     # The package exports the functions mma_reduce and mma_scan under
     # the modules' names, so the kernel modules are fetched by their
@@ -2501,6 +3054,7 @@ def main() -> int:
     seg_checks = check_segment_kernel(sg, gen)
     norm_checks = check_rmsnorm_kernel(mrn, gen)
     nm_checks = check_norm_matmul_kernel(mnm, gen)
+    attn_checks = check_attention_kernel(ma, gen)
 
     print("phase 3: main path at n = 2^28", flush=True)
     mr.reset_launches()
@@ -2566,6 +3120,17 @@ def main() -> int:
           flush=True)
     check(nm_launches > 0, "kernel b10_norm_matmul was not launched on the "
                            "norm_matmul path")
+    print("phase 3i: the attention layer at Gemma-2 2B's full width",
+          flush=True)
+    ma.reset_launches()
+    attn_rows, attn_picks, attn_shapes = run_attention_path(
+        attn_layer, param, dispatch, registry, base, ma, gen)
+    torch.cuda.synchronize()
+    attn_launches = ma.LAUNCHES["b9_attention"]
+    print(f"phase 3i: launches on the attention path {dict(ma.LAUNCHES)}",
+          flush=True)
+    check(attn_launches > 0, "kernel b9_attention was not launched on the "
+                             "attention path")
     print("phase 3d: the integration example on the card", flush=True)
     integrate_rows = run_integrate_example()
 
@@ -2607,6 +3172,13 @@ def main() -> int:
         nm_checks["worst_abs"])
     entries.append(nm_entry)
     nm_host = fit_nm_host(dispatch, autotune, gen)
+    print("phase 5g: B9 timings at phase 3i's shapes", flush=True)
+    attn_entry, attn_timing_rows, attn_fit = time_attention_kernel(
+        ma, dispatch, autotune, attn_shapes, attn_launches,
+        attn_checks["worst_abs"])
+    del attn_shapes
+    entries.append(attn_entry)
+    attn_host = fit_attn_host(dispatch, autotune, gen)
 
     print("phase 6: the cost model against measured times (f32)",
           flush=True)
@@ -2661,6 +3233,12 @@ def main() -> int:
                    "norm_timings": norm_timing_rows,
                    "norm_matmul_timings": nm_timing_rows,
                    "b10_fit": nm_fit, "nm_host_us": nm_host,
+                   "attention_kernel_checks": attn_checks["rows"],
+                   "attention_path": attn_rows,
+                   "attention_picks": attn_picks,
+                   "attention_launches": attn_launches,
+                   "attention_timings": attn_timing_rows,
+                   "b9_fit": attn_fit, "attn_host_us": attn_host,
                    "scan_picks": scan_picks,
                    "sweep_us": {str(n): [[p.method, p.chain, p.block_rows,
                                           us] for p, us in by.items()]

@@ -680,6 +680,101 @@ def _cost_norm_matmul(plan: ReductionPlan, n: int, itemsize: int, dtype,
     return device + _NM_HOST_US[plan.method]
 
 
+# The attention family (op ``attention``), counted from the runners
+# (``core.dispatch``).  n is the score count B Sq KV G Sk; the call's form
+# (``dispatch._attention_form``) gives the head dims hd / hd_v, the mask,
+# ``rows`` = Sq G query rows per (batch, KV head) and ``sk`` keys, so n /
+# sk query rows (read as q, written as o) and n / rows key rows (read as
+# k and v).  Every engine reads q, k and v and writes o once.  ``vpu``
+# (``_direct_attn``) also materialises the scores: per score element the
+# q.k output (4 bytes) and its per-head stack (8), the scale (8), the mask
+# (8), the softmax (12), its mask (8), the cast to v's dtype (4 + s_v) and
+# p.v's read (s_v); a softcap adds three passes (24).  ``unfused_mma``
+# (``_chunked_attn``) streams the same passes per chunk but keeps its
+# running max, sum and correction (48 + 2 s_v, the cap 24), and updates
+# its f32 accumulator once per chunk (p.v's output, its stack, the
+# rescale and the add: 24 bytes per accumulator element and chunk).  With
+# f32 queries beside a bf16 cache both widen each head's keys to f32
+# (read, write and reread: 8 more bytes per key element).  Both do
+# 2 (hd + hd_v) flops per score element, masked or not, each product on
+# the tensor cores when both its operands are 16-bit, else in f32 on
+# the CUDA cores (TF32 off).  Kernel B9 reads and writes the operands
+# once and skips whole blocks past the causal / window band; its loads
+# overlap its MMAs, so it costs the larger of its bytes at
+# _B9_BYTES_PER_US and its flops, 2 (hd + hd_v) per live score, at
+# _B9_FLOPS_PER_US.  A call also costs host time (_ATTN_HOST_US; for
+# unfused_mma per chunk, at the plan's chunk).  Not priced: blocks B9
+# skips past a dynamic kv_len (the model counts every slot).
+# The three fitted constants below come from chip_smoke.py (phase 5g) on
+# one H100 80GB HBM3 (700 W), which prints their fit each run.  Kernel
+# B9's useful flops per µs by its (q, kv) dtypes, fitted at Gemma-2 2B's
+# prefill shapes as flops over time (the mixed form, f32 q beside a bf16
+# cache, runs only at decode and takes the f32 rate):
+_B9_FLOPS_PER_US = {"float32": 14.17e6, "bfloat16": 56.09e6,
+                    "float32/bfloat16": 14.17e6}
+# Bytes per µs B9 streams at a decode step (128 slots, 2 query rows a KV
+# head: its MMAs fill 2 of 16 rows and a block walks its keys alone),
+# fitted as the model's bytes (every slot) over time where the rows read
+# nearly all of the cache (the slowest decode case), the lower of two
+# runs' fits (1.436 and 1.600): 43 % of the card's 3.35 TB/s.  Where the
+# rows read half the cache (the 32768-slot ring at spread positions) B9
+# runs about twice as fast as this prices it, so at a bf16 decode step
+# there the model takes vpu, which ran 1.09x B9 (the layer's time).
+_B9_BYTES_PER_US = 1.436e6
+# µs of host time an attention call costs (Python, the context and plan
+# lookup, the per-head bmms' and the elementwise ops' launches; for
+# unfused_mma per chunk), fitted at a toy size (1 x 64 tokens, 4 KV
+# heads of 2, hd 256), the means of the f32 and bf16 fits; they move
+# ~1.5x from run to run with the host the card shares.
+_ATTN_HOST_US = {"fused_pallas": 141.6, "unfused_mma": 1018.4, "vpu": 764.1}
+
+
+def _attn_live_share(form: dict) -> float:
+    """The share of scores B9 computes: under a causal mask over rows at
+    the tail of the keys (prefill) with an optional window w, (w -
+    w^2 / 2 Sk) / Sk of them; without one, every score."""
+    sk = max(int(form.get("sk", 1)), 1)
+    if not form.get("causal"):
+        return 1.0
+    w = min(int(form.get("window") or sk), sk)
+    return (w - w * w / (2.0 * sk)) / sk
+
+
+def _cost_attention(plan: ReductionPlan, n: int, itemsize: int, dtype,
+                    form: dict) -> float:
+    hd, hd_v = form.get("hd", 64), form.get("hd_v", form.get("hd", 64))
+    sk = max(int(form.get("sk", math.isqrt(n))), 1)
+    rows = max(int(form.get("rows", math.isqrt(n))), 1)
+    q_name = dtype_name(dtype)
+    kv_name = form.get("kv_dtype", q_name)
+    kv_item = torch.empty((), dtype=as_dtype(kv_name)).element_size()
+    io = n / sk * (hd * itemsize + hd_v * kv_item) \
+        + n / rows * (hd + hd_v) * kv_item
+    if plan.method == "fused_pallas":
+        kind = q_name if kv_name == q_name else f"{q_name}/{kv_name}"
+        rate = _B9_FLOPS_PER_US.get(kind)
+        if rate is None:        # dtypes B9 does not take
+            return math.inf
+        flops = 2.0 * (hd + hd_v) * n * _attn_live_share(form)
+        return max(io / _B9_BYTES_PER_US, flops / rate) \
+            + _ATTN_HOST_US[plan.method]
+    cap = 24.0 if form.get("cap") else 0.0
+    nbytes = io + (n / rows * hd * 8.0 if kv_item < itemsize else 0.0)
+    host = _ATTN_HOST_US[plan.method]
+    if plan.method == "vpu":
+        nbytes += n * (44.0 + 2.0 * kv_item + cap) + n / sk * hd_v * 8.0
+    else:
+        chunks = math.ceil(sk / max(plan.chain * plan.block_rows, 1))
+        nbytes += n * (48.0 + 2.0 * kv_item + cap) \
+            + chunks * n / sk * hd_v * 24.0
+        host *= chunks
+    qk_rate = _TC_FLOPS_PER_US if max(itemsize, kv_item) < 4 \
+        else _F32_FLOPS_PER_US
+    pv_rate = _TC_FLOPS_PER_US if kv_item < 4 else _F32_FLOPS_PER_US
+    flops_us = 2.0 * n * (hd / qk_rate + hd_v / pv_rate)
+    return nbytes / _HBM_BYTES_PER_US + flops_us + host
+
+
 _FAMILY_COSTS = {"reduce": _ENGINE_COSTS, "scan": _SCAN_COSTS,
                  "segment": _SEGMENT_COSTS}
 
@@ -781,19 +876,25 @@ _DOUBLE_DOUBLE = frozenset({"mma_dd", "pallas_dd"})
 # eps32 relative: the square, / d, + eps, rsqrt (2 ulp, halved through
 # the root: 1), x * rstd, 1 + scale and the scale's multiply.
 _NM_EPILOGUE_ROUNDINGS = 6
+# The attention family's roundings beside its sums, each up to eps32
+# relative: the scale, the softcap's division, tanh and multiply, the
+# exponent's subtraction and exp, the correction and the division by l.
+_ATTN_ROUNDINGS = 8
 _ENGINE_BITS = {"vpu": _F32_BITS, "mma": _F32_BITS,
                 "mma_chained": _F32_BITS, "pallas": 11 * TF32_WORDS,
                 "mma_ec": None, "pallas_ec": None}
 
 
 def _multiplicand_bits(plan: ReductionPlan, dtype,
-                       op: str = "reduce_sum") -> int:
+                       op: str = "reduce_sum", form: tuple = ()) -> int:
     """Effective significand bits the engine's multiplicands carry; a
-    16-bit input caps every engine at its own width.  An op whose
-    registry entry declares ``engine_bits`` overrides the table per
+    16-bit input caps every engine at its own width, and so does a
+    16-bit cache beside the input (the form's ``kv_dtype``).  An op
+    whose registry entry declares ``engine_bits`` overrides the table per
     engine (norm_matmul's ``unfused_mma``)."""
     from repro_torch.core import dispatch
-    in_bits = _INPUT_BITS.get(dtype_name(dtype), _F32_BITS)
+    in_bits = min(_INPUT_BITS.get(dtype_name(dtype), _F32_BITS),
+                  _INPUT_BITS.get(dict(form).get("kv_dtype"), _F32_BITS))
     over = dispatch.op_spec(op).engine_bits or {}
     eng_bits = over.get(plan.method,
                         _ENGINE_BITS.get(plan.method, _F32_BITS))
@@ -804,7 +905,7 @@ def _multiplicand_bits(plan: ReductionPlan, dtype,
 
 
 def model_percent_error(plan: ReductionPlan, n: int, dtype,
-                        op: str = "reduce_sum") -> float:
+                        op: str = "reduce_sum", form: tuple = ()) -> float:
     """Modelled % error vs the fp64 oracle — the reference's model: a
     representation term 2^-(bits+1) from the multiplicand width and an
     accumulation term, ~eps32 * sqrt(n) of random-walk rounding for the
@@ -812,18 +913,27 @@ def model_percent_error(plan: ReductionPlan, n: int, dtype,
     compensated family; the dd family carries no multiplicand
     truncation and ~log2(n) second-order terms, 2^-48 (4 + log2 n).
     The norm_matmul family adds its epilogue's roundings
-    (``_NM_EPILOGUE_ROUNDINGS`` of eps32)."""
+    (``_NM_EPILOGUE_ROUNDINGS`` of eps32).  An attention output sums
+    over one row's keys, not over all n scores: its accumulation term
+    takes the larger of the call's Sk and hd (``form``) in n's place,
+    and it adds the softmax's roundings (_ATTN_ROUNDINGS)."""
+    from repro_torch.core import dispatch
     n = max(int(n), 1)
     if plan.method in _DOUBLE_DOUBLE:
         return 100.0 * (2.0 ** -48) * (4.0 + math.log2(n))
-    rep = 2.0 ** -(_multiplicand_bits(plan, dtype, op) + 1)
+    rep = 2.0 ** -(_multiplicand_bits(plan, dtype, op, form) + 1)
+    family = dispatch.op_spec(op).family
+    if family == "attention":
+        f = dict(form)
+        n = max(int(f.get("sk", n)), int(f.get("hd", 1)), 1)
     if plan.method in _COMPENSATED:
         acc = _EPS32 * _EPS32 * n + 2.0 ** -25
     else:
         acc = _EPS32 * math.sqrt(n)
-    from repro_torch.core import dispatch
-    if dispatch.op_spec(op).family == "norm_matmul":
+    if family == "norm_matmul":
         acc += _NM_EPILOGUE_ROUNDINGS * _EPS32
+    if family == "attention":
+        acc += _ATTN_ROUNDINGS * _EPS32
     return 100.0 * (rep + acc)
 
 
@@ -858,16 +968,19 @@ def model_cost(plan: ReductionPlan, n: int, dtype,
     (``_bytes_per_element``: a kernel streams its input once, the plain
     engines' intermediate tensors go through memory too); a scan engine
     costs at least its host time per call, a norm_matmul engine with w
-    given its host time on top.  The op's family
-    (``dispatch.OpSpec.family``) picks the reduce, scan, segment or
-    norm_matmul terms (the last: bytes and, for the projection that
-    ``form`` names, flops; ``_cost_nm``)."""
+    given and an attention engine their host time on top.  The op's
+    family (``dispatch.OpSpec.family``) picks the reduce, scan, segment,
+    norm_matmul or attention terms (the last two: bytes and, for the
+    products that ``form`` names, flops; ``_cost_nm``,
+    ``_cost_attention``)."""
     from repro_torch.core import dispatch
     family = dispatch.op_spec(op).family
     n = max(int(n), 1)
     itemsize = torch.empty((), dtype=as_dtype(dtype)).element_size()
     if family == "norm_matmul":
         return _cost_norm_matmul(plan, n, itemsize, dtype, dict(form))
+    if family == "attention":
+        return _cost_attention(plan, n, itemsize, dtype, dict(form))
     mem = n * _bytes_per_element(plan, op, family, itemsize) \
         / _HBM_BYTES_PER_US
     device = _FAMILY_COSTS[family][plan.method](plan, n) + mem
@@ -1173,7 +1286,8 @@ def autotune(n: int, dtype, *, op: str = "reduce_sum",
             err = (measured_percent_error(cand, nb, dtype, op=op,
                                           policy=policy, backend=backend)
                    if measure else
-                   model_percent_error(cand, nb, dtype, op=op))
+                   model_percent_error(cand, nb, dtype, op=op,
+                                       form=form))
             cand = dataclasses.replace(cand, error_pct=err)
             if fallback is None or err < fallback.error_pct:
                 fallback = cand

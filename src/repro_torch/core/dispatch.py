@@ -1,10 +1,10 @@
 """The TC-op registry: one declarative dispatch layer for the reduce,
-scan, segment and norm_matmul families — the counterpart of
+scan, segment, attention and norm_matmul families — the counterpart of
 ``repro.core.dispatch`` for the ported slices.
 
 Each op (``reduce_sum``, ``squared_sum``, ``masked_mean``,
 ``expert_counts``; ``scan`` and ``masked_cumsum``; ``segment_sum``;
-``norm_matmul``) is an
+``attention``; ``norm_matmul``) is an
 :class:`OpSpec` declaring its family, its engines (:class:`EngineSpec`,
 each with a ``run(x, plan, **op_kwargs)`` callable and capability
 flags), alias spellings, a plain reference oracle, and the autotuner
@@ -34,7 +34,11 @@ outside [0, S), which torch would refuse and JAX drops).  The
 ``norm_matmul`` family (``rmsnorm(x) @ w``, or the norm alone with
 ``w=None``) has ``fused_pallas`` (kernel B10 with ``w`` given, kernel B8
 for the norm-only form), ``unfused_mma`` (the two-op path) and ``vpu``
-(all f32); ``'pallas'`` and ``'mma'`` are their aliases.
+(all f32); ``'pallas'`` and ``'mma'`` are their aliases.  The
+``attention`` family has ``fused_pallas`` (kernel B9), ``unfused_mma``
+(``models.attention._chunked_attn``, the KV-chunked online softmax) and
+``vpu`` (``models.attention._direct_attn``, the unchunked oracle), with
+the same aliases.
 
 The dd engines declare ``accum_dtypes=('float64',)``: they run only
 under an explicit f64 policy (``precision.F64_EQUIVALENT``), and every
@@ -65,16 +69,24 @@ from repro_torch.core.precision import (ACCUM_DTYPE, MmaPolicy, as_dtype,
                                         as_policy, dtype_name)
 
 
+def default_device(device=None):
+    """``device`` when given, else the card; with no card, raise rather
+    than run on the CPU (a caller asks for the CPU by naming it)."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the card unless given "
+            "CPU tensors (pass a torch.Tensor on the CPU to run there)")
+    return "cuda"
+
+
 def as_tensor(x) -> torch.Tensor:
     """The device rule: tensors stay where they are; anything else goes
     to the card, or raises when there is none."""
     if isinstance(x, torch.Tensor):
         return x
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: repro_torch runs on the card unless given "
-            "CPU tensors (pass a torch.Tensor on the CPU to run there)")
-    return torch.as_tensor(np.asarray(x)).to("cuda")
+    return torch.as_tensor(np.asarray(x)).to(default_device())
 
 
 # ------------------------------------------------------------- context
@@ -478,11 +490,61 @@ def _context_for(spec: OpSpec, x, op_kwargs: dict, *,
         scan_axis = op_kwargs.get("axis", -1) % max(x.ndim, 1)
         return build_context(spec.name, x, scan_axis=scan_axis,
                              policy=policy)
+    if spec.family == "attention":
+        return build_context(spec.name, x, policy=policy,
+                             extras=_attention_extras(x, op_kwargs))
     if spec.family == "norm_matmul":
         return build_context(spec.name, x, policy=policy,
                              extras=_norm_matmul_extras(x, op_kwargs))
     return build_context(spec.name, x, axis=op_kwargs.get("axis"),
                          policy=policy)
+
+
+def _attention_extras(qg, op_kwargs: dict) -> tuple:
+    """The attention family's context facts (shapes, dtypes and flags
+    only, never an operand, so the context stays hashable).
+    ``has_kv_len`` is True only for a dynamic valid-length mask (the
+    decode ring buffer); a static ``kv_len == Sk`` is the dense no-op
+    every engine handles."""
+    k = op_kwargs.get("k")
+    v = op_kwargs.get("v")
+    qpos = op_kwargs.get("qpos")
+    kv_len = op_kwargs.get("kv_len")
+    window = op_kwargs.get("window")
+    kv_seq = int(k.shape[1]) if k is not None else 0
+    return (
+        ("causal", bool(op_kwargs.get("causal", False))),
+        ("window", int(window) if window is not None else None),
+        ("has_kv_len",
+         kv_len is not None
+         and not (isinstance(kv_len, int) and kv_len == kv_seq)),
+        ("per_row", qpos is not None and getattr(qpos, "ndim", 1) == 2),
+        ("head_dim", int(qg.shape[-1])),
+        ("v_head_dim",
+         int(v.shape[-1]) if v is not None else int(qg.shape[-1])),
+        ("kv_seq", kv_seq),
+        ("kv_dtypes", tuple(dtype_name(t.dtype) for t in (k, v)
+                            if t is not None)),
+    )
+
+
+def _attention_form(qg, op_kwargs: dict) -> tuple:
+    """What the attention cost model prices beside the score count: the
+    head dims, the mask (causal, window, a dynamic kv_len), a softcap,
+    the query rows per KV head (Sq G) and the keys (Sk), which split the
+    score count into q / o rows and K / V rows, and the cache's dtype
+    when it is not qg's (f32 activations against a bf16 cache)."""
+    k, v = op_kwargs["k"], op_kwargs["v"]
+    ctx = dict(_attention_extras(qg, op_kwargs))
+    form = (("hd", int(qg.shape[-1])), ("hd_v", int(v.shape[-1])),
+            ("causal", int(ctx["causal"])), ("window", ctx["window"] or 0),
+            ("cap", int(op_kwargs.get("cap") is not None)),
+            ("has_kv_len", int(ctx["has_kv_len"])),
+            ("rows", int(qg.shape[1] * qg.shape[3])),
+            ("sk", int(k.shape[1])))
+    if k.dtype != qg.dtype:
+        form += (("kv_dtype", dtype_name(k.dtype)),)
+    return form
 
 
 def _norm_matmul_form(x, op_kwargs: dict) -> tuple:
@@ -705,6 +767,83 @@ def _segment_vpu(values, plan, *, segment_ids, num_segments, **_):
     return out.index_add_(0, slot, v)[:s]
 
 
+# ---- attention family
+#
+# Operand surface (every runner): qg (B, Sq, KV, G, hd) grouped
+# queries; k (B, Sk, KV, hd); v (B, Sk, KV, hd_v — MLA's value width
+# may differ); qpos (Sq,) or per-row (B, Sq) absolute positions; key
+# positions are always 0..Sk-1 (the ring-buffer slot order).  Returns
+# (B, Sq, KV, G, hd_v) in v.dtype.
+
+
+def _attn_scale(qg, scale):
+    return 1.0 / math.sqrt(qg.shape[-1]) if scale is None else scale
+
+
+def _attn_vpu(qg, plan, *, k, v, qpos, causal=False, window=None,
+              kv_len=None, scale=None, cap=None, **_):
+    from repro_torch.models.attention import _direct_attn
+    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
+    return _direct_attn(qg, k, v, qpos=qpos, kpos=kpos, causal=causal,
+                        window=window, kv_len=kv_len,
+                        scale=_attn_scale(qg, scale), cap=cap)
+
+
+def _attn_unfused(qg, plan, *, k, v, qpos, causal=False, window=None,
+                  kv_len=None, scale=None, cap=None, chunk=None, **_):
+    # kv_len is None or statically the full Sk here (the capability
+    # predicate refuses the dynamic ring-buffer form), so the chunked
+    # loop's built-in kv_len == Sk bound is exact.
+    from repro_torch.models.attention import _chunked_attn
+    chunk = int(chunk) if chunk else plan.chain * plan.block_rows
+    return _chunked_attn(qg, k, v, qpos=qpos, causal=causal,
+                         window=window, scale=_attn_scale(qg, scale),
+                         cap=cap, chunk=chunk)
+
+
+def _attn_fused(qg, plan, *, k, v, qpos, causal=False, window=None,
+                kv_len=None, scale=None, cap=None, **_):
+    from repro_torch.kernels import ops
+    return ops.mma_attention(qg, k, v, qpos=qpos, causal=causal,
+                             window=window, kv_len=kv_len,
+                             scale=_attn_scale(qg, scale), cap=cap)
+
+
+# The reference capped the fused kernel at a padded head dim of 512
+# lanes, its TPU kernel's f32 working set against a 16 MB VMEM budget.
+# Kernel B9 holds in shared memory its 64 query rows, two stages of a
+# block of 32 keys and 32 values, and 128 row bounds; an f32 row of d
+# elements takes 4 (round_up(d, 32) + 4) bytes, a bf16 row
+# 2 (round_up(d, 64) + 8) (kernels.mma_attention.smem_bytes), within the
+# H100's 232,448 bytes a block.  Its accumulator is hd_v / 2 f32
+# registers a thread, so hd_v <= 256.  At hd_v = 256 in f32 the largest
+# hd that fits is 288: 64 x 1168 + 64 (1168 + 1040) + 512 = 216,576
+# bytes (320 would take 232,960).  The limit holds for every dtype form,
+# so a head dim is served alike in f32 and bf16: Gemma-2 2B's and
+# RecurrentGemma's 256, the other configs' 128 and MLA's 192 / 128 fit.
+_FUSED_MAX_HEAD = 288
+
+
+def _attn_fused_predicate(ctx: DispatchContext) -> Optional[str]:
+    from repro_torch.kernels.mma_attention import refusal
+    hd = int(ctx.extra("head_dim", 0))
+    hd_v = int(ctx.extra("v_head_dim", 0))
+    if hd > _FUSED_MAX_HEAD:
+        return (f"head dim {hd} exceeds kernel B9's {_FUSED_MAX_HEAD} "
+                f"(its shared-memory tiles); use the unfused engines")
+    reason = refusal(hd, hd_v, (ctx.dtype,) + tuple(ctx.extra("kv_dtypes",
+                                                              ())))
+    return None if reason is None else f"{reason}; use the unfused engines"
+
+
+def _attn_unfused_predicate(ctx: DispatchContext) -> Optional[str]:
+    if ctx.extra("has_kv_len"):
+        return ("dense-prefill engine: the KV-chunked loop has no "
+                "dynamic valid-length (ring-buffer kv_len) mask; "
+                "decode needs the fused kernel or the vpu oracle")
+    return None
+
+
 # ---- norm_matmul family: rmsnorm(x) @ W
 #
 # Op surface (all engines): x (..., d), scale (d,) with gemma
@@ -833,6 +972,11 @@ def _ref_segment_sum(values, **kw):
     return _segment_vpu(values, None, **kw)
 
 
+def _ref_attention(qg, **kw):
+    kw.pop("chunk", None)
+    return _attn_vpu(qg, None, **kw)
+
+
 def _ref_norm_matmul(x, **kw):
     return _nm_vpu(x, None, **kw)
 
@@ -852,6 +996,36 @@ def _measure_expert_counts(n, dtype, rng, device):
     t = max(n // e, 1)
     onehot = torch.eye(e)[torch.from_numpy(rng.integers(0, e, t))]
     return onehot.to(device, as_dtype(dtype)), {}
+
+
+def _measure_attention(n, dtype, rng, device, hd=64, hd_v=None, causal=1,
+                       window=0, cap=0, has_kv_len=0, rows=None, sk=None,
+                       kv_dtype=None):
+    """A representative problem of ~n score elements in the call's form
+    (``_attention_form``): ``rows`` query rows per KV head (one head, G
+    = 1) against ``sk`` keys, n / (rows sk) batch rows; without a form
+    the reference's causal self-attention, Sq == Sk == sqrt(n), hd 64.
+    A dynamic kv_len admits every key (the engines' work is the same)."""
+    if sk is None:
+        rows = sk = max(int(math.isqrt(max(int(n), 1))), 8)
+    hd_v = hd if hd_v is None else hd_v
+    b = max(int(n) // (rows * sk), 1)
+    dt = as_dtype(dtype)
+    kdt = dt if kv_dtype is None else as_dtype(kv_dtype)
+
+    def t(shape, d):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(device, d)
+    qg = t((b, rows, 1, 1, hd), dt)
+    kw = {"k": t((b, sk, 1, hd), kdt), "v": t((b, sk, 1, hd_v), kdt),
+          "qpos": torch.arange(sk - rows, sk, device=device)
+          if rows <= sk else torch.arange(rows, device=device),
+          "causal": bool(causal), "window": window or None,
+          "scale": 1.0 / math.sqrt(hd), "cap": 50.0 if cap else None}
+    if has_kv_len:
+        kw["kv_len"] = torch.full((b,), sk, dtype=torch.int32,
+                                  device=device)
+    return qg, kw
 
 
 # A representative problem of ~n input elements in the call's form
@@ -989,6 +1163,44 @@ register(OpSpec(
         EngineSpec("vpu", _segment_vpu, multi_device_safe=True),
     ),
     aliases={"mma_chained": "mma"}, reference=_ref_segment_sum))
+
+# attention engines:
+#   fused_pallas  kernel B9 (kernels/mma_attention.py): qg f32 or bf16,
+#                 k and v f32 or bf16 (one dtype, not necessarily qg's),
+#                 head dims within _FUSED_MAX_HEAD and hd_v <= 256
+#                 (_attn_fused_predicate); causal, window, GQA, per-row
+#                 decode positions and the ring-buffer kv_len.
+#   unfused_mma   the KV-chunked online softmax (models.attention.
+#                 _chunked_attn): dense prefill only (no dynamic
+#                 kv_len), any dtype, distribution-safe.
+#   vpu           the unchunked oracle (models.attention._direct_attn):
+#                 safe everywhere; materialises the score matrix.
+
+register(OpSpec(
+    name="attention", family="attention",
+    engines=(
+        # B9's geometry is fixed by the card (64 query rows, 32 keys a
+        # step): nothing to sweep.
+        EngineSpec("fused_pallas", _attn_fused, ndim=5,
+                   dtypes=("float32", "bfloat16"),
+                   predicate=_attn_fused_predicate),
+        EngineSpec("unfused_mma", _attn_unfused, ndim=5,
+                   multi_device_safe=True, sweep=("block_rows",),
+                   predicate=_attn_unfused_predicate),
+        EngineSpec("vpu", _attn_vpu, ndim=5, multi_device_safe=True),
+    ),
+    aliases={"pallas": "fused_pallas", "mma": "unfused_mma"},
+    reference=_ref_attention,
+    # plan keys bucket on score elements, so prefill (Sq*Sk) and decode
+    # (1*Sk) land in different n-buckets.
+    size_of=lambda qg, kw: (qg.shape[0] * qg.shape[1] * qg.shape[2]
+                            * qg.shape[3] * kw["k"].shape[1]),
+    form_of=_attention_form, measure=_measure_attention,
+    # vpu and unfused_mma multiply in full f32 (TF32 off: 24 bits);
+    # B9 in 3xTF32, two TF32 words of each f32 operand with lo x lo
+    # dropped, about 2^-22 relative a product: 21 bits.  The reference's
+    # TPU engines carried 8.  A bf16 operand caps every engine at 8.
+    engine_bits={"vpu": 24, "unfused_mma": 24, "fused_pallas": 21}))
 
 
 # norm_matmul engines:

@@ -7,9 +7,10 @@ it to tensor cores; the hand-written kernels live in
 ``repro_torch.kernels``.  These are plain large contractions outside any
 kernel, so they go to torch's matmul family:
 
-  * on CUDA, bf16/fp16 operands use the ``out_dtype=ACCUM_DTYPE``
-    overloads (``aten::mm.dtype`` / ``bmm.dtype``): plain
-    ``torch.matmul`` would return bf16 and break the f32 contract;
+  * on CUDA, bf16/fp16 operands (both of one dtype) use the
+    ``out_dtype=ACCUM_DTYPE`` overloads (``aten::mm.dtype`` /
+    ``bmm.dtype``): plain ``torch.matmul`` would return bf16 and break
+    the f32 contract;
   * on the CPU those overloads are not implemented, so both operands
     are cast to f32 first (the products of 16-bit values are exact in
     f32, so the contract is the same);
@@ -59,8 +60,10 @@ def _mm(a, b) -> torch.Tensor:
 
 
 def _bmm(a, b) -> torch.Tensor:
-    """Batched ``a @ b`` (3-D) accumulated and returned in f32."""
-    if a.is_cuda and a.dtype in _HALF:
+    """Batched ``a @ b`` (3-D) accumulated and returned in f32; operands
+    of two dtypes are both widened to f32 (exactly, as JAX promotes
+    them)."""
+    if a.is_cuda and a.dtype in _HALF and b.dtype == a.dtype:
         return torch.bmm(a, b, out_dtype=ACCUM_DTYPE)
     return torch.bmm(a.to(ACCUM_DTYPE), b.to(ACCUM_DTYPE))
 

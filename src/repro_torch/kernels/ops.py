@@ -1,7 +1,8 @@
 """Public wrappers for the reduction kernels (B1-B5), the prefix-scan
-kernel B6, the segmented-sum kernel B7, the fused RMSNorm kernel B8 and
-the fused RMSNorm -> matmul kernel B10 — the counterpart of those parts
-of ``repro.kernels.ops`` and ``repro.kernels.mma_norm_matmul``.
+kernel B6, the segmented-sum kernel B7, the fused RMSNorm kernel B8, the
+fused attention kernel B9 and the fused RMSNorm -> matmul kernel B10 —
+the counterpart of those parts of ``repro.kernels.ops``,
+``repro.kernels.mma_attention`` and ``repro.kernels.mma_norm_matmul``.
 
 They flatten, resolve ``'auto'`` geometry and pick the variant.  Where
 the reference chose interpret mode off the TPU, the port chooses by the
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import mma_attention as _ma
 from repro_torch.kernels import mma_compensated as _mc
 from repro_torch.kernels import mma_norm_matmul as _mnm
 from repro_torch.kernels import mma_reduce as _mr
@@ -328,3 +330,39 @@ def mma_norm_matmul(x, scale, w, *, w_gate=None, bias=None, act=None,
         out = _mnm.norm_matmul_plain(x2d, scale, w, w_gate=w_gate,
                                      bias=bias, act=act, eps=eps)
     return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def mma_attention(qg, k, v, *, qpos, causal: bool = False, window=None,
+                  kv_len=None, scale=None, cap=None) -> torch.Tensor:
+    """Fused attention: qg (B, Sq, KV, G, hd), k (B, Sk, KV, hd), v (B, Sk,
+    KV, hd_v) -> (B, Sq, KV, G, hd_v) in v.dtype, without the score
+    matrix in device memory.  ``qpos`` is (Sq,) shared or (B, Sq) per-row
+    absolute positions (key positions are 0..Sk-1); ``kv_len`` (None, a
+    scalar or (B,)) masks ring-buffer slots past the valid count;
+    ``window`` the sliding window, ``cap`` the logit softcap, ``scale``
+    defaults to 1 / sqrt(hd).  A row with no valid key gives exactly 0.
+
+    CUDA tensors (qg f32 or bf16; k and v f32 or bf16, independently of
+    qg: f32 activations read a bf16 cache as it is) launch kernel B9, CPU
+    tensors run its plain version; there is no fallback from one to the
+    other.  The geometry is fixed by the card (64 query rows, 32 keys a
+    step), not tuned: the reference's ``chain`` / ``block_rows`` shaped
+    its TPU grid.
+
+    Reached through the ``attention`` registry entry as the
+    ``fused_pallas`` engine; callers go through
+    ``repro_torch.models.attention.attention``.
+    """
+    B, Sq = qg.shape[:2]
+    scale = qg.shape[-1] ** -0.5 if scale is None else float(scale)
+    qpos = torch.as_tensor(qpos, device=qg.device).to(torch.int32)
+    qpos = qpos.expand(B, Sq).contiguous()
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=qg.device).to(torch.int32)
+        kv_len = kv_len.reshape(-1).expand(B).contiguous()
+    kw = dict(qpos=qpos, causal=causal, window=window, kv_len=kv_len,
+              scale=scale, cap=cap)
+    if qg.is_cuda:
+        return _ma.attention_cuda(qg.contiguous(), k.contiguous(),
+                                  v.contiguous(), **kw)
+    return _ma.attention_plain(qg, k, v, **kw)

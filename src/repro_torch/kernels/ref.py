@@ -1,5 +1,5 @@
 """Plain-PyTorch oracles for the reduction, prefix-scan, segmented-sum,
-RMSNorm and fused RMSNorm -> matmul kernels — the counterpart of
+RMSNorm, fused RMSNorm -> matmul and attention kernels — the counterpart of
 ``repro.kernels.ref`` for those kernels.
 
 Each oracle states the *semantics* a kernel must have (including the
@@ -113,3 +113,34 @@ def norm_matmul_ref(x2d, scale, w, *, w_gate=None, bias=None, act=None,
     if w_gate is not None:
         up = apply_act((xs @ w_gate.to(ACCUM_DTYPE)) * rstd, act) * up
     return up.to(x2d.dtype)
+
+
+def attention_ref(qg, k, v, *, qpos, causal: bool = False, window=None,
+                  kv_len=None, scale=None, cap=None) -> torch.Tensor:
+    """Attention in f32, in the form of ``models.attention._direct_attn``
+    on f32 operands: qg (B, Sq, KV, G, hd), k (B, Sk, KV, hd), v (B, Sk,
+    KV, hd_v), qpos (Sq,) or per row (B, Sq), kv_len None, a scalar or
+    (B,) -> (B, Sq, KV, G, hd_v) f32.  Scores ``scale q.k`` (default
+    1 / sqrt(hd)) with the optional softcap, masked by causality, the
+    window and kv_len, softmax over the keys; a row with no valid key is
+    exactly 0."""
+    qf, kf, vf = (t.to(ACCUM_DTYPE) for t in (qg, k, v))
+    scale = qg.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.einsum("bqkgh,bckh->bkgqc", qf, kf) * scale
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    kpos = torch.arange(k.shape[1], device=qg.device)
+    q = torch.as_tensor(qpos, device=qg.device)[..., :, None]
+    valid = torch.ones(q.shape[:-1] + kpos.shape, dtype=torch.bool,
+                       device=qg.device)
+    if causal:
+        valid = valid & (kpos <= q)
+    if window is not None:
+        valid = valid & (kpos > q - window)
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=qg.device)
+        valid = valid & (kpos < (kl[:, None, None] if kl.ndim else kl))
+    valid = valid[:, None, None] if valid.ndim == 3 else valid
+    s = torch.where(valid, s, -2.0e38)
+    p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)
+    return torch.einsum("bkgqc,bckh->bqkgh", p, vf)

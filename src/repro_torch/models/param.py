@@ -123,10 +123,11 @@ def count_params(tree) -> int:
 def from_numpy(tree, *, device=None, dtype: Optional[torch.dtype] = None):
     """The weight bridge: nested dicts / lists of numpy arrays (another
     package's parameters after ``np.asarray`` on each leaf) -> the same
-    structure of tensors on ``device`` (default: the card when present),
-    cast to ``dtype`` when given."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    structure of tensors on ``device`` (default: the card; with no card
+    it raises, as ``core.dispatch.as_tensor`` does), cast to ``dtype``
+    when given."""
+    from repro_torch.core.dispatch import default_device
+    device = default_device(device)
 
     def one(a):
         a = np.asarray(a)

@@ -26,7 +26,14 @@ The fused RMSNorm -> matmul kernel B10 agrees with its plain version to
 2^-20 of each output's absolute-value scale (its f32 sums and
 ``rsqrtf`` in another order; the scale is ``_nm_scale``'s), plus one ulp
 in bf16, with itself bit for bit, and a row's bits do not depend on how
-many rows came with it.
+many rows came with it.  The fused attention kernel B9 agrees with its
+plain version to 2^-20 (1 + sigma) of each output's absolute-value scale
+(``_attn_scales``: a score's f32 adds in another order move it by a few
+2^-24 sigma, which exp turns into that relative error of p), and with a
+bf16 v to 2^-8 of that scale more plus one bf16 ulp (both round p to
+bf16, and a p near a rounding boundary may round the other way); it
+repeats its bits, a row's bits do not depend on the batch, and a row
+with no valid key is exactly 0.
 """
 
 import importlib
@@ -44,6 +51,7 @@ ms = importlib.import_module("repro_torch.kernels.mma_scan")
 sg = importlib.import_module("repro_torch.kernels.mma_segment")
 mrn = importlib.import_module("repro_torch.kernels.mma_rmsnorm")
 mnm = importlib.import_module("repro_torch.kernels.mma_norm_matmul")
+ma = importlib.import_module("repro_torch.kernels.mma_attention")
 
 M = 16
 RTOL = 2.0 ** -16
@@ -686,3 +694,167 @@ def test_fused_mlp_runs_b10_on_the_card(cuda):
     assert torch.equal(out.reshape(64, 256), h @ wo.to(torch.bfloat16))
     _nm_close(h, mnm.norm_matmul_plain(x, s, w, w_gate=wg, act="gelu"),
               _nm_scale(x, s, w, wg, None))
+
+
+# ------------------------------------------------ B9: fused attention
+
+ATTN_RTOL = 2.0 ** -20
+ATTN_KINDS = {"f32": (torch.float32, torch.float32),
+              "bf16": (torch.bfloat16, torch.bfloat16),
+              "mixed": (torch.float32, torch.bfloat16)}   # (q, cache)
+
+
+def _attn_inputs(B, Sq, Sk, KV, G, hd, hd_v, kind, seed, *, qpos="tail",
+                 kv_len=False):
+    qd, kd = ATTN_KINDS[kind]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qg = torch.randn(B, Sq, KV, G, hd, device="cuda", generator=gen).to(qd)
+    k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(kd)
+    v = torch.randn(B, Sk, KV, hd_v, device="cuda", generator=gen).to(kd)
+    pos = (torch.arange(Sq, device="cuda") + max(Sk - Sq, 0))
+    pos = pos.to(torch.int32).expand(B, Sq).contiguous()
+    kvl = None
+    if kv_len:
+        kvl = torch.randint(0, Sk + 1, (B,), device="cuda",
+                            generator=gen).to(torch.int32)
+        pos = (kvl[:, None] - 1).expand(B, Sq).contiguous()
+    if qpos == "padded":
+        pos = pos.clone()
+        pos[:, 0] = -1
+    return qg, k, v, pos, kvl
+
+
+def _attn_scales(qg, k, v, *, qpos, causal, window, kv_len, scale, cap):
+    """Each output's absolute-value scale sum_j p_ij |v_j| / l_i and each
+    row's score scale sigma_i = scale max_j sum_h |q_ih k_jh|, in f64."""
+    s = torch.einsum("bqkgh,bckh->bkgqc", qg.double(), k.double()) * scale
+    sigma = (torch.einsum("bqkgh,bckh->bkgqc", qg.double().abs(),
+                          k.double().abs()) * scale).amax(-1)
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    lo, hi = ma.row_bounds(qpos, kv_len, sk=k.shape[1], causal=causal,
+                           window=window)
+    j = torch.arange(k.shape[1], device=qg.device)
+    valid = ((j >= lo[..., None]) & (j < hi[..., None]))[:, None, None]
+    p = torch.softmax(torch.where(valid, s, -1e300), -1) * valid
+    a = torch.einsum("bkgqc,bckh->bqkgh", p, v.double().abs())
+    return a, sigma.permute(0, 3, 1, 2)[..., None]
+
+
+def _attn_close(got, want, scales):
+    a, sigma = scales
+    g, w = got.double(), want.double()
+    bound = ATTN_RTOL * (1.0 + sigma) * a
+    if want.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * a + torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(1e-30))) - 7)
+    assert bool(torch.all((g - w).abs() <= bound)), \
+        float(((g - w).abs() - bound).max())
+
+
+ATTN_CASES = [
+    # (B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos, kv_len)
+    (2, 37, 45, 4, 2, 256, 256, True, None, 50.0, "tail", False),
+    (2, 70, 130, 2, 1, 128, 128, True, 16, None, "tail", False),
+    (2, 33, 100, 2, 2, 192, 128, True, None, None, "tail", False),
+    (3, 1, 300, 4, 2, 256, 256, False, None, 50.0, "tail", True),
+    (2, 5, 9, 1, 3, 16, 8, True, None, None, "padded", False),
+    (2, 7, 75, 2, 3, 12, 8, True, 20, None, "tail", False),
+]
+
+
+@pytest.mark.parametrize("kind", list(ATTN_KINDS))
+@pytest.mark.parametrize(
+    "B,Sq,Sk,KV,G,hd,hd_v,causal,window,cap,qpos,kv_len", ATTN_CASES)
+def test_attention_kernel_matches_plain_on_card(cuda, B, Sq, Sk, KV, G, hd,
+                                                hd_v, causal, window, cap,
+                                                qpos, kv_len, kind):
+    qg, k, v, pos, kvl = _attn_inputs(B, Sq, Sk, KV, G, hd, hd_v, kind,
+                                      Sq * Sk + hd, qpos=qpos, kv_len=kv_len)
+    kw = dict(qpos=pos, causal=causal, window=window, kv_len=kvl,
+              scale=hd ** -0.5, cap=cap)
+    got = ma.attention_cuda(qg, k, v, **kw)
+    assert got.dtype == v.dtype and got.shape == (B, Sq, KV, G, hd_v)
+    _attn_close(got, ma.attention_plain(qg, k, v, **kw),
+                _attn_scales(qg, k, v, **kw))
+    assert torch.equal(got, ma.attention_cuda(qg, k, v, **kw))
+    if qpos == "padded":
+        assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+
+
+@pytest.mark.parametrize("kind", list(ATTN_KINDS))
+def test_attention_kernel_is_batch_independent(cuda, kind):
+    """A row's bits do not depend on the rows beside it: rows 0..k of a
+    B-row call equal a (k + 1)-row call, at prefill and at decode."""
+    for Sq, kv_len in ((40, False), (1, True)):
+        qg, k, v, pos, kvl = _attn_inputs(6, Sq, 200, 2, 2, 256, 256, kind,
+                                          5, kv_len=kv_len)
+        kw = dict(causal=not kv_len, window=None, scale=0.0625, cap=50.0)
+        full = ma.attention_cuda(qg, k, v, qpos=pos, kv_len=kvl, **kw)
+        for rows in (1, 4):
+            part = ma.attention_cuda(
+                qg[:rows].contiguous(), k[:rows].contiguous(),
+                v[:rows].contiguous(), qpos=pos[:rows].contiguous(),
+                kv_len=None if kvl is None else kvl[:rows].contiguous(),
+                **kw)
+            assert torch.equal(part, full[:rows]), (Sq, rows)
+
+
+def test_attention_wrapper_counts_launches_and_raises(cuda):
+    from repro_torch.core import dispatch
+    qg, k, v, pos, kvl = _attn_inputs(2, 1, 64, 2, 2, 16, 16, "mixed", 9,
+                                      kv_len=True)
+    kw = dict(k=k, v=v, qpos=pos, kv_len=kvl, scale=0.25)
+    ma.reset_launches()
+    got = dispatch.dispatch("attention", qg, method="fused_pallas", **kw)
+    assert ma.LAUNCHES["b9_attention"] == 1 and got.dtype == torch.bfloat16
+    dispatch.dispatch("attention", qg.cpu(), method="fused_pallas",
+                      **{n: t.cpu() if torch.is_tensor(t) else t
+                         for n, t in kw.items()})
+    assert ma.LAUNCHES["b9_attention"] == 1     # the CPU runs the plain one
+    call = dict(qpos=pos, kv_len=kvl, scale=0.25)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ma.attention_cuda(qg.half(), k, v, **call)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ma.attention_cuda(qg, k.half(), v.half(), **call)
+    with pytest.raises(ValueError, match="one dtype"):
+        ma.attention_cuda(qg, k, v.float(), **call)
+    with pytest.raises(ValueError, match="contiguous"):
+        ma.attention_cuda(qg, k.transpose(1, 2), v, **call)
+    with pytest.raises(ValueError, match="qpos"):
+        ma.attention_cuda(qg, k, v, qpos=pos.long(), kv_len=kvl, scale=0.25)
+    with pytest.raises(ValueError, match="fused_pallas"):
+        dispatch.dispatch("attention", qg.half(), method="fused_pallas",
+                          **kw)
+    assert ma.LAUNCHES["b9_attention"] == 1
+
+
+def test_attention_layer_runs_b9_on_the_card(cuda):
+    """models.attention.attention with attn_method='fused_pallas' on the
+    card: prefill into a bf16 cache and a per-row decode step, both
+    through B9, each held to the vpu engine's output."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import attention as A
+    from repro_torch.models import param
+    cfg = dataclasses.replace(registry.get_config("gemma2-2b", smoke=True),
+                              attn_method="fused_pallas")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = param.init_tree(gen, A.attn_specs(cfg))
+    x = torch.randn(2, 12, cfg.d_model, device="cuda", generator=gen)
+    cache = A.make_cache(cfg, 2, 16)
+    ma.reset_launches()
+    out, cache = A.attention(params, cfg, x, positions=torch.arange(12,
+                             device="cuda"), cache=cache, kind="local")
+    assert ma.LAUNCHES["b9_attention"] == 1
+    vpu = dataclasses.replace(cfg, attn_method="vpu")
+    want, _ = A.attention(params, vpu, x, positions=torch.arange(
+        12, device="cuda"), kind="local")
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    pos = torch.tensor([[12], [3]], device="cuda")
+    step = torch.randn(2, 1, cfg.d_model, device="cuda", generator=gen)
+    out, _ = A.attention(params, cfg, step, positions=pos, cache=cache,
+                         decode=True, kind="local")
+    assert ma.LAUNCHES["b9_attention"] == 2
+    assert out.shape == (2, 1, cfg.d_model)
+    assert bool(torch.all(torch.isfinite(out)))

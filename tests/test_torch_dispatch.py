@@ -10,9 +10,8 @@ inputs: 2e-2 and 2e-2 * sqrt(n)).  The reference's error ceilings
 registers, at the gate's probe size.  The double-double engines return
 a (hi, lo) pair and run under the f64 policy, as the gate runs them.
 The norm_matmul op runs the reference's full-surface problem (d = 40,
-gate, bias, silu); its ``fused_pallas`` engine serves only the norm-only
-form until kernel B10 is ported, so with ``w`` given it must refuse,
-naming B10.
+gate, bias, silu); the attention op a small grouped-query problem
+(causal, a window, a softcap).
 """
 
 import os
@@ -34,8 +33,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 import check_error_budget as gates  # noqa: E402
 
 N = 4_097
-PORT_OPS = ("expert_counts", "masked_cumsum", "masked_mean", "norm_matmul",
-            "reduce_sum", "scan", "segment_sum", "squared_sum")
+PORT_OPS = ("attention", "expert_counts", "masked_cumsum", "masked_mean",
+            "norm_matmul", "reduce_sum", "scan", "segment_sum",
+            "squared_sum")
+# The ops whose output keeps the input's dtype (every reduction is f32).
+SAME_DTYPE_OPS = ("attention", "norm_matmul")
 DD_ENGINES = ("mma_dd", "pallas_dd")
 
 
@@ -53,6 +55,11 @@ def _op_inputs(op: str, dtype: str = "float32", seed: int = 0):
     if op == "expert_counts":
         x = np.eye(16, dtype=np.float32)[rng.integers(0, 16, 300)]
         kw = {}
+    elif op == "attention":
+        # qg (B, Sq, KV, G, hd) against 21 keys, hd_v != hd.
+        x = rng.normal(size=(2, 9, 2, 2, 16)).astype(np.float32)
+        kw = {"k": rng.normal(size=(2, 21, 2, 16)).astype(np.float32),
+              "v": rng.normal(size=(2, 21, 2, 8)).astype(np.float32)}
     elif op == "norm_matmul":
         # tests/test_dispatch.py's full surface: d and dout off any tile,
         # gate + bias + act.
@@ -74,6 +81,11 @@ def _op_inputs(op: str, dtype: str = "float32", seed: int = 0):
     tkw = {k: torch.from_numpy(v.copy()).to(tdt) for k, v in kw.items()}
     if op == "norm_matmul":
         jkw["act"] = tkw["act"] = "silu"
+    if op == "attention":
+        qpos = np.arange(12, 21, dtype=np.int32)
+        common = {"causal": True, "window": 8, "cap": 20.0, "scale": 0.25}
+        jkw.update(qpos=jnp.asarray(qpos), **common)
+        tkw.update(qpos=torch.from_numpy(qpos), **common)
     if op == "segment_sum":
         # Integer ids (-1 and one past the end add nothing) and a count.
         ids = rng.integers(-1, 38, N).astype(np.int32)
@@ -103,21 +115,24 @@ def test_registry_mirrors_the_reference_for_this_slice():
         want = ref.engines
         assert port.engine_names() == tuple(e.name for e in want)
         assert (port.family, port.aliases) == (ref.family, ref.aliases)
-        # The one precision that differs: the port's fused norm_matmul
-        # kernel B10 multiplies in 3xTF32 (21 bits), where the
-        # reference's TPU kernel took its default (8).
+        # The precisions that differ: the port's fused kernels B10 and
+        # B9 multiply in 3xTF32 (21 bits), where the reference's TPU
+        # kernels took the default (8), and the port declares its plain
+        # attention engines' full f32 (24) beside B9's.
         bits = dict(ref.engine_bits or {})
         if op == "norm_matmul":
             bits["fused_pallas"] = 21
+        if op == "attention":
+            bits.update(vpu=24, unfused_mma=24, fused_pallas=21)
         assert port.engine_bits == (bits or ref.engine_bits), op
         for pe, je in zip(port.engines, want):
             # The one knob that differs: the reference sweeps its fused
-            # norm_matmul kernel's Pallas grid, while the port's
-            # fused_pallas is kernel B8 (w=None; 16 rows, 8 warps a
-            # block) or B10 (w given; one 128 x 64 tile a block), whose
-            # geometries are fixed by the card, so it sweeps nothing.
-            sweep = () if (op, je.name) == ("norm_matmul", "fused_pallas") \
-                else je.sweep
+            # kernels' Pallas grids, while the port's fused_pallas is
+            # kernel B8 (w=None; 16 rows, 8 warps a block), B10 (w given;
+            # one 128 x 64 tile a block) or B9 (attention; 64 query rows,
+            # 32 keys a step), whose geometries are fixed by the card, so
+            # it sweeps nothing.
+            sweep = () if je.name == "fused_pallas" else je.sweep
             assert (pe.multi_device_safe, pe.axis_subsets, pe.needs_flat,
                     pe.ndim, pe.dtypes, pe.sweep, pe.max_split_words,
                     pe.accum_dtypes, pe.predicate is None) \
@@ -142,8 +157,9 @@ def test_every_engine_matches_oracle_and_reference(op, dtype,
         tpol = {"precision": tp.F64_EQUIVALENT} if dd else {}
         jpol = {"precision": jp.F64_EQUIVALENT} if dd else {}
         got = td.dispatch(op, tx, method=method, **tpol, **tkw)
-        # norm_matmul returns x.dtype, every reduction f32.
-        out_dtype = tx.dtype if op == "norm_matmul" else torch.float32
+        # norm_matmul and attention return the input's dtype, every
+        # reduction f32.
+        out_dtype = tx.dtype if op in SAME_DTYPE_OPS else torch.float32
         assert got.device.type == "cpu" and got.dtype == out_dtype
         if dd:
             assert got.shape == (2,)

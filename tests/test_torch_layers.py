@@ -149,6 +149,15 @@ def test_from_numpy_bridges_bf16_and_casts():
     assert cast["b"][0].dtype == torch.bfloat16
 
 
+def test_from_numpy_without_a_device_needs_the_card():
+    """The bridge's default is the card, and with no card it raises as
+    ``dispatch.as_tensor`` does instead of landing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the bare call lands on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.from_numpy({"a": np.zeros(3, np.float32)})
+
+
 # -------------------------------------------------------- sharding
 
 
