@@ -152,16 +152,22 @@ form, B10 with ``w`` given), ``unfused_mma`` and ``vpu``.  Its phases:
 The attention path (kernel B9; CUDA C++ in ``csrc/mma_attention.cu``):
 ``repro_torch.models.attention.attention`` -> ``core.dispatch`` op
 ``attention`` -> the engines ``fused_pallas`` (B9), ``unfused_mma``
-(the KV-chunked online softmax) and ``vpu`` (the unchunked oracle).  Its
-phases:
+(the KV-chunked online softmax) and ``vpu`` (the unchunked oracle).  B9
+has two forms, chosen from dtypes and shape (``walk``): the bf16
+prefill form (wgmma fed by TMA; counter ``b9_attention_wgmma``) and the
+mma.sync form for the rest (``b9_attention``).  Its phases:
 
   2g. B9 against ``attention_plain`` on the card (B9_CASES): f32, bf16
       and f32 q beside a bf16 cache; hd 256 with G 2 and KV 4, 128, and
       192 / 128; Sq G and Sk ragged against the tiles; causal, window,
-      softcap 50, per-row qpos with kv_len, rows at qpos -1: within
+      softcap 50, per-row qpos with kv_len, rows at qpos -1; and in bf16
+      B9_WG_CASES, which the wgmma form takes (rows a head 17 to 8192,
+      Sk ragged against its 64-key blocks, hd 16 to 256): within
       2^-20 (1 + sigma) of each output's absolute-value scale (bf16 v
       2^-8 of it more and one ulp; B9_RTOL), two calls the same bits, a
       row's bits those of a one-row call, rows with no key exactly 0;
+      each case's counter is its form's, and the CUDA chooser agrees
+      with ``walk``;
   3i. Gemma-2 2B's attention layer at full width (weights from the
       seed) through ``models.attention.attention`` with attn_method
       fused_pallas (B9), unfused_mma, vpu and auto: the global layer at
@@ -170,19 +176,22 @@ phases:
       bf16 ring caches of 32768 and 4096 slots (f32 and bf16
       activations; unfused_mma refuses decode); each engine's attention
       output held to the f64 oracle of its own qg / k / v within
-      ATTN_CEILINGS plus 100 * 2^-8 % per rounding to bf16; B9's
-      counter must move; auto within 1.25x of the fastest engine at
-      every shape, the layer timed in balanced orders;
+      ATTN_CEILINGS plus 100 * 2^-8 % per rounding to bf16; the wgmma
+      form's counter must move at the bf16 prefill shapes and the
+      mma.sync form's at the others (and not the other's); auto within
+      1.25x of the fastest engine at every shape, the layer timed in
+      balanced orders;
   5g. B9 timed at 3i's shapes beside its bound (bytes / 3.35 TB/s or 2
       (hd + hd_v) flops per live score / 495 TF32 or 989 bf16 TFLOP/s),
       ``attention_plain`` and ``unfused_mma``; with cap=None B9 beside
       ``F.scaled_dot_product_attention``, the library yardstick (no
-      softcap there), at the global prefill and decode shapes; the cost
+      softcap there), at the prefill shapes and the global decode
+      shape; the wgmma form's registers and spills from ptxas; the cost
       model's B9 flop and byte rates and its attention host times per
       call refitted.
 
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
-(B1-B10), and last ``{"ok": true, "device": {...}}``.  Details go to
+(B1-B10, B9 once per form), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -449,6 +458,18 @@ B9_CASES = (
     (2, 5, 9, 1, 3, 16, 8, True, None, None, "padded", False),
     (2, 67, 75, 2, 3, 12, 8, True, 20, None, "padded", False),
 )
+# bf16 cases that land on B9's wgmma form (more than 16 rows a head, hd
+# and hd_v multiples of 16 up to 256): rows a head 17 and 8192, Sk
+# ragged against its 64-key blocks, hd 16 (a box wider than the row),
+# 64, 128 with G 3 and padded rows, 192 / 128, 256 with kv_len.
+B9_WG_CASES = (
+    (1, 17, 83, 2, 1, 64, 64, True, None, None, "tail", False),
+    (3, 33, 97, 2, 1, 16, 16, True, 8, None, "tail", False),
+    (2, 100, 130, 2, 3, 128, 128, True, 50, 30.0, "padded", False),
+    (1, 130, 190, 1, 2, 192, 128, False, None, None, "tail", False),
+    (2, 40, 200, 2, 2, 256, 256, True, None, 50.0, "tail", True),
+    (1, 4096, 4131, 1, 2, 256, 256, True, None, 50.0, "tail", False),
+)
 # Phase 3i: Gemma-2 2B's attention layer at full width
 # (repro_torch/configs/gemma2_2b.py: d_model 2304, 8 heads over 4 KV
 # heads, head_dim 256, softcap 50, window 4096), weights from the seed.
@@ -465,6 +486,8 @@ ATTN_ARCH = "gemma2-2b"
 ATTN_METHODS = ("fused_pallas", "unfused_mma", "vpu", "auto")
 ATTN_CEILINGS = {"fused_pallas": 5e-3, "unfused_mma": 5e-3, "vpu": 5e-4}
 ATTN_BF16_ROUNDINGS = 2
+# Phase 5g also times B9 per launch in a run of this many back to back.
+B9_RUN = 10
 # Phase 5g fits the attention host time per call at this toy size
 # (B, S, KV, G, hd), where the card's work is negligible.
 ATTN_HOST_SHAPE = (1, 64, 4, 2, 256)
@@ -2382,53 +2405,74 @@ def attn_diff(got, want, a, sigma) -> tuple:
 
 def check_attention_kernel(ma, gen) -> dict:
     """B9 against attention_plain on the same card inputs: B9_CASES for
-    f32, bf16 and f32 q beside a bf16 cache; two calls give the same bits,
-    rows 0..k of a B-row call equal a (k + 1)-row call, and rows with no
-    valid key are exactly 0."""
+    f32, bf16 and f32 q beside a bf16 cache, and B9_WG_CASES in bf16 (the
+    wgmma form); each launch moves its form's counter, the CUDA chooser
+    agrees with walk; two calls give the same bits, rows 0..k of a B-row
+    call equal a (k + 1)-row call, and rows with no valid key are
+    exactly 0."""
     worst = {"f32_ratio": 0.0, "abs": 0.0}
     rows_out = []
-    for kind in ATTN_KINDS:
-        for (B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos,
-             kv_len) in B9_CASES:
-            qg, k, v, pos, kvl = attn_inputs(B, Sq, Sk, KV, G, hd, hd_v,
-                                             kind, qpos, kv_len, gen)
-            kw = dict(qpos=pos, causal=causal, window=window, kv_len=kvl,
-                      scale=hd ** -0.5, cap=cap)
-            got = ma.attention_cuda(qg, k, v, **kw)
-            again = ma.attention_cuda(qg, k, v, **kw)
-            want = ma.attention_plain(qg, k, v, **kw)
-            what = (f"B9 {B}x{Sq}x{Sk} kv{KV} g{G} hd {hd}/{hd_v} causal="
-                    f"{causal} window={window} cap={cap} {qpos} kv_len="
-                    f"{kv_len} {kind}")
-            check(got.shape == (B, Sq, KV, G, hd_v) and got.dtype == v.dtype
-                  and bool(torch.all(torch.isfinite(got))),
-                  f"{what}: {got.dtype} {tuple(got.shape)}")
-            a = attn_oracle(ma, qg, k, v, abs_v=True, **kw)
-            ratio, diff, ok = attn_diff(got, want, a,
-                                        attn_sigma(qg, k, kw["scale"]))
-            if kind == "f32":
-                worst["f32_ratio"] = max(worst["f32_ratio"], ratio)
-            worst["abs"] = max(worst["abs"], diff)
-            rows_out.append(("b9_attention", B, Sq, Sk, KV, G, hd, hd_v,
-                             causal, window, cap, qpos, kv_len, kind, ratio,
-                             diff))
-            check(ok, f"{what}: |kernel - plain| {diff:.3g} ({ratio:.3g} "
-                      f"of its scale) over its tolerance")
-            check(torch.equal(got, again), f"{what}: two calls differ")
-            if qpos == "padded":
-                check(torch.equal(got[:, 0], torch.zeros_like(got[:, 0])),
-                      f"{what}: a row with no valid key is not exactly 0")
-            if B > 1:
-                part = ma.attention_cuda(
-                    qg[:1].contiguous(), k[:1].contiguous(),
-                    v[:1].contiguous(), **dict(
-                        kw, qpos=pos[:1].contiguous(),
-                        kv_len=None if kvl is None else kvl[:1].contiguous()))
-                check(torch.equal(part, got[:1]),
-                      f"{what}: row 0 differs from a one-row call")
-            del qg, k, v, got, again, want, a
+    forms = {"wgmma": 0, "mma_sync": 0}
+    # B9_WG_CASES draw from a generator of their own, so that the phases
+    # after this one see the same random data as before they were added.
+    wg_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = [(kind, case, gen) for kind in ATTN_KINDS for case in B9_CASES] \
+        + [("bf16", case, wg_gen) for case in B9_WG_CASES]
+    for kind, (B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos,
+               kv_len), case_gen in cases:
+        qg, k, v, pos, kvl = attn_inputs(B, Sq, Sk, KV, G, hd, hd_v,
+                                         kind, qpos, kv_len, case_gen)
+        kw = dict(qpos=pos, causal=causal, window=window, kv_len=kvl,
+                  scale=hd ** -0.5, cap=cap)
+        form = ma.walk(qg.dtype, k.dtype, Sq * G, hd, hd_v)[0]
+        check(ma.cuda_form(qg.dtype, k.dtype, Sq * G, hd, hd_v) == form,
+              f"B9 {kind} rows {Sq * G} hd {hd}/{hd_v}: the CUDA "
+              f"chooser disagrees with walk ({form})")
+        counter = "b9_attention_wgmma" if form == "wgmma" \
+            else "b9_attention"
+        before = dict(ma.LAUNCHES)
+        got = ma.attention_cuda(qg, k, v, **kw)
+        check(ma.LAUNCHES[counter] == before[counter] + 1
+              and sum(ma.LAUNCHES.values()) == sum(before.values()) + 1,
+              f"B9 {kind} rows {Sq * G} hd {hd}/{hd_v}: launched "
+              f"{ma.LAUNCHES} after {before}, not the {form} form")
+        forms[form] += 1
+        again = ma.attention_cuda(qg, k, v, **kw)
+        want = ma.attention_plain(qg, k, v, **kw)
+        what = (f"B9 {B}x{Sq}x{Sk} kv{KV} g{G} hd {hd}/{hd_v} causal="
+                f"{causal} window={window} cap={cap} {qpos} kv_len="
+                f"{kv_len} {kind} ({form})")
+        check(got.shape == (B, Sq, KV, G, hd_v) and got.dtype == v.dtype
+              and bool(torch.all(torch.isfinite(got))),
+              f"{what}: {got.dtype} {tuple(got.shape)}")
+        a = attn_oracle(ma, qg, k, v, abs_v=True, **kw)
+        ratio, diff, ok = attn_diff(got, want, a,
+                                    attn_sigma(qg, k, kw["scale"]))
+        if kind == "f32":
+            worst["f32_ratio"] = max(worst["f32_ratio"], ratio)
+        worst["abs"] = max(worst["abs"], diff)
+        rows_out.append((counter, B, Sq, Sk, KV, G, hd, hd_v,
+                         causal, window, cap, qpos, kv_len, kind, ratio,
+                         diff))
+        check(ok, f"{what}: |kernel - plain| {diff:.3g} ({ratio:.3g} "
+                  f"of its scale) over its tolerance")
+        check(torch.equal(got, again), f"{what}: two calls differ")
+        if qpos == "padded":
+            check(torch.equal(got[:, 0], torch.zeros_like(got[:, 0])),
+                  f"{what}: a row with no valid key is not exactly 0")
+        if B > 1:
+            part = ma.attention_cuda(
+                qg[:1].contiguous(), k[:1].contiguous(),
+                v[:1].contiguous(), **dict(
+                    kw, qpos=pos[:1].contiguous(),
+                    kv_len=None if kvl is None else kvl[:1].contiguous()))
+            check(torch.equal(part, got[:1]),
+                  f"{what}: row 0 differs from a one-row call")
+        del qg, k, v, got, again, want, a
     torch.cuda.synchronize()
-    print(f"phase 2g: {len(rows_out)} B9-vs-plain checks passed, worst "
+    check(min(forms.values()) > 0, f"phase 2g: a B9 form never ran {forms}")
+    print(f"phase 2g: {len(rows_out)} B9-vs-plain checks passed "
+          f"({forms['wgmma']} on the wgmma form), worst "
           f"|diff| {worst['abs']:.3g}, worst f32 |diff| / ((1 + sigma) A) "
           f"{worst['f32_ratio']:.3g} (within 2^-20 of it, bf16 v plus 2^-8 "
           f"A and one ulp; two calls the same bits; a row's bits "
@@ -2486,8 +2530,10 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
     2B's full width (attn_problems): each engine's attention output
     against the f64 oracle of its own qg / k / v within ATTN_CEILINGS
     (+ 100 * 2^-8 % per rounding to bf16); auto within PICK_SLACK of the
-    fastest engine, the layer timed in balanced_orders.  Returns (rows,
-    picks, shapes) where shapes keeps each problem's operands for 5g."""
+    fastest engine, the layer timed in balanced_orders.  B9's wgmma form
+    must launch at the bf16 prefill shapes and its mma.sync form at the
+    others, each alone.  Returns (rows, picks, shapes) where shapes keeps
+    each problem's operands for 5g."""
     import dataclasses
     cfg0 = registry.get_config(ATTN_ARCH)
     params = param.init_tree(gen, A.attn_specs(cfg0), device="cuda")
@@ -2518,6 +2564,7 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
             methods = tuple(m for m in ATTN_METHODS
                             if not (decode and m == "unfused_mma"))
             calls, found, operands = {}, [], None
+            before = dict(ma.LAUNCHES)
             for method in methods:
                 cfg = dataclasses.replace(cfg0, attn_method=method)
                 call = (lambda c=cfg: A.attention(
@@ -2576,7 +2623,14 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
                       f"{row['ms']:.4f} ms", flush=True)
             pick = check_pick(f"{problem} attention", {
                 m: times[m] for m in methods if m != "auto"}, times["auto"])
-            pick.update(problem=problem)
+            moved = {key: ma.LAUNCHES[key] - before[key] for key in before}
+            form = "b9_attention_wgmma" if dkind == "bf16" and not decode \
+                else "b9_attention"
+            check(moved[form] > 0 and sum(moved.values()) == moved[form],
+                  f"{problem}: B9 launches by form {moved}, expected "
+                  f"{form} alone")
+            print(f"  {problem:22s} B9 launches by form {moved}", flush=True)
+            pick.update(problem=problem, b9_launches=moved)
             picks.append(pick)
             shapes.append((problem, dkind, decode, operands))
             del x
@@ -2620,36 +2674,66 @@ def attn_bound(qg, k, v, kw) -> tuple:
 
 def sdpa_call(qg, k, v, kw):
     """F.scaled_dot_product_attention on the same operands (no softcap:
-    SDPA has none), q in the cache's dtype, the kv_len mask as a boolean
-    attn_mask; the operands are laid out (B, heads, S, hd) beforehand."""
+    SDPA has none), q in the cache's dtype, the kv_len mask or a
+    window's causal band as a boolean attn_mask; the operands are laid
+    out (B, heads, S, hd) beforehand."""
     import torch.nn.functional as F
     B, Sq, KV, G, hd = qg.shape
     q = qg.to(k.dtype).permute(0, 2, 3, 1, 4).reshape(B, KV * G, Sq, hd)
     kk = k.permute(0, 2, 1, 3).contiguous()
     vv = v.permute(0, 2, 1, 3).contiguous()
     mask = None
+    j = torch.arange(k.shape[1], device="cuda")
     if kw["kv_len"] is not None:
-        j = torch.arange(k.shape[1], device="cuda")
         mask = (j[None] < kw["kv_len"].reshape(-1, 1))[:, None, None]
-    causal = kw["causal"] and mask is None and kw["window"] is None
+    elif kw["window"] is not None:
+        i = torch.as_tensor(kw["qpos"], device="cuda").reshape(-1, Sq)[0]
+        band = (j[None] > i[:, None] - kw["window"]) \
+            & ((j[None] <= i[:, None]) if kw["causal"] else True)
+        mask = band[None, None]
+    causal = kw["causal"] and mask is None
     return lambda: F.scaled_dot_product_attention(
         q, kk, vv, attn_mask=mask, is_causal=causal, scale=kw["scale"],
         enable_gqa=True)
 
 
-def time_attention_kernel(ma, dispatch, autotune, shapes, launches: int,
-                          worst_abs: float) -> tuple:
+def ptxas_kernels(lib, needle: str) -> dict:
+    """{kernel: (registers, spill store bytes)} for the kernels of a
+    library whose mangled name holds ``needle``, from the compiler's
+    report beside it."""
+    import re
+    found, name = {}, None
+    for line in open(f"{lib}.log"):
+        got = re.search(r"Compiling entry function '([^']+)'", line)
+        if got:
+            name = got.group(1) if needle in got.group(1) else None
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            found[name] = [None, int(spill.group(1))]
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name in found:
+            found[name][0] = int(regs.group(1))
+    return {key: tuple(val) for key, val in found.items()}
+
+
+def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
+                          worst_abs: dict) -> tuple:
     """B9 at phase 3i's shapes, on the operands the layer gave it: held
     to its tolerance against attention_plain and to the same bits over two
     calls, then timed (median CUDA-event time, in turns with the plain
     version) beside its bound, the plain version and unfused_mma (at
     prefill; it refuses decode); and, with cap=None, beside B9 without
     the softcap and F.scaled_dot_product_attention, the library
-    yardstick (global prefill and decode).  The cost model's B9 rates
+    yardstick (every prefill shape, a window as SDPA's mask, and the
+    global decode step).  The cost model's B9 rates
     are refitted: _B9_FLOPS_PER_US from the prefill shapes,
-    _B9_BYTES_PER_US from the decode ones.  The bf16 global prefill goes
-    to the ``kernels`` line, every case to the details."""
-    entry, details, fits = None, [], {}
+    _B9_BYTES_PER_US from the decode ones.  The ``kernels`` line takes
+    each form at the global prefill (bf16: the wgmma form; f32: the
+    mma.sync form), every case goes to the details."""
+    entries, details, fits = {}, [], {}
     for problem, dkind, decode, op in shapes:
         qg, k, v, kw = op["qg"], op["k"], op["v"], dict(op["kw"])
         qpos = torch.as_tensor(kw["qpos"], device="cuda").to(torch.int32)
@@ -2670,6 +2754,10 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: int,
         k1 = median_ms(kern, reps=5, warmup=1)
         k2 = median_ms(kern, reps=5, warmup=1)
         p2 = median_ms(plain, reps=1, warmup=0)
+        # per launch in a run of B9_RUN back to back: the card's time
+        # without the host's per-call work between launches
+        run_ms = median_ms(lambda: [kern() for _ in range(B9_RUN)], reps=3,
+                           warmup=1) / B9_RUN
         u_ms = None
         if not decode:
             plan = autotune.ReductionPlan(method="unfused_mma")
@@ -2678,7 +2766,7 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: int,
                 **{key: kw[key] for key in kw if key != "kv_len"}),
                 reps=3, warmup=1)
         lib_ms = nocap_ms = None
-        if problem.startswith(("prefill global", "decode global")):
+        if problem.startswith(("prefill", "decode global")):
             nocap = dict(kk, cap=None)
             nocap_ms = median_ms(lambda: ma.attention_cuda(qg, k, v,
                                                            **nocap),
@@ -2686,8 +2774,12 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: int,
             lib_ms = median_ms(sdpa_call(qg, k, v, kk), reps=5, warmup=1)
         bound_ms, bound_by, nbytes, flops = attn_bound(qg, k, v, kk)
         ms = min(k1, k2)
-        row = {"name": "b9_attention", "problem": problem, "dtype": dkind,
-               "ms": ms, "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+        form = ma.walk(qg.dtype, k.dtype, qg.shape[1] * qg.shape[3],
+                       qg.shape[-1], v.shape[-1])[0]
+        kname = "b9_attention_wgmma" if form == "wgmma" else "b9_attention"
+        row = {"name": kname, "problem": problem, "dtype": dkind,
+               "ms": ms, "ms_runs": [k1, k2], "ms_back_to_back": run_ms,
+               "plain_ms": min(p1, p2),
                "plain_ms_runs": [p1, p2], "unfused_mma_ms": u_ms,
                "nocap_ms": nocap_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
@@ -2696,7 +2788,8 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: int,
                "tflops": flops / ms * 1e-9,
                "gbps": nbytes / ms * 1e-6}
         details.append(row)
-        print(f"  b9 {problem:22s} kernel {ms:.4f} ms ({row['tflops']:.1f} "
+        print(f"  b9 {problem:22s} ({form}) kernel {ms:.4f} ms "
+              f"({run_ms:.4f} back to back; {row['tflops']:.1f} "
               f"TFLOP/s, {row['gbps']:.0f} GB/s) plain {row['plain_ms']:.3f}"
               f" ms unfused_mma {u_ms if u_ms is None else round(u_ms, 4)} "
               f"ms; cap=None: B9 {nocap_ms if nocap_ms is None else round(nocap_ms, 4)}"
@@ -2714,16 +2807,16 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: int,
         else:
             fits.setdefault({"f32": "float32", "bf16": "bfloat16"}[dkind],
                             []).append(flops / (ms * 1e3))
-        if problem == "prefill global bf16":
-            entry = {"name": "b9_attention", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/"
-                               "mma_attention.cu",
-                     "replaces": "src/repro/kernels/mma_attention.py:64",
-                     "launches": launches,
-                     "max_abs_err": max(diff, worst_abs),
-                     "ms": ms, "plain_ms": row["plain_ms"],
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms}
+        if problem in ("prefill global bf16", "prefill global f32"):
+            entries[kname] = {
+                "name": kname, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mma_attention.cu",
+                "replaces": "src/repro/kernels/mma_attention.py:64",
+                "launches": launches[kname],
+                "max_abs_err": max(diff, worst_abs[kname]),
+                "ms": ms, "plain_ms": row["plain_ms"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
     fit = {key: statistics.fmean(val) for key, val in fits.items()
            if key != "bytes"}
     fit["bytes"] = min(fits["bytes"])
@@ -2734,7 +2827,8 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: int,
           f"bytes over time, the slowest decode case); committed "
           f"{autotune._B9_FLOPS_PER_US}, {autotune._B9_BYTES_PER_US}",
           flush=True)
-    return entry, details, fit
+    return [entries["b9_attention_wgmma"], entries["b9_attention"]], \
+        details, fit
 
 
 def fit_attn_host(dispatch, autotune, gen) -> dict:
@@ -3126,11 +3220,12 @@ def main() -> int:
     attn_rows, attn_picks, attn_shapes = run_attention_path(
         attn_layer, param, dispatch, registry, base, ma, gen)
     torch.cuda.synchronize()
-    attn_launches = ma.LAUNCHES["b9_attention"]
-    print(f"phase 3i: launches on the attention path {dict(ma.LAUNCHES)}",
+    attn_launches = dict(ma.LAUNCHES)
+    print(f"phase 3i: launches on the attention path {attn_launches}",
           flush=True)
-    check(attn_launches > 0, "kernel b9_attention was not launched on the "
-                             "attention path")
+    for kname, count in attn_launches.items():
+        check(count > 0, f"kernel {kname} was not launched on the attention "
+                         f"path")
     print("phase 3d: the integration example on the card", flush=True)
     integrate_rows = run_integrate_example()
 
@@ -3173,11 +3268,20 @@ def main() -> int:
     entries.append(nm_entry)
     nm_host = fit_nm_host(dispatch, autotune, gen)
     print("phase 5g: B9 timings at phase 3i's shapes", flush=True)
-    attn_entry, attn_timing_rows, attn_fit = time_attention_kernel(
-        ma, dispatch, autotune, attn_shapes, attn_launches,
-        attn_checks["worst_abs"])
+    attn_worst = {kname: max([r[-1] for r in attn_checks["rows"]
+                              if r[0] == kname], default=0.0)
+                  for kname in attn_launches}
+    attn_entries, attn_timing_rows, attn_fit = time_attention_kernel(
+        ma, dispatch, autotune, attn_shapes, attn_launches, attn_worst)
     del attn_shapes
-    entries.append(attn_entry)
+    entries += attn_entries
+    wg_ptxas = ptxas_kernels(libs["mma_attention"], "attn_wgmma_kernel")
+    print(f"phase 5g: ptxas (registers, spill store bytes) of the wgmma "
+          f"form by value width: "
+          f"{ {name.split('ILi')[1].split('E')[0]: val for name, val in wg_ptxas.items()} }",
+          flush=True)
+    check(all(spill == 0 for _, spill in wg_ptxas.values()),
+          f"the wgmma form spills: {wg_ptxas}")
     attn_host = fit_attn_host(dispatch, autotune, gen)
 
     print("phase 6: the cost model against measured times (f32)",
@@ -3239,6 +3343,7 @@ def main() -> int:
                    "attention_launches": attn_launches,
                    "attention_timings": attn_timing_rows,
                    "b9_fit": attn_fit, "attn_host_us": attn_host,
+                   "b9_wgmma_ptxas": wg_ptxas,
                    "scan_picks": scan_picks,
                    "sweep_us": {str(n): [[p.method, p.chain, p.block_rows,
                                           us] for p, us in by.items()]

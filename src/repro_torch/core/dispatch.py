@@ -821,6 +821,9 @@ def _attn_fused(qg, plan, *, k, v, qpos, causal=False, window=None,
 # bytes (320 would take 232,960).  The limit holds for every dtype form,
 # so a head dim is served alike in f32 and bf16: Gemma-2 2B's and
 # RecurrentGemma's 256, the other configs' 128 and MLA's 192 / 128 fit.
+# B9's bf16 prefill form (wgmma, 128 rows and two stages of 64 keys)
+# takes head dims up to 256 within 199,280 bytes; the head dims past it,
+# up to this limit, keep the mma.sync form.
 _FUSED_MAX_HEAD = 288
 
 
@@ -1179,8 +1182,9 @@ register(OpSpec(
 register(OpSpec(
     name="attention", family="attention",
     engines=(
-        # B9's geometry is fixed by the card (64 query rows, 32 keys a
-        # step): nothing to sweep.
+        # B9's geometry is fixed by the card and chosen by its form (the
+        # mma.sync form: 64 query rows, 32 keys a step; the bf16 prefill
+        # form: 128 rows, 64 keys): nothing to sweep.
         EngineSpec("fused_pallas", _attn_fused, ndim=5,
                    dtypes=("float32", "bfloat16"),
                    predicate=_attn_fused_predicate),

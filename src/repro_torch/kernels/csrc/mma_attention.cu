@@ -80,16 +80,38 @@
 // words plus 4, bf16 to 64 elements plus 8) so that every fragment load
 // is free of bank conflicts and every row starts 16-byte aligned.
 //
+// Two forms.  b9_attention picks one by wg::form, a pure function of the
+// dtypes and the shape, before launch (kernels/mma_attention.py walk is its
+// mirror; the wrapper counts each form's launches apart):
+//
+//   * the bf16 prefill form (namespace wg below): qg, k and v bf16, more
+//     than 16 rows a head, hd and hd_v multiples of 16 up to 256.  It
+//     replaces, for those problems, the mma.sync walk they ran on before
+//     (kBK = 32, 64-row blocks of four warps, q.k in chains of 32
+//     columns, 32-bit fragment loads): two warpgroups of 64 rows, TMA
+//     into a two-stage ring, wgmma for q.k, p x v and the row sums, 64-key
+//     blocks.  Its walk differs (64-key blocks, one q.k chain, l from three
+//     bf16 words of p, p x v accumulated in the wgmma accumulator), so a
+//     16-bit prefill row's bits differ from a decode call's;
+//   * the mma.sync form (attn_kernel below) for the rest: f32, f32 q
+//     beside a bf16 cache, a decode step's few rows, odd head dims.
+//
 // Bound on the H100: operations at prefill (Gemma-2 2B's global layer at
 // 4096 tokens: 2 (256 + 256) flops on each of ~67M live scores a head
-// pair), bytes at decode (128 slots over a 32768-slot bf16 cache: 8.6 GB
-// each for k and v, read as far as each row's kv_len).  This simple form
-// reaches neither: it splits words at every fragment load, runs 2-3
-// mma.sync per useful f32 product, and at decode a block's MMAs fill 2 of
-// their 16 rows.  wgmma, TMA, warp specialisation and a split of the keys
-// for decode with a fixed-order second stage are later work;
-// chip_smoke.py times it against its bound.
+// pair, 0.0695 ms at 989 bf16 TFLOP/s), bytes at decode (128 slots over a
+// 32768-slot bf16 cache: 8.6 GB each for k and v, read as far as each
+// row's kv_len).  The bf16 prefill form spends its time in the tensor
+// cores and in the softmax between them (ex2 and, with a softcap, a
+// second ex2 and a reciprocal per score on the SFU, and three bf16 words
+// of p for the row sums); its two warpgroups overlap only as they fall,
+// and there is no producer warp or setmaxnreg.
+// The mma.sync form reaches neither bound: it splits words at every
+// fragment load, runs 2-3 mma.sync per useful f32 product, and at decode
+// a block's MMAs fill 2 of their 16 rows.  A split of the keys for decode
+// with a fixed-order second stage is later work; chip_smoke.py times both
+// forms against their bounds.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -739,12 +761,672 @@ int launch_rows(const void* q, const void* k, const void* v, const int* qpos,
                                        window, scale, has_cap, cap, s);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 prefill form: two consumer warpgroups, wgmma fed by TMA.
+//
+// Taken by wg::form (below) when qg, k and v are all bf16, a head has more
+// than 16 rows, and hd and hd_v are multiples of 16 up to 256; the rest
+// keeps attn_kernel above.  A block owns 128 query rows of one (batch, KV
+// head), 64 a warpgroup, and walks keys in blocks of kBK = 64.  Its walk
+// per row, from the same m, l, c, acc as above:
+//
+//   s      = q.k: one wgmma chain over the whole hd from zero, bf16
+//            products exact in f32
+//   m_new, corr, p as above, in log2 units (x = s scale log2 e, so corr
+//            and p take one ex2.approx each; tanh from an ex2 and a
+//            reciprocal: their error, a few 2^-22 of p, sits far inside
+//            the bf16 tolerance)
+//   l_blk  = words(p) x ones: p split into three bf16 words (hi, mid,
+//            lo: ~24 bits), one m64n8k16 wgmma per word and 16 keys with
+//            A from registers, from zero; the Kahan step as above
+//   acc    = acc corr (CUDA cores), then acc += bf16(p) x v in the wgmma
+//            accumulator itself, with no zeroed partial
+//
+// Shared memory: Q (128 rows) and two stages of a key block and a value
+// block, each tile in slabs of 64 columns whose 128-byte rows carry the
+// 128-byte swizzle that wgmma's descriptors expect: 64 + 2 x 64 KB at hd
+// 256.  K and V arrive by TMA (cp.async.bulk.tensor, 4-d maps over (d, KV,
+// Sk, B), keys past Sk and columns past hd / hd_v zero-filled); an mbarrier
+// per stage and operand says it landed.  Each warp counts itself off a
+// stage's keys once its S is done and off its values once its p x v is;
+// the last of the eight loads the block two on into the stage, so no
+// thread waits for a stage to free.  Q is loaded once a block by cp.async
+// into the same swizzled layout by hand (its (Sq, G) rows are not one
+// box).  S = Q K^T is wgmma.m64n64k16 with both operands in shared memory,
+// K-major; p goes from the S accumulator layout to the A fragment layout
+// in registers; P V takes V as an MN-major B operand (the transpose bit),
+// one m64n64k16 per 64 value columns.
+//
+// Each warpgroup walks the blocks its rows touch in order: S (wait), the
+// softmax and p's words on the CUDA cores, then the row sums and p x v
+// (wait), the Kahan step; the other warpgroup runs on beside it, tied only
+// by the ring, so one's MMAs overlap the other's softmax as they fall.
+// ptxas serializes wgmma whose register operands are written on a branch
+// or ahead of a wait, or that sit in a loop with a remainder: so acc is
+// rescaled on every block, no mbarrier wait sits between writing the
+// operands and the MMA, the mask is a select, the softcap a template
+// flag, and the S chain runs whole 64-column slabs.  Masks count only on
+// blocks that straddle some row's [lo, hi) in the warpgroup.  Under the
+// causal mask the row tiles launch heaviest first (blockIdx.z reversed).
+namespace wg {
+
+constexpr int kRows = 128;           // query rows a block, 64 a warpgroup
+constexpr int kBK = 64;              // keys a block of the walk
+constexpr int kThreads = 256;
+constexpr int kSlab = 64;            // bf16 columns of a 128-byte row
+constexpr int kOnesBytes = 512;      // the ones-MMA's B operand
+constexpr int kMaxTiles = 65535;     // gridDim.z
+constexpr float kLog2e = 1.4426950408889634f;
+
+__host__ __device__ constexpr int round64(int d) { return (d + 63) / 64 * 64; }
+
+// Shared memory of a block: the 1024-byte alignment slack, Q, two stages
+// of keys and values, the ones, four mbarriers and four release counts,
+// the rows' bounds and the warps' bound reductions
+// (kernels/mma_attention.py smem_bytes mirrors it).
+__host__ __device__ constexpr long long smem_bytes(int hd, int hd_v) {
+  return 1024LL + 2LL * kRows * round64(hd) +
+         2LL * 2 * kBK * (round64(hd) + round64(hd_v)) + kOnesBytes + 4 * 8 +
+         4 * 4 + 2 * kRows * 4 + 4 * 5 * 4;
+}
+
+// The form chooser, a pure function of dtypes and shape (mirrored by
+// kernels/mma_attention.py walk): 1 for this form, 0 for attn_kernel.
+__host__ __device__ inline int form(int q_dtype, int kv_dtype, long long rows,
+                                    int hd, int hd_v) {
+  return q_dtype == kBF16 && kv_dtype == kBF16 && rows > 16 && hd % 16 == 0 &&
+         hd_v % 16 == 0 && hd >= 16 && hd <= 256 && hd_v >= 16 &&
+         hd_v <= 256 && (rows + kRows - 1) / kRows <= kMaxTiles &&
+         smem_bytes(hd, hd_v) <= kSmemLimit;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed; a wait
+// that never ends (a fault in the ring's bookkeeping) traps rather than
+// hangs the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    if (tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// A box of the 4-d map (d, KV, Sk, B) at (c0, h, j, b) into shared memory,
+// completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int h, int j,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(h), "r"(j), "r"(b)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout (1: 128-byte swizzle, 0: none).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until this warpgroup's committed MMA groups have run.
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous MMAs.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define B9_D32(d)                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+      "+f"(d[31])
+#define B9_R32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// D (+)= A B, m64n64k16 bf16 -> f32, A and B K-major in shared memory.
+__device__ __forceinline__ void mma_ss64(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " B9_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : B9_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D += A B, m64n64k16 bf16 -> f32, A from registers, B MN-major in shared
+// memory (the transpose bit).
+__device__ __forceinline__ void mma_rs64t(float (&d)[32], const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " B9_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : B9_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (+)= A B, m64n8k16 bf16 -> f32, A from registers, B (the ones)
+// K-major in shared memory.
+__device__ __forceinline__ void mma_rs8(float (&d)[4], const uint32_t (&a)[4],
+                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+#undef B9_D32
+#undef B9_R32
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats as bf16 words, the first in the low half: hi = bf16(x), and
+// the rest x - hi (exact in f32) for the next word.
+__device__ __forceinline__ uint32_t split(float& x, float& y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  x = __fsub_rn(x, f.x);
+  y = __fsub_rn(y, f.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// NV: the value columns, hd_v rounded up to 64; CAP: a softcap is given.
+template <int NV, bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_wgmma_kernel(const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv,
+                      const __nv_bfloat16* __restrict__ q,
+                      const int* __restrict__ qpos,
+                      const int* __restrict__ kvlen,
+                      __nv_bfloat16* __restrict__ out, int Sq, int Sk, int KV,
+                      int G, int hd, int hd_v, int causal, int has_window,
+                      long long window, float scale, float cap) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int hdp = round64(hd);
+  const int q_bytes = kRows * hdp * 2;
+  const int k_bytes = kBK * hdp * 2;
+  const int stage_bytes = k_bytes + kBK * NV * 2;
+  unsigned char* q_s = smem;  // slab s of Q at s kRows 128 bytes
+  unsigned char* stages = smem + q_bytes;
+  unsigned char* extra = stages + 2 * stage_bytes;
+  uint16_t* ones = reinterpret_cast<uint16_t*>(extra);
+  // full[st] / full[2 + st]: stage st's keys / values have landed
+  uint64_t* full = reinterpret_cast<uint64_t*>(extra + kOnesBytes);
+  // released[st] / released[2 + st]: warps done with stage st's keys /
+  // values since their last load
+  int* released = reinterpret_cast<int*>(full + 4);
+  int* lo_s = released + 4;
+  int* hi_s = lo_s + kRows;
+  int* red = hi_s + kRows;  // per warp of rows: first, last, max lo, min hi, all live
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tile = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int r0 = tile * kRows;
+  const int nrows = Sq * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wgi = tid >> 7;
+  const int g = lane >> 2, t = lane & 3;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(&full[i], 1);
+      released[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Each row's valid keys [lo, hi), as attn_kernel; and per warp of rows
+  // the bounds its warpgroup decides by.
+  if (tid < kRows) {
+    const int r = r0 + tid;
+    long long lo = 0, hi = 0;
+    if (r < nrows) {
+      const long long qp = qpos[static_cast<long long>(b) * Sq + r / G];
+      hi = Sk;
+      if (kvlen != nullptr) hi = min(hi, static_cast<long long>(kvlen[b]));
+      if (causal) hi = min(hi, qp + 1);
+      if (has_window) lo = qp - window + 1;
+      lo = max(0LL, min(lo, static_cast<long long>(Sk)));
+      hi = max(0LL, hi);
+    }
+    lo_s[tid] = static_cast<int>(lo);
+    hi_s[tid] = static_cast<int>(hi);
+    const bool live = lo < hi;
+    int first = live ? static_cast<int>(lo) : INT_MAX;
+    int last = live ? static_cast<int>(hi) : 0;
+    int mlo = static_cast<int>(lo), mhi = static_cast<int>(hi);
+    int all = live;
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1) {
+      first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
+      last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+      mlo = max(mlo, __shfl_xor_sync(0xffffffffu, mlo, off));
+      mhi = min(mhi, __shfl_xor_sync(0xffffffffu, mhi, off));
+      all &= __shfl_xor_sync(0xffffffffu, all, off);
+    }
+    if (lane == 0) {
+      red[5 * warp] = first;
+      red[5 * warp + 1] = last;
+      red[5 * warp + 2] = mlo;
+      red[5 * warp + 3] = mhi;
+      red[5 * warp + 4] = all;
+    }
+  }
+  // Q into its swizzled slabs (16-byte chunk c of row rr at chunk c ^ (rr
+  // mod 8) of the row), zero past hd and past the last row; the ones.
+  const int chunks = hdp / 8;
+  for (int idx = tid; idx < kRows * chunks; idx += kThreads) {
+    const int rr = idx / chunks, c = idx % chunks;
+    const int r = r0 + rr;
+    const bool ok = r < nrows && c * 8 < hd;
+    const long long row =
+        ok ? ((static_cast<long long>(b) * Sq + r / G) * KV + h) * G + r % G
+           : 0;
+    cp_async16(q_s + (c >> 3) * (kRows * 128) + rr * 128 +
+                   (((c & 7) ^ (rr & 7)) << 4),
+               q + (ok ? row * hd + c * 8 : 0), ok);
+  }
+  cp_async_commit();
+  for (int i = tid; i < kOnesBytes / 2; i += kThreads) ones[i] = 0x3f80;
+  __syncthreads();
+
+  // The tile's key range (every row), and this warpgroup's: the blocks it
+  // computes and the ones it need not mask.
+  int first = INT_MAX, last = 0;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    first = min(first, red[5 * w]);
+    last = max(last, red[5 * w + 1]);
+  }
+  const int kbeg = first == INT_MAX ? 0 : first / kBK * kBK;
+  const int nblk = kbeg < last ? (last - kbeg + kBK - 1) / kBK : 0;
+  const int* rw = red + 10 * wgi;
+  const int w_first = min(rw[0], rw[5]), w_last = max(rw[1], rw[6]);
+  const int w_maxlo = max(rw[2], rw[7]), w_minhi = min(rw[3], rw[8]);
+  const bool w_all = rw[4] && rw[9];
+
+  // Block it's keys (v = 0) or values (v = 1) into stage it & 1.
+  auto load = [&](int it, int v) {
+    const int st = it & 1;
+    unsigned char* d = stages + st * stage_bytes + v * k_bytes;
+    const int slabs = v ? NV / kSlab : hdp / kSlab;
+    mbar_expect_tx(&full[2 * v + st],
+                   static_cast<uint32_t>(slabs * kBK * 128));
+    for (int sl = 0; sl < slabs; ++sl)
+      tma_load(d + sl * (kBK * 128), v ? &tmv : &tmk, &full[2 * v + st],
+               sl * kSlab, h, kbeg + it * kBK, b);
+  };
+  if (tid == 0) {
+    for (int it = 0; it < 2 && it < nblk; ++it) {
+      load(it, 0);
+      load(it, 1);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int ra = 64 * wgi + 16 * (warp & 3) + g, rb = ra + 8;
+  const int lo_a = lo_s[ra], hi_a = hi_s[ra];
+  const int lo_b = lo_s[rb], hi_b = hi_s[rb];
+  const uint32_t q_base = smem_u32(q_s) + wgi * 64 * 128;
+  const uint64_t ones_desc = desc(smem_u32(ones), 128, 256, 0);
+
+  // This warp is done with block it's keys (v = 0) or values (v = 1):
+  // the last of the block's eight warps to say so loads block it + 2
+  // into the stage (no thread waits for a stage to free).
+  auto release = [&](int it, int v) {
+    __syncwarp();
+    if (lane == 0) {
+      int* count = &released[2 * v + (it & 1)];
+      __threadfence_block();
+      if (atomicAdd(count, 1) == kThreads / 32 - 1) {
+        *count = 0;
+        __threadfence_block();
+        if (it + 2 < nblk) load(it + 2, v);
+      }
+    }
+    __syncwarp();
+  };
+
+  float acc[NV / 2];
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) acc[i] = 0.0f;
+  float m_a = kMInit, m_b = kMInit, l_a = 0.0f, l_b = 0.0f, c_a = 0.0f,
+        c_b = 0.0f;
+  // Scores go through the softmax in log2 units (x = s scale log2 e; m,
+  // and the masked -2e38 and the seed -1e30, in the same units), so that
+  // corr = 2^(m - m_new) and p = 2^(x - m_new) take one ex2 each; with a
+  // softcap x = cap log2 e (1 - 2 / (1 + 2^(2 s scale log2 e / cap))),
+  // tanh from an ex2 and a reciprocal, the constants folded.
+  const float x_mul = CAP ? 2.0f * kLog2e * scale / cap : kLog2e * scale;
+  const float cap2 = CAP ? cap * kLog2e : 0.0f;
+
+  for (int it = 0; it < nblk; ++it) {
+    const int j0 = kbeg + it * kBK, st = it & 1, ph = (it >> 1) & 1;
+    if (j0 < w_last && j0 + kBK > w_first) {
+      // S = Q K^T over the whole hd, from zero.
+      mbar_wait(&full[st], ph);
+      const uint32_t kb = smem_u32(stages + st * stage_bytes);
+      // (the first MMA ignores s's old values: no write to s precedes it;
+      // the chain runs over whole 64-column slabs, 4 MMAs unrolled a slab,
+      // hd's zero padding adding zero products: a loop of MMAs with a
+      // remainder makes ptxas serialize them)
+      float s[32];
+      wgmma_fence();
+      for (int k4 = 0; k4 < hdp / 16; k4 += 4)
+#pragma unroll
+      for (int kk = k4; kk < k4 + 4; ++kk)
+        mma_ss64(s,
+                 desc(q_base + (kk >> 2) * (kRows * 128) + (kk & 3) * 32, 16,
+                      1024, 1),
+                 desc(kb + (kk >> 2) * (kBK * 128) + (kk & 3) * 32, 16, 1024,
+                      1),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      release(it, 0);
+      // The values too (they came with the keys): no wait may sit between
+      // writing the MMA's register operands and the MMA, or ptxas
+      // serializes the MMAs.
+      mbar_wait(&full[2 + st], ph);
+
+      // Scale, softcap, mask (blocks that straddle a row's bounds only);
+      // the block's row max over the quad.  s[4i + e]: key j0 + 8i + 2t +
+      // (e & 1), row ra (e < 2) or rb.
+      float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = s[i] * x_mul;
+        if (CAP) x = fmaf(-2.0f * cap2, rcp(1.0f + ex2(x)), cap2);
+        s[i] = x;
+      }
+      // (a select, not a branch: s written on a branch would make ptxas
+      // serialize the MMAs that write it)
+      const bool inner = w_all && j0 >= w_maxlo && j0 + kBK <= w_minhi;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int j = j0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool ok = (i & 2) == 0 ? j >= lo_a && j < hi_a
+                                     : j >= lo_b && j < hi_b;
+        s[i] = inner || ok ? s[i] : kNegInf;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if ((i & 2) == 0) {
+          mx_a = fmaxf(mx_a, s[i]);
+        } else {
+          mx_b = fmaxf(mx_b, s[i]);
+        }
+      }
+      quad_max(mx_a, mx_b);
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float corr_a = ex2(__fsub_rn(m_a, mn_a));
+      const float corr_b = ex2(__fsub_rn(m_b, mn_b));
+      m_a = mn_a;
+      m_b = mn_b;
+
+      // p's bf16 words as A fragments of 16 keys (register 0 row g, keys
+      // 2t, 2t + 1; 1 row g + 8; 2, 3 the same 8 keys on): the first word
+      // is p rounded to bf16, the operand of p x v.
+      uint32_t w0[4][4], w1[4][4], w2[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float x = ex2(__fsub_rn(s[8 * u + 2 * r], r & 1 ? mn_b : mn_a));
+          float y = ex2(__fsub_rn(s[8 * u + 2 * r + 1], r & 1 ? mn_b : mn_a));
+          w0[u][r] = split(x, y);
+          w1[u][r] = split(x, y);
+          w2[u][r] = split(x, y);
+        }
+
+      // acc *= corr (unconditionally: acc written on a branch would make
+      // ptxas serialize the MMAs that read it), then the row sums and acc
+      // += p v on the tensor cores.
+#pragma unroll
+      for (int i = 0; i < NV / 2; ++i)
+        acc[i] = __fmul_rn(acc[i], (i & 2) == 0 ? corr_a : corr_b);
+      const uint32_t vb = kb + k_bytes;
+      float dl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      fence_regs(acc);
+      fence_regs(dl);
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        mma_rs8(dl, w0[u], ones_desc, u > 0);
+        mma_rs8(dl, w1[u], ones_desc, 1);
+        mma_rs8(dl, w2[u], ones_desc, 1);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < NV / kSlab; ++c)
+          mma_rs64t(*reinterpret_cast<float(*)[32]>(&acc[32 * c]), w0[u],
+                    desc(vb + c * (kBK * 128) + u * 16 * 128, 1024, 1024, 1));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+      fence_regs(dl);
+      release(it, 1);
+
+      const bool touch_a = lo_a < hi_a && j0 < hi_a && j0 + kBK > lo_a;
+      const bool touch_b = lo_b < hi_b && j0 < hi_b && j0 + kBK > lo_b;
+      if (touch_a) kahan(l_a, c_a, corr_a, dl[0]);
+      if (touch_b) kahan(l_b, c_b, corr_b, dl[2]);
+    } else {
+      // A block no row of this warpgroup touches: counted off once landed.
+      mbar_wait(&full[st], ph);
+      release(it, 0);
+      mbar_wait(&full[2 + st], ph);
+      release(it, 1);
+    }
+  }
+
+  // o = acc / (l - c) where l - c > 0, else 0, in bf16.
+  const float lf_a = __fsub_rn(l_a, c_a), lf_b = __fsub_rn(l_b, c_b);
+#pragma unroll
+  for (int i = 0; i < NV / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (col >= hd_v) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + (half ? rb : ra);
+      if (r >= nrows) continue;
+      const float lf = half ? lf_b : lf_a;
+      const float x = lf > 0.0f ? __fdiv_rn(acc[4 * i + 2 * half], lf) : 0.0f;
+      const float y =
+          lf > 0.0f ? __fdiv_rn(acc[4 * i + 2 * half + 1], lf) : 0.0f;
+      const long long row =
+          ((static_cast<long long>(b) * Sq + r / G) * KV + h) * G + r % G;
+      *reinterpret_cast<uint32_t*>(out + row * hd_v + col) = bf16_pair(x, y);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library needs no -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-d map of a bf16 (B, Sk, KV, d) array: boxes of 64 columns x 1 head
+// x 64 keys x 1 batch row, 128-byte swizzled, zero past each extent.
+int encode(CUtensorMap* map, const void* base, int B, int Sk, int KV, int d) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(KV),
+                              static_cast<cuuint64_t>(Sk),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(KV) * d * 2,
+                                 static_cast<cuuint64_t>(Sk) * KV * d * 2};
+  const cuuint32_t box[4] = {kSlab, 1, kBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+template <int NV, bool CAP>
+int launch(const void* q, const void* k, const void* v, const int* qpos,
+           const int* kvlen, void* out, int B, int Sq, int Sk, int KV, int G,
+           int hd, int hd_v, int causal, int has_window, long long window,
+           float scale, float cap, cudaStream_t s) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (!aligned(q) || !aligned(k) || !aligned(v)) return cudaErrorMisalignedAddress;
+  CUtensorMap tmk, tmv;
+  int e = encode(&tmk, k, B, Sk, KV, hd);
+  if (e) return e;
+  e = encode(&tmv, v, B, Sk, KV, hd_v);
+  if (e) return e;
+  const int bytes = static_cast<int>(smem_bytes(hd, hd_v));
+  auto kernel = attn_wgmma_kernel<NV, CAP>;
+  // The shared memory granted to this kernel on each card, asked for once
+  // (a host call per launch otherwise).
+  static int granted[64] = {};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return ce;
+  if (dev >= 64 || granted[dev] < bytes) {
+    ce = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+    if (ce != cudaSuccess) return ce;
+    if (dev < 64) granted[dev] = bytes;
+  }
+  const int tiles = static_cast<int>(
+      (static_cast<long long>(Sq) * G + kRows - 1) / kRows);
+  const dim3 grid(KV, B, tiles);
+  kernel<<<grid, kThreads, bytes, s>>>(
+      tmk, tmv, static_cast<const __nv_bfloat16*>(q), qpos, kvlen,
+      static_cast<__nv_bfloat16*>(out), Sq, Sk, KV, G, hd, hd_v, causal,
+      has_window, window, scale, cap);
+  return cudaGetLastError();
+}
+
+int launch_width(const void* q, const void* k, const void* v, const int* qpos,
+                 const int* kvlen, void* out, int B, int Sq, int Sk, int KV,
+                 int G, int hd, int hd_v, int causal, int has_window,
+                 long long window, float scale, int has_cap, float cap,
+                 cudaStream_t s) {
+#define B9_WG_LAUNCH(NV)                                                     \
+  return has_cap ? launch<NV, true>(q, k, v, qpos, kvlen, out, B, Sq, Sk, KV,  \
+                                    G, hd, hd_v, causal, has_window, window,   \
+                                    scale, cap, s)                             \
+                 : launch<NV, false>(q, k, v, qpos, kvlen, out, B, Sq, Sk, KV, \
+                                     G, hd, hd_v, causal, has_window, window,  \
+                                     scale, cap, s)
+  if (hd_v <= 64) B9_WG_LAUNCH(64);
+  if (hd_v <= 128) B9_WG_LAUNCH(128);
+  if (hd_v <= 192) B9_WG_LAUNCH(192);
+  B9_WG_LAUNCH(256);
+#undef B9_WG_LAUNCH
+}
+
+}  // namespace wg
+
 template <bool QF32, bool KVF32>
 int launch_width(const void* q, const void* k, const void* v, const int* qpos,
                  const int* kvlen, void* out, int B, int Sq, int Sk, int KV,
                  int G, int hd, int hd_v, int causal, int has_window,
                  long long window, float scale, int has_cap, float cap,
                  cudaStream_t s) {
+  if (wg::form(QF32 ? kF32 : kBF16, KVF32 ? kF32 : kBF16,
+               static_cast<long long>(Sq) * G, hd, hd_v))
+    return wg::launch_width(q, k, v, qpos, kvlen, out, B, Sq, Sk, KV, G, hd,
+                            hd_v, causal, has_window, window, scale, has_cap,
+                            cap, s);
 #define B9_LAUNCH(NV)                                                     \
   return launch_rows<QF32, KVF32, NV>(q, k, v, qpos, kvlen, out, B, Sq, Sk, \
                                       KV, G, hd, hd_v, causal, has_window,  \
@@ -763,6 +1445,13 @@ extern "C" {
 
 const char* mma_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The form b9_attention launches for these dtypes (0 f32, 1 bf16) and
+// shape: 1 the bf16 prefill form (wgmma and TMA), 0 the mma.sync form.
+int b9_attention_form(int q_dtype, int kv_dtype, long long rows, int hd,
+                      int hd_v) {
+  return wg::form(q_dtype, kv_dtype, rows, hd, hd_v);
 }
 
 // B9: out (B, Sq, KV, G, hd_v) in v's dtype from qg (B, Sq, KV, G, hd)

@@ -19,13 +19,13 @@ flops per unmasked score), bytes at decode (the KV cache).
 
 The walk (shared by kernel and plain version).  The (Sq, G) rows of one
 (batch, KV head) are packed, row ``r = i G + g``, so a group shares each
-K/V load.  Keys are walked in blocks of ``BLOCK_K`` from 0 in order.  A
+K/V load.  Keys are walked in blocks of ``block_k`` from 0 in order.  A
 block that holds no valid key of a row leaves that row's state as it
 was; a block that holds one updates it:
 
     m_new = max(m, max_j s_ij)                 (masked s = NEG_INF)
     corr  = exp(m - m_new);  p_ij = exp(s_ij - m_new)
-    l_blk = p @ ones   (the ones-MMA: p's two TF32 words against ones)
+    l_blk = words(p) @ ones   (the ones-MMA)
     y = l_blk - c corr;  t = l corr + y;  c = (t - l corr) - y;  l = t
     acc   = acc corr + p @ v;  m = m_new
 
@@ -34,20 +34,39 @@ starting from m = ``M_INIT``, l = c = acc = 0, and ending
 depend on its own positions alone, not on the rows beside it in a tile
 or a batch, and the kernel may skip a block no row of its tile touches.
 
-Products (3xTF32, as B10): f32 operands as two TF32 words (``hi =
-rna(x)``, ``lo = rna(x - hi)``), the lo x lo term dropped; a bf16
-operand is exact in one word.  q.k is summed per ``STEP`` columns of hd
-(one chain of MMAs from zero), the steps added in order in f32.  p goes
-into p @ v as two TF32 words when v is f32, and rounded to bf16 when v
-is bf16 (as ``models.attention._direct_attn`` rounds it to v's dtype);
-l always sums p's two words.  Every partial is f32.
+Two forms of the kernel walk it, chosen by ``walk`` from the dtypes and
+the shape alone (the CUDA source's ``wg::form`` mirrors it):
+
+* ``"wgmma"``, the bf16 prefill form: qg, k and v bf16, more than 16
+  rows a head, hd and hd_v multiples of 16 up to 256.  Blocks of
+  ``BLOCK_K_WG`` = 64 keys; q.k one chain over the whole hd (bf16
+  products are exact in f32); l sums p's three bf16 words (hi = bf16(p),
+  then the rests: ~24 bits); p rounded to bf16 for p @ v, which the
+  kernel accumulates into acc on the tensor cores (``pv_accumulates``).
+* ``"mma_sync"``, every other problem (f32, f32 q beside a bf16 cache, a
+  decode step's few rows, odd head dims).  Blocks of ``BLOCK_K`` = 32
+  keys.  Products in 3xTF32, as B10: f32 operands as two TF32 words
+  (``hi = rna(x)``, ``lo = rna(x - hi)``), the lo x lo term dropped; a
+  bf16 operand is exact in one word.  q.k is summed per ``STEP``
+  columns of hd (one chain of MMAs from zero), the steps added in order
+  in f32.  p goes into p @ v as two TF32 words when v is f32, and
+  rounded to bf16 when v is bf16 (as ``models.attention._direct_attn``
+  rounds it to v's dtype); l sums p's two TF32 words; p @ v runs from
+  zero per block and is added to acc corr.
+
+So a 16-bit prefill row's bits differ from those of the same row in a
+decode call; within a form they depend on the row alone.  Every partial
+is f32.
 
 ``attention_plain`` computes the same walk in plain PyTorch: the same
 words, the same steps, one f32 matmul per step and per block.  Kernel
 and plain version differ in the order of the adds inside an MMA or a
-matmul and in ``expf`` / ``tanhf``'s last bits.  The wrapper
+matmul and in exp / tanh's last bits (``expf`` / ``tanhf`` on the
+mma.sync form; ``ex2.approx`` on the wgmma form, a few 2^-22 of p).
+The wrapper
 ``kernels.ops.mma_attention`` uses it for CPU tensors, and only there.
-``LAUNCHES`` counts the kernel's launches.
+``LAUNCHES`` counts the kernel's launches by form: ``b9_attention`` the
+mma.sync form, ``b9_attention_wgmma`` the bf16 prefill form.
 """
 
 from __future__ import annotations
@@ -61,16 +80,21 @@ from repro_torch.core.precision import ACCUM_DTYPE, dtype_name
 from repro_torch.kernels import _build
 from repro_torch.kernels.mma_norm_matmul import tf32_words
 
-LAUNCHES = {"b9_attention": 0}
+LAUNCHES = {"b9_attention": 0, "b9_attention_wgmma": 0}
 
 NEG_INF = -2.0e38     # the masked score, as models.attention.NEG_INF
 M_INIT = -1.0e30      # the row max's seed: exp(M_INIT - M_INIT) == 1
-# Keys per block of the walk (csrc kBK) and hd columns per chain of
-# q.k MMAs from zero (csrc kStep).
+# The mma.sync form: keys per block of the walk (csrc kBK) and hd columns
+# per chain of q.k MMAs from zero (csrc kStep).
 BLOCK_K, STEP = 32, 32
 # A kernel block's query rows (csrc: 4 warps of 16; at most 16 rows a
 # head take 16-row blocks whose warps split the columns).
 BLOCK_ROWS = 64
+# The bf16 prefill form (csrc namespace wg): keys per block, query rows a
+# block (two warpgroups of 64), the rows a head must exceed, the widest
+# head, and the row tiles a grid holds (gridDim.z).
+BLOCK_K_WG, BLOCK_ROWS_WG = 64, 128
+WG_MIN_ROWS, WG_MAX_HEAD, WG_MAX_TILES = 16, 256, 65535
 # Shared memory a block may use on the H100 (227 KB).
 SMEM_LIMIT = 232448
 # The accumulator lives in registers, hd_v / 2 f32 a thread (128 at
@@ -99,13 +123,26 @@ def _v_width(hd_v: int) -> int:
     return next(w for w in (32, 64, 128, 256) if hd_v <= w)
 
 
+def _round64(d: int) -> int:
+    return -(-d // 64) * 64
+
+
 def smem_bytes(hd: int, hd_v: int, q_f32: bool = True,
-               kv_f32: bool = True) -> int:
-    """Shared memory of a B9 block (csrc smem_bytes), the larger of its
-    two tiles: two stages of a block of keys and a block of values, and
-    either 64 query rows with their bounds, or (at most 16 rows a head)
-    16 rows with their bounds and what the warps exchange: the score
-    chains, the row maxes and p."""
+               kv_f32: bool = True, form: str = "mma_sync") -> int:
+    """Shared memory of a B9 block.  The mma.sync form (csrc
+    smem_bytes), the larger of its two tiles: two stages of a block of
+    keys and a block of values, and either 64 query rows with their
+    bounds, or (at most 16 rows a head) 16 rows with their bounds and
+    what the warps exchange: the score chains, the row maxes and p.  The
+    wgmma form (csrc wg::smem_bytes, bf16 only): 1024 bytes of alignment
+    slack, 128 query rows and two stages of 64 keys and 64 values, each
+    row padded to a multiple of 64 columns, then the ones-MMA's 512-byte
+    operand, four mbarriers and four release counts, the rows' bounds and
+    the warps' bound reductions."""
+    if form == "wgmma":
+        return (1024 + 2 * BLOCK_ROWS_WG * _round64(hd)
+                + 2 * 2 * BLOCK_K_WG * (_round64(hd) + _round64(hd_v))
+                + 512 + 4 * 8 + 4 * 4 + 2 * BLOCK_ROWS_WG * 4 + 4 * 5 * 4)
     stages = 2 * BLOCK_K * (_row_bytes(hd, kv_f32)
                             + _row_bytes(_v_width(hd_v), kv_f32))
     tall = BLOCK_ROWS * (_row_bytes(hd, q_f32) + 8)
@@ -114,6 +151,7 @@ def smem_bytes(hd: int, hd_v: int, q_f32: bool = True,
     return stages + max(tall, wide)
 
 
+@functools.lru_cache(maxsize=256)
 def refusal(hd: int, hd_v: int, dtypes: tuple):
     """Why B9 cannot take a problem, or None.  ``dtypes`` are the names
     of qg's, k's and v's dtypes: each f32 or bf16, k and v alike (q may
@@ -127,6 +165,8 @@ def refusal(hd: int, hd_v: int, dtypes: tuple):
     if hd_v > MAX_HEAD_V:
         return (f"value head dim {hd_v} exceeds kernel B9's register "
                 f"accumulator ({MAX_HEAD_V})")
+    # The mma.sync form serves every row count (a decode step's few rows
+    # always take it); the wgmma form is chosen only where it fits (walk).
     need = smem_bytes(hd, hd_v, dtypes[0] == "float32",
                       dtypes[-1] == "float32")
     if need > SMEM_LIMIT:
@@ -134,6 +174,41 @@ def refusal(hd: int, hd_v: int, dtypes: tuple):
                 f"memory a block in kernel B9, past the H100's "
                 f"{SMEM_LIMIT}")
     return None
+
+
+@functools.lru_cache(maxsize=1024)
+def walk(q_dtype, kv_dtype, rows_per_head: int, hd: int, hd_v: int) -> tuple:
+    """B9's form for these dtypes (torch dtypes or their names) and shape,
+    as ``(form, block_k, step, pv_accumulates)``: ``("wgmma", 64, hd,
+    True)`` for the bf16 prefill form (qg, k and v bf16, ``Sq G`` > 16
+    rows a head, hd and hd_v multiples of 16 up to 256, its shared memory
+    within the card's), else ``("mma_sync", 32, 32, False)``.  ``step``
+    is the hd columns of one chain of q.k MMAs from zero;
+    ``pv_accumulates`` says p @ v accumulates into acc itself rather
+    than from zero per block.  A pure function of dtypes and shape
+    (never of B): the CUDA source's ``wg::form`` is its mirror."""
+    q, kv = (d if isinstance(d, str) else dtype_name(d)
+             for d in (q_dtype, kv_dtype))
+    rows = int(rows_per_head)
+    if (q == kv == "bfloat16" and rows > WG_MIN_ROWS
+            and hd % 16 == 0 and hd_v % 16 == 0
+            and 16 <= hd <= WG_MAX_HEAD and 16 <= hd_v <= WG_MAX_HEAD
+            and -(-rows // BLOCK_ROWS_WG) <= WG_MAX_TILES
+            and smem_bytes(hd, hd_v, False, False, form="wgmma")
+            <= SMEM_LIMIT):
+        return "wgmma", BLOCK_K_WG, hd, True
+    return "mma_sync", BLOCK_K, STEP, False
+
+
+def bf16_words(x: torch.Tensor, n: int = 3) -> tuple:
+    """x (f32) as ``n`` bf16 words widened to f32, hi = bf16(x) and each
+    next word bf16 of what is left (the rests are exact in f32)."""
+    out = []
+    for _ in range(n):
+        w = x.to(torch.bfloat16).to(ACCUM_DTYPE)
+        out.append(w)
+        x = x - w
+    return tuple(out)
 
 
 def _words(x: torch.Tensor) -> tuple:
@@ -187,6 +262,7 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.zeros(B, Sq, KV, G, hd_v, dtype=v.dtype, device=v.device)
     if min(B, R, KV, Sk) == 0:
         return out
+    form, block_k, step, _ = walk(qg.dtype, k.dtype, R, hd, hd_v)
     lo, hi = row_bounds(qpos, kv_len, sk=Sk, causal=causal, window=window)
     lo = lo.repeat_interleave(G, dim=1)[:, None, :, None]   # (B, 1, R, 1)
     hi = hi.repeat_interleave(G, dim=1)[:, None, :, None]
@@ -197,12 +273,12 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.zeros_like(m)
     c = torch.zeros_like(m)
     acc = torch.zeros(B, KV, R, hd_v, dtype=ACCUM_DTYPE, device=qg.device)
-    first = int(torch.where(live, lo, Sk).min()) // BLOCK_K * BLOCK_K
+    first = int(torch.where(live, lo, Sk).min()) // block_k * block_k
     last = int(torch.where(live, hi, 0).max())
-    for j0 in range(first, last, BLOCK_K):
-        kb = k[:, j0:j0 + BLOCK_K].permute(0, 2, 3, 1)   # (B, KV, hd, bk)
-        vb = v[:, j0:j0 + BLOCK_K].permute(0, 2, 1, 3)   # (B, KV, bk, hd_v)
-        s = _product(q_words, _words(kb), STEP) * scale
+    for j0 in range(first, last, block_k):
+        kb = k[:, j0:j0 + block_k].permute(0, 2, 3, 1)   # (B, KV, hd, bk)
+        vb = v[:, j0:j0 + block_k].permute(0, 2, 1, 3)   # (B, KV, bk, hd_v)
+        s = _product(q_words, _words(kb), step) * scale
         if cap is not None:
             s = cap * torch.tanh(s / cap)
         j = torch.arange(j0, j0 + kb.shape[-1], device=qg.device)
@@ -210,19 +286,19 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
-        p_words = tf32_words(p)
+        p_words = bf16_words(p) if form == "wgmma" else tf32_words(p)
         l_blk = torch.matmul(torch.cat(p_words, -1),
-                             torch.ones(2 * p.shape[-1], 1,
+                             torch.ones(len(p_words) * p.shape[-1], 1,
                                         dtype=ACCUM_DTYPE, device=p.device))
         l_old, c_old = l * corr, c * corr
         y = l_blk - c_old
         t = l_old + y
-        touch = live & (j0 < hi) & (j0 + BLOCK_K > lo)
+        touch = live & (j0 < hi) & (j0 + block_k > lo)
         c = torch.where(touch, (t - l_old) - y, c)
         l = torch.where(touch, t, l)
         pv_words = p_words if v.dtype == torch.float32 \
             else (p.to(v.dtype).to(ACCUM_DTYPE),)
-        acc = acc * corr + _product(pv_words, _words(vb), BLOCK_K)
+        acc = acc * corr + _product(pv_words, _words(vb), block_k)
         m = m_new
     lf = l - c
     o = torch.where(lf > 0.0, acc / torch.where(lf > 0.0, lf, 1.0), 0.0)
@@ -237,9 +313,23 @@ def _lib() -> ctypes.CDLL:
     lib.b9_attention.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, i,
                                  i, i, i, i, i, i, i, ll, f, i, f, ptr]
     lib.b9_attention.restype = i
+    lib.b9_attention_form.argtypes = [i, i, ll, i, i]
+    lib.b9_attention_form.restype = i
     lib.mma_attention_error_string.argtypes = [i]
     lib.mma_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def cuda_form(q_dtype, kv_dtype, rows_per_head: int, hd: int,
+              hd_v: int) -> str:
+    """The form the CUDA source's chooser (``b9_attention_form``) takes
+    for these dtypes and shape: ``walk``'s mirror, for the card's checks
+    that the two agree."""
+    codes = [_DTYPES[d] if isinstance(d, torch.dtype)
+             else _DTYPES[getattr(torch, d)] for d in (q_dtype, kv_dtype)]
+    got = _lib().b9_attention_form(*codes, int(rows_per_head), int(hd),
+                                   int(hd_v))
+    return "wgmma" if got else "mma_sync"
 
 
 def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -287,20 +377,28 @@ def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if Sk == 0 or hd == 0:
         return out.zero_()
+    form = walk(qg.dtype, k.dtype, Sq * G, hd, hd_v)[0]
+    if form == "wgmma":
+        # TMA and cp.async read from 16-byte-aligned bases: a view that
+        # starts elsewhere is copied (the form is fixed by the shape).
+        qg, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (qg, k, v))
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.b9_attention(
-            qg.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+    args = (qg.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
             B, Sq, Sk, KV, G, hd, hd_v, _DTYPES[qg.dtype], _DTYPES[k.dtype],
             int(bool(causal)), 0 if window is None else 1,
             0 if window is None else int(window), float(scale),
             0 if cap is None else 1, 0.0 if cap is None else float(cap),
-            stream)
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = lib.b9_attention(*args)
+    else:   # the launch goes to the host thread's current card
+        with torch.cuda.device(dev):
+            rc = lib.b9_attention(*args)
     if rc:
         msg = lib.mma_attention_error_string(rc).decode()
         raise RuntimeError(f"b9_attention launch failed: {msg} ({rc})")
-    LAUNCHES["b9_attention"] += 1
+    LAUNCHES["b9_attention_wgmma" if form == "wgmma" else "b9_attention"] += 1
     return out
 

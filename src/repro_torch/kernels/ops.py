@@ -345,9 +345,11 @@ def mma_attention(qg, k, v, *, qpos, causal: bool = False, window=None,
     CUDA tensors (qg f32 or bf16; k and v f32 or bf16, independently of
     qg: f32 activations read a bf16 cache as it is) launch kernel B9, CPU
     tensors run its plain version; there is no fallback from one to the
-    other.  The geometry is fixed by the card (64 query rows, 32 keys a
-    step), not tuned: the reference's ``chain`` / ``block_rows`` shaped
-    its TPU grid.
+    other.  The geometry is fixed by the card and by the kernel's form
+    (``kernels.mma_attention.walk``: 64 query rows and 32 keys a step on
+    mma.sync, 128 rows and 64 keys on the bf16 prefill form's wgmma), not
+    tuned: the reference's ``chain`` / ``block_rows`` shaped its TPU
+    grid.
 
     Reached through the ``attention`` registry entry as the
     ``fused_pallas`` engine; callers go through

@@ -7,8 +7,14 @@ B9's plain version, the ``attention`` op's engines and
     own tests run it here, in interpret mode: the reference's
     ``FUSED_CASES`` (``tests/test_attention_fused.py``), a hypothesis
     sweep with the reference's strategy, the softcap and per-row decode
-    with ``kv_len``; tolerances are the reference's own, 1e-4 in f32
-    and 6e-2 in bf16 (relative and absolute);
+    with ``kv_len``, and bf16 problems on the wgmma form's walk (64-key
+    blocks, three bf16 words of p in the row sums); tolerances are the
+    reference's own, 1e-4 in f32 and 6e-2 in bf16 (relative and
+    absolute);
+  * ``walk``, B9's form chooser: a function of the dtypes, the rows a
+    head and the head dims alone, its boundaries where the CUDA
+    source's ``wg::form`` puts them, and the wgmma form's shared memory
+    within the card's at hd 256;
   * every engine of ``dispatch('attention', ...)`` against the
     reference's dispatch of the same engine, at the f32 tolerance above
     (f32: the engines differ only in the order of their f32 adds and,
@@ -220,6 +226,110 @@ def test_attention_plain_walk_and_oracle():
         _np(mixed), _np(tref.attention_ref(tq, kb, vb, qpos=qpos,
                                            kv_len=kv_len, **kw)),
         rtol=2e-2, atol=2e-2)
+
+
+# bf16 problems that take the wgmma form (more than 16 rows a head): hd /
+# hd_v 16/16, 64/64 and 192/128, Sk ragged against its 64-key blocks,
+# causal, a window, the softcap, and kv_len with per-row positions.
+WG_CASES = [
+    # (B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len)
+    (2, 17, 83, 1, 16, 16, True, None, None, None),
+    (1, 40, 150, 2, 64, 64, True, 48, 30.0, None),
+    (2, 9, 70, 3, 64, 64, False, None, None, (70, 41)),
+    (1, 24, 100, 1, 192, 128, True, None, 50.0, None),
+    (2, 12, 130, 2, 192, 128, True, 20, None, (130, 77)),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,G,hd,hd_v,causal,window,cap,kv_len",
+                         WG_CASES)
+def test_attention_plain_wgmma_walk_matches_the_reference_kernel(
+        B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len):
+    arrays = _problem(Sq * 100 + Sk, B=B, Sq=Sq, Sk=Sk, KV=2, G=G, hd=hd,
+                      hd_v=hd_v)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "bfloat16")
+    assert ma.walk(tq.dtype, tk.dtype, Sq * G, hd, hd_v) \
+        == ("wgmma", ma.BLOCK_K_WG, hd, True)
+    ends = np.full(B, Sk) if kv_len is None else np.asarray(kv_len)
+    qpos = (np.arange(Sq)[None] + ends[:, None] - Sq).astype(np.int32)
+    kw = dict(causal=causal, window=window, scale=hd ** -0.5, cap=cap)
+    kl = None if kv_len is None else np.asarray(kv_len, np.int32)
+    want = j_mma_attention(jq, jk, jv, qpos=jnp.asarray(qpos),
+                           kv_len=None if kl is None else jnp.asarray(kl),
+                           chain=2, **kw)
+    got = ops.mma_attention(tq, tk, tv, qpos=torch.from_numpy(qpos),
+                            kv_len=None if kl is None
+                            else torch.from_numpy(kl), **kw)
+    assert got.dtype == tv.dtype and got.shape == tuple(want.shape)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+    # a row's result does not depend on the rows beside it in the batch
+    alone = ops.mma_attention(tq[:1], tk[:1], tv[:1],
+                              qpos=torch.from_numpy(qpos[:1]),
+                              kv_len=None if kl is None
+                              else torch.from_numpy(kl[:1]), **kw)
+    np.testing.assert_allclose(_np(alone), _np(got[:1]), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_walk_is_a_function_of_dtypes_and_shape():
+    """B9's two forms: the wgmma walk for bf16 q, k and v with more than
+    16 rows a head and hd, hd_v multiples of 16 up to 256; the mma.sync
+    walk for f32, mixed, a decode step's rows and odd head dims.  Its
+    arguments hold no batch size, and its boundaries are those of the
+    CUDA source's chooser."""
+    import inspect
+    import re
+    from pathlib import Path
+    assert list(inspect.signature(ma.walk).parameters) == [
+        "q_dtype", "kv_dtype", "rows_per_head", "hd", "hd_v"]
+    bf, f32 = torch.bfloat16, torch.float32
+    wg = ("wgmma", 64, 256, True)
+    sync = ("mma_sync", ma.BLOCK_K, ma.STEP, False)
+    assert ma.walk(bf, bf, 8192, 256, 256) == wg
+    assert ma.walk("bfloat16", "bfloat16", 8192, 256, 256) == wg
+    assert ma.walk(bf, bf, 17, 64, 64)[0] == "wgmma"
+    assert ma.walk(bf, bf, 16, 64, 64) == sync          # a decode step
+    assert ma.walk(bf, bf, 1, 256, 256) == sync
+    assert ma.walk(bf, bf, 8192, 12, 8) == sync         # hd 12
+    assert ma.walk(bf, bf, 8192, 16, 16)[0] == "wgmma"
+    assert ma.walk(bf, bf, 8192, 24, 16) == sync        # not a multiple of 16
+    assert ma.walk(bf, bf, 8192, 272, 256) == sync
+    assert ma.walk(bf, bf, 8192, 288, 256) == sync      # _FUSED_MAX_HEAD
+    assert ma.walk(bf, bf, 8192, 192, 128)[0] == "wgmma"
+    assert ma.walk(f32, f32, 8192, 256, 256) == sync
+    assert ma.walk(f32, bf, 8192, 256, 256) == sync     # the mixed form
+    assert ma.walk(bf, f32, 8192, 256, 256) == sync
+    tiles = ma.WG_MAX_TILES * ma.BLOCK_ROWS_WG
+    assert ma.walk(bf, bf, tiles, 64, 64)[0] == "wgmma"
+    assert ma.walk(bf, bf, tiles + 1, 64, 64) == sync
+    # the CUDA chooser (namespace wg) holds the same constants
+    cu = (Path(ma.__file__).parent / "csrc" / "mma_attention.cu").read_text()
+    body = cu[cu.index("namespace wg {"):]
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", body))
+    assert int(consts["kRows"]) == ma.BLOCK_ROWS_WG
+    assert int(consts["kBK"]) == ma.BLOCK_K_WG
+    assert int(consts["kMaxTiles"]) == ma.WG_MAX_TILES
+    chooser = body[body.index("inline int form("):]
+    chooser = chooser[:chooser.index("}")]
+    assert f"rows > {ma.WG_MIN_ROWS}" in chooser
+    assert f"hd <= {ma.WG_MAX_HEAD}" in chooser
+    assert f"hd_v <= {ma.WG_MAX_HEAD}" in chooser
+    assert "hd % 16 == 0" in chooser and "hd_v % 16 == 0" in chooser
+    assert "q_dtype == kBF16 && kv_dtype == kBF16" in chooser
+
+
+def test_wgmma_form_shared_memory_fits_the_card():
+    """At hd 256 the wgmma form holds 128 query rows (64 KB) and two
+    stages of 64 keys and values (128 KB), within 227 KB; its refusal is
+    the mma.sync form's, which every row count can reach."""
+    need = ma.smem_bytes(256, 256, False, False, form="wgmma")
+    assert need == 1024 + 128 * 256 * 2 + 2 * 64 * 512 * 2 + 512 + 32 \
+        + 16 + 2 * 128 * 4 + 80
+    assert need <= ma.SMEM_LIMIT
+    assert ma.smem_bytes(16, 16, False, False, form="wgmma") \
+        == ma.smem_bytes(64, 64, False, False, form="wgmma")
+    for hd, hd_v in ((256, 256), (192, 128), (64, 64), (16, 16)):
+        assert ma.refusal(hd, hd_v, ("bfloat16",) * 3) is None
 
 
 # ------------------------------------------------ the attention op

@@ -33,7 +33,9 @@ plain version to 2^-20 (1 + sigma) of each output's absolute-value scale
 bf16 v to 2^-8 of that scale more plus one bf16 ulp (both round p to
 bf16, and a p near a rounding boundary may round the other way); it
 repeats its bits, a row's bits do not depend on the batch, and a row
-with no valid key is exactly 0.
+with no valid key is exactly 0.  Its bf16 prefill form (wgmma fed by
+TMA) is held to the same bounds at the shapes that take it, counts its
+launches apart, and its CUDA chooser agrees with ``walk``.
 """
 
 import importlib
@@ -780,6 +782,67 @@ def test_attention_kernel_matches_plain_on_card(cuda, B, Sq, Sk, KV, G, hd,
     assert torch.equal(got, ma.attention_cuda(qg, k, v, **kw))
     if qpos == "padded":
         assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+
+
+# bf16 problems the wgmma form takes: rows a head 17 and 8192, Sk
+# ragged against its 64-key blocks, hd 16 (a box wider than the row),
+# 48 / 80, 64, 128, 192 / 128 and 256; G 3 rows packed across tiles.
+ATTN_WG_CASES = [
+    (1, 17, 83, 2, 1, 64, 64, True, None, None, "tail", False),
+    (3, 33, 97, 2, 1, 16, 16, True, 8, None, "tail", False),
+    (2, 24, 150, 1, 1, 48, 80, True, None, None, "tail", False),
+    (2, 100, 130, 2, 3, 128, 128, True, 50, 30.0, "padded", False),
+    (1, 130, 190, 1, 2, 192, 128, False, None, None, "tail", False),
+    (2, 40, 200, 2, 2, 256, 256, True, None, 50.0, "tail", True),
+    (1, 4096, 4131, 1, 2, 256, 256, True, None, 50.0, "tail", False),
+]
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,KV,G,hd,hd_v,causal,window,cap,qpos,kv_len", ATTN_WG_CASES)
+def test_attention_wgmma_form_matches_plain_on_card(cuda, B, Sq, Sk, KV, G,
+                                                    hd, hd_v, causal, window,
+                                                    cap, qpos, kv_len):
+    assert ma.walk(torch.bfloat16, torch.bfloat16, Sq * G, hd,
+                   hd_v)[0] == "wgmma"
+    qg, k, v, pos, kvl = _attn_inputs(B, Sq, Sk, KV, G, hd, hd_v, "bf16",
+                                      Sq + Sk + hd, qpos=qpos, kv_len=kv_len)
+    kw = dict(qpos=pos, causal=causal, window=window, kv_len=kvl,
+              scale=hd ** -0.5, cap=cap)
+    ma.reset_launches()
+    got = ma.attention_cuda(qg, k, v, **kw)
+    assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 1}
+    assert got.dtype == v.dtype and got.shape == (B, Sq, KV, G, hd_v)
+    _attn_close(got, ma.attention_plain(qg, k, v, **kw),
+                _attn_scales(qg, k, v, **kw))
+    assert torch.equal(got, ma.attention_cuda(qg, k, v, **kw))
+    if qpos == "padded":
+        assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+    if B > 1:
+        part = ma.attention_cuda(
+            qg[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous(),
+            **dict(kw, qpos=pos[:1].contiguous(),
+                   kv_len=None if kvl is None else kvl[:1].contiguous()))
+        assert torch.equal(part, got[:1])
+
+
+def test_attention_cuda_chooser_mirrors_walk(cuda):
+    """The CUDA source's form chooser and ``walk`` agree, at the
+    boundaries: rows a head 16 / 17, hd 12, 16, 256, 272, 288, hd_v 8,
+    16, 256, and every dtype pair."""
+    for q_dt, kv_dt in ((torch.bfloat16, torch.bfloat16),
+                        (torch.float32, torch.float32),
+                        (torch.float32, torch.bfloat16),
+                        (torch.bfloat16, torch.float32)):
+        for rows in (1, 16, 17, 8192, 128 * 65535, 128 * 65535 + 1):
+            for hd in (12, 16, 24, 64, 192, 256, 272, 288):
+                for hd_v in (8, 16, 128, 256):
+                    want = ma.walk(q_dt, kv_dt, rows, hd, hd_v)[0]
+                    assert ma.cuda_form(q_dt, kv_dt, rows, hd,
+                                        hd_v) == want, (q_dt, kv_dt, rows,
+                                                        hd, hd_v)
+    assert ma.walk(torch.bfloat16, torch.bfloat16, 17, 256, 256)[0] \
+        == "wgmma"
 
 
 @pytest.mark.parametrize("kind", list(ATTN_KINDS))
