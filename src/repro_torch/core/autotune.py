@@ -581,8 +581,9 @@ _SEGMENT_COSTS = {
 # (``core.dispatch``); the call's form (``dispatch._norm_matmul_form``)
 # says whether a projection follows the norm.  The norm's bytes per
 # element of x (itemsize s): ``fused_pallas`` is B8, one launch that
-# reads x twice (the scaling pass re-reads its rows) and writes once,
-# 3 s.  ``unfused_mma`` squares x (reads x, writes 4), contracts the
+# reads x once (a row tile's slice stays in a block's shared memory from
+# the statistic to the scaling pass) and writes once, 2 s.
+# ``unfused_mma`` squares x (reads x, writes 4), contracts the
 # squares against ones (reads 4), multiplies x by rstd (reads x, writes
 # 4), forms 1 + scale and multiplies (reads 4, writes 4): 28 bytes in
 # f32; a 16-bit x adds its f32 copy and the cast back (s + 4 and 4 + s).
@@ -649,7 +650,7 @@ def _cost_nm(plan: ReductionPlan, n: int, itemsize: int, dtype,
     w_item = torch.empty((), dtype=as_dtype(w_dtype)).element_size()
     if plan.method == "fused_pallas":
         if not dout:        # the norm-only form: kernel B8
-            return 3.0 * itemsize * n / _HBM_BYTES_PER_US
+            return 2.0 * itemsize * n / _HBM_BYTES_PER_US
         return _cost_b10(n, itemsize, w_item, w_dtype, form)
     wide = itemsize >= 4
     vpu = plan.method == "vpu"

@@ -1218,8 +1218,9 @@ register(OpSpec(
 register(OpSpec(
     name="norm_matmul", family="norm_matmul",
     engines=(
-        # B8's and B10's geometries are fixed by the card (16 rows a B8
-        # block; one 128 x 64 tile a B10 block): nothing to sweep.
+        # B8's and B10's geometries are fixed by the card (B8's walk a
+        # function of d and the dtype; one 128 x 64 tile a B10 block):
+        # nothing to sweep.
         EngineSpec("fused_pallas", _nm_fused,
                    dtypes=("float32", "bfloat16"),
                    predicate=_nm_fused_predicate),

@@ -275,12 +275,16 @@ def mma_rmsnorm(x, weight, *, eps: float = 1e-6,
 
     A CUDA tensor (f32 or bf16) launches kernel B8, a CPU tensor runs
     its plain version; there is no fallback from one to the other.  The
-    geometry is fixed by the card, not tuned: a block takes 16 rows, the
-    m of the m16n8k16 MMA, and keeps only 16 row sums and 16 ``rstd`` in
-    shared memory, so any d >= 1 fits the 227 KB a block may use (the
-    reference's 8 MiB VMEM row budget and its row padding are TPU
-    facts: B8 masks ragged rows and columns itself, and this wrapper
-    copies nothing but a non-contiguous input).
+    geometry is fixed by the card, not tuned: 16 rows (the m of the
+    m16n8k16 MMA) are split across a thread-block cluster whose blocks
+    each hold their slice in shared memory, so x is read once for any
+    d >= 1 up to 24576 in f32 and 49152 in bf16 (wider rows are read a
+    second time for the scaling pass), and the split is a function of d
+    and the dtype alone (``kernels.mma_rmsnorm.walk``), so a row's bits
+    do not depend on the batch.  The reference's 8 MiB VMEM row budget
+    and its row padding are TPU facts: B8 masks ragged rows and columns
+    and reads an unaligned input where it lies, and this wrapper copies
+    nothing but a non-contiguous input.
 
     Folded behind the ``norm_matmul`` registry entry as the
     ``fused_pallas`` engine's norm-only (``w=None``) form; callers go

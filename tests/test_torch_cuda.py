@@ -21,7 +21,9 @@ each segment's sum|x| (both sum the same exact bf16 words, in another
 order), on counting inputs with the exact count, and with itself bit
 for bit.  The RMSNorm kernel B8 agrees with its plain version to 2^-20
 of each f32 output plus 2^-24 (sums in another order, ``rsqrtf``
-within 2 ulp), within one ulp in bf16, and with itself bit for bit.
+within 2 ulp), within one ulp in bf16, and with itself bit for bit; a
+row's bits do not depend on the batch or on the input's alignment, and
+its CUDA walk agrees with ``walk``.
 The fused RMSNorm -> matmul kernel B10 agrees with its plain version to
 2^-20 of each output's absolute-value scale (its f32 sums and
 ``rsqrtf`` in another order; the scale is ``_nm_scale``'s), plus one ulp
@@ -519,14 +521,24 @@ def _rmsnorm_close(got, want):
                               + 2.0 ** -24))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(1, 40), (17, 256), (64, 2304),
-                                    (129, 7168), (33, 1)])
-def test_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, rows, d):
-    gen = torch.Generator(device="cuda").manual_seed(rows * d)
+def _signed(rows, d, dtype, gen):
     mag = 0.5 + 0.5 * torch.rand(rows, d, device="cuda", generator=gen)
     sign = torch.randint(0, 2, (rows, d), device="cuda", generator=gen)
-    x = (mag * (2 * sign - 1)).to(dtype)
+    return (mag * (2 * sign - 1)).to(dtype)
+
+
+# d ragged against B8's chunks (32 f32 / 64 bf16 columns) and cluster
+# split (17, 7169), d whose rows are not 16-byte aligned (odd d: the
+# element-by-element loads), and d too wide for shared memory (24577 f32
+# and 32768 f32 re-read their rows for the scaling pass; 24577 also
+# unaligned).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1, 40), (17, 256), (64, 2304),
+                                    (129, 7168), (33, 1), (3, 17),
+                                    (20, 7169), (5, 24577), (3, 32768)])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, rows, d):
+    gen = torch.Generator(device="cuda").manual_seed(rows * d)
+    x = _signed(rows, d, dtype, gen)
     w = 0.1 * torch.randn(d, device="cuda", generator=gen)
     for offset in (0.0, 1.0):
         got = mrn.rmsnorm_cuda(x, w, weight_offset=offset)
@@ -534,6 +546,46 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, rows, d):
         _rmsnorm_close(got, mrn.rmsnorm_plain(x, w, weight_offset=offset))
         assert torch.equal(got, mrn.rmsnorm_cuda(x, w,
                                                  weight_offset=offset))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2304, 7168, 7169])
+def test_rmsnorm_kernel_misaligned_base_on_card(cuda, dtype, d):
+    """A contiguous view that starts one element past a 16-byte boundary
+    is read where it lies (element by element), never by the plain
+    version, and gives the bits of an aligned copy."""
+    gen = torch.Generator(device="cuda").manual_seed(d + 1)
+    buf = _signed(1, 33 * d + 1, dtype, gen).reshape(-1)
+    x = buf[1:].view(33, d)
+    assert x.data_ptr() % 16 != 0
+    w = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    before = mrn.LAUNCHES["b8_rmsnorm"]
+    got = mrn.rmsnorm_cuda(x, w, weight_offset=1.0)
+    assert mrn.LAUNCHES["b8_rmsnorm"] == before + 1
+    _rmsnorm_close(got, mrn.rmsnorm_plain(x, w, weight_offset=1.0))
+    assert torch.equal(got, mrn.rmsnorm_cuda(x.clone(), w,
+                                             weight_offset=1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [17, 2304, 7169])
+def test_rmsnorm_kernel_is_batch_independent(cuda, dtype, d):
+    """B8's walk depends on d and the dtype alone: a row has the same bits
+    in a call of 1, 17 or 4099 rows."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = _signed(4099, d, dtype, gen)
+    w = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    full = mrn.rmsnorm_cuda(x, w)
+    assert torch.equal(mrn.rmsnorm_cuda(x[:17].contiguous(), w), full[:17])
+    assert torch.equal(mrn.rmsnorm_cuda(x[:1].contiguous(), w), full[:1])
+    assert torch.equal(mrn.rmsnorm_cuda(x[4090:].contiguous(), w),
+                       full[4090:])
+
+
+def test_rmsnorm_cuda_walk_mirrors_walk(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 17, 40, 2304, 4096, 7168, 7169, 12288, 24577, 65536):
+            assert mrn.cuda_walk(d, dtype) == mrn.walk(d, dtype), (d, dtype)
 
 
 def test_rmsnorm_wrapper_counts_launches_and_raises(cuda):

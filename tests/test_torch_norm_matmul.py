@@ -420,6 +420,102 @@ def test_rmsnorm_plain_statistic_is_the_sum_of_squares(d):
         assert torch.all((got - want).abs() <= 2.0 ** -20 * want), dt
 
 
+# B8's walk for each d and dtype, (cluster, chunks a warp, resident
+# chunks), worked out by hand from csrc/mma_rmsnorm.cu's walk(): a chunk
+# is 128 bytes of a row (32 f32 / 64 bf16 columns), a warp takes at
+# least 2 chunks, a cluster at most 8 blocks of 8 warps, a warp holds at
+# most 12 chunks.
+B8_WALKS = {
+    (1, torch.float32): (1, 2, 2),
+    (1, torch.bfloat16): (1, 2, 2),
+    (17, torch.float32): (1, 2, 2),
+    (17, torch.bfloat16): (1, 2, 2),
+    (40, torch.float32): (1, 2, 2),
+    (40, torch.bfloat16): (1, 2, 2),
+    (2304, torch.float32): (5, 2, 2),
+    (2304, torch.bfloat16): (3, 2, 2),
+    (4096, torch.float32): (8, 2, 2),
+    (4096, torch.bfloat16): (4, 2, 2),
+    (7168, torch.float32): (7, 4, 4),
+    (7168, torch.bfloat16): (7, 2, 2),
+}
+
+
+def test_rmsnorm_walk_matches_the_cuda_source():
+    """The Python walk uses the .cu's constants and gives the walk the
+    .cu's rule gives for d in {1, 17, 40, 2304, 4096, 7168}."""
+    import re
+    src = open(os.path.join(os.path.dirname(mrn.__file__), "csrc",
+                            "mma_rmsnorm.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = ([^;]+);",
+                             src).group(1).replace("32 * kWarps", "256"))
+    assert const("kWarps") == mrn.WARPS
+    assert const("kChunkBytes") == mrn.CHUNK_BYTES
+    assert const("kChunkMin") == mrn.CHUNK_MIN
+    assert const("kClusterMax") == mrn.CLUSTER_MAX
+    assert const("kChunkResident") == mrn.CHUNK_RESIDENT
+    assert re.search(r"constexpr int kChunkStride = 17 \* kChunkBytes;", src)
+    assert mrn.CHUNK_STRIDE == 17 * mrn.CHUNK_BYTES
+    for (d, dt), want in B8_WALKS.items():
+        assert mrn.walk(d, dt) == want, (d, dt)
+    # Every walk fits a block's 227 KB of shared memory, and a cluster is
+    # never more than the portable 8 blocks, at any d.
+    for d in (1, 2304, 7169, 12288, 24576, 24577, 1 << 20, 2 ** 31 - 1):
+        for dt in (torch.float32, torch.bfloat16):
+            cluster, chunks, resident = mrn.walk(d, dt)
+            assert 1 <= cluster <= mrn.CLUSTER_MAX
+            assert resident == min(chunks, mrn.CHUNK_RESIDENT)
+            cols = mrn.CHUNK_BYTES // (4 if dt == torch.float32 else 2)
+            assert cluster * mrn.WARPS * chunks * cols >= d
+            assert (cluster - 1) * mrn.WARPS * chunks * cols < d
+            assert mrn.smem_bytes(d, dt) <= 232448
+
+
+@pytest.mark.parametrize("d", [17, 2304, 7169, 24577])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_plain_adds_in_the_walks_order(d, dtype):
+    """row_sums_plain is the tiles' sums added as the kernel adds them:
+    per warp its consecutive tiles from 0, then warp order, then cluster
+    rank order, in f32 (here one row, added one scalar at a time)."""
+    x = np.random.default_rng(d).normal(size=(3, d)).astype(np.float32)
+    tx = torch.from_numpy(x).to(dtype)
+    tiles = mrn.tile_sums_plain(tx).numpy()
+    cluster, chunks, _ = mrn.walk(d, dtype)
+    per_warp = chunks * mrn.CHUNK_BYTES // (16 * tx.element_size())
+    got = mrn.row_sums_plain(tx).numpy()
+    for r in range(3):
+        total = np.float32(0)
+        for c in range(cluster):
+            block = np.float32(0)
+            for w in range(mrn.WARPS):
+                acc = np.float32(0)
+                first = (c * mrn.WARPS + w) * per_warp
+                for k in range(first, min(first + per_warp, tiles.shape[1])):
+                    acc = np.float32(acc + tiles[r, k])
+                block = acc if w == 0 else np.float32(block + acc)
+            total = block if c == 0 else np.float32(total + block)
+        assert got[r] == total, (r, got[r], total)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_plain_row_bits_do_not_depend_on_rows(dtype):
+    """The walk is a function of d and the dtype: a row of rmsnorm_plain
+    has the same bits in calls of 1, 17 and 4099 rows."""
+    d = 2304
+    rng = np.random.default_rng(4099)
+    x = torch.from_numpy(rng.normal(size=(4099, d)).astype(np.float32))
+    x = x.to(dtype)
+    w = torch.from_numpy((rng.normal(size=d) * 0.1).astype(np.float32))
+    full = mrn.rmsnorm_plain(x, w, weight_offset=1.0)
+    for n in (1, 17):
+        part = mrn.rmsnorm_plain(x[:n], w, weight_offset=1.0)
+        assert torch.equal(part, full[:n]), n
+    assert torch.equal(mrn.rmsnorm_plain(x[4090:], w, weight_offset=1.0),
+                       full[4090:])
+
+
 # ------------------------------------------------------------ B10 plain
 
 # B10's plain version against the reference's fused kernel run in
