@@ -61,9 +61,13 @@ The prefix-scan path (kernel B6; CUDA C++ in ``csrc/mma_scan.cu``):
   2c. B6 against ``scan_plain`` on the card at n = 2^20 and 2^20 + 13, in
       f32, bf16 and fp16, over three (chain, block_rows), inclusive and
       exclusive, within 2^-16 of the running sum|x| at every position;
-      and on counting inputs (n = 13, one tile + 13, 2^20 + 13, and
-      2^28 at the main geometry), where kernel, plain version and the
-      exact int64 prefix agree bit for bit;
+      on counting inputs (n = 13, one tile + 13, 2^20 + 13, and 2^28 at
+      the main geometry), where kernel, plain version and the exact
+      int64 prefix agree bit for bit; and B6's look-back, whose tile
+      carries must not depend on timing: two calls at 2^28 on normal
+      input give the same bits at the main geometry and at chain 1,
+      block_rows 32 (524288 tiles, the longest walks), and so does a
+      call made while another stream runs large matmuls;
   3e. the scan path at n = 2^28 (uniform [0, 1] and normal, f32 and
       bf16): ``cumsum`` and ``masked_cumsum`` (a 0/1 mask from the seed)
       through every engine and ``auto``, each position's error relative
@@ -72,7 +76,9 @@ The prefix-scan path (kernel B6; CUDA C++ in ``csrc/mma_scan.cu``):
       printed, not gated); B6's counter is zeroed before it and must
       have moved after it;
   5c. B6 timed at 2^28 (f32, bf16; chain 4, block_rows 128) beside its
-      bound, ``scan_plain`` and ``torch.cumsum``.
+      bound, the byte time of a form that reads x twice (under it, x was
+      read once), ``scan_plain``, ``torch.cumsum`` and its look-back's
+      forward steps a tile.  Phase 1 holds B6's build to 0 spill bytes.
 
 The segmented-sum path (kernel B7; CUDA C++ in ``csrc/mma_segment.cu``):
 ``repro_torch.core.integration.segment_sum`` -> ``core.dispatch`` op
@@ -329,6 +335,11 @@ SCAN_CEILING = CEILINGS["pallas"]
 # at every position (KERNEL_RTOL's reasoning: both take f32 sums in
 # another order; f32 input goes in as two TF32 words).
 SCAN_RTOL = KERNEL_RTOL
+# Phase 2c's repeat checks: the geometry with the most tiles at 2^28
+# (524288, so the longest look-back walks), and the matmuls (8192^2 f32,
+# ~1.1 TFLOP each) another stream runs beside one call.
+SCAN_LONGEST_WALK = (1, 32)
+SCAN_BUSY_MATMULS = 8
 # Operations per element B6 does, counted from csrc/mma_scan.cu: six
 # m16n8k8 TF32 MMAs per 16 x 16 slab in f32 (48 flops per element), two
 # m16n8k16 in 16 bits (32); on the CUDA cores two carry adds, and for
@@ -852,12 +863,44 @@ def check_scan_kernel(ms, gen) -> dict:
         x = count_input(N_MAIN, dt, COUNT_SHARE_MAIN, gen)
         counted += check_scan_counts(ms, x, CHAIN, BLOCK_ROWS)
         del x
+    repeated = check_scan_repeats(ms, gen)
     torch.cuda.synchronize()
     print(f"phase 2c: {len(rows)} B6-vs-plain checks passed, worst |diff| "
           f"{worst_abs:.3g} ({worst:.3g} of the running sum|x|); "
-          f"{counted} exact counts passed", flush=True)
+          f"{counted} exact counts passed; the same bits in {repeated} "
+          f"repeated calls", flush=True)
     return {"worst": worst, "worst_abs": worst_abs, "rows": rows,
-            "counted": counted}
+            "counted": counted, "repeated": repeated}
+
+
+def check_scan_repeats(ms, gen) -> int:
+    """B6's tile carries are a fold in tile order, whichever published
+    state each block's look-back meets: at 2^28 on normal input, a
+    second call, and a call made while another stream keeps the card
+    busy with matmuls, give the first call's bits, at the main geometry
+    and at SCAN_LONGEST_WALK.  Returns the number of repeated calls."""
+    x = torch.randn(N_MAIN, device="cuda", generator=gen)
+    a = torch.randn(8192, 8192, device="cuda", generator=gen)
+    busy = torch.cuda.Stream()
+    calls = 0
+    for chain, block_rows in ((CHAIN, BLOCK_ROWS), SCAN_LONGEST_WALK):
+        geo = dict(chain=chain, block_rows=block_rows)
+        first = ms.scan_cuda(x, **geo)
+        check(torch.equal(first, ms.scan_cuda(x, **geo)),
+              f"B6 R={chain} B={block_rows}: two calls differ")
+        busy.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(busy):
+            y = a
+            for _ in range(SCAN_BUSY_MATMULS):
+                y = y @ a
+        beside = ms.scan_cuda(x, **geo)
+        torch.cuda.synchronize()
+        check(torch.equal(first, beside),
+              f"B6 R={chain} B={block_rows}: a call beside a busy stream "
+              f"differs")
+        calls += 2
+        del first, beside, y
+    return calls
 
 
 def check_scan_counts(ms, x: torch.Tensor, chain: int,
@@ -2044,10 +2087,19 @@ def scan_bound(n: int, dt: torch.dtype) -> tuple:
     return ops_ms, "operations"
 
 
+def scan_two_read_ms(n: int, dt: torch.dtype) -> float:
+    """The byte time of a B6 that reads x twice and writes f32 once: a
+    form that re-reads its tiles cannot get under it, so a time below it
+    shows x read once."""
+    itemsize = torch.empty((), dtype=dt).element_size()
+    return n * (2 * itemsize + 4) / HBM_BYTES_PER_S * 1e3
+
+
 def time_scan_kernel(ms, gen, launches: int, worst_abs: float) -> tuple:
     """B6 at the main geometry and n = 2^28, f32 and bf16: held to
     SCAN_RTOL of the running sum|x| against scan_plain on normal input,
-    then timed beside its bound, scan_plain and torch.cumsum.  f32 goes
+    then timed beside its bound, the two-read byte time, scan_plain and
+    torch.cumsum, with its look-back's forward steps a tile.  f32 goes
     to the ``kernels`` line, both to the details."""
     base = torch.randn(N_MAIN, device="cuda", generator=gen)
     geo = dict(chain=CHAIN, block_rows=BLOCK_ROWS)
@@ -2069,16 +2121,23 @@ def time_scan_kernel(ms, gen, launches: int, worst_abs: float) -> tuple:
         lib_ms = median_ms(lambda: torch.cumsum(x, dim=0,
                                                 dtype=torch.float32))
         bound_ms, bound_by = scan_bound(N_MAIN, dt)
+        two_read = scan_two_read_ms(N_MAIN, dt)
+        steps = ms.look_back_steps(x, **geo)
         row = {"name": "b6_scan", "dtype": name(dt), "n": N_MAIN, **geo,
                "ms": min(k1, k2), "ms_runs": [k1, k2],
                "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
                "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "max_abs_err": diff,
+               "bound_by": bound_by, "two_read_ms": two_read,
+               "share_of_bound": bound_ms / min(k1, k2),
+               "look_back_steps": steps, "max_abs_err": diff,
                "diff_over_running_abs": ratio}
         details.append(row)
         print(f"  b6_scan {name(dt):8s} kernel {row['ms']:.4f} ms plain "
               f"{row['plain_ms']:.4f} ms torch.cumsum {lib_ms:.4f} ms bound "
-              f"{bound_ms:.4f} ms ({bound_by}) |diff| {diff:.3g} "
+              f"{bound_ms:.4f} ms ({bound_by}; "
+              f"{100 * row['share_of_bound']:.1f} % of it) two-read "
+              f"{two_read:.4f} ms (under it: {row['ms'] < two_read}) "
+              f"look-back {steps:.2f} steps a tile |diff| {diff:.3g} "
               f"({ratio:.3g} of the running sum|x|)", flush=True)
         if dt == torch.float32:
             entry = {"name": "b6_scan", "route": "cuda",
@@ -3265,6 +3324,8 @@ def main() -> int:
     ptxas = {lib: ptxas_report(path) for lib, path in libs.items()}
     print(f"phase 1: ptxas (registers min-max, spill bytes) {ptxas}",
           flush=True)
+    check(ptxas["mma_scan"]["spill_bytes"] == 0,
+          f"B6 spills: {ptxas['mma_scan']}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = check_kernels(mr, ops, gen)
@@ -3445,6 +3506,7 @@ def main() -> int:
                    "tier_timings": tier_timing_rows,
                    "scan_kernel_checks": scan_checks["rows"],
                    "scan_exact_counts": scan_checks["counted"],
+                   "scan_repeats": scan_checks["repeated"],
                    "scan_path": scan_rows, "scan_launches": scan_launches,
                    "scan_timings": scan_timing_rows,
                    "segment_kernel_checks": seg_checks["rows"],

@@ -104,11 +104,13 @@ _SEG_ATOMIC_US = 1.96e-4
 # model picked the kernel (fewer bytes) where torch.cumsum (one launch)
 # ran faster.  chip_smoke.py (phase 6b) times each engine at n = 2^12,
 # where the device's work is negligible, and prints the fit; these are
-# its values on one H100 80GB HBM3 (700 W).  They move with the load on
+# its values on one H100 80GB HBM3 (700 W); pallas (kernel B6: the
+# scratch's zeroing and one launch) was refitted after B6 became one
+# launch, the others are an earlier run's.  They move with the load on
 # the host the card shares: another run on the same kind of machine fit
 # vpu 39.0 and pallas 96.3.  Below the crossover only their order
 # decides the pick; their size sets where the crossover falls.
-_SCAN_HOST_US = {"vpu": 17.2, "pallas": 38.2, "mma_chained": 177.0,
+_SCAN_HOST_US = {"vpu": 17.2, "pallas": 41.0, "mma_chained": 177.0,
                  "mma_ec": 528.9}
 
 
@@ -806,7 +808,7 @@ _BYTES_PER_ELEMENT = {
 # runner first writes an f32 copy of a 16-bit input and rereads it
 # (``_f32(x)`` / ``split_f32_words``: 8 more bytes).  Scans: ``vpu``
 # reads x and writes the cumsum (1, 4, copy: 8 in f32, 14 in bf16),
-# kernel B6 reads x twice and writes once (2, 4: 12 / 8), ``mma_chained``
+# kernel B6 reads x once and writes once (1, 4: 8 / 6), ``mma_chained``
 # reads x in its first matmul, writes P and builds the output in two
 # elementwise adds over P (1, 20: 24 / 22); ``mma_ec`` see
 # ``_scan_ec_bytes`` (its split starts from an f32 copy).  Segment sums
@@ -817,7 +819,7 @@ _BYTES_PER_ELEMENT = {
 # one-hot and rereads both, 9 bytes per entry, S = _MEASURE_SEGMENTS
 # entries per element (1, 4 + 9 S).
 _F32_OUT_BYTES = {
-    ("scan", "vpu"): (1, 4.0, True), ("scan", "pallas"): (2, 4.0, False),
+    ("scan", "vpu"): (1, 4.0, True), ("scan", "pallas"): (1, 4.0, False),
     ("scan", "mma_chained"): (1, 20.0, False),
     ("segment", "pallas"): (1, 4.0, False),
     ("segment", "vpu"): (1, 18.0, True),

@@ -23,11 +23,10 @@
 // The fragment layout matters here.  B1-B3 feed their ones-MMAs 8
 // consecutive elements per lane in any slot order, which an all-ones B
 // forgives; against U_16 every element must sit in its true (row,
-// column) slot.  Each warp therefore stages its slab in shared memory
-// (a coalesced 16-byte load per lane, rows padded by 4 words so the
-// fragment reads hit 32 distinct banks) and reads the mma.sync A
-// fragment from there; each element of the D fragment is stored to its
-// own row and column.
+// column) slot.  Each slab therefore lands in shared memory (cp.async,
+// 16 bytes a lane; rows padded by 4 words so the fragment reads hit 32
+// distinct banks) and the mma.sync A fragment is read from there; each
+// element of the D fragment is stored to its own row and column.
 //
 //   bf16 / fp16: two mma.sync.m16n8k16, one for U's columns 0-7, one
 //     for columns 8-15.
@@ -42,37 +41,80 @@
 // The carries stay on the CUDA cores in f32 (on the TPU they are an
 // f32 MMA; a TF32 product of the carries would keep 11 bits): warp
 // shuffles and a fixed order, every add an _rn intrinsic, no
-// --use_fast_math.
+// --use_fast_math, no float atomics.
 //
-// No block waits for another, and nothing uses float atomics.  The
-// TPU's sequential-grid carry becomes three launches on one stream:
+// One pass over x.  The TPU carried the running total across its
+// sequential grid in VMEM; here one launch does it with a decoupled
+// look-back (Merrill and Garland, 2016) whose carries are the same bits
+// on every run:
 //
-//   1. b6 totals:  each block scans its tile's rows and slabs and
-//                  writes the exclusive carry of every slab and the
-//                  tile's total (the masked tail reads as 0; nothing
-//                  past n is read);
-//   2. b6 carries: one block takes the exclusive prefix of the G tile
-//                  totals in place: each thread sums a contiguous run
-//                  sequentially, the block scans the run totals (a
-//                  tree, so the carry's rounding grows with log G, not
-//                  G), and each thread writes its run's carries;
-//   3. b6 write:   each block reads its tile again, recomputes P and
-//                  the row carries exactly as launch 1 did, adds the
-//                  slab carries launch 1 wrote and its tile carry, and
-//                  writes f32 for the first n positions only.
+//   1. ticket:  thread 0 takes the block's tile index from an atomic
+//               counter, so every tile a block waits on belongs to a
+//               block that has already started (blocks are not
+//               scheduled in blockIdx order) and no wait can deadlock;
+//               beside it, it reads the hint (below);
+//   2. load:    the tile goes to shared memory once, by cp.async (the
+//               ragged tail reads as 0; nothing past n is read).  A
+//               tile too large for shared memory keeps its first
+//               `resident` links there and reads the rest twice
+//               through one staging slab a warp (chain x block_rows
+//               beyond 5 x 512 in f32; never on the sweep's plans);
+//   3. totals:  each warp forms P and the row scan of its slabs; warp
+//               0 scans the slab totals into slab carries and the tile
+//               total a_i;
+//   4. publish: lane 0 of warp 0 stores A_i, the complement of a_i's
+//               bits (0 means not yet published);
+//   5. look-back: warp 0 then finds (S, c), the fold of a_0 ..
+//               a_{i-1}.  It starts from the newest published inclusive
+//               state B_j at or before the hint (a header word that
+//               blocks raise to j + 1 with atomicMax once B_j is out;
+//               thread 0 read it beside the ticket), then steps
+//               forward: each step reads the words A of the next 256
+//               tiles at once and folds their totals, in tile order, up
+//               to the first not yet published; when the hint runs
+//               further ahead, it moves to the newest B it finds there.
+//               (A warp of its own that walked while the others loaded
+//               ran slower on the H100 wherever several blocks share
+//               an SM);
+//   6. fold:    the tile carry is a left fold in tile order, the
+//               reference's `carry = carry + total`, compensated:
+//               (S_i, c_i) = (S_{i-1} + a_i, c_{i-1} + e_i) with e_i the
+//               exact rounding error of that add (TwoSum), and tile
+//               i's carry fl(S_{i-1} + c_{i-1}).  Each B_j the walk
+//               starts from or moves to is that same fold, so the
+//               result is the same bits whichever it met.  A textbook
+//               look-back adds the totals back to front from whatever
+//               it found first, and its bits change with the timing.
+//               A plain f32 fold would grow its rounding with the
+//               number of tiles; the compensated one stays within a
+//               few roundings of the running sum;
+//   7. write:   lane 0 of warp 0 stores B_i, the complement of
+//               (c_i, S_i)'s bits in one 64-bit word, and raises the
+//               hint; every warp that scans forms P again from shared
+//               memory and writes P + carries in f32, for the first n
+//               positions only.
+//
+// The state words need no ordering between them: each is one 32- or
+// 64-bit word, stored and loaded whole with st / ld.relaxed.gpu (never
+// read torn; no L1 copy), whose value itself says whether it is there.
+// A published word would read 0 only for the NaN 0xffffffff, and the
+// stored values are canonical (a NaN is written as 0x7fffffff).  The
+// wrapper zeroes the scratch (header, A, B) on the stream before each
+// call; nothing is shared between calls or streams.  Header word 2
+// counts the walks' forward steps (look_back_steps in the wrapper reads
+// it); words 3-7 pad.
 //
 // Deterministic: every sum runs in a fixed order, so the kernel gives
-// the same bits on every run.
+// the same bits on every run, whatever the blocks' timing.
 //
 // Bound on the H100: bytes.  The function reads its input once and
-// writes f32 once (8 bytes per f32 element, 6 per bf16 / fp16 one)
-// and spends 32-48 tensor-core flops per element, far under the ~295
-// flops per byte at which the tensor cores would become the limit.
-// This design reads the input twice (launches 1 and 3), so it moves
-// 12 bytes per f32 element where the bound counts 8, and 8 per 16-bit
-// element where the bound counts 6: at best 67 % (f32) and 75 %
-// (bf16 / fp16) of the bytes bound.  A single-pass decoupled look-back
-// scan, one read and one write, is the later form.
+// writes f32 once (8 bytes per f32 element, 6 per bf16 / fp16 one),
+// and this design moves just that, plus 12 bytes of state a tile; it
+// spends 32-48 tensor-core flops per element (twice, as P is formed
+// again for the write), far under the ~295 flops per byte at which the
+// tensor cores would become the limit.  What it loses to the bound is
+// the wait for the carry: a block holds its tile in shared memory from
+// its load until its predecessors' totals have reached it through L2.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -84,12 +126,20 @@ namespace {
 
 constexpr int kM = 16;                   // slab: 16 x 16
 constexpr int kSlab = kM * kM;           // elements per warp per link
-constexpr int kPerLane = kSlab / 32;     // 8 elements per lane
-constexpr int kBatch = 4;                // links loaded before their MMAs
 constexpr int kMaxThreads = 1024;        // block_rows <= 512
-constexpr int kCarryThreads = 1024;      // launch 2
+constexpr int kSmallThreads = 256;       // block_rows <= 128
+// Blocks of the small form an SM must hold, by dtype: registers 48 in
+// f32, 64 in 16 bits (at 48 they spill).
+constexpr int kSmallBlocks[3] = {5, 4, 4};
+constexpr int kMaxChain = 1024;          // the slab carries fit in shared memory
+constexpr int kSmemLimit = 232448 - 64;  // 227 KB a block on the H100,
+                                         // less the static words
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// The scratch buffer: a header, then A (one word a tile, padded to an
+// even count), then B (two words a tile).
+constexpr int kHeaderWords = 8;          // ticket, hint, steps, padding
 
 // 32-bit words per slab row in shared memory: 16 f32 values or 16
 // 16-bit values packed in pairs, plus 4 words of padding.
@@ -100,57 +150,60 @@ struct Stage {
   static constexpr int kSlabWords = kM * kStride;
 };
 
-// One lane's 8 consecutive elements of one slab, as 32-bit words: 8
-// floats, or 8 16-bit values packed in pairs.
+// Selects triangular_mma's form by the input's dtype.
 template <int DT>
-struct Frag {
-  uint32_t v[DT == kF32 ? kPerLane : kPerLane / 2];
-};
+struct Tag {};
 
-__device__ __forceinline__ void load(Frag<kF32>& f, const void* x,
-                                     long long n, long long i) {
-  const float* p = static_cast<const float*>(x) + i;
-  if (i + kPerLane <= n) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
-    f.v[0] = a.x; f.v[1] = a.y; f.v[2] = a.z; f.v[3] = a.w;
-    f.v[4] = b.x; f.v[5] = b.y; f.v[6] = b.z; f.v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j)
-      f.v[j] = (i + j < n) ? __float_as_uint(p[j]) : 0u;
-  }
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
 }
 
+// One slab, flat index i on, into its place in shared memory: 16-byte
+// chunk q * 32 + l of the slab goes by lane l, so each cp.async of the
+// warp reads 512 contiguous bytes.  A chunk that ends past n is read
+// element by element, with 0 past n; one that starts past n is written
+// as 0 without reading.
 template <int DT>
-__device__ __forceinline__ void load(Frag<DT>& f, const void* x,
-                                     long long n, long long i) {
-  const uint16_t* p = static_cast<const uint16_t*>(x) + i;
-  if (i + kPerLane <= n) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    f.v[0] = a.x; f.v[1] = a.y; f.v[2] = a.z; f.v[3] = a.w;
-  } else {
+__device__ __forceinline__ void stage_async(uint32_t* slab, const void* x,
+                                            long long n, long long i,
+                                            int lane) {
+  constexpr int kPerChunk = DT == kF32 ? 4 : 8;      // elements a chunk
 #pragma unroll
-    for (int j = 0; j < kPerLane / 2; ++j) {
-      const uint32_t lo = (i + 2 * j < n) ? p[2 * j] : 0u;
-      const uint32_t hi = (i + 2 * j + 1 < n) ? p[2 * j + 1] : 0u;
-      f.v[j] = lo | (hi << 16);
+  for (int q = 0; q < kSlab / kPerChunk / 32; ++q) {
+    const int k = (q * 32 + lane) * kPerChunk;       // in the slab
+    const long long e = i + k;
+    uint32_t* dst = slab + (k / kM) * Stage<DT>::kStride +
+                    (k % kM) * Stage<DT>::kWords / kM;
+    if (e + kPerChunk <= n) {
+      if (DT == kF32)
+        cp_async16(dst, static_cast<const float*>(x) + e);
+      else
+        cp_async16(dst, static_cast<const uint16_t*>(x) + e);
+      continue;
     }
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (DT == kF32) {
+      const float* p = static_cast<const float*>(x) + e;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e + j < n) w[j] = __float_as_uint(p[j]);
+    } else {
+      const uint16_t* p = static_cast<const uint16_t*>(x) + e;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t lo = (e + 2 * j < n) ? p[2 * j] : 0u;
+        const uint32_t hi = (e + 2 * j + 1 < n) ? p[2 * j + 1] : 0u;
+        w[j] = lo | (hi << 16);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-// Lane l's 8 elements are row l / 2, columns 8 * (l % 2) .. + 7 of the
-// slab; they go to that row of the warp's stage.
-template <int DT>
-__device__ __forceinline__ void stage_store(uint32_t* stage,
-                                            const Frag<DT>& f, int lane) {
-  constexpr int kHalf = Stage<DT>::kWords / 2;
-  uint32_t* row = stage + (lane >> 1) * Stage<DT>::kStride +
-                  (lane & 1) * kHalf;
-#pragma unroll
-  for (int j = 0; j < kHalf; j += 4)
-    *reinterpret_cast<uint4*>(row + j) =
-        make_uint4(f.v[j], f.v[j + 1], f.v[j + 2], f.v[j + 3]);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
@@ -190,7 +243,7 @@ __device__ __forceinline__ void mma_16bit(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ void triangular_mma(const uint32_t* stage,
                                                int lane, float (&lo)[4],
                                                float (&hi)[4],
-                                               const Frag<kF32>*) {
+                                               Tag<kF32>) {
   constexpr int kS = Stage<kF32>::kStride;
   const int g = lane >> 2, t = lane & 3;
   // A fragment of m16n8k8 (16 x 8, row-major) for columns 8kb..8kb+7:
@@ -229,7 +282,7 @@ template <int DT>
 __device__ __forceinline__ void triangular_mma(const uint32_t* stage,
                                                int lane, float (&lo)[4],
                                                float (&hi)[4],
-                                               const Frag<DT>*) {
+                                               Tag<DT>) {
   constexpr int kS = Stage<DT>::kStride;
   const int g = lane >> 2, t = lane & 3;
   // A fragment of m16n8k16 (16 x 16, row-major, pairs packed low
@@ -280,105 +333,162 @@ __device__ __forceinline__ float warp_scan(float v, int lane) {
   return v;
 }
 
-// The inclusive scan of one warp's slab of link r: load, stage, MMA.
-// Called by every lane of the warp.
+// The inclusive scan of one staged slab: P, and the row scan of its row
+// totals.  Called by every lane of the warp.
 template <int DT>
-__device__ __forceinline__ void slab_prefix(uint32_t* stage, const Frag<DT>& f,
-                                            int lane, float (&lo)[4],
-                                            float (&hi)[4]) {
-  stage_store<DT>(stage, f, lane);
-  __syncwarp();
-  triangular_mma(stage, lane, lo, hi, static_cast<const Frag<DT>*>(nullptr));
-  __syncwarp();  // the stage is free for the next link
+__device__ __forceinline__ float slab_scan(const uint32_t* slab, int lane,
+                                           float (&lo)[4], float (&hi)[4]) {
+  triangular_mma(slab, lane, lo, hi, Tag<DT>{});
+  return row_scan(hi, lane);
 }
 
-struct TileGeometry {
-  long long base;   // flat index of the tile's first element
-  long long link;   // elements per link
-  int warp, lane, warps, slabs;
-};
-
-__device__ __forceinline__ TileGeometry geometry(int chain, int block_rows) {
-  TileGeometry geo;
-  geo.link = static_cast<long long>(block_rows) * kM;
-  geo.base = blockIdx.x * geo.link * chain;
-  geo.warp = threadIdx.x >> 5;
-  geo.lane = threadIdx.x & 31;
-  geo.warps = blockDim.x >> 5;
-  geo.slabs = chain * geo.warps;
-  return geo;
+// The compensated left fold: (s, c) takes in a, s rounding as a plain
+// f32 fold does and c gathering the exact error of each of its adds
+// (TwoSum, six f32 operations).
+__device__ __forceinline__ void fold(float& s, float& c, float a) {
+  const float t = __fadd_rn(s, a);
+  const float bp = __fsub_rn(t, s);
+  const float e = __fadd_rn(__fsub_rn(s, __fsub_rn(t, bp)), __fsub_rn(a, bp));
+  c = __fadd_rn(c, e);
+  s = t;
 }
 
-// Launch 1: slab[tile * slabs + r * warps + w] = the exclusive carry of
-// slab (r, w) inside its tile; tiles[tile] = the tile's total.
-template <int DT>
-__global__ void __launch_bounds__(kMaxThreads)
-    totals_kernel(const void* x, long long n, int chain, int block_rows,
-                  float* slab, float* tiles) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const TileGeometry geo = geometry(chain, block_rows);
-  uint32_t* stage = smem + geo.warp * Stage<DT>::kSlabWords;
-  float* carries = slab + static_cast<long long>(blockIdx.x) * geo.slabs;
-  const long long i0 = geo.base + geo.warp * kSlab + geo.lane * kPerLane;
-  for (int r0 = 0; r0 < chain; r0 += kBatch) {
-    Frag<DT> f[kBatch];
+// The carry a state hands the next tile.  Once a total is infinite or
+// NaN, the error term is NaN and s alone is the prefix.
+__device__ __forceinline__ float carry_of(float s, float c) {
+  return c != c ? s : __fadd_rn(s, c);
+}
+
+// A tile's state in the scratch buffer: its total a_i as one 32-bit
+// word A_i, and its inclusive state (S_i, c_i) as one 64-bit word B_i
+// (c_i's bits high), each the complement of the value's bits.  Each is
+// written and read whole (st / ld.relaxed.gpu), so it is never read
+// torn and says itself whether it is there: 0 until published.  A
+// published word could be 0 only for the NaN 0xffffffff, and the
+// published values are canonical (a NaN is written as 0x7fffffff).
+using Word = unsigned long long;
+
+__device__ __forceinline__ unsigned ld_u32(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ Word ld_word(const Word* p) {
+  Word v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_u32(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_word(Word* p, Word v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned canonical(float v) {
+  return v != v ? 0x7fffffffu : __float_as_uint(v);
+}
+
+__device__ __forceinline__ Word inclusive_word(float s, float c) {
+  return ~((static_cast<Word>(canonical(c)) << 32) | canonical(s));
+}
+
+constexpr int kWinA = 8;  // totals a forward step reads: kWinA x 32 tiles
+constexpr int kWinB = 4;  // states a backward step reads: kWinB x 32 tiles
+
+// Moves (pos, s, c) to the newest published inclusive state among
+// tiles (pos, hi], if there is one, walking back kWinB x 32 tiles a
+// step.  Called by every lane of the warp.
+__device__ __forceinline__ void find_state(const Word* B, long long hi,
+                                           int lane, long long& pos,
+                                           float& s, float& c) {
+  for (; hi > pos; hi -= 32 * kWinB) {
+    const long long lo = hi - 32 * kWinB + 1;
+    Word w[kWinB];
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b)
-      if (r0 + b < chain) load(f[b], x, n, i0 + (r0 + b) * geo.link);
+    for (int m = 0; m < kWinB; ++m) {
+      const long long t = lo + 32 * m + lane;
+      w[m] = t > pos && t <= hi ? ld_word(B + t) : 0ull;
+    }
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      if (r0 + b >= chain) break;
-      float lo[4], hi[4];
-      slab_prefix<DT>(stage, f[b], geo.lane, lo, hi);
-      const float total = __shfl_sync(0xffffffffu, row_scan(hi, geo.lane), 15);
-      if (geo.lane == 0) carries[(r0 + b) * geo.warps + geo.warp] = total;
+    for (int m = kWinB - 1; m >= 0; --m) {
+      const unsigned mask = __ballot_sync(0xffffffffu, w[m] != 0ull);
+      if (mask) {
+        const int q = 31 - __clz(mask);
+        const Word v = ~__shfl_sync(0xffffffffu, w[m], q);
+        s = __uint_as_float(static_cast<unsigned>(v));
+        c = __uint_as_float(static_cast<unsigned>(v >> 32));
+        pos = lo + 32 * m + q;
+        return;
+      }
     }
   }
-  __syncthreads();  // the slab totals are visible to warp 0
-  if (geo.warp != 0) return;
-  float running = 0.0f;
-  for (int s0 = 0; s0 < geo.slabs; s0 += 32) {
-    const int s = s0 + geo.lane;
-    const float v = s < geo.slabs ? carries[s] : 0.0f;
-    const float incl = warp_scan(v, geo.lane);
-    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (geo.lane == 0) excl = 0.0f;
-    if (s < geo.slabs) carries[s] = __fadd_rn(running, excl);
-    running = __fadd_rn(running, __shfl_sync(0xffffffffu, incl, 31));
-  }
-  if (geo.lane == 0) tiles[blockIdx.x] = running;
 }
 
-// Launch 2, one block: tiles[0..g) := its exclusive prefix, in place.
-__global__ void __launch_bounds__(kCarryThreads)
-    carries_kernel(float* tiles, long long g) {
-  __shared__ float warp_totals[kCarryThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long per = (g + blockDim.x - 1) / blockDim.x;
-  const long long lo = threadIdx.x * per;
-  const long long hi = lo + per < g ? lo + per : g;
-  float run = 0.0f;
-  for (long long j = lo; j < hi; ++j) run = __fadd_rn(run, tiles[j]);
-  const float incl = warp_scan(run, lane);
-  if (lane == 31) warp_totals[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const float v = lane < static_cast<int>(blockDim.x >> 5)
-                        ? warp_totals[lane] : 0.0f;
-    const float w_incl = warp_scan(v, lane);
-    float w_excl = __shfl_up_sync(0xffffffffu, w_incl, 1);
-    if (lane == 0) w_excl = 0.0f;
-    warp_totals[lane] = w_excl;
+// Steps 5 and 6, by every lane of one warp: (s, c), the fold of the
+// totals of tiles 0 .. tile - 1.  hint is the header word that blocks
+// raise to their tile + 1 once they publish B, first_hint its value when
+// the block took its ticket.  The walk starts from
+// the newest published inclusive state at or before the hint (or from
+// (0, 0) before tile 0), then goes forward: each step reads the totals
+// of the next kWinA x 32 tiles at once and folds them, in tile order,
+// up to the first not yet published; when the hint runs more than a
+// step ahead, it moves to the newest inclusive state it can find
+// there.  Every state it starts from or moves to is that same fold, so
+// the result does not depend on which it met.  Returns the number of
+// forward steps.
+__device__ __forceinline__ unsigned look_back(const unsigned* A,
+                                              const Word* B,
+                                              const unsigned* hint,
+                                              unsigned first_hint,
+                                              long long tile, int lane,
+                                              float* buf, float& s,
+                                              float& c) {
+  long long pos = -1;  // (s, c) folds the totals of tiles 0 .. pos
+  s = 0.0f;
+  c = 0.0f;
+  long long h = static_cast<long long>(first_hint) - 1;
+  find_state(B, h < tile - 1 ? h : tile - 1, lane, pos, s, c);
+  unsigned steps = 0;
+  while (pos < tile - 1) {
+    ++steps;
+    const long long b = pos + 1;
+    unsigned w[kWinA];
+#pragma unroll
+    for (int m = 0; m < kWinA; ++m) {
+      const long long t = b + 32 * m + lane;
+      w[m] = t < tile ? ld_u32(A + t) : 0u;
+    }
+    h = static_cast<long long>(__shfl_sync(0xffffffffu, lane == 0 ? ld_u32(hint) : 0u, 0)) - 1;
+    // The first tile from b on whose total is not in yet.
+    long long end = b + 32 * kWinA < tile ? b + 32 * kWinA : tile;
+#pragma unroll
+    for (int m = kWinA - 1; m >= 0; --m) {
+      const long long t = b + 32 * m + lane;
+      const unsigned gap = __ballot_sync(0xffffffffu, t < tile && w[m] == 0u);
+      if (gap) end = b + 32 * m + __ffs(gap) - 1;
+    }
+#pragma unroll
+    for (int m = 0; m < kWinA; ++m) buf[32 * m + lane] = __uint_as_float(~w[m]);
+    __syncwarp();
+#pragma unroll 4
+    for (int q = 0; q < static_cast<int>(end - b); ++q) fold(s, c, buf[q]);
+    __syncwarp();  // buf is free again
+    pos = end - 1;
+    if (pos == tile - 1) break;
+    if (h > pos + 32 * kWinA)
+      find_state(B, h < tile - 1 ? h : tile - 1, lane, pos, s, c);
+    else if (end == b)
+      __nanosleep(100);  // nothing new: wait a little
   }
-  __syncthreads();
-  float lane_excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) lane_excl = 0.0f;
-  float carry = __fadd_rn(warp_totals[warp], lane_excl);
-  for (long long j = lo; j < hi; ++j) {
-    const float total = tiles[j];
-    tiles[j] = carry;
-    carry = __fadd_rn(carry, total);
-  }
+  return steps;
 }
 
 // Stores a lane's two adjacent outputs at flat index i (even), only
@@ -395,87 +505,163 @@ __device__ __forceinline__ void store2(float* out, long long n, long long i,
   }
 }
 
-// Launch 3: the outputs.
+// Shared memory: `resident` links of slabs, one staging slab a warp when
+// resident < chain, then the chain * warps slab carries.
 template <int DT>
-__global__ void __launch_bounds__(kMaxThreads)
-    write_kernel(const void* x, long long n, int chain, int block_rows,
-                 const float* slab, const float* tiles, float* out,
-                 int exclusive) {
+long long smem_bytes(int chain, int warps, int resident) {
+  const long long regions = resident + (resident < chain ? 1 : 0);
+  const long long carries = (static_cast<long long>(chain) * warps + 3) / 4 * 4;
+  return (regions * warps * Stage<DT>::kSlabWords + carries) * 4;
+}
+
+// One block a tile; warp 0 walks back once the tile total is out.
+template <int DT, int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    scan_kernel(const void* x, long long n, int chain, int block_rows,
+                int resident, int exclusive, unsigned* scratch, float* out) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const TileGeometry geo = geometry(chain, block_rows);
-  uint32_t* stage = smem + geo.warp * Stage<DT>::kSlabWords;
-  const float* carries = slab + static_cast<long long>(blockIdx.x) * geo.slabs;
-  const float tile_carry = tiles[blockIdx.x];
-  const int g = geo.lane >> 2, t = geo.lane & 3;
-  if (exclusive && blockIdx.x == 0 && threadIdx.x == 0 && n > 0) out[0] = 0.0f;
-  const long long w0 = geo.base + geo.warp * kSlab;
-  for (int r0 = 0; r0 < chain; r0 += kBatch) {
-    Frag<DT> f[kBatch];
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b)
-      if (r0 + b < chain)
-        load(f[b], x, n, w0 + (r0 + b) * geo.link + geo.lane * kPerLane);
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const int r = r0 + b;
-      if (r >= chain) break;
-      float lo[4], hi[4];
-      slab_prefix<DT>(stage, f[b], geo.lane, lo, hi);
-      const float incl = row_scan(hi, geo.lane);
-      // Exclusive row carries of rows g and g + 8.
-      float c_g = __shfl_sync(0xffffffffu, incl, (g + 31) & 31);
-      const float c_g8 = __shfl_sync(0xffffffffu, incl, g + 7);
-      if (g == 0) c_g = 0.0f;
-      const float slab_carry = carries[r * geo.warps + geo.warp];
-      const float row_g = __fadd_rn(slab_carry, c_g);
-      const float row_g8 = __fadd_rn(slab_carry, c_g8);
-      const long long s = w0 + r * geo.link;
-      const long long i_g = s + g * kM + 2 * t, i_g8 = i_g + 8 * kM;
-      store2(out, n, i_g,
-             __fadd_rn(__fadd_rn(lo[0], row_g), tile_carry),
-             __fadd_rn(__fadd_rn(lo[1], row_g), tile_carry), exclusive);
-      store2(out, n, i_g + 8,
-             __fadd_rn(__fadd_rn(hi[0], row_g), tile_carry),
-             __fadd_rn(__fadd_rn(hi[1], row_g), tile_carry), exclusive);
-      store2(out, n, i_g8,
-             __fadd_rn(__fadd_rn(lo[2], row_g8), tile_carry),
-             __fadd_rn(__fadd_rn(lo[3], row_g8), tile_carry), exclusive);
-      store2(out, n, i_g8 + 8,
-             __fadd_rn(__fadd_rn(hi[2], row_g8), tile_carry),
-             __fadd_rn(__fadd_rn(hi[3], row_g8), tile_carry), exclusive);
+  __shared__ long long tile_s;
+  __shared__ unsigned hint_s;
+  __shared__ float carry_s;
+  __shared__ float buf[32 * kWinA];  // the look-back's totals
+  constexpr int kSW = Stage<DT>::kSlabWords;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int slabs = chain * warps;
+  const int regions = resident + (resident < chain ? 1 : 0);
+  float* carries = reinterpret_cast<float*>(smem + regions * warps * kSW);
+  uint32_t* staging = smem + (resident * warps + warp) * kSW;
+  unsigned* totals = scratch + kHeaderWords;
+  Word* states = reinterpret_cast<Word*>(totals + ((gridDim.x + 1) & ~1u));
+
+  if (threadIdx.x == 0) {                                      // 1. ticket
+    const unsigned hint = ld_u32(scratch + 1);  // beside the atomic
+    const unsigned ticket = atomicAdd(scratch, 1u);
+    hint_s = hint;
+    tile_s = ticket;
+  }
+  __syncthreads();
+  const long long tile = tile_s;
+  const long long link = static_cast<long long>(block_rows) * kM;
+  const long long w0 = tile * link * chain + warp * kSlab;
+  for (int r = 0; r < resident; ++r)                           // 2. load
+    stage_async<DT>(smem + (r * warps + warp) * kSW, x, n, w0 + r * link, lane);
+  cp_async_wait_all();
+  __syncwarp();
+  for (int r = 0; r < chain; ++r) {                            // 3. totals
+    const uint32_t* slab = smem + (r * warps + warp) * kSW;
+    if (r >= resident) {
+      stage_async<DT>(staging, x, n, w0 + r * link, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      slab = staging;
     }
+    float lo[4], hi[4];
+    const float total =
+        __shfl_sync(0xffffffffu, slab_scan<DT>(slab, lane, lo, hi), 15);
+    if (lane == 0) carries[r * warps + warp] = total;
+    __syncwarp();  // the staging slab is free again
+  }
+  __syncthreads();  // the slab totals are visible to warp 0
+  if (warp == 0) {
+    float running = 0.0f;
+    for (int s0 = 0; s0 < slabs; s0 += 32) {
+      const int sl = s0 + lane;
+      const float v = sl < slabs ? carries[sl] : 0.0f;
+      const float incl = warp_scan(v, lane);
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.0f;
+      if (sl < slabs) carries[sl] = __fadd_rn(running, excl);
+      running = __fadd_rn(running, __shfl_sync(0xffffffffu, incl, 31));
+    }
+    if (lane == 0) st_u32(totals + tile, ~canonical(running));  // 4.
+    float s = 0.0f, c = 0.0f;  // the fold of tiles 0 .. tile - 1
+    unsigned steps = 0;
+    if (tile > 0)                                              // 5, 6.
+      steps = look_back(totals, states, scratch + 1, hint_s, tile, lane,
+                        buf, s, c);
+    if (lane == 0) {                                           // 7.
+      carry_s = carry_of(s, c);
+      fold(s, c, running);
+      st_word(states + tile, inclusive_word(s, c));
+      atomicMax(scratch + 1, static_cast<unsigned>(tile + 1));
+      atomicAdd(scratch + 2, steps);
+    }
+  }
+  __syncthreads();
+
+  const float tile_carry = carry_s;
+  const int g = lane >> 2, t = lane & 3;
+  if (exclusive && tile == 0 && threadIdx.x == 0 && n > 0) out[0] = 0.0f;
+  for (int r = 0; r < chain; ++r) {
+    const uint32_t* slab = smem + (r * warps + warp) * kSW;
+    if (r >= resident) {
+      stage_async<DT>(staging, x, n, w0 + r * link, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      slab = staging;
+    }
+    float lo[4], hi[4];
+    const float incl = slab_scan<DT>(slab, lane, lo, hi);
+    __syncwarp();  // the staging slab is free again
+    // Exclusive row carries of rows g and g + 8.
+    float c_g = __shfl_sync(0xffffffffu, incl, (g + 31) & 31);
+    const float c_g8 = __shfl_sync(0xffffffffu, incl, g + 7);
+    if (g == 0) c_g = 0.0f;
+    const float slab_carry = carries[r * warps + warp];
+    const float row_g = __fadd_rn(slab_carry, c_g);
+    const float row_g8 = __fadd_rn(slab_carry, c_g8);
+    const long long sb = w0 + r * link;
+    const long long i_g = sb + g * kM + 2 * t, i_g8 = i_g + 8 * kM;
+    store2(out, n, i_g,
+           __fadd_rn(__fadd_rn(lo[0], row_g), tile_carry),
+           __fadd_rn(__fadd_rn(lo[1], row_g), tile_carry), exclusive);
+    store2(out, n, i_g + 8,
+           __fadd_rn(__fadd_rn(hi[0], row_g), tile_carry),
+           __fadd_rn(__fadd_rn(hi[1], row_g), tile_carry), exclusive);
+    store2(out, n, i_g8,
+           __fadd_rn(__fadd_rn(lo[2], row_g8), tile_carry),
+           __fadd_rn(__fadd_rn(lo[3], row_g8), tile_carry), exclusive);
+    store2(out, n, i_g8 + 8,
+           __fadd_rn(__fadd_rn(hi[2], row_g8), tile_carry),
+           __fadd_rn(__fadd_rn(hi[3], row_g8), tile_carry), exclusive);
   }
 }
 
 bool bad_geometry(int chain, int block_rows) {
-  return chain < 1 || block_rows < kM || block_rows % kM != 0 ||
-         2 * block_rows > kMaxThreads;
+  return chain < 1 || chain > kMaxChain || block_rows < kM ||
+         block_rows % kM != 0 || 2 * block_rows > kMaxThreads;
 }
 
-// Blocks for n elements at `tile` elements a block; 0 when the grid
+// Tiles for n elements at `tile` elements a tile; 0 when the grid
 // would exceed the launch limit.
-unsigned blocks_for(long long n, long long tile) {
+long long tiles_for(long long n, long long tile) {
   const long long g = n > 0 ? (n + tile - 1) / tile : 1;
-  return g <= 0x7fffffffLL ? static_cast<unsigned>(g) : 0u;
+  return g <= 0x7fffffffLL ? g : 0;
 }
 
 template <int DT>
 cudaError_t launch(const void* x, long long n, int chain, int block_rows,
-                   int exclusive, float* slab, float* tiles, float* out,
+                   int exclusive, unsigned* scratch, float* out,
                    cudaStream_t s) {
-  const dim3 grid(blocks_for(n, static_cast<long long>(chain) * block_rows * kM));
-  const dim3 block(2 * block_rows);
-  if (grid.x == 0) return cudaErrorInvalidValue;
-  const size_t smem = (block.x / 32) * Stage<DT>::kSlabWords * sizeof(uint32_t);
-  totals_kernel<DT><<<grid, block, smem, s>>>(x, n, chain, block_rows, slab,
-                                              tiles);
-  cudaError_t err = cudaGetLastError();
+  const long long tiles = tiles_for(n, static_cast<long long>(chain) * block_rows * kM);
+  if (tiles == 0) return cudaErrorInvalidValue;
+  const int threads = 2 * block_rows, warps = threads / 32;
+  int resident = chain;
+  while (resident >= 0 && smem_bytes<DT>(chain, warps, resident) > kSmemLimit)
+    --resident;
+  if (resident < 0) return cudaErrorInvalidValue;
+  const int bytes = static_cast<int>(smem_bytes<DT>(chain, warps, resident));
+  // Blocks of up to 128 rows run four or five to an SM; registers are
+  // held to what that many blocks leave.
+  auto kernel = threads <= kSmallThreads
+                    ? scan_kernel<DT, kSmallThreads, kSmallBlocks[DT]>
+                    : scan_kernel<DT, kMaxThreads, 1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  carries_kernel<<<1, kCarryThreads, 0, s>>>(tiles, grid.x);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  write_kernel<DT><<<grid, block, smem, s>>>(x, n, chain, block_rows, slab,
-                                             tiles, out, exclusive);
+  kernel<<<static_cast<unsigned>(tiles), threads, bytes, s>>>(
+      x, n, chain, block_rows, resident, exclusive, scratch, out);
   return cudaGetLastError();
 }
 
@@ -488,19 +674,20 @@ const char* mma_scan_error_string(int code) {
 }
 
 // B6: out[0..n) = the inclusive (exclusive != 0: exclusive) f32 prefix
-// sum of x.  slab holds chain * block_rows / 16 floats per tile of
-// chain * block_rows * 16 elements, tiles one float per tile.
+// sum of x, in one launch.  scratch holds 4 + 4 G zeroed 32-bit words
+// for G tiles of chain * block_rows * 16 elements (the ticket counter,
+// then each tile's state), 16-byte aligned.
 int b6_scan(const void* x, long long n, int dtype, int chain,
-            int block_rows, int exclusive, float* slab, float* tiles,
-            float* out, void* stream) {
+            int block_rows, int exclusive, unsigned* scratch, float* out,
+            void* stream) {
   if (bad_geometry(chain, block_rows)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch<kF32>(x, n, chain, block_rows, exclusive, slab, tiles, out, s);
+    return launch<kF32>(x, n, chain, block_rows, exclusive, scratch, out, s);
   if (dtype == kBF16)
-    return launch<kBF16>(x, n, chain, block_rows, exclusive, slab, tiles, out, s);
+    return launch<kBF16>(x, n, chain, block_rows, exclusive, scratch, out, s);
   if (dtype == kF16)
-    return launch<kF16>(x, n, chain, block_rows, exclusive, slab, tiles, out, s);
+    return launch<kF16>(x, n, chain, block_rows, exclusive, scratch, out, s);
   return cudaErrorInvalidValue;
 }
 

@@ -15,7 +15,10 @@ plain version and count must be equal.  The compensated B4 agrees with
 its plain version to 2^-21 of sum|x| and the double-double B5 to 2^-40
 (the bounds ``chip_smoke.py`` states and justifies).  The scan kernel
 B6 agrees with its plain version to 2^-16 of the running sum|x| at
-every position, and on counting inputs with the exact int64 prefix.
+every position, on counting inputs with the exact int64 prefix, and
+with itself bit for bit over repeated calls and beside a busy stream
+(its tile carries are a fold in tile order, whatever the look-back
+meets).
 The segmented-sum kernel B7 agrees with its plain version to 2^-20 of
 each segment's sum|x| (both sum the same exact bf16 words, in another
 order), on counting inputs with the exact count, and with itself bit
@@ -46,7 +49,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import integration, precision
+from repro_torch.core import autotune, integration, precision
 from repro_torch.kernels import mma_compensated as mc
 from repro_torch.kernels import ops
 
@@ -342,9 +345,56 @@ def test_scan_wrapper_counts_launches_and_checks_geometry(cuda):
         ms.scan_cuda(x.double(), chain=1, block_rows=32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ms.scan_cuda(x.cpu(), chain=1, block_rows=32)
+    with pytest.raises(ValueError, match="chain"):
+        ms.scan_cuda(x, chain=ms.MAX_CHAIN + 1, block_rows=32)
     # A view off the 16-byte grid is copied before the launch.
     assert float(ops.mma_scan(x[1:])[-1]) == float((1 << 20) - 1)
     assert ms.LAUNCHES == {"b6_scan": 2}
+    # Every plan of the sweep, and tiles too large for shared memory
+    # (links read twice through a staging slab): one launch each, within
+    # RTOL of the plain version, and exact on a ramp of small integers.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn(3 * (1 << 16) + 13, device="cuda", generator=gen)
+    ramp = (torch.arange(y.numel(), device="cuda") % 3).float()
+    running = torch.cumsum(y.double().abs(), dim=0)
+    plans = [(c, b) for c in autotune.CHAINS for b in autotune.BLOCK_ROWS]
+    for dtype in (torch.float32, torch.bfloat16):
+        for chain, block_rows in plans + [(8, 512), (64, 512), (300, 32)]:
+            before = ms.LAUNCHES["b6_scan"]
+            got = ms.scan_cuda(y.to(dtype), chain=chain,
+                               block_rows=block_rows)
+            assert ms.LAUNCHES["b6_scan"] == before + 1
+            want = ms.scan_plain(y.to(dtype), chain=chain,
+                                 block_rows=block_rows)
+            diff = (got.double() - want.double()).abs()
+            assert bool(torch.all(diff <= RTOL * running)), \
+                (dtype, chain, block_rows, float(diff.max()))
+            exact = torch.cumsum(ramp.long(), dim=0)
+            got = ms.scan_cuda(ramp.to(dtype), chain=chain,
+                               block_rows=block_rows)
+            assert torch.equal(got.long(), exact), (dtype, chain, block_rows)
+
+
+@pytest.mark.parametrize("chain,block_rows", [(4, 128), (1, 32)])
+def test_scan_kernel_repeats_its_bits(cuda, chain, block_rows):
+    """The tile carries are a fold in tile order, whichever published
+    state each block's look-back stops at: two calls, and a call while
+    another stream keeps the card busy with a large matmul, give the
+    same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(chain * block_rows)
+    x = torch.randn(1 << 24, device="cuda", generator=gen)
+    geo = dict(chain=chain, block_rows=block_rows)
+    first = ms.scan_cuda(x, **geo)
+    assert torch.equal(first, ms.scan_cuda(x, **geo))
+    a = torch.randn(8192, 8192, device="cuda", generator=gen)
+    busy = torch.cuda.Stream()
+    busy.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(busy):
+        for _ in range(4):
+            a = a @ a.T / 8192.0
+    beside = ms.scan_cuda(x, **geo)
+    torch.cuda.synchronize()
+    assert torch.equal(first, beside)
 
 
 def test_scan_entry_points_run_on_the_card(cuda):

@@ -222,6 +222,58 @@ def test_b6_plain_counts_exactly():
     np.testing.assert_array_equal(_np(got), np.cumsum(x, dtype=np.float64))
 
 
+def _fold_step(s, c, a):
+    """One step of B6's compensated fold in f32: s takes in a, c the
+    exact error of that add (TwoSum)."""
+    f = np.float32
+    t = f(s + a)
+    bp = f(t - s)
+    return t, f(c + f(f(s - f(t - bp)) + f(a - bp)))
+
+
+def _carry(s, c):
+    return s if np.isnan(c) else np.float32(s + c)
+
+
+def test_b6_carries_fold_forward_from_any_look_back_start():
+    """B6's tile carries are a compensated left fold over the tile
+    totals in tile order.  A block's look-back folds the totals after
+    the first published state S_j it meets forward from S_j, so every
+    start j < i must give the carry of tile i bit for bit; those carries
+    are ``scan_plain``'s, and they stay within a few roundings of the
+    exact prefix of the totals (a plain f32 fold's error grows with the
+    number of tiles)."""
+    rng = np.random.default_rng(12)
+    n = 400 * 16 * M + 5
+    x = (rng.normal(size=n) * 2.0 ** rng.integers(-6, 7, size=n)).astype(
+        np.float32) + np.float32(3.0)
+    xt = torch.from_numpy(x)
+    p, carry, totals = tms.scan_parts(xt, chain=1, block_rows=16)
+    a = totals.numpy()
+    states = [(np.float32(0.0), np.float32(0.0))]
+    for v in a:
+        states.append(_fold_step(*states[-1], v))
+    want = np.array([_carry(*st) for st in states[:-1]], np.float32)
+    got = tms.fold_carries(totals).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    for i in rng.choice(np.arange(1, len(a)), size=40, replace=False):
+        for j in rng.choice(np.arange(-1, i), size=min(i + 1, 12),
+                            replace=False):
+            s, c = states[j + 1]
+            for v in a[j + 1:i]:
+                s, c = _fold_step(s, c, v)
+            assert np.float32(_carry(s, c)).view(np.uint32) \
+                == want[i].view(np.uint32), (i, j)
+    out = tms.assemble(p, carry, torch.from_numpy(want), n)
+    plain = tms.scan_plain(xt, chain=1, block_rows=16)
+    assert torch.equal(out, plain)
+    exact = np.concatenate([[0.0], np.cumsum(a.astype(np.float64))[:-1]])
+    scale = np.cumsum(np.abs(a.astype(np.float64)))
+    assert np.all(np.abs(want - exact) <= 2.0 ** -24 * np.abs(exact)
+                  + 1e-9 * scale)
+
+
 # ----------------------------------------------------------- dispatch
 
 
@@ -316,9 +368,11 @@ def test_hooks_match_the_reference(method, fresh_registries):
 
 
 def test_scan_costs_rank_like_their_bytes():
-    """The scan family's model terms: the kernel moves 12 bytes per f32
-    element, vpu 8 and mma_chained 24, so at 2^28 vpu scores cheapest;
-    the reduce family's costs do not see the scan terms."""
+    """The scan family's model terms: the kernel and vpu move 8 bytes
+    per f32 element and mma_chained 24; beside its bytes the kernel
+    pays its triangular MMAs and its blocks, so at 2^28 vpu still scores
+    cheapest in f32; the reduce family's costs do not see the scan
+    terms."""
     n = 1 << 28
     vpu = tat.model_cost(tat.ReductionPlan(method="vpu"), n, "float32",
                          op="scan")
@@ -341,16 +395,18 @@ def test_scan_cost_counts_the_f32_output_and_copy_of_a_16_bit_input():
     """The model prices a 16-bit scan from its runners: the input read
     scales with its itemsize, the f32 output does not, and vpu's f32
     copy of the input is written and reread.  So ``auto`` resolves to
-    the kernel B6 for a bf16 scan at 2^28 (8 bytes an element against
-    vpu's 14; on one H100 0.85 ms against torch.cumsum's 1.87) and still
-    to vpu in f32 (8 against 12; 1.05 against 1.21 ms)."""
+    the kernel B6 for a bf16 scan at 2^28 (6 bytes an element against
+    vpu's 14; on one H100, chip_smoke.py phase 6b, 0.79 ms against
+    torch.cumsum's 1.85) and still to vpu in f32, where both move 8
+    bytes an element and B6 pays its MMAs and blocks besides (1.08
+    against 1.04 ms there)."""
     n = 1 << 28
     bytes_of = {m: tat._bytes_per_element(tat.ReductionPlan(method=m),
                                           "scan", "scan", 2)
                 for m in ("vpu", "pallas", "mma_chained")}
-    assert bytes_of == {"vpu": 14.0, "pallas": 8.0, "mma_chained": 22.0}
+    assert bytes_of == {"vpu": 14.0, "pallas": 6.0, "mma_chained": 22.0}
     assert tat._bytes_per_element(tat.ReductionPlan(method="pallas"),
-                                  "scan", "scan", 4) == 12.0
+                                  "scan", "scan", 4) == 8.0
     for op in SCAN_OPS:
         for dtype, want in (("bfloat16", "pallas"), ("float32", "vpu")):
             assert tat.autotune(n, dtype, op=op,
