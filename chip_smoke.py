@@ -14,7 +14,10 @@ raises (and so exits non-zero) when it fails:
      n = 2^20 and 2^20 + 13, in f32, bf16 and fp16, over a few
      (chain, block_rows); and on counting inputs (0 and 1) that end in a
      ragged tail (n = 13, one tile + 13, 2^20 + 13), where kernel, plain
-     version and the exact count must agree bit for bit;
+     version and the exact count must agree bit for bit; B1 and B3 also
+     at 2^24 - 3 (R1 B16) and 2^26 - 3 (R1 B32), where every block of
+     their walk takes 8 tiles, on normal and on counting inputs, and
+     the CUDA library's walk must be ``walk``'s;
   3. the main path at n = 2^28 (uniform [0, 1] and normal; 1 GiB in f32,
      512 MiB in bf16 / fp16) through every engine and ``auto``, held to
      the reference's error ceilings against an f64 oracle on the cast
@@ -24,7 +27,9 @@ raises (and so exits non-zero) when it fails:
   5. each kernel at the main path's shapes: held against its plain
      version (rounded data) and the exact count (counting data), then
      its median time (CUDA events) beside its bound, its plain version's
-     time and ``torch.sum``'s.
+     time and ``torch.sum``'s, in every dtype with its share of the
+     bound and its ratio to ``torch.sum``.  Phase 1 holds B1-B3's build
+     to 0 spill bytes.
 
 The compensated and double-double tier (kernels B4, B5; CUDA C++ in
 ``csrc/mma_compensated.cu``) adds its own phases beside those:
@@ -48,10 +53,11 @@ The compensated and double-double tier (kernels B4, B5; CUDA C++ in
   5b. B4 (2 and 3 words) and B5 (f64 and f32 input) timed at 2^28 beside
       their bound, their plain version and ``torch.sum(x, float64)``;
   6.  the cost model against the card: ``pallas`` over its R x B grid,
-      ``vpu`` and ``mma`` timed at 2^20, 2^24 and 2^28 (f32), the
-      model's two estimated constants fitted to those times, and the
+      ``vpu`` and ``mma`` timed at 2^20, 2^24 and 2^28 in f32, bf16 and
+      fp16, the model's two estimated constants (``_STEP_US`` and the
+      walk's ``_WALK_BLOCK_US``) fitted to each dtype's times, and the
       model's pick (with the constants as committed) held to 1.25x the
-      measured best at each size.
+      measured best at each size and dtype.
 
 The prefix-scan path (kernel B6; CUDA C++ in ``csrc/mma_scan.cu``):
 ``repro_torch.core.integration.cumsum`` / ``masked_cumsum`` ->
@@ -266,6 +272,15 @@ KERNEL_RTOL = 2.0 ** -16
 TAIL = 13
 COUNT_SHARE_CHECK = 0.25        # n <= 2^20 + 13: counts below 2^19
 COUNT_SHARE_MAIN = 1.0 / 32     # n = 2^28: counts near 2^23
+
+# B1 and B3 walk their tiles on kernels.mma_reduce.walk's grid, each
+# block ceil(8 / chain) tiles: sizes (chain, block_rows, n) at which
+# every block of B1 and of B3 (at chain 1, the same block_rows) walks
+# WALK_MIN_TILES tiles, with a ragged last tile (65536 tiles of 256
+# elements, 131072 of 512); counting inputs with a 1/32 share of ones
+# keep their counts near 2^19 and 2^21.
+WALK_CASES = ((1, 16, (1 << 24) - 3), (1, 32, (1 << 26) - 3))
+WALK_MIN_TILES = 8
 
 # The pallas engine squares in the input dtype.  A square rounded to
 # nearest in a dtype of unit roundoff u differs from the exact square by
@@ -639,11 +654,68 @@ def check_kernels(mr, ops, gen) -> dict:
             for n in (TAIL, tile + TAIL, N_CHECK[1]):
                 x = count_input(n, dt, COUNT_SHARE_CHECK, gen)
                 counted += check_counts(mr, ops, x, chain, block_rows)
+    walked = check_long_walks(mr, ops, gen, rows, worst)
     torch.cuda.synchronize()
     print(f"phase 2: {len(rows)} kernel-vs-plain checks passed, "
-          f"worst |diff| {worst}; {counted} exact counts passed",
-          flush=True)
-    return {"worst": worst, "rows": rows, "counted": counted}
+          f"worst |diff| {worst}; {counted} exact counts passed; "
+          f"{walked} checks where every block walks >= {WALK_MIN_TILES} "
+          f"tiles", flush=True)
+    return {"worst": worst, "rows": rows, "counted": counted + walked}
+
+
+def check_long_walks(mr, ops, gen, rows: list, worst: dict) -> int:
+    """B1 (plain and squared) and B3 at sizes where every block of the
+    walk takes WALK_MIN_TILES tiles or more and the tail is ragged:
+    against the plain version (KERNEL_RTOL) on normal input, and against
+    the exact count on counting input.  The CUDA library's walk must be
+    ``walk``'s.  Returns the number of checks."""
+    done = 0
+    for chain, block_rows, n in WALK_CASES:
+        for kname, ch in (("b1_single_pass", chain), ("b3_split", 1)):
+            grid, tiles = mr.walk(n, ch, block_rows)
+            check(tiles // grid >= WALK_MIN_TILES and n % mr.M,
+                  f"{kname} n={n} R={ch} B={block_rows}: {tiles} tiles on "
+                  f"{grid} blocks")
+            check(mr.cuda_walk(n, ch, block_rows) == grid,
+                  f"{kname} n={n} R={ch} B={block_rows}: the CUDA walk is "
+                  f"not walk's")
+        base = torch.randn(n, device="cuda", generator=gen)
+        for dt in DTYPES:
+            x = base.to(dt)
+            x2d = ops._to_tiles(x, chain * block_rows, mr.M)
+            for square in (False, True):
+                got = mr.single_pass_cuda(x, chain=chain,
+                                          block_rows=block_rows,
+                                          square=square)
+                want = mr.single_pass_plain(x2d, chain=chain,
+                                            block_rows=block_rows,
+                                            square=square)
+                xs = (x * x) if square else x
+                scale = float(torch.sum(xs.abs(), dtype=torch.float64))
+                err = abs(float(got) - float(want))
+                rows.append(("b1_single_pass", n, name(dt), chain,
+                             block_rows, square, err, scale))
+                worst["b1_single_pass"] = max(worst["b1_single_pass"], err)
+                check(err <= KERNEL_RTOL * scale,
+                      f"B1 walk n={n} {dt} R={chain} B={block_rows} "
+                      f"square={square}: {float(got)} vs {float(want)}")
+            mma_rows = mr.mma_rows_for(block_rows, 0.5)
+            got = mr.split_cuda(x, block_rows=block_rows, mma_rows=mma_rows)
+            want = mr.split_plain(ops._to_tiles(x, block_rows, mr.M),
+                                  block_rows=block_rows, mma_rows=mma_rows)
+            scale = float(torch.sum(x.abs(), dtype=torch.float64))
+            err = abs(float(got) - float(want))
+            rows.append(("b3_split", n, name(dt), 1, block_rows, mma_rows,
+                         err, scale))
+            worst["b3_split"] = max(worst["b3_split"], err)
+            check(err <= KERNEL_RTOL * scale,
+                  f"B3 walk n={n} {dt} B={block_rows} mma_rows={mma_rows}: "
+                  f"{float(got)} vs {float(want)}")
+            done += 3
+            x = count_input(n, dt, COUNT_SHARE_MAIN, gen)
+            done += check_counts(mr, ops, x, chain, block_rows)
+        del base, x, x2d
+    return done
 
 
 def count_input(n: int, dt: torch.dtype, share: float,
@@ -1967,12 +2039,18 @@ def time_kernels(mr, ops, gen, launches: dict, worst: dict) -> tuple:
                    "ms": min(k1, k2), "ms_runs": [k1, k2],
                    "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
                    "library_ms": lib_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "max_abs_err": diff}
+                   "bound_by": bound_by, "max_abs_err": diff,
+                   "share_of_bound": bound_ms / min(k1, k2),
+                   "over_library": (min(k1, k2) / lib_ms
+                                    if lib_ms is not None else None)}
             details.append(row)
+            over = (f"{row['over_library']:.3f}x the library"
+                    if lib_ms is not None else "no library call")
             print(f"  {kname:22s} {name(dt):8s} kernel {row['ms']:.4f} ms "
-                  f"plain {row['plain_ms']:.4f} ms library {lib_ms} ms "
-                  f"bound {bound_ms:.4f} ms ({bound_by}) |diff| {diff:.3g}",
-                  flush=True)
+                  f"({100 * row['share_of_bound']:.1f} % of the bound, "
+                  f"{over}) plain {row['plain_ms']:.4f} ms library "
+                  f"{lib_ms} ms bound {bound_ms:.4f} ms ({bound_by}) "
+                  f"|diff| {diff:.3g}", flush=True)
             if dt == torch.float32 and kname in launches:
                 entries.append({
                     "name": kname, "route": "cuda", "source": src,
@@ -3051,24 +3129,25 @@ def fit_attn_host(dispatch, autotune, gen) -> dict:
 # ---------------------------------------- phase 6: the cost model's fit
 
 
-def sweep_times(autotune, dispatch, gen) -> dict:
+def sweep_times(autotune, dispatch, gen, dt: torch.dtype) -> dict:
     """{n: {plan: µs}}: every pallas (R, B) candidate, vpu and mma on one
-    f32 card input per size, timed as the autotuner times a plan (CUDA
-    events around SWEEP_ITERS back-to-back calls through the executor),
-    the median of SWEEP_ROUNDS rounds."""
+    card input of dtype ``dt`` per size, timed as the autotuner times a
+    plan (CUDA events around SWEEP_ITERS back-to-back calls through the
+    executor), the median of SWEEP_ROUNDS rounds."""
     out = {}
     for n in SWEEP_SIZES:
-        x = torch.randn(n, device="cuda", generator=gen)
-        plans = [c for c in autotune.candidate_plans(n, torch.float32)
+        x = torch.randn(n, device="cuda", generator=gen).to(dt)
+        plans = [c for c in autotune.candidate_plans(n, dt)
                  if c.method in ("pallas", "vpu", "mma")]
         out[n] = {p: plan_us(dispatch, x, p) for p in plans}
         pallas = sorted((us, p.chain, p.block_rows)
                         for p, us in out[n].items() if p.method == "pallas")
         other = {p.method: us for p, us in out[n].items()
                  if p.method != "pallas"}
-        print(f"  n=2^{n.bit_length() - 1}: vpu {other['vpu']:.1f} us, "
-              f"mma {other['mma']:.1f} us, pallas (R, B) fastest "
-              f"{pallas[:3]}, slowest {pallas[-1]}", flush=True)
+        print(f"  {name(dt)} n=2^{n.bit_length() - 1}: vpu "
+              f"{other['vpu']:.1f} us, mma {other['mma']:.1f} us, pallas "
+              f"(R, B) fastest {pallas[:3]}, slowest {pallas[-1]}",
+              flush=True)
         del x
     return out
 
@@ -3090,31 +3169,32 @@ def plan_us(dispatch, x: torch.Tensor, plan) -> float:
     return statistics.median(runs)
 
 
-def model_terms(autotune, plan, n: int) -> tuple:
-    """model_cost = base + _STEP_US * a + _GRID_STEP_OVERHEAD * b: the
-    model is linear in its two estimated constants, so (base, a, b) come
-    from three evaluations with the constants set to 0 and 1."""
-    saved = autotune._STEP_US, autotune._GRID_STEP_OVERHEAD
+def model_terms(autotune, plan, n: int, dt: torch.dtype) -> tuple:
+    """model_cost = base + _STEP_US * a + _WALK_BLOCK_US * b: the model
+    of the reduce engines phase 6 times is linear in its two estimated
+    constants, so (base, a, b) come from three evaluations with the
+    constants set to 0 and 1."""
+    saved = autotune._STEP_US, autotune._WALK_BLOCK_US
     try:
         vals = []
-        for step, grid in ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0)):
-            autotune._STEP_US, autotune._GRID_STEP_OVERHEAD = step, grid
-            vals.append(autotune.model_cost(plan, n, torch.float32))
+        for step, walk in ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0)):
+            autotune._STEP_US, autotune._WALK_BLOCK_US = step, walk
+            vals.append(autotune.model_cost(plan, n, dt))
     finally:
-        autotune._STEP_US, autotune._GRID_STEP_OVERHEAD = saved
+        autotune._STEP_US, autotune._WALK_BLOCK_US = saved
     return vals[0], vals[1] - vals[0], vals[2] - vals[0]
 
 
-def fit_constants(autotune, times: dict) -> dict:
+def fit_constants(autotune, times: dict, dt: torch.dtype) -> dict:
     """Non-negative least squares, in relative terms, of the measured
-    times on base + step * a + grid * b + call (``call`` is the host's
+    times on base + step * a + walk * b + call (``call`` is the host's
     cost per call, the same for every engine, so it moves no pick and
     stays out of the model)."""
     import numpy as np
     rows, target = [], []
     for n, by_plan in times.items():
         for plan, us in by_plan.items():
-            base, a, b = model_terms(autotune, plan, n)
+            base, a, b = model_terms(autotune, plan, n, dt)
             rows.append([a / us, b / us, 1.0 / us])
             target.append(1.0 - base / us)
     a_mat, y = np.asarray(rows), np.asarray(target)
@@ -3131,42 +3211,69 @@ def fit_constants(autotune, times: dict) -> dict:
         if best is None or res < best[0]:
             best = (res, coef)
     res, coef = best
-    return {"step_us": float(coef[0]), "grid_step_overhead_us":
-            float(coef[1]), "call_us": float(coef[2]),
+    return {"step_us": float(coef[0]), "walk_block_us": float(coef[1]),
+            "call_us": float(coef[2]),
             "rms_rel_residual": math.sqrt(res / len(y))}
 
 
-def check_model_picks(autotune, dispatch, times: dict, gen) -> list:
+def model_picks(autotune, dispatch, times: dict, gen,
+                dt: torch.dtype) -> list:
     """At each size the model's pick, with the constants as committed,
-    must run within PICK_SLACK of the measured best."""
+    beside the measured best."""
     rows = []
     for n, by_plan in times.items():
         best_plan = min(by_plan, key=by_plan.get)
-        pick = autotune.autotune(n, torch.float32, backend="cuda")
+        pick = autotune.autotune(n, dt, backend="cuda")
         key = next((p for p in by_plan if (p.method, p.chain, p.block_rows)
                     == (pick.method, pick.chain, pick.block_rows)), None)
         if key is not None:
             pick_us = by_plan[key]
         else:
-            x = torch.randn(n, device="cuda", generator=gen)
+            x = torch.randn(n, device="cuda", generator=gen).to(dt)
             pick_us = plan_us(dispatch, x, pick)
             del x
         ratio = pick_us / by_plan[best_plan]
-        rows.append({"n": n, "model_pick": [pick.method, pick.chain,
-                                            pick.block_rows],
+        rows.append({"dtype": name(dt), "n": n,
+                     "model_pick": [pick.method, pick.chain,
+                                    pick.block_rows],
                      "model_pick_us": pick_us,
                      "best": [best_plan.method, best_plan.chain,
                               best_plan.block_rows],
                      "best_us": by_plan[best_plan], "ratio": ratio})
-        print(f"  n=2^{n.bit_length() - 1}: model picks {pick.method} "
-              f"(R={pick.chain}, B={pick.block_rows}) {pick_us:.1f} us; "
-              f"measured best {best_plan.method} (R={best_plan.chain}, "
-              f"B={best_plan.block_rows}) {by_plan[best_plan]:.1f} us; "
-              f"ratio {ratio:.3f}", flush=True)
-        check(ratio <= PICK_SLACK,
-              f"n={n}: the model's pick runs {ratio:.2f}x the measured "
-              f"best (> {PICK_SLACK})")
+        print(f"  {name(dt)} n=2^{n.bit_length() - 1}: model picks "
+              f"{pick.method} (R={pick.chain}, B={pick.block_rows}) "
+              f"{pick_us:.1f} us; measured best {best_plan.method} "
+              f"(R={best_plan.chain}, B={best_plan.block_rows}) "
+              f"{by_plan[best_plan]:.1f} us; ratio {ratio:.3f}",
+              flush=True)
     return rows
+
+
+def check_reduce_picks(autotune, dispatch, gen) -> dict:
+    """Phase 6 in every dtype the kernels take: the sweep, the fit of the
+    model's constants, and the model's pick, which must run within
+    PICK_SLACK of the measured best at every size and dtype."""
+    out = {"sweep_us": {}, "fit": {}, "model_picks": []}
+    for dt in DTYPES:
+        times = sweep_times(autotune, dispatch, gen, dt)
+        fit = fit_constants(autotune, times, dt)
+        print(f"phase 6: {name(dt)} fitted _STEP_US {fit['step_us']:.6g} "
+              f"us, _WALK_BLOCK_US {fit['walk_block_us']:.6g} us, host "
+              f"per call {fit['call_us']:.6g} us (rms relative residual "
+              f"{fit['rms_rel_residual']:.3g}); committed _STEP_US "
+              f"{autotune._STEP_US}, _WALK_BLOCK_US "
+              f"{autotune._WALK_BLOCK_US}", flush=True)
+        out["model_picks"] += model_picks(autotune, dispatch, times, gen,
+                                          dt)
+        out["fit"][name(dt)] = fit
+        out["sweep_us"][name(dt)] = {
+            str(n): [[p.method, p.chain, p.block_rows, us]
+                     for p, us in by.items()] for n, by in times.items()}
+    for row in out["model_picks"]:
+        check(row["ratio"] <= PICK_SLACK,
+              f"{row['dtype']} n={row['n']}: the model's pick runs "
+              f"{row['ratio']:.2f}x the measured best (> {PICK_SLACK})")
+    return out
 
 
 # ------------------------------------ phase 6b: the scan family's pick
@@ -3324,8 +3431,9 @@ def main() -> int:
     ptxas = {lib: ptxas_report(path) for lib, path in libs.items()}
     print(f"phase 1: ptxas (registers min-max, spill bytes) {ptxas}",
           flush=True)
-    check(ptxas["mma_scan"]["spill_bytes"] == 0,
-          f"B6 spills: {ptxas['mma_scan']}")
+    for lib, what in (("mma_scan", "B6"), ("mma_reduce", "B1-B3")):
+        check(ptxas[lib]["spill_bytes"] == 0,
+              f"{what} spill: {ptxas[lib]}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = check_kernels(mr, ops, gen)
@@ -3471,18 +3579,10 @@ def main() -> int:
           f"the wgmma form spills: {wg_ptxas}")
     attn_host = fit_attn_host(dispatch, autotune, gen)
 
-    print("phase 6: the cost model against measured times (f32)",
-          flush=True)
+    print("phase 6: the cost model against measured times (f32, bf16, "
+          "fp16)", flush=True)
     t0 = time.perf_counter()
-    times = sweep_times(autotune, dispatch, gen)
-    fit = fit_constants(autotune, times)
-    print(f"phase 6: fitted _STEP_US {fit['step_us']:.6g} us, "
-          f"_GRID_STEP_OVERHEAD {fit['grid_step_overhead_us']:.6g} us, "
-          f"host per call {fit['call_us']:.6g} us (rms relative residual "
-          f"{fit['rms_rel_residual']:.3g}); committed _STEP_US "
-          f"{autotune._STEP_US}, _GRID_STEP_OVERHEAD "
-          f"{autotune._GRID_STEP_OVERHEAD}", flush=True)
-    picks = check_model_picks(autotune, dispatch, times, gen)
+    reduce_picks = check_reduce_picks(autotune, dispatch, gen)
     sweep_s = time.perf_counter() - t0
     print("phase 6b: the cost model's scan pick against measured times",
           flush=True)
@@ -3534,10 +3634,10 @@ def main() -> int:
                    "b9_fit": attn_fit, "attn_host_us": attn_host,
                    "b9_wgmma_ptxas": wg_ptxas,
                    "scan_picks": scan_picks,
-                   "sweep_us": {str(n): [[p.method, p.chain, p.block_rows,
-                                          us] for p, us in by.items()]
-                                for n, by in times.items()},
-                   "fit": fit, "model_picks": picks, "sweep_s": sweep_s,
+                   "sweep_us": reduce_picks["sweep_us"],
+                   "fit": reduce_picks["fit"],
+                   "model_picks": reduce_picks["model_picks"],
+                   "sweep_s": sweep_s,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

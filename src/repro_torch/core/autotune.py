@@ -65,16 +65,23 @@ _VPU_THROUGHPUT = 128 * 1980
 # bf16 is 4096 flops per clock per SM at 1830 MHz, and a ones-MMA spends
 # 2m = 32 flops on each element it folds.
 _MXU_THROUGHPUT = 4096 * 1830 // (2 * DEFAULT_M)
-# The two constants below are fitted, not taken from a data sheet:
-# chip_smoke.py (phase 6) times the pallas R x B grid, vpu and mma on
-# f32 input at n = 2^20, 2^24 and 2^28 on one H100 80GB HBM3 (700 W)
-# and fits the model to those times by non-negative least squares in
-# relative terms, beside a per-call host cost that is the same for
-# every engine (26.8 us there; it moves no pick, so it stays out).
-# µs a thread block adds that its loads do not hide, per wave of SMs
-# (the data-sheet estimate was ~200 cycles, 0.1 µs; the fit gives
-# 0.042).
+# The constants below are fitted, not taken from a data sheet:
+# chip_smoke.py (phase 6) times the pallas R x B grid, vpu and mma at
+# n = 2^20, 2^24 and 2^28 on one H100 80GB HBM3 (700.00 W) and fits the
+# model to those times by non-negative least squares in relative terms,
+# beside a per-call host cost that is the same for every engine (14-20
+# µs there; it moves no pick, so it stays out).
+# µs a thread block adds that its loads do not hide, per wave of SMs,
+# for the kernels that take one block per tile (B2, B4, B5, B6, B7; the
+# data-sheet estimate was ~200 cycles, 0.1 µs).  Fitted on f32 while B1
+# too took one block per tile; phase 6 no longer times such a kernel.
 _GRID_STEP_OVERHEAD = 0.042
+# µs a block of B1's and B3's walk (``kernels.mma_reduce.walk``: the
+# tiles of 8 links a lane) adds beyond its loads, per wave of SMs: its
+# start, its collapse and its one atomic.  Phase 6 fits 0 there in f32,
+# bf16 and fp16 alike: the loads of the blocks beside it hide a block's
+# own cost.
+_WALK_BLOCK_US = 0.0
 # µs per PRAM step of the paper's depth formulas (estimated at ~30
 # cycles, 0.015 µs).  The fit puts it at 0: beside the memory stream
 # and the host's cost per call, no time on the card follows the depth.
@@ -464,6 +471,18 @@ def _cost_chained(plan: ReductionPlan, n: int, *,
     return depth * _STEP_US + work + grid + waste
 
 
+def _cost_pallas(plan: ReductionPlan, n: int) -> float:
+    # B1 (B3 at chain 1) launch kernels.mma_reduce.walk's blocks:
+    # _WALK_BLOCK_US each a wave of SMs.  B2's levels (variant
+    # recurrence) take one block per tile.
+    if plan.variant == "recurrence":
+        return _cost_chained(plan, n, grid_walk=True)
+    from repro_torch.kernels.mma_reduce import walk
+    chain = 1 if plan.variant == "split" else plan.chain
+    grid, _ = walk(n, chain, plan.block_rows)
+    return _cost_chained(plan, n) + _WALK_BLOCK_US * grid / _PARALLELISM
+
+
 def _cost_ec(plan: ReductionPlan, n: int, *,
              grid_walk: bool = False) -> float:
     # Compensated split-bf16 engines: one ones-MMA chain per word (one
@@ -544,7 +563,7 @@ _ENGINE_COSTS = {
     "mma": _cost_mma,
     "mma_chained": _cost_chained,
     "mma_ec": _cost_ec,
-    "pallas": functools.partial(_cost_chained, grid_walk=True),
+    "pallas": _cost_pallas,
     "pallas_ec": functools.partial(_cost_ec, grid_walk=True),
     "mma_dd": _cost_dd,
     "pallas_dd": functools.partial(_cost_dd, grid_walk=True),

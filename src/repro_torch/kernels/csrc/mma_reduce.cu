@@ -9,7 +9,7 @@
 //
 // Encoding (Navarro et al. 2020, m = 16).  The input is the flat
 // row-major view of the reference's (T, 16) tile array.  A tile of
-// chain * block_rows rows belongs to one thread block; link r of the
+// chain * block_rows rows is taken by one thread block; link r of the
 // chain is the tile's rows [r * block_rows, (r + 1) * block_rows), and
 // warp w owns the 16 x 16 slab at rows 16w..16w+15 of every link.  A
 // link is one ones-MMA per slab:  D = A_slab x [1] + D, with the slab
@@ -37,16 +37,37 @@
 // does 16-32 flops per element, far below the ~295 flops per byte at
 // which the tensor cores would become the limit.  The design therefore
 // spends nothing on shared-memory staging: loads go straight from
-// device memory into MMA fragments, 16 bytes per lane, with up to
-// kBatch links of loads issued before their MMAs.  The ragged tail is
-// masked here (out-of-range elements read as 0), so no padded copy of
-// the input is ever made.
+// device memory into MMA fragments, 16 bytes per lane (B2: up to kBatch
+// links of loads issued before their MMAs).  The ragged tail is masked
+// here (out-of-range elements read as 0), so no padded copy of the
+// input is ever made.
+//
+// B1 and B3 walk the tiles on a grid that walk_grid below computes from
+// (n, chain, block_rows) alone: each block takes ceil(kWalkUnits /
+// chain) tiles, so each lane walks kWalkUnits units (one 16-byte load,
+// or 32 bytes in f32, of one link of one tile), and block b the tiles
+// b, b + grid, b + 2 grid, ...  A lane loads its units in stages of
+// kStageBytes, double-buffered in registers: the next stage's loads are
+// issued before the current stage's MMAs, so in 16 bits all 128 bytes
+// of a lane's walk are in flight before its first MMA.  Each tile's
+// chain folds into a D that starts at zero, and D is added into a
+// per-lane f32 carry fragment (__fadd_rn) when the tile's last link is
+// in: a tile is still a chain of exactly `chain` links, as the
+// reference adds each grid step's chain into its f32 VMEM accumulator.
+// The block collapses its carries once and makes one cross-block add,
+// where one block per tile made one per tile (B3's 131072 same-address
+// atomics at 2^28, block_rows 128, held it at ~0.29 ms on the H100
+// 80GB HBM3 at 700 W: probes/b3_turnover.py).  On that card long walks
+// ran slower than short ones the hardware keeps refilling (64 units a
+// lane 5-9 % in 16 bits), and 8 units a lane ran fastest
+// (probes/mma_reduce_walk.py).
 //
 // B1 replaces the TPU's sequential-grid VMEM accumulator with the
 // paper's §5.2 atomics: each block adds its f32 total to one zeroed
 // scalar with atomicAdd.  The order of those adds varies between runs,
-// so the last bits of B1 and B3 do too.  B2 writes one partial per
-// tile and is deterministic.
+// so the last bits of B1 and B3 do too.  B2 keeps one block per tile
+// (variant="recurrence" reads its one partial per tile) and is
+// deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -60,8 +81,15 @@ namespace {
 constexpr int kM = 16;                   // chain-link tile: 16 x 16
 constexpr int kSlab = kM * kM;           // elements per warp per link
 constexpr int kPerLane = kSlab / 32;     // 8 elements per lane
-constexpr int kBatch = 4;                // links loaded before their MMAs
+constexpr int kBatch = 4;                // B2: links loaded before their MMAs
 constexpr int kMaxThreads = 1024;        // block_rows <= 512
+// The walk of B1 and B3: the units a lane walks (whole tiles, at least
+// one), the launch limit on the grid, and the bytes a lane loads a stage
+// (at most 64 registers a thread under __launch_bounds__(kMaxThreads,
+// 1)).
+constexpr int kWalkUnits = 8;
+constexpr long long kMaxGrid = 0x7fffffffLL;
+constexpr int kStageBytes = 64;
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -135,35 +163,6 @@ __device__ __forceinline__ void square(Frag<DT>& f) {
   }
 }
 
-// Plain f32 sum of one lane's 8 elements (the CUDA-core path of B3).
-__device__ __forceinline__ float lane_sum(const Frag<kF32>& f) {
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) s += f.v[j];
-  return s;
-}
-
-template <int DT>
-__device__ __forceinline__ float lane_sum(const Frag<DT>& f) {
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPerLane / 2; ++j) {
-    float2 p;
-    if (DT == kBF16) {
-      __nv_bfloat162 h;
-      memcpy(&h, &f.v[j], 4);
-      p = __bfloat1622float2(h);
-    } else {
-      __half2 h;
-      memcpy(&h, &f.v[j], 4);
-      p = __half22float2(h);
-    }
-    s += p.x;
-    s += p.y;
-  }
-  return s;
-}
-
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -215,7 +214,7 @@ __device__ __forceinline__ void mma_link(float (&d)[4], const Frag<DT>& f) {
 
 // The chain: fold `chain` links, `stride` elements apart, starting at
 // element i, into this warp's f32 accumulator fragment.
-template <int DT, bool SQUARE>
+template <int DT>
 __device__ __forceinline__ void fold_chain(float (&d)[4], const void* x,
                                            long long n, long long i,
                                            long long stride, int chain) {
@@ -225,12 +224,8 @@ __device__ __forceinline__ void fold_chain(float (&d)[4], const void* x,
     for (int b = 0; b < kBatch; ++b)
       if (r0 + b < chain) load(f[b], x, n, i + (r0 + b) * stride);
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      if (r0 + b < chain) {
-        if (SQUARE) square(f[b]);
-        mma_link(d, f[b]);
-      }
-    }
+    for (int b = 0; b < kBatch; ++b)
+      if (r0 + b < chain) mma_link(d, f[b]);
   }
 }
 
@@ -263,17 +258,142 @@ __device__ __forceinline__ float block_sum(float v) {
   return s;
 }
 
-template <int DT, bool SQUARE>
-__global__ void __launch_bounds__(kMaxThreads)
-    single_pass_kernel(const void* x, long long n, int chain,
-                       int block_rows, float* out) {
+// Plain f32 sum of one lane's 8 elements into acc, in element order
+// (the CUDA-core path of B3).
+__device__ __forceinline__ float lane_add(float acc, const Frag<kF32>& f) {
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) acc = __fadd_rn(acc, f.v[j]);
+  return acc;
+}
+
+template <int DT>
+__device__ __forceinline__ float lane_add(float acc, const Frag<DT>& f) {
+#pragma unroll
+  for (int j = 0; j < kPerLane / 2; ++j) {
+    float2 p;
+    if (DT == kBF16) {
+      __nv_bfloat162 h;
+      memcpy(&h, &f.v[j], 4);
+      p = __bfloat1622float2(h);
+    } else {
+      __half2 h;
+      memcpy(&h, &f.v[j], 4);
+      p = __half22float2(h);
+    }
+    acc = __fadd_rn(acc, p.x);
+    acc = __fadd_rn(acc, p.y);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ void add_into(float (&carry)[4],
+                                         const float (&d)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) carry[j] = __fadd_rn(carry[j], d[j]);
+}
+
+// Units a lane loads a stage: 64 bytes, four 16-bit units or two f32.
+template <int DT>
+__host__ __device__ constexpr int stage_units() {
+  return kStageBytes / (kPerLane * (DT == kF32 ? 4 : 2));
+}
+
+// The tiles this block walks: `count` of them, from tile `first`, `step`
+// tiles apart.
+struct Span {
+  long long first;
+  long long count;
+  long long step;
+};
+
+__device__ __forceinline__ Span block_tiles(long long tiles) {
+  const long long b = blockIdx.x, grid = gridDim.x;
+  return Span{b, (tiles - b + grid - 1) / grid, grid};
+}
+
+// A lane's place in the walk: the first element of its next unit, that
+// unit's link, and the units it has still to load.  Link r of tile t
+// starts at t * tile + r * stride; after the last link the walk jumps
+// to the span's next tile.
+struct Cursor {
+  long long i;
+  long long left;
+  int link;
+};
+
+template <int DT, int K>
+__device__ __forceinline__ void load_stage(Frag<DT> (&f)[K], Cursor& c,
+                                           const void* x, long long n,
+                                           long long stride, long long jump,
+                                           int chain) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (c.left > 0) {
+      load(f[k], x, n, c.i);
+      --c.left;
+      if (++c.link == chain) {
+        c.link = 0;
+        c.i += jump;
+      } else {
+        c.i += stride;
+      }
+    }
+  }
+}
+
+// The walk of one lane: every unit of tiles blockIdx.x, + gridDim.x, ...
+// goes to use(unit) in order, `chain` units a tile, while the next
+// stage's loads are in flight.  The unit count is the same for every
+// lane of a block, so every branch here is uniform across a warp (as
+// mma.sync needs).
+template <int DT, typename Use>
+__device__ __forceinline__ void walk_units(const void* x, long long n,
+                                           long long tiles, int chain,
+                                           int block_rows, Use use) {
+  constexpr int K = stage_units<DT>();
   const long long stride = static_cast<long long>(block_rows) * kM;
-  const long long i = blockIdx.x * stride * chain +
-                      (threadIdx.x >> 5) * kSlab +
-                      (threadIdx.x & 31) * kPerLane;
+  const long long tile = stride * chain;
+  const Span span = block_tiles(tiles);
+  Cursor c{span.first * tile + (threadIdx.x >> 5) * kSlab +
+               (threadIdx.x & 31) * kPerLane,
+           span.count * chain, 0};
+  const long long jump = span.step * tile - (chain - 1) * stride;
+  long long left = c.left;
+  Frag<DT> a[K], b[K];
+  load_stage(a, c, x, n, stride, jump, chain);
+  while (left > 0) {
+    load_stage(b, c, x, n, stride, jump, chain);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (left - k > 0) use(a[k]);
+    left -= K;
+    if (left <= 0) break;
+    load_stage(a, c, x, n, stride, jump, chain);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (left - k > 0) use(b[k]);
+    left -= K;
+  }
+}
+
+template <int DT, bool SQUARE>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    single_pass_kernel(const void* x, long long n, int chain,
+                       int block_rows, long long tiles, float* out) {
   float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  fold_chain<DT, SQUARE>(d, x, n, i, stride, chain);
-  const float s = block_sum(collapse(d));
+  float carry[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int link = 0;
+  walk_units<DT>(x, n, tiles, chain, block_rows, [&](Frag<DT>& f) {
+    if (SQUARE) square(f);
+    mma_link(d, f);
+    if (++link == chain) {  // the tile's chain is in: carry it, restart
+      link = 0;
+      add_into(carry, d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d[j] = 0.0f;
+    }
+  });
+  const float s = block_sum(collapse(carry));
   if (threadIdx.x == 0) atomicAdd(out, s);
 }
 
@@ -286,29 +406,32 @@ __global__ void __launch_bounds__(kMaxThreads)
                       (threadIdx.x >> 5) * kSlab +
                       (threadIdx.x & 31) * kPerLane;
   float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  fold_chain<DT, false>(d, x, n, i, stride, chain);
+  fold_chain<DT>(d, x, n, i, stride, chain);
   const float s = block_sum(collapse(d));
   if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
-// Warps below mma_warps reduce their slab with a ones-MMA, the others
-// with plain f32 adds on the CUDA cores, side by side in one block.
+// Warps below mma_warps reduce their slab of every tile they walk with a
+// ones-MMA, the others with plain f32 adds on the CUDA cores, side by
+// side in one block.
 template <int DT>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
     split_kernel(const void* x, long long n, int block_rows, int mma_warps,
-                 float* out) {
-  const int warp = threadIdx.x >> 5;
-  const long long i = blockIdx.x * static_cast<long long>(block_rows) * kM +
-                      warp * kSlab + (threadIdx.x & 31) * kPerLane;
-  Frag<DT> f;
-  load(f, x, n, i);
+                 long long tiles, float* out) {
   float v;
-  if (warp < mma_warps) {
-    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_link(d, f);
-    v = collapse(d);
+  if ((threadIdx.x >> 5) < mma_warps) {
+    float carry[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    walk_units<DT>(x, n, tiles, 1, block_rows, [&](Frag<DT>& f) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_link(d, f);
+      add_into(carry, d);
+    });
+    v = collapse(carry);
   } else {
-    v = warp_sum(lane_sum(f));
+    float acc = 0.0f;
+    walk_units<DT>(x, n, tiles, 1, block_rows,
+                   [&](Frag<DT>& f) { acc = lane_add(acc, f); });
+    v = warp_sum(acc);
   }
   const float s = block_sum(v);
   if (threadIdx.x == 0) atomicAdd(out, s);
@@ -319,11 +442,25 @@ bool bad_geometry(int chain, int block_rows) {
          2 * block_rows > kMaxThreads;
 }
 
-// Blocks for n elements at `tile` elements a block; 0 when the grid
-// would exceed the launch limit.
+// Tiles of `tile` elements that cover n (one when n = 0).
+long long tiles_for(long long n, long long tile) {
+  return n > 0 ? (n + tile - 1) / tile : 1;
+}
+
+// B2: one block per tile; 0 when the grid would exceed the launch limit.
 unsigned blocks_for(long long n, long long tile) {
-  const long long g = n > 0 ? (n + tile - 1) / tile : 1;
-  return g <= 0x7fffffffLL ? static_cast<unsigned>(g) : 0u;
+  const long long g = tiles_for(n, tile);
+  return g <= kMaxGrid ? static_cast<unsigned>(g) : 0u;
+}
+
+// B1's and B3's walk: blocks that each take ceil(kWalkUnits / chain)
+// tiles, and no more than the launch limit (past it the blocks walk
+// more).  Mirrored by repro_torch.kernels.mma_reduce.walk.
+long long walk_grid(long long n, int chain, int block_rows) {
+  const long long tile = static_cast<long long>(chain) * block_rows * kM;
+  const long long grid =
+      tiles_for(tiles_for(n, tile), tiles_for(kWalkUnits, chain));
+  return grid < kMaxGrid ? grid : kMaxGrid;
 }
 
 }  // namespace
@@ -334,26 +471,36 @@ const char* mma_reduce_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// B1: out[0] += sum(x) (or sum(x * x)); out must be zeroed.
+// The walk's grid for these arguments (the library's own walk_grid).
+long long mma_reduce_walk(long long n, int chain, int block_rows) {
+  if (bad_geometry(chain, block_rows)) return -1;
+  return walk_grid(n, chain, block_rows);
+}
+
+// B1: out[0] = sum(x) (or sum(x * x)): zeroes out, then one launch.
 int b1_single_pass(const void* x, long long n, int dtype, int chain,
                    int block_rows, int square, float* out, void* stream) {
   if (bad_geometry(chain, block_rows)) return cudaErrorInvalidValue;
-  const dim3 grid(blocks_for(n, static_cast<long long>(chain) * block_rows * kM));
+  const long long tiles =
+      tiles_for(n, static_cast<long long>(chain) * block_rows * kM);
+  const dim3 grid(
+      static_cast<unsigned>(walk_grid(n, chain, block_rows)));
   const dim3 block(2 * block_rows);
-  if (grid.x == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(out, 0, sizeof(float), s);
+  if (rc != cudaSuccess) return rc;
   if (dtype == kF32 && !square)
-    single_pass_kernel<kF32, false><<<grid, block, 0, s>>>(x, n, chain, block_rows, out);
+    single_pass_kernel<kF32, false><<<grid, block, 0, s>>>(x, n, chain, block_rows, tiles, out);
   else if (dtype == kF32)
-    single_pass_kernel<kF32, true><<<grid, block, 0, s>>>(x, n, chain, block_rows, out);
+    single_pass_kernel<kF32, true><<<grid, block, 0, s>>>(x, n, chain, block_rows, tiles, out);
   else if (dtype == kBF16 && !square)
-    single_pass_kernel<kBF16, false><<<grid, block, 0, s>>>(x, n, chain, block_rows, out);
+    single_pass_kernel<kBF16, false><<<grid, block, 0, s>>>(x, n, chain, block_rows, tiles, out);
   else if (dtype == kBF16)
-    single_pass_kernel<kBF16, true><<<grid, block, 0, s>>>(x, n, chain, block_rows, out);
+    single_pass_kernel<kBF16, true><<<grid, block, 0, s>>>(x, n, chain, block_rows, tiles, out);
   else if (dtype == kF16 && !square)
-    single_pass_kernel<kF16, false><<<grid, block, 0, s>>>(x, n, chain, block_rows, out);
+    single_pass_kernel<kF16, false><<<grid, block, 0, s>>>(x, n, chain, block_rows, tiles, out);
   else if (dtype == kF16)
-    single_pass_kernel<kF16, true><<<grid, block, 0, s>>>(x, n, chain, block_rows, out);
+    single_pass_kernel<kF16, true><<<grid, block, 0, s>>>(x, n, chain, block_rows, tiles, out);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -378,24 +525,27 @@ int b2_partials(const void* x, long long n, int dtype, int chain,
   return cudaGetLastError();
 }
 
-// B3: out[0] += sum(x), the first mma_rows rows of every block_rows-row
-// tile through ones-MMAs and the rest through CUDA-core adds.
+// B3: out[0] = sum(x), the first mma_rows rows of every block_rows-row
+// tile through ones-MMAs and the rest through CUDA-core adds: zeroes
+// out, then one launch.
 int b3_split(const void* x, long long n, int dtype, int block_rows,
              int mma_rows, float* out, void* stream) {
   if (bad_geometry(1, block_rows) || mma_rows < 0 || mma_rows % kM != 0 ||
       mma_rows > block_rows)
     return cudaErrorInvalidValue;
-  const dim3 grid(blocks_for(n, static_cast<long long>(block_rows) * kM));
+  const long long tiles = tiles_for(n, static_cast<long long>(block_rows) * kM);
+  const dim3 grid(static_cast<unsigned>(walk_grid(n, 1, block_rows)));
   const dim3 block(2 * block_rows);
-  if (grid.x == 0) return cudaErrorInvalidValue;
   const int mma_warps = mma_rows / kM;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(out, 0, sizeof(float), s);
+  if (rc != cudaSuccess) return rc;
   if (dtype == kF32)
-    split_kernel<kF32><<<grid, block, 0, s>>>(x, n, block_rows, mma_warps, out);
+    split_kernel<kF32><<<grid, block, 0, s>>>(x, n, block_rows, mma_warps, tiles, out);
   else if (dtype == kBF16)
-    split_kernel<kBF16><<<grid, block, 0, s>>>(x, n, block_rows, mma_warps, out);
+    split_kernel<kBF16><<<grid, block, 0, s>>>(x, n, block_rows, mma_warps, tiles, out);
   else if (dtype == kF16)
-    split_kernel<kF16><<<grid, block, 0, s>>>(x, n, block_rows, mma_warps, out);
+    split_kernel<kF16><<<grid, block, 0, s>>>(x, n, block_rows, mma_warps, tiles, out);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -8,14 +8,18 @@ it on the H100 and what its design does about that:
 ``single_pass_cuda`` (B1) replaces ``repro.kernels.mma_reduce.
 mma_reduce_kernel`` (launched by ``single_pass_call``).  Bound: bytes —
 each element is read once and a ones-MMA costs 16-32 flops per element,
-far under the tensor cores' ~295 flops per byte.  Design: each warp
-loads 16 bytes a lane straight from device memory into MMA fragments
-(``mma.sync`` m16n8k16 for bf16/fp16; two TF32 words through m16n8k8
-for f32), folds its chain in an f32 fragment, collapses in f32 with
-warp shuffles, and each block ``atomicAdd``s its total into a zeroed
-scalar (the paper's §5.2) in place of the TPU's sequential-grid VMEM
-accumulator.  The tail is masked in the kernel, so no padded copy is
-made.  The order of the atomics varies, so the last bits do too.
+far under the tensor cores' ~295 flops per byte.  Design: a grid of
+``walk(...)`` blocks, each taking ceil(8 / chain) tiles (8 links a
+lane), block b the tiles b, b + grid, ...; each warp loads 16 bytes a
+lane straight from device memory into MMA fragments (``mma.sync``
+m16n8k16 for bf16/fp16; two TF32 words through m16n8k8 for f32), the
+next 64 bytes a lane in flight while it folds the current ones; each
+tile's chain folds from zero and is added into an f32 carry; the block
+collapses once in f32 and ``atomicAdd``s its total into a scalar the
+library zeroes first (the paper's §5.2), in place of the TPU's
+sequential-grid VMEM accumulator: one atomic a block, not one a tile.
+The tail is masked in the kernel, so no padded copy is made.  The order
+of the atomics varies, so the last bits do too.
 
 ``partials_cuda`` (B2) replaces ``mma_partials_kernel``
 (``partials_call``): the same chain per block, one f32 partial per
@@ -25,7 +29,8 @@ partial layout as the reference at the same (chain, block_rows, m).
 ``split_cuda`` (B3) replaces ``mma_split_kernel`` (``split_call``): the
 first ``mma_rows`` rows of each ``block_rows``-row tile go through
 ones-MMAs and the rest through CUDA-core f32 adds, in warps of the same
-block side by side (the paper's §5.3).  ``mma_rows`` is rounded to the
+block side by side (the paper's §5.3), on B1's walk at chain 1: a warp
+keeps its role on every tile it walks.  ``mma_rows`` is rounded to the
 16-row chain link, not the TPU's 8-row sublane.
 
 The ``*_plain`` functions take the reference's zero-padded ``(T, m)``
@@ -46,6 +51,11 @@ from repro_torch.kernels import _build
 
 M = 16                 # the chain link: 16 x 16 tiles
 MAX_BLOCK_ROWS = 512   # 2 * block_rows threads <= 1024 per block
+# B1's and B3's walk (csrc ``walk_grid``): the units (16-byte loads, 32
+# in f32, of one link of one tile) a lane walks, in whole tiles, and the
+# launch limit on the grid.
+WALK_UNITS = 8
+MAX_GRID = 2 ** 31 - 1
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DTYPES = tuple(_DTYPES)
@@ -62,6 +72,18 @@ def block_rows_ok(block_rows: int) -> bool:
     """Whether the kernels take this ``block_rows``: a multiple of the
     16-row link, at most ``MAX_BLOCK_ROWS`` (one warp per 16 rows)."""
     return block_rows % M == 0 and M <= block_rows <= MAX_BLOCK_ROWS
+
+
+def walk(n: int, chain: int, block_rows: int) -> tuple[int, int]:
+    """B1's walk (B3's at ``chain=1``) of n elements, as the CUDA
+    source's ``walk_grid`` computes it: ``(grid, tiles)``.  Tiles hold
+    ``chain * block_rows * 16`` elements (one tile when n = 0); each
+    block takes ceil(WALK_UNITS / chain) tiles, so a lane walks
+    WALK_UNITS links, block b the tiles b, b + grid, b + 2 grid, ...;
+    the grid never exceeds the tiles or MAX_GRID.  Neither the dtype nor
+    the card's SM count enters it."""
+    tiles = max(-(-n // (chain * block_rows * M)), 1)
+    return min(-(-tiles // -(-WALK_UNITS // chain)), MAX_GRID), tiles
 
 
 def mma_rows_for(block_rows: int, mma_fraction: float) -> int:
@@ -120,9 +142,16 @@ def _lib() -> ctypes.CDLL:
     lib.b3_split.argtypes = [ptr, ll, i, i, i, ptr, ptr]
     for fn in (lib.b1_single_pass, lib.b2_partials, lib.b3_split):
         fn.restype = i
+    lib.mma_reduce_walk.argtypes = [ll, i, i]
+    lib.mma_reduce_walk.restype = ll
     lib.mma_reduce_error_string.argtypes = [i]
     lib.mma_reduce_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def cuda_walk(n: int, chain: int, block_rows: int) -> int:
+    """The grid the CUDA library's walk gives (``walk``'s mirror)."""
+    return int(_lib().mma_reduce_walk(n, chain, block_rows))
 
 
 def _check(x, block_rows: int, chain: int = 1, dtypes=DTYPES) -> None:
@@ -141,10 +170,16 @@ def _check(x, block_rows: int, chain: int = 1, dtypes=DTYPES) -> None:
         raise ValueError(f"chain={chain} must be >= 1")
 
 
-def _launch(name: str, fn, x, *args) -> None:
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), x.numel(), _DTYPES[x.dtype], *args, stream)
+def _launch(name: str, fn, x, dev, *args) -> None:
+    # The raw stream handle: torch.cuda.current_stream(dev).cuda_stream
+    # builds a Stream object on every call.
+    call = (x.data_ptr(), x.numel(), _DTYPES[x.dtype], *args,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*call)
+    else:   # the launch goes to the host thread's current card
+        with torch.cuda.device(dev):
+            rc = fn(*call)
     if rc:
         msg = _lib().mma_reduce_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
@@ -154,12 +189,14 @@ def _launch(name: str, fn, x, *args) -> None:
 def single_pass_cuda(x, *, chain: int, block_rows: int,
                      square: bool = False) -> torch.Tensor:
     """B1: f32 sum (``square=True``: sum of squares) of a flat CUDA
-    tensor.  Returns a 0-d f32 tensor on x's device."""
+    tensor.  Returns a 0-d f32 tensor on x's device, which the library
+    zeroes on the stream before its one launch."""
     _check(x, block_rows, chain)
-    out = torch.zeros(1, dtype=ACCUM_DTYPE, device=x.device)
-    _launch("b1_single_pass", _lib().b1_single_pass, x, chain,
+    dev = x.device
+    out = torch.empty((), dtype=ACCUM_DTYPE, device=dev)
+    _launch("b1_single_pass", _lib().b1_single_pass, x, dev, chain,
             block_rows, int(square), out.data_ptr())
-    return out[0]
+    return out
 
 
 def partials_cuda(x, *, chain: int, block_rows: int) -> torch.Tensor:
@@ -167,9 +204,10 @@ def partials_cuda(x, *, chain: int, block_rows: int) -> torch.Tensor:
     elements of a flat CUDA tensor.  Returns shape (G,)."""
     _check(x, block_rows, chain)
     tile = chain * block_rows * M
+    dev = x.device
     out = torch.empty(max(-(-x.numel() // tile), 1), dtype=ACCUM_DTYPE,
-                      device=x.device)
-    _launch("b2_partials", _lib().b2_partials, x, chain, block_rows,
+                      device=dev)
+    _launch("b2_partials", _lib().b2_partials, x, dev, chain, block_rows,
             out.data_ptr())
     return out
 
@@ -177,12 +215,14 @@ def partials_cuda(x, *, chain: int, block_rows: int) -> torch.Tensor:
 def split_cuda(x, *, block_rows: int, mma_rows: int) -> torch.Tensor:
     """B3: f32 sum of a flat CUDA tensor, the first ``mma_rows`` rows of
     each ``block_rows``-row tile through ones-MMAs, the rest through
-    CUDA-core adds.  Returns a 0-d f32 tensor."""
+    CUDA-core adds.  Returns a 0-d f32 tensor, zeroed by the library
+    before its one launch."""
     _check(x, block_rows)
     if mma_rows % M or not 0 <= mma_rows <= block_rows:
         raise ValueError(f"mma_rows={mma_rows} must be a multiple of {M} "
                          f"in [0, block_rows]")
-    out = torch.zeros(1, dtype=ACCUM_DTYPE, device=x.device)
-    _launch("b3_split", _lib().b3_split, x, block_rows, mma_rows,
+    dev = x.device
+    out = torch.empty((), dtype=ACCUM_DTYPE, device=dev)
+    _launch("b3_split", _lib().b3_split, x, dev, block_rows, mma_rows,
             out.data_ptr())
-    return out[0]
+    return out

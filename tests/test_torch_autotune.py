@@ -126,6 +126,63 @@ def test_model_scores_the_plain_engines():
         >= (1 << 30) / tat._HBM_BYTES_PER_US
 
 
+def test_pallas_reduce_cost_follows_the_walks_blocks(monkeypatch):
+    # B1 and B3 launch walk(...) blocks, so the pallas reduce engine's
+    # grid term moves with _WALK_BLOCK_US by the walk's grid over the
+    # SMs; the engines whose kernels take one block a tile (pallas_ec,
+    # pallas_dd, B6's scan, B7's segment sum) keep _GRID_STEP_OVERHEAD
+    # by their tile count, and do not see _WALK_BLOCK_US.
+    import importlib
+    mr = importlib.import_module("repro_torch.kernels.mma_reduce")
+    P = tat._PARALLELISM
+
+    def slope(name, plan, n, dtype, op="reduce_sum"):
+        monkeypatch.setattr(tat, name, 0.0)
+        low = tat.model_cost(plan, n, dtype, op=op)
+        monkeypatch.setattr(tat, name, 1.0)
+        high = tat.model_cost(plan, n, dtype, op=op)
+        monkeypatch.undo()
+        return high - low
+
+    for n in (1, 1 << 20, (1 << 28) + 5):
+        for chain, block_rows in ((1, 32), (4, 128), (5, 512)):
+            tiles = max(-(-n // (chain * block_rows * 16)), 1)
+            for dtype in mr.DTYPES:
+                for op in ("reduce_sum", "squared_sum"):
+                    plan = tat.ReductionPlan(method="pallas", chain=chain,
+                                             block_rows=block_rows)
+                    grid, _ = mr.walk(n, chain, block_rows)
+                    assert slope("_WALK_BLOCK_US", plan, n, dtype, op) \
+                        == pytest.approx(grid / P)
+                    assert slope("_GRID_STEP_OVERHEAD", plan, n, dtype,
+                                 op) == 0.0
+                split = tat.ReductionPlan(method="pallas", variant="split",
+                                          chain=chain,
+                                          block_rows=block_rows)
+                grid, _ = mr.walk(n, 1, block_rows)
+                assert slope("_WALK_BLOCK_US", split, n, dtype) \
+                    == pytest.approx(grid / P)
+            # The engines that keep one block a tile (a scan costs at
+            # least its host time a call, which 2^28 elements exceed).
+            scan = (("pallas", "scan", {}),) if n > 1 << 20 else ()
+            for method, op, kw in scan + (("pallas_ec", "reduce_sum", {}),
+                                   ("pallas_dd", "reduce_sum", {}),
+                                   ("pallas", "segment_sum", {}),
+                                   ("pallas", "reduce_sum",
+                                    {"variant": "recurrence"})):
+                plan = tat.ReductionPlan(method=method, chain=chain,
+                                         block_rows=block_rows, **kw)
+                assert slope("_WALK_BLOCK_US", plan, n, torch.float32,
+                             op) == 0.0
+                assert slope("_GRID_STEP_OVERHEAD", plan, n, torch.float32,
+                             op) == pytest.approx(tiles / P)
+    # A block walks 8 links a lane: at R1 B32 the pallas term counts one
+    # block for 8 tiles.
+    plan = tat.ReductionPlan(method="pallas", chain=1, block_rows=32)
+    assert slope("_WALK_BLOCK_US", plan, 1 << 28, torch.bfloat16) \
+        == pytest.approx((1 << 28) / (32 * 16 * mr.WALK_UNITS) / P)
+
+
 def test_selection_rules(fresh_registries):
     n = 1 << 16
     fastest = tat.autotune(n, torch.float32, backend="cpu")

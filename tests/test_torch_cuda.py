@@ -85,7 +85,9 @@ def _close(got, want, scale: float, rtol: float = RTOL):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 13])
+# 2^24 + 5: B1's and B3's blocks each walk several tiles (8 at R1 B32)
+# and the last one is ragged.
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 13, (1 << 24) + 5])
 def test_kernels_match_plain_on_card(cuda, dtype, n):
     gen = torch.Generator(device="cuda").manual_seed(n)
     x = torch.randn(n, device="cuda", generator=gen).to(dtype)
@@ -120,7 +122,9 @@ def test_kernels_count_exactly_with_a_ragged_tail(cuda, dtype, chain,
                                                   block_rows):
     tile = chain * block_rows * M
     gen = torch.Generator(device="cuda").manual_seed(tile)
-    for n in (13, tile + 13, (1 << 16) + 13):
+    # (1 << 24) + 5: at R1 B32 every block of B1's and B3's walk takes
+    # several tiles (counts near 2^22, still exact in f32).
+    for n in (13, tile + 13, (1 << 16) + 13, (1 << 24) + 5):
         # 0/1 values, the last 13 all 1, and ones past n that a kernel
         # reading beyond its input would count.
         buf = torch.ones(n + 64, device="cuda", dtype=dtype)
@@ -129,6 +133,7 @@ def test_kernels_count_exactly_with_a_ragged_tail(cuda, dtype, chain,
         buf[n - 13:n] = 1
         x = buf[:n]
         count = float(torch.sum(x, dtype=torch.float64))
+        assert count < 2 ** 24
         x2d = ops._to_tiles(x, chain * block_rows, M)
         for square in (False, True):
             got = mr.single_pass_cuda(x, chain=chain, block_rows=block_rows,
@@ -146,6 +151,14 @@ def test_kernels_count_exactly_with_a_ragged_tail(cuda, dtype, chain,
             assert float(mr.split_cuda(x, block_rows=block_rows,
                                        mma_rows=mma_rows)) == count, \
                 (n, mma_rows)
+
+
+def test_b1_b3_cuda_walk_mirrors_walk(cuda):
+    for n in (0, 1, 15, 4096, (1 << 20) + 7, (1 << 28) + 5, 1 << 50):
+        for chain in (1, 4, 5):
+            for block_rows in (16, 128, 512):
+                assert mr.cuda_walk(n, chain, block_rows) \
+                    == mr.walk(n, chain, block_rows)[0]
 
 
 def test_wrappers_count_launches_and_check_geometry(cuda):
@@ -220,13 +233,16 @@ def test_tier_kernels_count_exactly_with_a_ragged_tail(cuda, dtype, chain,
                                                        block_rows):
     tile = chain * block_rows * M
     gen = torch.Generator(device="cuda").manual_seed(tile)
-    for n in (13, tile + 13, (1 << 16) + 13):
+    # (1 << 24) + 5: at R1 B32 every block of B1's and B3's walk takes
+    # several tiles (counts near 2^22, still exact in f32).
+    for n in (13, tile + 13, (1 << 16) + 13, (1 << 24) + 5):
         buf = torch.ones(n + 64, device="cuda", dtype=dtype)
         buf[:n] = (torch.rand(n, device="cuda", generator=gen)
                    < 0.25).to(dtype)
         buf[n - 13:n] = 1
         x = buf[:n]
         count = float(torch.sum(x, dtype=torch.float64))
+        assert count < 2 ** 24
         x2d = ops._to_tiles(x, chain * block_rows, M)
         for square in (False, True):
             if dtype == torch.float32:
@@ -315,7 +331,9 @@ def test_scan_kernel_counts_exactly_with_a_ragged_tail(cuda, dtype, chain,
                                                        block_rows):
     tile = chain * block_rows * M
     gen = torch.Generator(device="cuda").manual_seed(tile)
-    for n in (13, tile + 13, (1 << 16) + 13):
+    # (1 << 24) + 5: at R1 B32 every block of B1's and B3's walk takes
+    # several tiles (counts near 2^22, still exact in f32).
+    for n in (13, tile + 13, (1 << 16) + 13, (1 << 24) + 5):
         buf = torch.ones(n + 64, device="cuda", dtype=dtype)
         buf[:n] = (torch.rand(n, device="cuda", generator=gen)
                    < 0.25).to(dtype)

@@ -14,6 +14,7 @@ kernels themselves against these plain versions on the card.
 """
 
 import importlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -122,6 +123,42 @@ def test_b3_rounds_the_mma_share_to_whole_links():
             rows = tmr.mma_rows_for(block_rows, float(frac))
             assert rows % M == 0 and 0 <= rows <= block_rows
             assert abs(rows - frac * block_rows) <= M / 2
+
+
+@pytest.mark.parametrize("block_rows", [16, 128, 512])
+@pytest.mark.parametrize("chain", [1, 4, 5])
+@pytest.mark.parametrize("n", [0, 1, 15, 4096, (1 << 20) + 7])
+def test_b1_b3_walk_takes_every_tile_once(n, chain, block_rows):
+    # B3 walks at chain 1, B1 at its chain: tiles of chain * block_rows
+    # * 16 elements, block b taking b, b + grid, ...  (in every dtype and
+    # on any card alike: the walk takes neither).
+    tile = chain * block_rows * M
+    grid, tiles = tmr.walk(n, chain, block_rows)
+    assert tiles == max(-(-n // tile), 1)
+    assert (tiles - 1) * tile < max(n, 1) <= tiles * tile
+    assert 1 <= grid <= tiles
+    if n == 0:
+        assert grid == tiles == 1
+    taken = np.concatenate([np.arange(b, tiles, grid) for b in range(grid)])
+    assert np.array_equal(np.sort(taken), np.arange(tiles))
+    # A block walks at most the tiles of WALK_UNITS links a lane (at
+    # least one), and the grid is no larger than that needs.
+    per_block = -(-tmr.WALK_UNITS // chain)
+    assert grid == -(-tiles // per_block)
+    assert len(range(0, tiles, grid)) <= per_block
+
+
+def test_b1_b3_walk_matches_the_cuda_source():
+    src = (_build.CSRC / "mma_reduce.cu").read_text()
+    for name, value in (("kWalkUnits", tmr.WALK_UNITS),
+                        ("kMaxGrid", "0x7fffffffLL"), ("kM", tmr.M)):
+        assert re.search(rf"constexpr (long long|int) {name} = {value};",
+                         src), name
+    assert tmr.MAX_GRID == 0x7fffffff
+    assert "walk_grid(n, chain, block_rows)" in src
+    assert "walk_grid(n, 1, block_rows)" in src
+    # The grid never passes the launch limit, however large n grows.
+    assert tmr.walk(1 << 50, 1, 16) == (tmr.MAX_GRID, 1 << 42)
 
 
 @pytest.mark.parametrize("variant", ["single_pass", "recurrence", "split"])
