@@ -622,9 +622,13 @@ _SEGMENT_COSTS = {
 # unfused_mma casts it to x's dtype first (reads w, writes s) and its
 # matmul reads the cast (s); vpu reads an f32 weight as it is and makes
 # an f32 copy of a 16-bit one (w + 8).  ``fused_pallas`` with w given is
-# kernel B10: one launch that reads x once, each weight once and writes
-# the output once, and does its flops at _B10_FLOPS_PER_US for the
-# weight's dtype.  Not priced: a bias (one pass over the output in the
+# kernel B10 (its form from ``kernels.mma_norm_matmul.walk``): the row
+# pass reads x and writes A's bf16 words where the form splits x, an f32
+# weight's pass reads it and writes B's words, and the projections read
+# both sides (the words, or the operand as it is) and write the output;
+# its bytes go at _B10_BYTES_PER_US and its flops at _B10_FLOPS_PER_US
+# for its form (x's and the weights' dtypes), the two added.  Not priced:
+# a bias (one pass over the output in the
 # unfused engines).  With w given a call costs its device time plus its
 # host time (_NM_HOST_US): the unfused engines' first launches are
 # small kernels that keep the card waiting on the host, and the matmuls
@@ -634,34 +638,62 @@ _SEGMENT_COSTS = {
 # decide.
 _TC_FLOPS_PER_US = _MXU_THROUGHPUT * 2 * DEFAULT_M * _PARALLELISM
 _F32_FLOPS_PER_US = 2 * _VPU_THROUGHPUT * _PARALLELISM
-# Kernel B10's useful flops (2 rows d dout per projection) per µs, by the
-# weight's dtype: it spends three TF32 MMAs per product on an f32 weight
-# and two on a bf16 one.  Fitted, not from a data sheet: chip_smoke.py
-# (phase 5f) times B10 at Gemma-2 2B's and DeepSeek-V3's MLP widths on one
-# H100 80GB HBM3 (700 W) and prints the fit, flops over the time the
-# bytes leave.
-_B10_FLOPS_PER_US = {"float32": 26.4e6, "bfloat16": 23.5e6}
+# Kernel B10's useful flops (2 rows d dout per projection) per µs of
+# device time, by its form "x dtype/w dtype": it multiplies bf16 words on
+# wgmma, six products a k step with f32 x and f32 weights, three with
+# f32 x and bf16 weights, two where x is bf16.  Fitted, not from a data
+# sheet: chip_smoke.py (phase 5f) times B10 at Gemma-2 2B's and
+# DeepSeek-V3's MLP widths and fits these from its launches' device time
+# (torch.profiler): at 4096 rows, flops over the device time the bytes
+# leave; at 128 rows, the bytes (b10_bytes) over the device time the
+# flops leave, summed over the cases (_B10_BYTES_PER_US).  These are the
+# fits of one run on one H100 80GB HBM3 (700.00 W power limit), the
+# byte rate's over the summed decode cases (its cases ranged 2.0e6 to
+# 7.4e6: the sum of a byte time and a flop time is a crude model where
+# the two overlap).
+_B10_FLOPS_PER_US = {"float32/float32": 139.2e6,
+                     "float32/bfloat16": 245.1e6,
+                     "bfloat16/float32": 309.6e6,
+                     "bfloat16/bfloat16": 337.2e6}
+_B10_BYTES_PER_US = 3.37e6
 # µs of host time one norm_matmul call with w given costs (Python, the
 # casts' and the kernels' launches), whatever its size: chip_smoke.py
 # (phase 5f) times each engine at 8 x 256 x 256 with a gelu gate, where
-# the card's work is negligible, in f32, bf16 and bf16 rows with f32
-# weights, and prints the fit; these are the means of its three values
-# on one H100 80GB HBM3 (700 W).  Later runs on the same kind of machine
-# fit values up to ~1.5x away (the host the card shares); the order of
-# the engines held.  The norm-only form is not priced so: B8 is one
-# launch and the fewest bytes, and its picks are the card's.
-_NM_HOST_US = {"fused_pallas": 82.6, "unfused_mma": 260.3, "vpu": 182.8}
+# the card's work is negligible, in f32, bf16, bf16 rows with f32
+# weights and f32 rows with bf16 weights, and prints the fit; these are
+# the means of its four values in the same run as B10's rates, on one
+# H100 80GB HBM3 (700.00 W).  Runs on the same kind of machine fit
+# values up to ~1.5x apart (the host the card shares); the order of the
+# engines held.  The norm-only form is not priced so: B8 is one launch
+# and the fewest bytes, and its picks are the card's.
+_NM_HOST_US = {"fused_pallas": 79.6, "unfused_mma": 227.6, "vpu": 169.1}
 
 
-def _cost_b10(n: int, itemsize: int, w_item: int, w_dtype: str,
-              form: dict) -> float:
-    rate = _B10_FLOPS_PER_US.get(w_dtype)
-    if rate is None:        # a weight B10 does not take
-        return math.inf
+def b10_bytes(n: int, x_dtype: str, w_dtype: str, form: dict) -> float:
+    """The bytes kernel B10's passes move for n elements of x (the cost
+    model's, and what phase 5f of chip_smoke.py fits its byte rate
+    over): the row pass reads x and writes A's bf16 words where the form
+    splits x, an f32 weight's pass reads it and writes B's words, each
+    word is read once more by the projections (x itself where the form
+    takes it as it is, a bf16 weight too), and the output is written."""
+    from repro_torch.kernels.mma_norm_matmul import walk
     d, dout, mats = form["d"], form["dout"], 1 + form.get("gate", 0)
-    nbytes = n * itemsize + mats * d * dout * w_item \
+    itemsize = torch.empty((), dtype=as_dtype(x_dtype)).element_size()
+    w_item = torch.empty((), dtype=as_dtype(w_dtype)).element_size()
+    wk = walk(d, as_dtype(x_dtype), as_dtype(w_dtype))
+    x_side = itemsize if wk.fold_w else 4 * wk.a_words
+    w_side = w_item + (4 * wk.b_words if w_dtype == "float32" else 0)
+    return n * (itemsize + x_side) + mats * d * dout * w_side \
         + n / d * dout * itemsize
-    return nbytes / _HBM_BYTES_PER_US + 2.0 * n * dout * mats / rate
+
+
+def _cost_b10(n: int, x_dtype: str, w_dtype: str, form: dict) -> float:
+    rate = _B10_FLOPS_PER_US.get(f"{x_dtype}/{w_dtype}")
+    if rate is None:        # a dtype B10 does not take
+        return math.inf
+    mats = 1 + form.get("gate", 0)
+    return b10_bytes(n, x_dtype, w_dtype, form) / _B10_BYTES_PER_US \
+        + 2.0 * n * form["dout"] * mats / rate
 
 
 def _cost_nm(plan: ReductionPlan, n: int, itemsize: int, dtype,
@@ -672,7 +704,7 @@ def _cost_nm(plan: ReductionPlan, n: int, itemsize: int, dtype,
     if plan.method == "fused_pallas":
         if not dout:        # the norm-only form: kernel B8
             return 2.0 * itemsize * n / _HBM_BYTES_PER_US
-        return _cost_b10(n, itemsize, w_item, w_dtype, form)
+        return _cost_b10(n, dtype_name(dtype), w_dtype, form)
     wide = itemsize >= 4
     vpu = plan.method == "vpu"
     norm = 28.0 if wide else 28.0 + 2.0 * (itemsize + 4.0)

@@ -922,9 +922,10 @@ def _nm_fused(x, plan, *, w, scale, w_gate=None, bias=None, act=None,
 # The reference capped the fused kernel at a padded d_model of 512
 # (_NM_FUSED_MAX_D): its TPU kernel held the whole (rows, dout) f32
 # accumulator and a 128-lane k-block of the weights in VMEM.  Kernel B10
-# walks k in 32-column steps inside its loop and holds one 128 x 64
-# output tile's accumulator, so its shared memory (74 KB) does not grow
-# with d or dout; only its int indexing bounds them
+# walks k in steps of 64 columns inside its loop and holds one 128 x 128
+# tile's accumulators in registers, so its shared memory (a ring of two
+# to four stages of one k step, by the form: 193 KB) does not grow with
+# d or dout; only its int indexing bounds them
 # (kernels.mma_norm_matmul.refusal).
 
 
@@ -1219,8 +1220,8 @@ register(OpSpec(
     name="norm_matmul", family="norm_matmul",
     engines=(
         # B8's and B10's geometries are fixed by the card (B8's walk a
-        # function of d and the dtype; one 128 x 64 tile a B10 block):
-        # nothing to sweep.
+        # function of d and the dtype; B10's of d and the dtypes, one
+        # 128 x 128 tile a block): nothing to sweep.
         EngineSpec("fused_pallas", _nm_fused,
                    dtypes=("float32", "bfloat16"),
                    predicate=_nm_fused_predicate),
@@ -1232,8 +1233,13 @@ register(OpSpec(
     measure=_measure_norm_matmul,
     # The unfused statistic and matmul run in full f32 (TF32 off).  The
     # fused kernels' statistics take exact bf16 words of the squares (24
-    # bits), and B10 multiplies in 3xTF32: two TF32 words of
-    # x * (1 + scale) and of an f32 weight, the lo x lo product dropped,
-    # about 2^-22 relative per product, 21 bits; the reference's TPU
-    # kernel carried 8 (its default).
+    # bits).  B10 with f32 x multiplies three bf16 words of
+    # x * (1 + scale) by three of an f32 weight (the products with
+    # i + j < 3) or by a bf16 weight itself: about 2^-22 relative per
+    # product, so 21 bits, what is declared, hold for f32 x whatever the
+    # weights' dtype (kernels.mma_norm_matmul.walk and product_bits).  A
+    # bf16 x keeps 16 bits (two words of x * (1 + scale), or x itself
+    # beside two words of (1 + scale) w), and the budget caps every
+    # engine at 8 bits there.  The reference's TPU kernel carried 8 (its
+    # default).
     engine_bits={"unfused_mma": 24, "fused_pallas": 21}))

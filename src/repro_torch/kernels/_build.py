@@ -4,10 +4,11 @@ Every ``csrc/*.cu`` source has a plain C interface.  It is compiled at
 first use with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``)
 and loaded with ``ctypes``; no PyTorch header is compiled, so a build
-takes seconds.  A library is named by a digest of its source and flags,
-so an edited source builds anew and an unchanged one is reused.  The
-sources come from this package alone; a failed build raises with the
-compiler's output.
+takes seconds.  A library is named by a digest of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header builds anew and an unchanged one is reused.  The sources come
+from this package alone; a failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -43,9 +44,13 @@ def nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{src.stem}-{digest[:12]}.so"
+    """The library of a source, named by a digest of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:

@@ -118,6 +118,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;             // WM (16-row groups) x WN (columns)
@@ -810,6 +812,8 @@ int launch_rows(const void* q, const void* k, const void* v, const int* qpos,
 // causal mask the row tiles launch heaviest first (blockIdx.z reversed).
 namespace wg {
 
+using namespace hopper;
+
 constexpr int kRows = 128;           // query rows a block, 64 a warpgroup
 constexpr int kBK = 64;              // keys a block of the walk
 constexpr int kThreads = 256;
@@ -838,83 +842,6 @@ __host__ __device__ inline int form(int q_dtype, int kv_dtype, long long rows,
          hd_v % 16 == 0 && hd >= 16 && hd <= 256 && hd_v >= 16 &&
          hd_v <= 256 && (rows + kRows - 1) / kRows <= kMaxTiles &&
          smem_bytes(hd, hd_v) <= kSmemLimit;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed; a wait
-// that never ends (a fault in the ring's bookkeeping) traps rather than
-// hangs the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0;; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-}
-
-// A box of the 4-d map (d, KV, Sk, B) at (c0, h, j, b) into shared memory,
-// completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int h, int j,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(h), "r"(j), "r"(b)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), layout (1: 128-byte swizzle, 0: none).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, uint32_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until this warpgroup's committed MMA groups have run.
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous MMAs.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define B9_D32(d)                                                              \
@@ -1114,7 +1041,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_expect_tx(&full[2 * v + st],
                    static_cast<uint32_t>(slabs * kBK * 128));
     for (int sl = 0; sl < slabs; ++sl)
-      tma_load(d + sl * (kBK * 128), v ? &tmv : &tmk, &full[2 * v + st],
+      tma_load_4d(d + sl * (kBK * 128), v ? &tmv : &tmk, &full[2 * v + st],
                sl * kSlab, h, kbeg + it * kBK, b);
   };
   if (tid == 0) {
@@ -1304,33 +1231,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<uint32_t*>(out + row * hd_v + col) = bf16_pair(x, y);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so
-// that the library needs no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The 4-d map of a bf16 (B, Sk, KV, d) array: boxes of 64 columns x 1 head

@@ -45,7 +45,7 @@ the shape alone (the CUDA source's ``wg::form`` mirrors it):
   kernel accumulates into acc on the tensor cores (``pv_accumulates``).
 * ``"mma_sync"``, every other problem (f32, f32 q beside a bf16 cache, a
   decode step's few rows, odd head dims).  Blocks of ``BLOCK_K`` = 32
-  keys.  Products in 3xTF32, as B10: f32 operands as two TF32 words
+  keys.  Products in 3xTF32: f32 operands as two TF32 words
   (``hi = rna(x)``, ``lo = rna(x - hi)``), the lo x lo term dropped; a
   bf16 operand is exact in one word.  q.k is summed per ``STEP``
   columns of hd (one chain of MMAs from zero), the steps added in order

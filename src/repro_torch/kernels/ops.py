@@ -315,9 +315,10 @@ def mma_norm_matmul(x, scale, w, *, w_gate=None, bias=None, act=None,
     launches kernel B10, a CPU tensor runs its plain version; there is
     no fallback from one to the other.  The geometry is fixed by the
     card, not tuned (the reference's ``chain`` / ``block_rows`` knobs
-    shaped its TPU grid): a block holds one 128 x 64 output tile and
-    walks k in a loop, so any d fits, where the reference padded d to
-    128 lanes and held the whole (rows, dout) accumulator in VMEM.
+    shaped its TPU grid): a block holds one 128 x 128 tile of the
+    combined projection and walks k in a loop, so any d fits, where the
+    reference padded d to 128 lanes and held the whole (rows, dout)
+    accumulator in VMEM.
 
     Reached through the ``norm_matmul`` registry entry as the
     ``fused_pallas`` engine with ``w`` given; callers go through

@@ -745,7 +745,8 @@ def _nm_close(got, want, scale):
 @pytest.mark.parametrize("rows,d,dout,act,bias", [
     (1, 40, 8, None, False), (17, 256, 100, "silu", True),
     (130, 2304, 100, "gelu", False), (64, 7168, 300, "silu", False),
-    (257, 33, 129, None, True)])
+    (257, 33, 129, None, True), (65, 2305, 200, "gelu", True),
+    (129, 2305, 9217, "silu", False), (128, 96, 257, None, False)])
 def test_norm_matmul_kernel_matches_plain_on_card(cuda, rows, d, dout, act,
                                                   bias, x_dtype, w_dtype):
     x, s, w, wg, b = _nm_inputs(rows, d, dout, act, bias, x_dtype, w_dtype,
@@ -758,15 +759,42 @@ def test_norm_matmul_kernel_matches_plain_on_card(cuda, rows, d, dout, act,
                                                  bias=b, act=act))
 
 
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_norm_matmul_kernel_keeps_f32_bits_with_f32_x(cuda, w_dtype):
+    """With f32 x B10 keeps about 22 bits a product whatever the weights'
+    dtype (kernels.mma_norm_matmul.product_bits): against the f64 oracle
+    of the inputs every output is within 2^-22 of its absolute-value
+    scale.  Without a gate or bias the output's own f32 rounding, about
+    2^-25 of the scale, is what is left; two words of x (16 bits) err by
+    about 2^-21.4 of it (norm_matmul_plain at this shape on the CPU)."""
+    x, s, w, _, _ = _nm_inputs(65, 2305, 200, None, False, torch.float32,
+                               w_dtype, 11)
+    got = mnm.norm_matmul_cuda(x, s, w)
+    xf = x.double()
+    want = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6) \
+        * (1.0 + s.double()) @ w.double()
+    scale = _nm_scale(x, s, w, None, None)
+    assert bool(torch.all((got.double() - want).abs()
+                          <= 2.0 ** -22 * scale))
+
+
 @pytest.mark.parametrize("act", [None, "gelu"])
 def test_norm_matmul_kernel_is_batch_independent(cuda, act):
     x, s, w, wg, b = _nm_inputs(4099, 2304, 200, act, True, torch.bfloat16,
                                 torch.float32, 7)
     full = mnm.norm_matmul_cuda(x, s, w, w_gate=wg, bias=b, act=act)
-    for rows in (1, 17, 129):
+    for rows in (1, 17, 64, 65, 128, 129):
         part = mnm.norm_matmul_cuda(x[:rows].contiguous(), s, w, w_gate=wg,
                                     bias=b, act=act)
         assert torch.equal(part, full[:rows]), rows
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 33, 2304, 2305, 7168])
+def test_b10_cuda_walk_mirrors_walk(cuda, d, x_dtype, w_dtype):
+    assert mnm.cuda_walk(d, x_dtype, w_dtype) == mnm.walk(d, x_dtype,
+                                                          w_dtype)
 
 
 def test_norm_matmul_wrapper_counts_launches_and_raises(cuda, monkeypatch):

@@ -305,10 +305,12 @@ def test_cost_model_prices_the_projection_with_w_given(gate,
     multiplies on the tensor cores and vpu in f32 on the CUDA cores, so
     auto resolves to unfused_mma (the reference's order); in f32 the
     two tie on the card and differ by their host time per call.
-    fused_pallas (kernel B10) is priced: x, each weight and the output
-    once, its flops at the fitted rate of the weight's dtype, and its
-    host time, so an f32 weight beside bf16 rows is priced at the f32
-    weights' rate and bytes."""
+    fused_pallas (kernel B10) is priced: its passes' bytes (x and its
+    words where the form splits x, the weights and an f32 weight's words,
+    the output, each word written and read once) at its fitted byte
+    rate, its flops at the fitted rate of its form (x's and the weights'
+    dtypes), and its host time, so an f32 weight beside bf16 rows is
+    priced at that form's rate and bytes."""
     d, dout = 2304, 9216        # Gemma-2 2B's MLP (gemma2_2b.py:17)
     n = 4096 * d
     form = (("d", d), ("dout", dout), ("gate", gate))
@@ -317,7 +319,8 @@ def test_cost_model_prices_the_projection_with_w_given(gate,
                                   op="norm_matmul", form=form)
                 for m in ("fused_pallas", "unfused_mma", "vpu")}
         flops = 2.0 * n * dout * (1 + gate)
-        rate = tat._B10_FLOPS_PER_US[tp.dtype_name(dtype)]
+        name = tp.dtype_name(dtype)
+        rate = tat._B10_FLOPS_PER_US[f"{name}/{name}"]
         assert flops / rate < cost["fused_pallas"] < float("inf"), cost
         if dtype == torch.bfloat16:
             assert cost["vpu"] > 5 * cost["unfused_mma"], cost
@@ -327,9 +330,16 @@ def test_cost_model_prices_the_projection_with_w_given(gate,
                 host["unfused_mma"] - host["vpu"]), cost
     mixed = form + (("w_dtype", "float32"),)
     for f, w_dtype, w_item in ((form, "bfloat16", 2), (mixed, "float32", 4)):
-        nbytes = 2 * n + (1 + gate) * d * dout * w_item + n / d * dout * 2
-        want = nbytes / tat._HBM_BYTES_PER_US \
-            + 2.0 * n * dout * (1 + gate) / tat._B10_FLOPS_PER_US[w_dtype] \
+        # bf16 rows: two words of x with bf16 weights; x itself beside f32
+        # weights, whose two words the weight pass makes.
+        x_side, w_side = (2 + 8, 2) if w_item == 2 else (2 + 2, 4 + 8)
+        assert mnm.walk(d, torch.bfloat16, tp.as_dtype(w_dtype)).fold_w \
+            == (w_item == 4)
+        nbytes = n * x_side + (1 + gate) * d * dout * w_side \
+            + n / d * dout * 2
+        rate = tat._B10_FLOPS_PER_US[f"bfloat16/{w_dtype}"]
+        want = nbytes / tat._B10_BYTES_PER_US \
+            + 2.0 * n * dout * (1 + gate) / rate \
             + tat._NM_HOST_US["fused_pallas"]
         got = tat.model_cost(tat.ReductionPlan(method="fused_pallas"), n,
                              torch.bfloat16, op="norm_matmul", form=f)
@@ -522,8 +532,8 @@ def test_rmsnorm_plain_row_bits_do_not_depend_on_rows(dtype):
 # interpret mode on the CPU (its dispatch predicate refuses d > 512 on
 # the TPU; the kernel itself runs at any d).  Both multiply
 # x * (1 + scale) by the weights with f32 accumulation: the reference in
-# f32, the port in 3xTF32 (about 2^-22 relative per product) and
-# another order of adds.  f32 output: the Frobenius distance between
+# f32, the port in bf16 words (about 2^-22 relative per product with f32
+# x, kernels.mma_norm_matmul.walk) and another order of adds.  f32 output: the Frobenius distance between
 # the two within 2^-17 of the output's norm (seen: 3e-7 relative).
 # bf16 output: every element within one bf16 ulp (2^-7 relative at
 # most) plus 1e-5, since the f32 values before the rounding differ by
@@ -534,7 +544,7 @@ def test_rmsnorm_plain_row_bits_do_not_depend_on_rows(dtype):
 NM_CASES = [(64, 256, 128, None, False), (37, 200, 100, "silu", True),
             (37, 200, 100, "gelu", True), (37, 200, 100, "gelu", False)]
 NM_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
-             ("bfloat16", "float32")]
+             ("bfloat16", "float32"), ("float32", "bfloat16")]
 
 
 def _nm_inputs(rows, d, dout, act, bias, seed):
@@ -627,3 +637,90 @@ def test_norm_matmul_plain_decomposition():
                                  torch.from_numpy(w),
                                  w_gate=torch.from_numpy(wg), act="silu")
     assert got.shape == (2, 3, 24) and torch.equal(got.reshape(6, 24), flat)
+
+
+B10_FORMS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+
+
+def test_b10_walk_is_a_function_of_d_and_the_dtypes():
+    """B10's k-walk takes d and the two dtypes and nothing else (no row
+    count): the step, the words of each side, where 1 + scale goes, the
+    products (the smaller first) and the statistic's runs, which are
+    B8's."""
+    import inspect
+    assert list(inspect.signature(mnm.walk).parameters) == [
+        "d", "x_dtype", "w_dtype"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    want = {(f32, f32): (3, 3, False, [(0, 2), (1, 1), (2, 0), (0, 1),
+                                       (1, 0), (0, 0)]),
+            (f32, bf16): (3, 1, False, [(2, 0), (1, 0), (0, 0)]),
+            (bf16, f32): (1, 2, True, [(0, 1), (0, 0)]),
+            (bf16, bf16): (2, 1, False, [(1, 0), (0, 0)])}
+    for d in (1, 33, 2304, 2305, 7168):
+        for (xdt, wdt), (a_words, b_words, fold_w, pairs) in want.items():
+            wk = mnm.walk(d, xdt, wdt)
+            assert (wk.step, wk.a_words, wk.b_words, wk.fold_w) == (
+                64, a_words, b_words, fold_w)
+            assert mnm.products(wk) == pairs
+            assert (wk.ranks, wk.chunks) == mrn.walk(d, xdt)[:2]
+
+
+def test_b10_walk_matches_the_cuda_source():
+    """The Python walk is the .cu's Form and stat_walk: the same rules
+    for the step, the words and the levels, and B8's constants for the
+    statistic."""
+    import re
+    src = open(os.path.join(os.path.dirname(mnm.__file__), "csrc",
+                            "mma_norm_matmul.cu")).read()
+    for rule in (r"kFoldW = XDT == kBF16 && WDT == kF32;",
+                 r"kFF = XDT == kF32 && WDT == kF32;",
+                 r"kAWords = kFoldW \? 1 : \(XDT == kF32 \? 3 : 2\);",
+                 r"kBWords = kFF \? 3 : \(kFoldW \? 2 : 1\);",
+                 r"kLevels = XDT == kF32 \? 3 : 2;"):
+        assert re.search(rule, src), rule
+    for name, value in (("kStep", mnm.STEP),
+                        ("kStatWarps", mrn.WARPS),
+                        ("kChunkBytes", mrn.CHUNK_BYTES),
+                        ("kChunkMin", mrn.CHUNK_MIN),
+                        ("kClusterMax", mrn.CLUSTER_MAX),
+                        ("kBM", mnm.BLOCK_ROWS), ("kBN", mnm.BLOCK_COLS),
+                        ("kGroup", mnm.GROUP)):
+        got = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert got and int(got.group(1)) == value, name
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", B10_FORMS)
+def test_b10_forms_keep_the_bits_the_cost_model_credits(x_dtype, w_dtype):
+    """Every form keeps at least the bits the error model credits B10
+    with (``engine_bits``, capped by x's dtype): 21 or more wherever x
+    is f32, whatever the weights' dtype, and 16 where x is bf16, as its
+    contract says."""
+    wk = mnm.walk(2304, x_dtype, w_dtype)
+    bits = mnm.product_bits(wk)
+    assert bits >= (21 if x_dtype == torch.float32 else 16), (wk, bits)
+    form = (("d", 2304), ("dout", 9216), ("gate", 1))
+    if w_dtype != x_dtype:
+        form += (("w_dtype", tp.dtype_name(w_dtype)),)
+    credited = tat._multiplicand_bits(
+        tat.ReductionPlan(method="fused_pallas"), x_dtype,
+        op="norm_matmul", form=form)
+    assert credited <= bits, (credited, bits)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", B10_FORMS)
+def test_norm_matmul_plain_row_bits_do_not_depend_on_rows(x_dtype, w_dtype):
+    """The walk is a function of d and the dtypes: rows 0..16 of
+    norm_matmul_plain have the same bits in calls of 17 and 300 rows, in
+    every form (d ragged against both steps, both projections and a
+    bias).  The gate goes in without an activation: torch's CPU silu and
+    gelu take a vector or a scalar path by an element's place in the
+    tensor, so their last bit may differ between the two calls; the
+    kernel's activations are its own."""
+    x, s, w, wg, b = _nm_inputs(300, 200, 24, "gelu", True, 300)
+    tx = torch.from_numpy(x).to(x_dtype)
+    tw, twg = (torch.from_numpy(m).to(w_dtype) for m in (w, wg))
+    call = dict(w_gate=twg, bias=torch.from_numpy(b), act=None)
+    full = mnm.norm_matmul_plain(tx, torch.from_numpy(s), tw, **call)
+    part = mnm.norm_matmul_plain(tx[:17], torch.from_numpy(s), tw, **call)
+    assert torch.equal(part, full[:17])
