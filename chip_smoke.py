@@ -181,21 +181,24 @@ The attention path (kernel B9; CUDA C++ in ``csrc/mma_attention.cu``):
 ``repro_torch.models.attention.attention`` -> ``core.dispatch`` op
 ``attention`` -> the engines ``fused_pallas`` (B9), ``unfused_mma``
 (the KV-chunked online softmax) and ``vpu`` (the unchunked oracle).  B9
-has two forms, chosen from dtypes and shape (``walk``): the bf16
-prefill form (wgmma fed by TMA; counter ``b9_attention_wgmma``) and the
-mma.sync form for the rest (``b9_attention``).  Its phases:
+has three forms, chosen from dtypes and shape (``walk``): the bf16
+prefill form (wgmma fed by TMA; counter ``b9_attention_wgmma``), the f32
+prefill form (a word pass, then wgmma fed by TMA; ``b9_attention_f32``)
+and the mma.sync form for the rest (``b9_attention``).  Its phases:
 
   2g. B9 against ``attention_plain`` on the card (B9_CASES): f32, bf16
       and f32 q beside a bf16 cache; hd 256 with G 2 and KV 4, 128, and
       192 / 128; Sq G and Sk ragged against the tiles; causal, window,
       softcap 50, per-row qpos with kv_len, rows at qpos -1; and in bf16
       B9_WG_CASES, which the wgmma form takes (rows a head 17 to 8192,
-      Sk ragged against its 64-key blocks, hd 16 to 256): within
+      Sk ragged against its 64-key blocks, hd 16 to 256), and in f32
+      B9_WF_CASES (the f32 B9_CASES with more than 16 rows a head and
+      hd, hd_v multiples of 16 take the f32 prefill form too): within
       2^-20 (1 + sigma) of each output's absolute-value scale (bf16 v
       2^-8 of it more and one ulp; B9_RTOL), two calls the same bits, a
       row's bits those of a one-row call, rows with no key exactly 0;
       each case's counter is its form's, and the CUDA chooser agrees
-      with ``walk``;
+      with ``walk``; each of the three forms runs;
   3i. Gemma-2 2B's attention layer at full width (weights from the
       seed) through ``models.attention.attention`` with attn_method
       fused_pallas (B9), unfused_mma, vpu and auto: the global layer at
@@ -205,8 +208,9 @@ mma.sync form for the rest (``b9_attention``).  Its phases:
       activations; unfused_mma refuses decode); each engine's attention
       output held to the f64 oracle of its own qg / k / v within
       ATTN_CEILINGS plus 100 * 2^-8 % per rounding to bf16; the wgmma
-      form's counter must move at the bf16 prefill shapes and the
-      mma.sync form's at the others (and not the other's); auto within
+      form's counter must move at the bf16 prefill shapes, the f32
+      prefill form's at the f32 ones and the mma.sync form's at decode,
+      each alone; auto within
       1.25x of the fastest engine at every shape, the layer timed in
       balanced orders;
   5g. B9 timed at 3i's shapes beside its bound (bytes / 3.35 TB/s or 2
@@ -214,12 +218,18 @@ mma.sync form for the rest (``b9_attention``).  Its phases:
       ``attention_plain`` and ``unfused_mma``; with cap=None B9 beside
       ``F.scaled_dot_product_attention``, the library yardstick (no
       softcap there), at the prefill shapes and the global decode
-      shape; the wgmma form's registers and spills from ptxas; the cost
+      shape; at the f32 prefill shapes also the mma.sync form as f32
+      prefill ran before the f32 form (``probes/b9_f32_limits.py``'s
+      mma_sync build) and the f32 form's word pass and attention kernel
+      by torch.profiler's device time; both wgmma forms' registers and
+      spills from ptxas (no spills); the cost
       model's B9 flop and byte rates and its attention host times per
       call refitted.
 
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
-(B1-B10, B9 once per form), and last ``{"ok": true, "device": {...}}``.  Details go to
+(B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
+prefill, the mma.sync form at the global decode step), and last
+``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -227,6 +237,7 @@ repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -528,6 +539,14 @@ B9_WG_CASES = (
     (2, 40, 200, 2, 2, 256, 256, True, None, 50.0, "tail", True),
     (1, 4096, 4131, 1, 2, 256, 256, True, None, 50.0, "tail", False),
 )
+# f32 cases on B9's f32 prefill form beside B9_CASES' f32 ones: the global
+# layer's 4096 rows of one KV head (8192 a head) at hd 256.
+B9_WF_CASES = (
+    (1, 4096, 4131, 1, 2, 256, 256, True, None, 50.0, "tail", False),
+)
+# B9's launch counter by form.
+B9_COUNTERS = {"mma_sync": "b9_attention", "wgmma": "b9_attention_wgmma",
+               "wgmma_f32": "b9_attention_f32"}
 # Phase 3i: Gemma-2 2B's attention layer at full width
 # (repro_torch/configs/gemma2_2b.py: d_model 2304, 8 heads over 4 KV
 # heads, head_dim 256, softcap 50, window 4096), weights from the seed.
@@ -2744,18 +2763,22 @@ def attn_diff(got, want, a, sigma) -> tuple:
 def check_attention_kernel(ma, gen) -> dict:
     """B9 against attention_plain on the same card inputs: B9_CASES for
     f32, bf16 and f32 q beside a bf16 cache, and B9_WG_CASES in bf16 (the
-    wgmma form); each launch moves its form's counter, the CUDA chooser
+    wgmma form) and B9_WF_CASES in f32 (the f32 prefill form, which the
+    f32 B9_CASES with more than 16 rows a head take too); each launch
+    moves its form's counter, the CUDA chooser
     agrees with walk; two calls give the same bits, rows 0..k of a B-row
     call equal a (k + 1)-row call, and rows with no valid key are
     exactly 0."""
     worst = {"f32_ratio": 0.0, "abs": 0.0}
     rows_out = []
-    forms = {"wgmma": 0, "mma_sync": 0}
+    forms = dict.fromkeys(B9_COUNTERS, 0)
     # B9_WG_CASES draw from a generator of their own, so that the phases
     # after this one see the same random data as before they were added.
     wg_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    wf_gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     cases = [(kind, case, gen) for kind in ATTN_KINDS for case in B9_CASES] \
-        + [("bf16", case, wg_gen) for case in B9_WG_CASES]
+        + [("bf16", case, wg_gen) for case in B9_WG_CASES] \
+        + [("f32", case, wf_gen) for case in B9_WF_CASES]
     for kind, (B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos,
                kv_len), case_gen in cases:
         qg, k, v, pos, kvl = attn_inputs(B, Sq, Sk, KV, G, hd, hd_v,
@@ -2766,8 +2789,7 @@ def check_attention_kernel(ma, gen) -> dict:
         check(ma.cuda_form(qg.dtype, k.dtype, Sq * G, hd, hd_v) == form,
               f"B9 {kind} rows {Sq * G} hd {hd}/{hd_v}: the CUDA "
               f"chooser disagrees with walk ({form})")
-        counter = "b9_attention_wgmma" if form == "wgmma" \
-            else "b9_attention"
+        counter = B9_COUNTERS[form]
         before = dict(ma.LAUNCHES)
         got = ma.attention_cuda(qg, k, v, **kw)
         check(ma.LAUNCHES[counter] == before[counter] + 1
@@ -2810,7 +2832,7 @@ def check_attention_kernel(ma, gen) -> dict:
     torch.cuda.synchronize()
     check(min(forms.values()) > 0, f"phase 2g: a B9 form never ran {forms}")
     print(f"phase 2g: {len(rows_out)} B9-vs-plain checks passed "
-          f"({forms['wgmma']} on the wgmma form), worst "
+          f"(by form {forms}), worst "
           f"|diff| {worst['abs']:.3g}, worst f32 |diff| / ((1 + sigma) A) "
           f"{worst['f32_ratio']:.3g} (within 2^-20 of it, bf16 v plus 2^-8 "
           f"A and one ulp; two calls the same bits; a row's bits "
@@ -2869,8 +2891,9 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
     against the f64 oracle of its own qg / k / v within ATTN_CEILINGS
     (+ 100 * 2^-8 % per rounding to bf16); auto within PICK_SLACK of the
     fastest engine, the layer timed in balanced_orders.  B9's wgmma form
-    must launch at the bf16 prefill shapes and its mma.sync form at the
-    others, each alone.  Returns (rows, picks, shapes) where shapes keeps
+    must launch at the bf16 prefill shapes, its f32 prefill form at the
+    f32 ones and its mma.sync form at decode, each alone.  Returns (rows,
+    picks, shapes) where shapes keeps
     each problem's operands for 5g."""
     import dataclasses
     cfg0 = registry.get_config(ATTN_ARCH)
@@ -2962,8 +2985,8 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
             pick = check_pick(f"{problem} attention", {
                 m: times[m] for m in methods if m != "auto"}, times["auto"])
             moved = {key: ma.LAUNCHES[key] - before[key] for key in before}
-            form = "b9_attention_wgmma" if dkind == "bf16" and not decode \
-                else "b9_attention"
+            form = B9_COUNTERS["mma_sync" if decode else
+                               "wgmma" if dkind == "bf16" else "wgmma_f32"]
             check(moved[form] > 0 and sum(moved.values()) == moved[form],
                   f"{problem}: B9 launches by form {moved}, expected "
                   f"{form} alone")
@@ -3058,7 +3081,7 @@ def ptxas_kernels(lib, needle: str) -> dict:
 
 
 def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
-                          worst_abs: dict) -> tuple:
+                          worst_abs: dict, probe, sync_dll) -> tuple:
     """B9 at phase 3i's shapes, on the operands the layer gave it: held
     to its tolerance against attention_plain and to the same bits over two
     calls, then timed (median CUDA-event time, in turns with the plain
@@ -3068,9 +3091,13 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
     yardstick (every prefill shape, a window as SDPA's mask, and the
     global decode step).  The cost model's B9 rates
     are refitted: _B9_FLOPS_PER_US from the prefill shapes,
-    _B9_BYTES_PER_US from the decode ones.  The ``kernels`` line takes
-    each form at the global prefill (bf16: the wgmma form; f32: the
-    mma.sync form), every case goes to the details."""
+    _B9_BYTES_PER_US from the decode ones.  At the f32 prefill shapes the
+    mma.sync form as f32 prefill ran before the f32 prefill form (the
+    probe's mma_sync build, ``sync_dll``) is timed in turns with it, and
+    the f32 form's two launches are read by torch.profiler.  The
+    ``kernels`` line takes the wgmma and f32 prefill forms at the global
+    prefill and the mma.sync form at the global decode step (mixed);
+    every case goes to the details."""
     entries, details, fits = {}, [], {}
     for problem, dkind, decode, op in shapes:
         qg, k, v, kw = op["qg"], op["k"], op["v"], dict(op["kw"])
@@ -3088,10 +3115,23 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
         check(ok, f"B9 {problem}: |kernel - plain| {diff:.3g}")
         check(torch.equal(got, again), f"B9 {problem}: two calls differ")
         del got, again, want, a
+        form = ma.walk(qg.dtype, k.dtype, qg.shape[1] * qg.shape[3],
+                       qg.shape[-1], v.shape[-1])[0]
+        sync = sync_ms = device = None
+        if form == "wgmma_f32":
+            sync = probe.variant_call(sync_dll, qg, k, v, kk)
+        # in turns: plain, mma.sync, B9, B9, mma.sync, plain
         p1 = median_ms(plain, reps=1, warmup=0)
+        s1 = None if sync is None else median_ms(sync, reps=5, warmup=1)
         k1 = median_ms(kern, reps=5, warmup=1)
         k2 = median_ms(kern, reps=5, warmup=1)
+        s2 = None if sync is None else median_ms(sync, reps=5, warmup=1)
         p2 = median_ms(plain, reps=1, warmup=0)
+        if sync is not None:
+            sync_ms = min(s1, s2)
+            device = probe.device_ms(kern)
+            check(set(device) == {"words_kernel", "attn_f32_kernel"},
+                  f"torch.profiler saw {device} of B9's f32 form")
         # per launch in a run of B9_RUN back to back: the card's time
         # without the host's per-call work between launches
         run_ms = median_ms(lambda: [kern() for _ in range(B9_RUN)], reps=3,
@@ -3112,14 +3152,13 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
             lib_ms = median_ms(sdpa_call(qg, k, v, kk), reps=5, warmup=1)
         bound_ms, bound_by, nbytes, flops = attn_bound(qg, k, v, kk)
         ms = min(k1, k2)
-        form = ma.walk(qg.dtype, k.dtype, qg.shape[1] * qg.shape[3],
-                       qg.shape[-1], v.shape[-1])[0]
-        kname = "b9_attention_wgmma" if form == "wgmma" else "b9_attention"
+        kname = B9_COUNTERS[form]
         row = {"name": kname, "problem": problem, "dtype": dkind,
                "ms": ms, "ms_runs": [k1, k2], "ms_back_to_back": run_ms,
                "plain_ms": min(p1, p2),
                "plain_ms_runs": [p1, p2], "unfused_mma_ms": u_ms,
                "nocap_ms": nocap_ms, "library_ms": lib_ms,
+               "mma_sync_ms": sync_ms, "device_ms": device,
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "flops": flops, "max_abs_err": diff,
                "share_of_bound": bound_ms / ms,
@@ -3134,7 +3173,10 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
               f" ms, SDPA {lib_ms if lib_ms is None else round(lib_ms, 4)} "
               f"ms; bound {bound_ms:.4f} ms ({bound_by}; "
               f"{100 * row['share_of_bound']:.1f} % of it) |diff| "
-              f"{diff:.3g}", flush=True)
+              f"{diff:.3g}"
+              + ("" if sync_ms is None else
+                 f"; the mma.sync form {sync_ms:.4f} ms ({ms / sync_ms:.3f}x "
+                 f"of it); device ms by launch {device}"), flush=True)
         if decode:
             # the model's bytes: every slot of the cache, q and o
             B, Sq, KV, G, hd = qg.shape
@@ -3145,7 +3187,8 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
         else:
             fits.setdefault({"f32": "float32", "bf16": "bfloat16"}[dkind],
                             []).append(flops / (ms * 1e3))
-        if problem in ("prefill global bf16", "prefill global f32"):
+        if problem in ("prefill global bf16", "prefill global f32",
+                       "decode global mixed"):
             entries[kname] = {
                 "name": kname, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/mma_attention.cu",
@@ -3165,8 +3208,8 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
           f"bytes over time, the slowest decode case); committed "
           f"{autotune._B9_FLOPS_PER_US}, {autotune._B9_BYTES_PER_US}",
           flush=True)
-    return [entries["b9_attention_wgmma"], entries["b9_attention"]], \
-        details, fit
+    return [entries["b9_attention_wgmma"], entries["b9_attention_f32"],
+            entries["b9_attention"]], details, fit
 
 
 def fit_attn_host(dispatch, autotune, gen) -> dict:
@@ -3509,7 +3552,15 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
     t0 = time.perf_counter()
+    # The mma.sync form as f32 prefill ran it before B9's f32 prefill form
+    # (phase 5g's yardstick), built beside the libraries.
+    spec = importlib.util.spec_from_file_location(
+        "b9_f32_limits", os.path.join(ROOT, "probes", "b9_f32_limits.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    sync_build = probe.start_builds(("mma_sync",))
     libs = _build.build_all()
+    sync_dll = probe.finish_builds(sync_build)[0]["mma_sync"]
     build_s = time.perf_counter() - t0
     print(f"phase 1: built {sorted(libs)} in {build_s:.1f} s", flush=True)
     ptxas = {lib: ptxas_report(path) for lib, path in libs.items()}
@@ -3652,7 +3703,8 @@ def main() -> int:
                               if r[0] == kname], default=0.0)
                   for kname in attn_launches}
     attn_entries, attn_timing_rows, attn_fit = time_attention_kernel(
-        ma, dispatch, autotune, attn_shapes, attn_launches, attn_worst)
+        ma, dispatch, autotune, attn_shapes, attn_launches, attn_worst,
+        probe, sync_dll)
     del attn_shapes
     entries += attn_entries
     wg_ptxas = ptxas_kernels(libs["mma_attention"], "attn_wgmma_kernel")
@@ -3662,6 +3714,15 @@ def main() -> int:
           flush=True)
     check(all(spill == 0 for _, spill in wg_ptxas.values()),
           f"the wgmma form spills: {wg_ptxas}")
+    wf_ptxas = {**ptxas_kernels(libs["mma_attention"], "attn_f32_kernel"),
+                **ptxas_kernels(libs["mma_attention"], "words_kernel")}
+    shown = {name.split("wf")[1][2:30]: val for name, val in wf_ptxas.items()}
+    print(f"phase 5g: ptxas (registers, spill store bytes) of the f32 "
+          f"prefill form by value width and cap, and its word pass: "
+          f"{shown}", flush=True)
+    check(len(wf_ptxas) == 9
+          and all(spill == 0 for _, spill in wf_ptxas.values()),
+          f"the f32 prefill form spills: {wf_ptxas}")
     attn_host = fit_attn_host(dispatch, autotune, gen)
 
     print("phase 6: the cost model against measured times (f32, bf16, "
@@ -3717,7 +3778,7 @@ def main() -> int:
                    "attention_launches": attn_launches,
                    "attention_timings": attn_timing_rows,
                    "b9_fit": attn_fit, "attn_host_us": attn_host,
-                   "b9_wgmma_ptxas": wg_ptxas,
+                   "b9_wgmma_ptxas": wg_ptxas, "b9_f32_ptxas": wf_ptxas,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

@@ -762,11 +762,13 @@ def _cost_norm_matmul(plan: ReductionPlan, n: int, itemsize: int, dtype,
 # The three fitted constants below come from chip_smoke.py (phase 5g) on
 # one H100 80GB HBM3 (700 W), which prints their fit each run.  Kernel
 # B9's useful flops per µs by its (q, kv) dtypes, fitted at Gemma-2 2B's
-# prefill shapes as flops over time (the mixed form, f32 q beside a bf16
-# cache, runs only at decode and takes the f32 rate).  bf16 prefill runs
-# on B9's wgmma form; its rate is the mean of its global (4096 tokens)
-# and local (8192) fits:
-_B9_FLOPS_PER_US = {"float32": 14.17e6, "bfloat16": 255.1e6,
+# prefill shapes as flops over time, the mean of the global (4096
+# tokens) and local (8192) fits.  bf16 prefill runs on B9's wgmma form,
+# f32 prefill on its f32 prefill form (48.83e6: 46.7e6 global, 51.0e6
+# local; the mma.sync form it replaced fitted 14.17e6).
+# The mixed form, f32 q beside a bf16 cache, runs only at decode, on the
+# mma.sync form, and keeps that form's f32 rate:
+_B9_FLOPS_PER_US = {"float32": 48.83e6, "bfloat16": 255.1e6,
                     "float32/bfloat16": 14.17e6}
 # Bytes per µs B9 streams at a decode step (128 slots, 2 query rows a KV
 # head: its MMAs fill 2 of 16 rows and a block walks its keys alone),

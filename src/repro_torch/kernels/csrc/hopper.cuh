@@ -1,13 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels:
-// B9's bf16 prefill form (mma_attention.cu) and B10 (mma_norm_matmul.cu).
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and fences,
-// and cuTensorMapEncodeTiled found through the runtime.  Each source that
+// B9's bf16 and f32 prefill forms (mma_attention.cu) and B10
+// (mma_norm_matmul.cu).  mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors and fences, cuTensorMapEncodeTiled found through the
+// runtime and a 3-d map over bf16 word planes, and the split of f32
+// values into bf16 words.  Each source that
 // includes this header is one library; kernels/_build.py folds the header
 // into every library's digest, so an edit here rebuilds them all.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -139,6 +142,55 @@ inline EncodeTiled encoder() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// Two floats as a bf16 pair rounded to nearest, the first in the low
+// half; each keeps its rest (exact in f32) for the next word.
+__device__ __forceinline__ uint32_t split(float& x, float& y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  x = __fsub_rn(x, f.x);
+  y = __fsub_rn(y, f.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The W bf16 words of 8 consecutive values, most significant first, 16
+// bytes each into planes `plane` elements apart from dst.
+template <int W>
+__device__ __forceinline__ void store_words8(float (&v)[8],
+                                             __nv_bfloat16* dst,
+                                             long long plane) {
+#pragma unroll
+  for (int wd = 0; wd < W; ++wd) {
+    const uint32_t a = split(v[0], v[1]), b = split(v[2], v[3]);
+    const uint32_t c = split(v[4], v[5]), e = split(v[6], v[7]);
+    *reinterpret_cast<uint4*>(dst + wd * plane) = make_uint4(a, b, c, e);
+  }
+}
+
+// A 3-d map of `planes` row-major (outer, inner) bf16 arrays, rows
+// `pitch` elements apart and planes `plane` elements apart: boxes of
+// box_outer x box_inner of one plane, in 128-byte swizzled rows (an MMA
+// operand as it lands), zero past each extent.
+inline int encode(CUtensorMap* map, const void* base, long long inner,
+                  long long outer, long long pitch, long long planes,
+                  long long plane, int box_inner, int box_outer) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(pitch * 2),
+                                 static_cast<cuuint64_t>(plane * 2)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

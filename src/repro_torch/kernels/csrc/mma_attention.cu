@@ -1316,12 +1316,635 @@ int launch_width(const void* q, const void* k, const void* v, const int* qpos,
 
 }  // namespace wg
 
-template <bool QF32, bool KVF32>
-int launch_width(const void* q, const void* k, const void* v, const int* qpos,
-                 const int* kvlen, void* out, int B, int Sq, int Sk, int KV,
-                 int G, int hd, int hd_v, int causal, int has_window,
+// ---------------------------------------------------------------------------
+// The f32 prefill form: one consumer warpgroup on wgmma fed by TMA, the
+// operands' MMA words made once by a word pass.
+//
+// Taken by wf::form (below) when qg, k and v are all f32, a head has more
+// than 16 rows, and hd and hd_v are multiples of 16 up to 256; it replaces
+// attn_kernel for those problems (which split each f32 value into TF32
+// words at every fragment load, on every key block, in every warp).
+//
+// Words.  The tensor cores take bf16 words: each f32 value x is split into
+// three, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each
+// rounded to nearest (the rests are exact in f32), and a product is the
+// six word products (i, j) with i + j < 3, the smaller first: (0, 2) (1,
+// 1) (2, 0) (0, 1) (1, 0) (0, 0) (B10's f32 form; about 22 bits a product,
+// the dropped ones 2^-24 relative).  Three bf16 words on bf16 wgmma cost
+// the tensor cores what 3xTF32 does on TF32 wgmma (probes/b10_tf32.py),
+// take 6 bytes a value against TF32's 8, and keep wgmma's transpose bit
+// for V (TF32 has none: V would have to be transposed).
+//
+// Two launches a call:
+//   words_kernel    one pass over qg, k and v (f32, 32 bytes a thread),
+//                   writing their three words as bf16 planes laid out for
+//                   TMA: q's rows packed per (batch, KV head) in the
+//                   walk's order r = i G + g, planes [word][b KV + h][r]
+//                   [hd]; k's and v's [word][b KV + h][key][hd or hd_v];
+//   attn_f32_kernel the walk.  A block owns 64 query rows of one (batch,
+//                   KV head) and walks keys in blocks of kBK = 64, in
+//                   order.  Its walk per row, from m = -1e30, l = c = acc
+//                   = 0:
+//     s     = q.k: per 64-column step of hd, the six word products chained
+//             from zero on the tensor cores (24 wgmma.m64n64k16, both
+//             operands in shared memory), the steps added in order with
+//             __fadd_rn on the CUDA cores;
+//     the softcap, the mask, m_new, corr and p as attn_kernel: f32,
+//             __fmul_rn / __fdiv_rn, tanhf and expf;
+//     l_blk = words(p) x ones: p's three bf16 words (the operands of p x
+//             v, in shared memory) against ones, m64n8k16, from zero;
+//             the Kahan step as above;
+//     acc   = acc corr + p x v, per 64-column chunk of hd_v: p's three
+//             words against v's three, the six products from zero (24
+//             wgmma.m64n64k16, both in shared memory, V MN-major through
+//             the transpose bit), the chunk's partial added to acc corr
+//             with __fmul_rn / __fadd_rn.  A truncating tensor-core add
+//             touches one step's or one chunk's partial, never a running
+//             sum.
+//
+// Shared memory and registers, at hd = hd_v = 256 (the widest; 227 KB a
+// block, 255 registers a thread):
+//   Q       three words of the block's 64 rows, resident for the walk:
+//           4 slabs x 3 words x (64 rows x 128 bytes) = 96 KB, by TMA
+//           once (a slab of 64 columns laid out as a ring stage is);
+//   ring    wf::stages(hd) stages of 24 KB, each one 64 x 64 tile of each
+//           word (8 KB a word, 128-byte rows in the 128-byte swizzle):
+//           a key block's hd / 64 steps of K, then its hd_v / 64 chunks
+//           of V, in that order.  4 stages at hd 256 (96 KB), 5 at 192,
+//           7 at 64 and below;
+//   P       p's three words of the block, 24 KB in a stage's layout: the
+//           A operand of the row sums and of p x v.  Held in registers
+//           (48 a thread) beside acc (128), a chunk's partial (32) and the
+//           MMAs' descriptors, they made ptxas spill ~540 bytes at hd_v
+//           256, so they go through shared memory, one store of 4 bytes a
+//           word and key pair, free of bank conflicts in the swizzle;
+//   the rest the ones-MMA's 512-byte operand, a Q mbarrier and a full and
+//           an empty mbarrier a stage, the rows' bounds, the warps' bound
+//           reductions: 223,448 bytes in all at hd 256;
+//   a consumer thread holds acc (hd_v / 2 floats: 128 at 256), the
+//           scores (32) and one 32-float partial (a step's or a chunk's);
+//           a 128-row block (two warpgroups, as the bf16 form) would need
+//           Q's words of 128 rows, 192 KB, so a block keeps 64 rows and
+//           one block runs an SM.
+// Warp 4 (one lane) loads: Q once, then the ring in the consumers' order,
+// each stage once the four consumer warps have released it.  It takes no
+// setmaxnreg: at 160 threads and one block an SM every thread may hold the
+// 255-register ceiling already, so there is nothing to move (the launch
+// checks it).  The bf16 form's known fixes stand: blocks past the tile's
+// causal / window band are not walked, masks count only on blocks that
+// straddle some row's [lo, hi), the row tiles launch heaviest first under
+// a causal mask, and no accumulator is written on a branch or touched
+// between a chain's first MMA and its wait (every operand but the
+// accumulators is in shared memory).
+// Nothing depends on which block runs when: the same bits on every call,
+// and a row's bits do not depend on the batch.
+namespace wf {
+
+using namespace hopper;
+
+constexpr int kRows = 64;               // query rows a block
+constexpr int kBK = 64;                 // keys a block of the walk
+constexpr int kStep = 64;               // hd columns a step, hd_v a chunk
+constexpr int kWords = 3;               // bf16 words of an f32 value
+constexpr int kProducts = 6;            // word pairs (i, j), i + j < 3
+constexpr int kConsumerWarps = 4;       // one consumer warpgroup
+constexpr int kThreads = 160;           // and warp 4, which loads
+constexpr int kPlane = 64 * 128;        // a word's 64 x 64 bf16 tile
+constexpr int kStage = kWords * kPlane;  // 24 KB
+constexpr int kStagesMax = 8;
+constexpr int kOnesBytes = 512;
+constexpr int kMaxTiles = 65535;        // gridDim.z
+// The ones, the Q mbarrier, a full and an empty mbarrier a stage, the
+// rows' lo and hi, and five bound reductions for each of two warps of
+// rows (kernels/mma_attention.py WF_EXTRA_BYTES).
+constexpr int kExtra = kOnesBytes + 8 * (1 + 2 * kStagesMax) + 2 * kRows * 4 +
+                       4 * 5 * 4;
+constexpr int kPassThreads = 256;
+
+__host__ __device__ constexpr int round64(int d) { return (d + 63) / 64 * 64; }
+
+// The ring's stages at head dim hd: as many as fit beside Q and p's
+// words, at most kStagesMax (kernels/mma_attention.py wf_stages).
+__host__ __device__ constexpr int stages(int hd) {
+  const int fit = (kSmemLimit - 1024 - kWords * kRows * round64(hd) * 2 -
+                   kStage - kExtra) /
+                  kStage;
+  return fit < kStagesMax ? fit : kStagesMax;
+}
+
+// Shared memory of a block: the 1024-byte alignment slack, Q's words, the
+// ring, p's words (a stage's size) and the rest (kernels/mma_attention.py
+// smem_bytes mirrors it).
+__host__ __device__ constexpr long long smem_bytes(int hd) {
+  return 1024LL + kWords * kRows * round64(hd) * 2LL +
+         static_cast<long long>(stages(hd) + 1) * kStage + kExtra;
+}
+
+// The form chooser, a pure function of dtypes and shape (mirrored by
+// kernels/mma_attention.py walk): 1 for this form.
+__host__ __device__ inline int form(int q_dtype, int kv_dtype, long long rows,
+                                    int hd, int hd_v) {
+  return q_dtype == kF32 && kv_dtype == kF32 && rows > 16 && hd % 16 == 0 &&
+         hd_v % 16 == 0 && hd >= 16 && hd <= 256 && hd_v >= 16 &&
+         hd_v <= 256 && (rows + kRows - 1) / kRows <= kMaxTiles &&
+         stages(hd) >= 2 && smem_bytes(hd) <= kSmemLimit;
+}
+
+// Word i of the p (or Q) side and word j of the v (or K) side of product
+// p: (0, 2) (1, 1) (2, 0) (0, 1) (1, 0) (0, 0), the smaller first.
+__host__ __device__ constexpr int word_a(int p) {
+  return p < 3 ? p : (p < 5 ? p - 3 : 0);
+}
+__host__ __device__ constexpr int word_b(int p) {
+  return p < 3 ? 2 - p : (p < 5 ? 4 - p : 0);
+}
+
+// D (+)= A B, m64n64k16 bf16 -> f32, A K-major and B MN-major (the
+// transpose bit) in shared memory; from zero unless accumulate.
+#define B9F_D32(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+      "+f"(d[31])
+__device__ __forceinline__ void mma_ss64t(float (&d)[32], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : B9F_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (+)= A B, m64n8k16 bf16 -> f32, A and B (the ones) K-major in shared
+// memory.
+__device__ __forceinline__ void mma_ss8(float (&d)[4], uint64_t da,
+                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+#undef B9F_D32
+
+// One operand of the word pass: src (B, S, KV, G, cols) f32 into dst's
+// three planes [word][b KV + h][i G + g][cols], `plane` elements each.
+struct Pack {
+  const float* src;
+  __nv_bfloat16* dst;
+  int rows;   // B S KV G
+  int S, KV, G, cols;
+  long long plane;
+};
+
+// Block row blockIdx.y takes operand q, k or v; 8 columns a thread.
+__global__ void __launch_bounds__(kPassThreads)
+    words_kernel(const __grid_constant__ Pack q,
+                 const __grid_constant__ Pack k,
+                 const __grid_constant__ Pack v) {
+  const Pack& p = blockIdx.y == 0 ? q : (blockIdx.y == 1 ? k : v);
+  const int per_row = p.cols / 8;
+  const long long n = static_cast<long long>(p.rows) * per_row;
+  for (long long e = blockIdx.x * static_cast<long long>(kPassThreads) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * kPassThreads) {
+    const int row = static_cast<int>(e / per_row);
+    const int c8 = static_cast<int>(e - static_cast<long long>(row) * per_row) * 8;
+    // row = ((b S + i) KV + h) G + g
+    const int g = row % p.G;
+    int rest = row / p.G;
+    const int h = rest % p.KV;
+    rest /= p.KV;
+    const int i = rest % p.S;
+    const int b = rest / p.S;
+    const float* src = p.src + static_cast<long long>(row) * p.cols + c8;
+    const float4 x0 = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 x1 = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    float val[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const long long dst_row =
+        (static_cast<long long>(b) * p.KV + h) * (static_cast<long long>(p.S) * p.G) +
+        static_cast<long long>(i) * p.G + g;
+    store_words8<kWords>(val, p.dst + dst_row * p.cols + c8, p.plane);
+  }
+}
+
+// NV: the value columns, hd_v rounded up to 64; CAP: a softcap is given.
+// tmq, tmk, tmv: 3-d maps over the word planes (columns, rows, word x (b
+// KV + h)).
+template <int NV, bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_f32_kernel(const __grid_constant__ CUtensorMap tmq,
+                    const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv,
+                    const int* __restrict__ qpos,
+                    const int* __restrict__ kvlen, float* __restrict__ out,
+                    int B, int Sq, int Sk, int KV, int G, int hd, int hd_v,
+                    int causal, int has_window, long long window,
+                    float scale, float cap, int nst) {
+  constexpr int kChunks = NV / kStep;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nslab = round64(hd) / kStep;  // K steps a key block
+  unsigned char* q_s = smem;  // slab sl, word w at (sl kWords + w) kPlane
+  unsigned char* ring = q_s + kWords * nslab * kPlane;
+  unsigned char* p_s = ring + nst * kStage;  // p's words, a stage's layout
+  unsigned char* extra = p_s + kStage;
+  uint16_t* ones = reinterpret_cast<uint16_t*>(extra);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(extra + kOnesBytes);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + kStagesMax;
+  int* lo_s = reinterpret_cast<int*>(empty + kStagesMax);
+  int* hi_s = lo_s + kRows;
+  int* red = hi_s + kRows;  // per warp of rows: first, last, max lo, min hi, all live
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tile = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int r0 = tile * kRows;
+  const int nrows = Sq * G;
+  const int bh = b * KV + h, planes = B * KV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int i = 0; i < nst; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Each row's valid keys [lo, hi), as attn_kernel; and per warp of rows
+  // the bounds the tile decides by.
+  if (tid < kRows) {
+    const int r = r0 + tid;
+    long long lo = 0, hi = 0;
+    if (r < nrows) {
+      const long long qp = qpos[static_cast<long long>(b) * Sq + r / G];
+      hi = Sk;
+      if (kvlen != nullptr) hi = min(hi, static_cast<long long>(kvlen[b]));
+      if (causal) hi = min(hi, qp + 1);
+      if (has_window) lo = qp - window + 1;
+      lo = max(0LL, min(lo, static_cast<long long>(Sk)));
+      hi = max(0LL, hi);
+    }
+    lo_s[tid] = static_cast<int>(lo);
+    hi_s[tid] = static_cast<int>(hi);
+    const bool live = lo < hi;
+    int first = live ? static_cast<int>(lo) : INT_MAX;
+    int last = live ? static_cast<int>(hi) : 0;
+    int mlo = static_cast<int>(lo), mhi = static_cast<int>(hi);
+    int all = live;
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1) {
+      first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
+      last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+      mlo = max(mlo, __shfl_xor_sync(0xffffffffu, mlo, off));
+      mhi = min(mhi, __shfl_xor_sync(0xffffffffu, mhi, off));
+      all &= __shfl_xor_sync(0xffffffffu, all, off);
+    }
+    if (lane == 0) {
+      red[5 * warp] = first;
+      red[5 * warp + 1] = last;
+      red[5 * warp + 2] = mlo;
+      red[5 * warp + 3] = mhi;
+      red[5 * warp + 4] = all;
+    }
+  }
+  for (int i = tid; i < kOnesBytes / 2; i += kThreads) ones[i] = 0x3f80;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // The tile's key range (every row) and the bounds inside which no mask
+  // is needed.
+  const int first = min(red[0], red[5]), last = max(red[1], red[6]);
+  const int kbeg = first == INT_MAX ? 0 : first / kBK * kBK;
+  const int nblk = kbeg < last ? (last - kbeg + kBK - 1) / kBK : 0;
+  const int t_maxlo = max(red[2], red[7]), t_minhi = min(red[3], red[8]);
+  const bool t_all = red[4] && red[9];
+
+  if (warp == kConsumerWarps) {
+    // The loads: Q's words once, then for each key block its K steps and
+    // its V chunks, item n into stage n mod nst once the consumers have
+    // released item n - nst.
+    if (lane == 0) {
+      mbar_expect_tx(qfull, static_cast<uint32_t>(kWords * nslab * kPlane));
+      for (int sl = 0; sl < nslab; ++sl)
+        for (int w = 0; w < kWords; ++w)
+          tma_load_3d(q_s + (sl * kWords + w) * kPlane, &tmq, qfull,
+                      sl * kStep, r0, w * planes + bh);
+      int n = 0;
+      for (int it = 0; it < nblk; ++it) {
+        const int j0 = kbeg + it * kBK;
+        for (int item = 0; item < nslab + kChunks; ++item, ++n) {
+          const int st = n % nst;
+          if (n >= nst) mbar_wait(&empty[st], (n / nst - 1) & 1);
+          const bool is_v = item >= nslab;
+          const int c0 = (is_v ? item - nslab : item) * kStep;
+          unsigned char* dst = ring + st * kStage;
+          mbar_expect_tx(&full[st], kStage);
+          for (int w = 0; w < kWords; ++w)
+            tma_load_3d(dst + w * kPlane, is_v ? &tmv : &tmk, &full[st], c0,
+                        j0, w * planes + bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int ra = 16 * warp + g, rb = ra + 8;  // this lane's two rows
+  const int lo_a = lo_s[ra], hi_a = hi_s[ra];
+  const int lo_b = lo_s[rb], hi_b = hi_s[rb];
+  const uint32_t q_u = smem_u32(q_s), ring_u = smem_u32(ring);
+  const uint64_t ones_desc = desc(smem_u32(ones), 128, 256, 0);
+  const uint64_t dp = desc(smem_u32(p_s), 16, 1024, 1);
+  // This warp is done with the stage: the fourth to say so frees it.
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  float acc[NV / 2];
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) acc[i] = 0.0f;
+  float m_a = kMInit, m_b = kMInit, l_a = 0.0f, l_b = 0.0f, c_a = 0.0f,
+        c_b = 0.0f;
+  mbar_wait(qfull, 0);
+
+  int n = 0;
+  for (int it = 0; it < nblk; ++it) {
+    const int j0 = kbeg + it * kBK;
+    // S = Q K^T: per 64-column step of hd the six word products chained
+    // from zero (the first MMA ignores part's old values), the steps
+    // added in order.
+    float s[32];
+    for (int sl = 0; sl < nslab; ++sl, ++n) {
+      const int st = n % nst;
+      mbar_wait(&full[st], (n / nst) & 1);
+      // Each MMA's descriptors are the step's two plus a constant in the
+      // address field (16-byte units; shared addresses stay below 2^18),
+      // so that no descriptor is held in registers across the chain.
+      const uint64_t dq = desc(q_u + sl * kStage, 16, 1024, 1);
+      const uint64_t dk = desc(ring_u + st * kStage, 16, 1024, 1);
+      float part[32];
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < kProducts; ++p)
+#pragma unroll
+        for (int kk = 0; kk < kStep / 16; ++kk)
+          wg::mma_ss64(part, dq + ((word_a(p) * kPlane + kk * 32) >> 4),
+                       dk + ((word_b(p) * kPlane + kk * 32) >> 4),
+                       p + kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(part);
+      release(st);
+      if (sl == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = part[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = __fadd_rn(s[i], part[i]);
+      }
+    }
+
+    // Scale, softcap, mask (blocks that straddle a row's bounds only);
+    // the block's row max over the quad.  s[4i + e]: key j0 + 8i + 2t +
+    // (e & 1), row ra (e < 2) or rb.
+    const bool inner = t_all && j0 >= t_maxlo && j0 + kBK <= t_minhi;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = __fmul_rn(s[i], scale);
+      if (CAP) x = __fmul_rn(cap, tanhf(__fdiv_rn(x, cap)));
+      const int j = j0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const bool ok = (i & 2) == 0 ? j >= lo_a && j < hi_a
+                                   : j >= lo_b && j < hi_b;
+      s[i] = inner || ok ? x : kNegInf;
+    }
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((i & 2) == 0) {
+        mx_a = fmaxf(mx_a, s[i]);
+      } else {
+        mx_b = fmaxf(mx_b, s[i]);
+      }
+    }
+    quad_max(mx_a, mx_b);
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = expf(__fsub_rn(m_a, mn_a));
+    const float corr_b = expf(__fsub_rn(m_b, mn_b));
+    m_a = mn_a;
+    m_b = mn_b;
+
+    // p's three bf16 words into shared memory, the A operand (K-major, in
+    // the 128-byte swizzle) of the row sums and of p x v: this lane's key
+    // pair 16u + 2t (+ 8 for r >= 2) of row ra (r even) or rb lies in
+    // 16-byte chunk 2u + r / 2 of its 128-byte row, at chunk (2u + r / 2)
+    // ^ g (ra and rb are g mod 8).
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float x = expf(__fsub_rn(s[8 * u + 2 * r], r & 1 ? mn_b : mn_a));
+        float y = expf(__fsub_rn(s[8 * u + 2 * r + 1], r & 1 ? mn_b : mn_a));
+        unsigned char* at = p_s + (r & 1 ? rb : ra) * 128 +
+                            (((2 * u + (r >> 1)) ^ g) << 4) + 4 * t;
+#pragma unroll
+        for (int w = 0; w < kWords; ++w)
+          *reinterpret_cast<uint32_t*>(at + w * kPlane) = split(x, y);
+      }
+    // (every consumer warp's words are in before the MMAs read them; the
+    // last block's MMAs, which all four warps issue together, are done)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
+
+    // The row sums with the first chunk, then acc = acc corr + p x v per
+    // 64-column chunk of the values, each chunk's products from zero.
+    float dl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch, ++n) {
+      const int st = n % nst;
+      mbar_wait(&full[st], (n / nst) & 1);
+      const uint64_t dv = desc(ring_u + st * kStage, 1024, 1024, 1);
+      float part[32];
+      wgmma_fence();
+      if (ch == 0) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int w = 0; w < kWords; ++w)
+            mma_ss8(dl, dp + ((w * kPlane + u * 32) >> 4), ones_desc,
+                    u + w > 0);
+      }
+#pragma unroll
+      for (int p = 0; p < kProducts; ++p)
+#pragma unroll
+        for (int u = 0; u < kBK / 16; ++u)
+          mma_ss64t(part, dp + ((word_a(p) * kPlane + u * 32) >> 4),
+                    dv + ((word_b(p) * kPlane + u * 16 * 128) >> 4),
+                    p + u > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(part);
+      fence_regs(dl);
+      release(st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[32 * ch + i] = __fadd_rn(
+            __fmul_rn(acc[32 * ch + i], (i & 2) == 0 ? corr_a : corr_b),
+            part[i]);
+    }
+    const bool touch_a = lo_a < hi_a && j0 < hi_a && j0 + kBK > lo_a;
+    const bool touch_b = lo_b < hi_b && j0 < hi_b && j0 + kBK > lo_b;
+    if (touch_a) kahan(l_a, c_a, corr_a, dl[0]);
+    if (touch_b) kahan(l_b, c_b, corr_b, dl[2]);
+  }
+
+  // o = acc / (l - c) where l - c > 0, else 0, in f32.
+  const float lf_a = __fsub_rn(l_a, c_a), lf_b = __fsub_rn(l_b, c_b);
+#pragma unroll
+  for (int i = 0; i < NV / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (col >= hd_v) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + (half ? rb : ra);
+      if (r >= nrows) continue;
+      const float lf = half ? lf_b : lf_a;
+      const float x = lf > 0.0f ? __fdiv_rn(acc[4 * i + 2 * half], lf) : 0.0f;
+      const float y =
+          lf > 0.0f ? __fdiv_rn(acc[4 * i + 2 * half + 1], lf) : 0.0f;
+      const long long row =
+          ((static_cast<long long>(b) * Sq + r / G) * KV + h) * G + r % G;
+      *reinterpret_cast<float2*>(out + row * hd_v + col) = make_float2(x, y);
+    }
+  }
+}
+
+// The word pass, then the walk.  words: the scratch of q's, k's and v's
+// planes, in that order.
+template <int NV, bool CAP>
+int launch(const float* q, const float* k, const float* v, const int* qpos,
+           const int* kvlen, float* out, __nv_bfloat16* words, int B, int Sq,
+           int Sk, int KV, int G, int hd, int hd_v, int causal,
+           int has_window, long long window, float scale, float cap,
+           cudaStream_t s) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(words))
+    return cudaErrorMisalignedAddress;
+  const long long rows = static_cast<long long>(Sq) * G;
+  const long long planes = static_cast<long long>(B) * KV;
+  if (planes * rows >= INT_MAX || planes * Sk >= INT_MAX)
+    return cudaErrorInvalidValue;
+  const long long q_plane = planes * rows * hd, k_plane = planes * Sk * hd;
+  const long long v_plane = planes * Sk * hd_v;
+  __nv_bfloat16* qw = words;
+  __nv_bfloat16* kw = qw + kWords * q_plane;
+  __nv_bfloat16* vw = kw + kWords * k_plane;
+  const Pack pq{q, qw, static_cast<int>(planes * rows), Sq, KV, G, hd, q_plane};
+  const Pack pk{k, kw, static_cast<int>(planes * Sk), Sk, KV, 1, hd, k_plane};
+  const Pack pv{v, vw, static_cast<int>(planes * Sk), Sk, KV, 1, hd_v,
+                v_plane};
+  const long long most = (q_plane > k_plane ? (q_plane > v_plane ? q_plane : v_plane)
+                                            : (k_plane > v_plane ? k_plane : v_plane)) / 8;
+  const long long blocks = (most + kPassThreads - 1) / kPassThreads;
+  words_kernel<<<dim3(static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 3),
+                 kPassThreads, 0, s>>>(pq, pk, pv);
+  cudaError_t ce = cudaGetLastError();
+  if (ce != cudaSuccess) return ce;
+
+  CUtensorMap tmq, tmk, tmv;
+  int e = encode(&tmq, qw, hd, rows, hd, kWords * planes, rows * hd, kStep,
+                 kRows);
+  if (e) return e;
+  e = encode(&tmk, kw, hd, Sk, hd, kWords * planes, Sk * hd, kStep, kBK);
+  if (e) return e;
+  e = encode(&tmv, vw, hd_v, Sk, hd_v, kWords * planes, Sk * hd_v, kStep,
+             kBK);
+  if (e) return e;
+  const int nst = stages(hd);
+  const int bytes = static_cast<int>(smem_bytes(hd));
+  auto kernel = attn_f32_kernel<NV, CAP>;
+  // The shared memory granted to this kernel on each card, asked for once
+  // (a host call per launch otherwise); a build whose block would hold
+  // more registers than an SM has is refused there.
+  static int granted[64] = {};
+  int dev = 0;
+  ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return ce;
+  if (dev >= 64 || granted[dev] < bytes) {
+    cudaFuncAttributes attr;
+    ce = cudaFuncGetAttributes(&attr, kernel);
+    if (ce != cudaSuccess) return ce;
+    if (attr.numRegs * kThreads > 65536) return cudaErrorInvalidConfiguration;
+    ce = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+    if (ce != cudaSuccess) return ce;
+    if (dev < 64) granted[dev] = bytes;
+  }
+  const int tiles = static_cast<int>((rows + kRows - 1) / kRows);
+  kernel<<<dim3(KV, B, tiles), kThreads, bytes, s>>>(
+      tmq, tmk, tmv, qpos, kvlen, out, B, Sq, Sk, KV, G, hd, hd_v, causal,
+      has_window, window, scale, cap, nst);
+  return cudaGetLastError();
+}
+
+int launch_width(const float* q, const float* k, const float* v,
+                 const int* qpos, const int* kvlen, float* out,
+                 __nv_bfloat16* words, int B, int Sq, int Sk, int KV, int G,
+                 int hd, int hd_v, int causal, int has_window,
                  long long window, float scale, int has_cap, float cap,
                  cudaStream_t s) {
+#define B9F_LAUNCH(NV)                                                        \
+  return has_cap ? launch<NV, true>(q, k, v, qpos, kvlen, out, words, B, Sq,  \
+                                    Sk, KV, G, hd, hd_v, causal, has_window,  \
+                                    window, scale, cap, s)                    \
+                 : launch<NV, false>(q, k, v, qpos, kvlen, out, words, B, Sq, \
+                                     Sk, KV, G, hd, hd_v, causal, has_window, \
+                                     window, scale, cap, s)
+  if (hd_v <= 64) B9F_LAUNCH(64);
+  if (hd_v <= 128) B9F_LAUNCH(128);
+  if (hd_v <= 192) B9F_LAUNCH(192);
+  B9F_LAUNCH(256);
+#undef B9F_LAUNCH
+}
+
+}  // namespace wf
+
+// The form b9_attention launches (kernels/mma_attention.py walk mirrors
+// it): 1 the bf16 prefill form, 2 the f32 prefill form, 0 attn_kernel.
+int form(int q_dtype, int kv_dtype, long long rows, int hd, int hd_v) {
+  if (wg::form(q_dtype, kv_dtype, rows, hd, hd_v)) return 1;
+  if (wf::form(q_dtype, kv_dtype, rows, hd, hd_v)) return 2;
+  return 0;
+}
+
+template <bool QF32, bool KVF32>
+int launch_width(const void* q, const void* k, const void* v, const int* qpos,
+                 const int* kvlen, void* out, void* words, int B, int Sq,
+                 int Sk, int KV, int G, int hd, int hd_v, int causal,
+                 int has_window, long long window, float scale, int has_cap,
+                 float cap, cudaStream_t s) {
+  if (QF32 && KVF32 &&
+      wf::form(kF32, kF32, static_cast<long long>(Sq) * G, hd, hd_v)) {
+    if (words == nullptr) return cudaErrorInvalidValue;
+    return wf::launch_width(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), qpos, kvlen, static_cast<float*>(out),
+        static_cast<__nv_bfloat16*>(words), B, Sq, Sk, KV, G, hd, hd_v,
+        causal, has_window, window, scale, has_cap, cap, s);
+  }
   if (wg::form(QF32 ? kF32 : kBF16, KVF32 ? kF32 : kBF16,
                static_cast<long long>(Sq) * G, hd, hd_v))
     return wg::launch_width(q, k, v, qpos, kvlen, out, B, Sq, Sk, KV, G, hd,
@@ -1348,30 +1971,34 @@ const char* mma_attention_error_string(int code) {
 }
 
 // The form b9_attention launches for these dtypes (0 f32, 1 bf16) and
-// shape: 1 the bf16 prefill form (wgmma and TMA), 0 the mma.sync form.
+// shape: 1 the bf16 prefill form (wgmma and TMA), 2 the f32 prefill form
+// (its word pass, then wgmma and TMA), 0 the mma.sync form.
 int b9_attention_form(int q_dtype, int kv_dtype, long long rows, int hd,
                       int hd_v) {
-  return wg::form(q_dtype, kv_dtype, rows, hd, hd_v);
+  return form(q_dtype, kv_dtype, rows, hd, hd_v);
 }
 
 // B9: out (B, Sq, KV, G, hd_v) in v's dtype from qg (B, Sq, KV, G, hd)
 // f32 (q_dtype 0) or bf16 (1), k (B, Sk, KV, hd) and v (B, Sk, KV, hd_v)
 // f32 (kv_dtype 0) or bf16 (1), qpos (B, Sq) int32, kvlen (B,) int32 or
 // null; causal, has_window with window, has_cap with cap as flags.
-// Every array row-major and contiguous; hd_v <= 256.
+// words: for the f32 prefill form (b9_attention_form 2) a bf16 scratch of
+// 3 B KV (Sq G hd + Sk (hd + hd_v)) elements, 16-byte aligned, for the
+// operands' word planes; null otherwise.  Every array row-major and
+// contiguous; hd_v <= 256.
 int b9_attention(const void* q, const void* k, const void* v, const int* qpos,
-                 const int* kvlen, void* out, int B, int Sq, int Sk, int KV,
-                 int G, int hd, int hd_v, int q_dtype, int kv_dtype,
-                 int causal, int has_window, long long window, float scale,
-                 int has_cap, float cap, void* stream) {
+                 const int* kvlen, void* out, void* words, int B, int Sq,
+                 int Sk, int KV, int G, int hd, int hd_v, int q_dtype,
+                 int kv_dtype, int causal, int has_window, long long window,
+                 float scale, int has_cap, float cap, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || G < 1 || hd < 1 || hd_v < 1 ||
       hd_v > 256 || B > 65535 || KV > 65535 ||
       static_cast<long long>(Sq) * G > INT_MAX - kMaxRows)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define B9_ARGS                                                             \
-  q, k, v, qpos, kvlen, out, B, Sq, Sk, KV, G, hd, hd_v, causal, has_window, \
-      window, scale, has_cap, cap, s
+#define B9_ARGS                                                              \
+  q, k, v, qpos, kvlen, out, words, B, Sq, Sk, KV, G, hd, hd_v, causal,       \
+      has_window, window, scale, has_cap, cap, s
   if (q_dtype == kF32 && kv_dtype == kF32) return launch_width<true, true>(B9_ARGS);
   if (q_dtype == kF32 && kv_dtype == kBF16) return launch_width<true, false>(B9_ARGS);
   if (q_dtype == kBF16 && kv_dtype == kF32) return launch_width<false, true>(B9_ARGS);

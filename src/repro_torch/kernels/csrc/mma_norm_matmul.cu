@@ -216,16 +216,6 @@ __device__ __forceinline__ float load(const void* p, long long i) {
   return __uint_as_float(static_cast<uint32_t>(u) << 16);
 }
 
-// Two floats as a bf16 pair rounded to nearest, the first in the low
-// half; each keeps its rest (exact in f32) for the next word.
-__device__ __forceinline__ uint32_t split(float& x, float& y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  x = __fsub_rn(x, f.x);
-  y = __fsub_rn(y, f.y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // D = A x ones (m16n8k16, bf16) from a zero accumulator; d[0] is row g's
 // sum, d[2] row g + 8's.
 __device__ __forceinline__ void mma_ones(float (&d)[4], const uint32_t (&a)[4]) {
@@ -275,19 +265,6 @@ __device__ __forceinline__ void store_words4(float (&v)[4],
   for (int wd = 0; wd < W; ++wd) {
     const uint32_t a = split(v[0], v[1]), b = split(v[2], v[3]);
     *reinterpret_cast<uint2*>(dst + wd * plane) = make_uint2(a, b);
-  }
-}
-
-// ... of 8 consecutive values, 16 bytes each.
-template <int W>
-__device__ __forceinline__ void store_words8(float (&v)[8],
-                                             __nv_bfloat16* dst,
-                                             long long plane) {
-#pragma unroll
-  for (int wd = 0; wd < W; ++wd) {
-    const uint32_t a = split(v[0], v[1]), b = split(v[2], v[3]);
-    const uint32_t c = split(v[4], v[5]), e = split(v[6], v[7]);
-    *reinterpret_cast<uint4*>(dst + wd * plane) = make_uint4(a, b, c, e);
   }
 }
 
@@ -596,31 +573,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
   }
-}
-
-// A 3-d map of `planes` row-major (outer, inner) bf16 arrays, rows
-// `pitch` elements apart and planes `plane` elements apart: boxes of
-// box_outer x box_inner of one plane, in 128-byte swizzled rows (an MMA
-// operand as it lands), zero past each extent.
-int encode(CUtensorMap* map, const void* base, long long inner,
-           long long outer, long long pitch, long long planes,
-           long long plane, int box_inner, int box_outer) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(pitch * 2),
-                                 static_cast<cuuint64_t>(plane * 2)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
 }
 
 // A bf16 array TMA can read: a 16-byte aligned base and row pitch.

@@ -34,8 +34,8 @@ starting from m = ``M_INIT``, l = c = acc = 0, and ending
 depend on its own positions alone, not on the rows beside it in a tile
 or a batch, and the kernel may skip a block no row of its tile touches.
 
-Two forms of the kernel walk it, chosen by ``walk`` from the dtypes and
-the shape alone (the CUDA source's ``wg::form`` mirrors it):
+Three forms of the kernel walk it, chosen by ``walk`` from the dtypes
+and the shape alone (the CUDA source's ``form`` mirrors it):
 
 * ``"wgmma"``, the bf16 prefill form: qg, k and v bf16, more than 16
   rows a head, hd and hd_v multiples of 16 up to 256.  Blocks of
@@ -43,7 +43,16 @@ the shape alone (the CUDA source's ``wg::form`` mirrors it):
   products are exact in f32); l sums p's three bf16 words (hi = bf16(p),
   then the rests: ~24 bits); p rounded to bf16 for p @ v, which the
   kernel accumulates into acc on the tensor cores (``pv_accumulates``).
-* ``"mma_sync"``, every other problem (f32, f32 q beside a bf16 cache, a
+* ``"wgmma_f32"``, the f32 prefill form: qg, k and v f32 under the same
+  conditions of rows and head dims.  Every f32 operand goes in as three
+  bf16 words (hi = bf16(x), then the rests), made once a call by a
+  word pass, and a product is the six word products (i, j) with i + j <
+  3 (``WF_PRODUCTS``, the smaller first, as B10's f32 form): about 22
+  bits.  Blocks of ``BLOCK_K_WF`` = 64 keys; q.k summed per ``STEP_WF``
+  = 64 columns of hd (one chain from zero), the steps added in order in
+  f32; l sums p's three bf16 words; p @ v is p's three words against
+  v's three, from zero per block, added to acc corr.
+* ``"mma_sync"``, every other problem (f32 q beside a bf16 cache, a
   decode step's few rows, odd head dims).  Blocks of ``BLOCK_K`` = 32
   keys.  Products in 3xTF32: f32 operands as two TF32 words
   (``hi = rna(x)``, ``lo = rna(x - hi)``), the lo x lo term dropped; a
@@ -54,19 +63,21 @@ the shape alone (the CUDA source's ``wg::form`` mirrors it):
   rounds it to v's dtype); l sums p's two TF32 words; p @ v runs from
   zero per block and is added to acc corr.
 
-So a 16-bit prefill row's bits differ from those of the same row in a
-decode call; within a form they depend on the row alone.  Every partial
-is f32.
+So a prefill row's bits differ from those of the same row in a decode
+call; within a form they depend on the row alone.  Every partial is
+f32.
 
 ``attention_plain`` computes the same walk in plain PyTorch: the same
 words, the same steps, one f32 matmul per step and per block.  Kernel
 and plain version differ in the order of the adds inside an MMA or a
 matmul and in exp / tanh's last bits (``expf`` / ``tanhf`` on the
-mma.sync form; ``ex2.approx`` on the wgmma form, a few 2^-22 of p).
-The wrapper
+mma.sync and f32 prefill forms; ``ex2.approx`` on the bf16 prefill
+form, a few 2^-22 of p).  The wrapper
 ``kernels.ops.mma_attention`` uses it for CPU tensors, and only there.
-``LAUNCHES`` counts the kernel's launches by form: ``b9_attention`` the
-mma.sync form, ``b9_attention_wgmma`` the bf16 prefill form.
+``LAUNCHES`` counts the kernel's calls by form: ``b9_attention`` the
+mma.sync form, ``b9_attention_wgmma`` the bf16 prefill form,
+``b9_attention_f32`` the f32 prefill form (its word pass and its
+attention kernel, two launches a call).
 """
 
 from __future__ import annotations
@@ -80,7 +91,8 @@ from repro_torch.core.precision import ACCUM_DTYPE, dtype_name
 from repro_torch.kernels import _build
 from repro_torch.kernels.mma_norm_matmul import tf32_words
 
-LAUNCHES = {"b9_attention": 0, "b9_attention_wgmma": 0}
+LAUNCHES = {"b9_attention": 0, "b9_attention_wgmma": 0,
+            "b9_attention_f32": 0}
 
 NEG_INF = -2.0e38     # the masked score, as models.attention.NEG_INF
 M_INIT = -1.0e30      # the row max's seed: exp(M_INIT - M_INIT) == 1
@@ -95,12 +107,28 @@ BLOCK_ROWS = 64
 # head, and the row tiles a grid holds (gridDim.z).
 BLOCK_K_WG, BLOCK_ROWS_WG = 64, 128
 WG_MIN_ROWS, WG_MAX_HEAD, WG_MAX_TILES = 16, 256, 65535
+# The f32 prefill form (csrc namespace wf): keys per block, query rows a
+# block (one consumer warpgroup), hd columns a q.k chain (and value
+# columns a p @ v chunk), bf16 words an operand, the word products (A
+# word, B word) with i + j < 3 in the kernel's order, a ring stage (one
+# 64 x 64 tile of each word; p's words take one more), the ring's most
+# stages, and the bytes beside Q, the ring and p (the ones, the
+# mbarriers, the rows' bounds and the warps' bound reductions).  Its
+# rows and head dims obey the bf16 form's limits above.
+BLOCK_K_WF, BLOCK_ROWS_WF, STEP_WF, WF_WORDS = 64, 64, 64, 3
+WF_PRODUCTS = ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
+WF_STAGE_BYTES, WF_STAGES_MAX = WF_WORDS * 64 * 128, 8
+WF_EXTRA_BYTES = 512 + 8 * (1 + 2 * WF_STAGES_MAX) + 2 * 64 * 4 + 4 * 5 * 4
 # Shared memory a block may use on the H100 (227 KB).
 SMEM_LIMIT = 232448
 # The accumulator lives in registers, hd_v / 2 f32 a thread (128 at
 # 256): the value head dim's limit.
 MAX_HEAD_V = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The CUDA chooser's codes (csrc form) and each form's launch counter.
+_FORMS = ("mma_sync", "wgmma", "wgmma_f32")
+_COUNTERS = {"mma_sync": "b9_attention", "wgmma": "b9_attention_wgmma",
+             "wgmma_f32": "b9_attention_f32"}
 
 
 def reset_launches() -> None:
@@ -127,6 +155,16 @@ def _round64(d: int) -> int:
     return -(-d // 64) * 64
 
 
+def wf_stages(hd: int) -> int:
+    """The f32 prefill form's ring stages at head dim hd (csrc
+    wf::stages): as many 24 KB stages as fit beside Q's three words of
+    64 rows and p's (a stage's size), at most WF_STAGES_MAX."""
+    q = WF_WORDS * BLOCK_ROWS_WF * _round64(hd) * 2
+    fit = (SMEM_LIMIT - 1024 - q - WF_STAGE_BYTES - WF_EXTRA_BYTES) \
+        // WF_STAGE_BYTES
+    return min(WF_STAGES_MAX, fit)
+
+
 def smem_bytes(hd: int, hd_v: int, q_f32: bool = True,
                kv_f32: bool = True, form: str = "mma_sync") -> int:
     """Shared memory of a B9 block.  The mma.sync form (csrc
@@ -138,11 +176,18 @@ def smem_bytes(hd: int, hd_v: int, q_f32: bool = True,
     slack, 128 query rows and two stages of 64 keys and 64 values, each
     row padded to a multiple of 64 columns, then the ones-MMA's 512-byte
     operand, four mbarriers and four release counts, the rows' bounds and
-    the warps' bound reductions."""
+    the warps' bound reductions.  The wgmma_f32 form (csrc
+    wf::smem_bytes, f32 only): the alignment slack, Q's three words of 64
+    rows, ``wf_stages(hd)`` ring stages of 24 KB, p's three words (a
+    stage's size) and WF_EXTRA_BYTES; it does not grow with hd_v (a value
+    chunk is a stage)."""
     if form == "wgmma":
         return (1024 + 2 * BLOCK_ROWS_WG * _round64(hd)
                 + 2 * 2 * BLOCK_K_WG * (_round64(hd) + _round64(hd_v))
                 + 512 + 4 * 8 + 4 * 4 + 2 * BLOCK_ROWS_WG * 4 + 4 * 5 * 4)
+    if form == "wgmma_f32":
+        return (1024 + WF_WORDS * BLOCK_ROWS_WF * _round64(hd) * 2
+                + (wf_stages(hd) + 1) * WF_STAGE_BYTES + WF_EXTRA_BYTES)
     stages = 2 * BLOCK_K * (_row_bytes(hd, kv_f32)
                             + _row_bytes(_v_width(hd_v), kv_f32))
     tall = BLOCK_ROWS * (_row_bytes(hd, q_f32) + 8)
@@ -176,27 +221,41 @@ def refusal(hd: int, hd_v: int, dtypes: tuple):
     return None
 
 
+def _prefill_shape(rows: int, hd: int, hd_v: int, rows_a_block: int) -> bool:
+    """The rows and head dims the wgmma forms take: more than 16 rows a
+    head in at most WG_MAX_TILES row tiles, hd and hd_v multiples of 16
+    up to 256."""
+    return (rows > WG_MIN_ROWS and hd % 16 == 0 and hd_v % 16 == 0
+            and 16 <= hd <= WG_MAX_HEAD and 16 <= hd_v <= WG_MAX_HEAD
+            and -(-rows // rows_a_block) <= WG_MAX_TILES)
+
+
 @functools.lru_cache(maxsize=1024)
 def walk(q_dtype, kv_dtype, rows_per_head: int, hd: int, hd_v: int) -> tuple:
     """B9's form for these dtypes (torch dtypes or their names) and shape,
     as ``(form, block_k, step, pv_accumulates)``: ``("wgmma", 64, hd,
     True)`` for the bf16 prefill form (qg, k and v bf16, ``Sq G`` > 16
     rows a head, hd and hd_v multiples of 16 up to 256, its shared memory
-    within the card's), else ``("mma_sync", 32, 32, False)``.  ``step``
-    is the hd columns of one chain of q.k MMAs from zero;
-    ``pv_accumulates`` says p @ v accumulates into acc itself rather
-    than from zero per block.  A pure function of dtypes and shape
-    (never of B): the CUDA source's ``wg::form`` is its mirror."""
+    within the card's), ``("wgmma_f32", 64, 64, False)`` for the f32
+    prefill form (qg, k and v f32 under the same conditions), else
+    ``("mma_sync", 32, 32, False)``.  ``step`` is the hd columns of one
+    chain of q.k MMAs from zero; ``pv_accumulates`` says p @ v
+    accumulates into acc itself rather than from zero per block.  A pure
+    function of dtypes and shape (never of B): the CUDA source's
+    ``form`` is its mirror."""
     q, kv = (d if isinstance(d, str) else dtype_name(d)
              for d in (q_dtype, kv_dtype))
     rows = int(rows_per_head)
-    if (q == kv == "bfloat16" and rows > WG_MIN_ROWS
-            and hd % 16 == 0 and hd_v % 16 == 0
-            and 16 <= hd <= WG_MAX_HEAD and 16 <= hd_v <= WG_MAX_HEAD
-            and -(-rows // BLOCK_ROWS_WG) <= WG_MAX_TILES
+    if (q == kv == "bfloat16"
+            and _prefill_shape(rows, hd, hd_v, BLOCK_ROWS_WG)
             and smem_bytes(hd, hd_v, False, False, form="wgmma")
             <= SMEM_LIMIT):
         return "wgmma", BLOCK_K_WG, hd, True
+    if (q == kv == "float32"
+            and _prefill_shape(rows, hd, hd_v, BLOCK_ROWS_WF)
+            and wf_stages(hd) >= 2
+            and smem_bytes(hd, hd_v, form="wgmma_f32") <= SMEM_LIMIT):
+        return "wgmma_f32", BLOCK_K_WF, STEP_WF, False
     return "mma_sync", BLOCK_K, STEP, False
 
 
@@ -219,17 +278,21 @@ def _words(x: torch.Tensor) -> tuple:
     return (x.to(ACCUM_DTYPE),)
 
 
-def _product(a_words: tuple, b_words: tuple, steps: int) -> torch.Tensor:
+def _product(a_words: tuple, b_words: tuple, steps: int,
+             pairs: tuple = None) -> torch.Tensor:
     """``a @ b`` over the last dim of the a words / first of the b words,
-    by the kernel's word pairs (lo x lo dropped), summed per ``steps``
-    columns in one f32 matmul each and the steps added in order."""
-    pairs = [(a, b) for i, a in enumerate(a_words)
-             for j, b in enumerate(b_words) if i + j < 2]
+    by the kernel's word pairs (default: the TF32 pairs, lo x lo
+    dropped), summed per ``steps`` columns in one f32 matmul each and the
+    steps added in order."""
+    if pairs is None:
+        pairs = tuple((i, j) for i in range(len(a_words))
+                      for j in range(len(b_words)) if i + j < 2)
     acc = None
     for k0 in range(0, a_words[0].shape[-1], steps):
         k = slice(k0, k0 + steps)
-        part = torch.matmul(torch.cat([a[..., k] for a, _ in pairs], -1),
-                            torch.cat([b[..., k, :] for _, b in pairs], -2))
+        part = torch.matmul(
+            torch.cat([a_words[i][..., k] for i, _ in pairs], -1),
+            torch.cat([b_words[j][..., k, :] for _, j in pairs], -2))
         acc = part if acc is None else acc + part
     return acc
 
@@ -263,11 +326,17 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if min(B, R, KV, Sk) == 0:
         return out
     form, block_k, step, _ = walk(qg.dtype, k.dtype, R, hd, hd_v)
+    f32_form = form == "wgmma_f32"
+    # The operands' MMA words: three bf16 words of each f32 operand on the
+    # f32 prefill form (made once, as its word pass makes them), else
+    # the mma.sync form's TF32 words; and the word pairs of a product.
+    words = (lambda x: bf16_words(x, WF_WORDS)) if f32_form else _words
+    pairs = WF_PRODUCTS if f32_form else None
     lo, hi = row_bounds(qpos, kv_len, sk=Sk, causal=causal, window=window)
     lo = lo.repeat_interleave(G, dim=1)[:, None, :, None]   # (B, 1, R, 1)
     hi = hi.repeat_interleave(G, dim=1)[:, None, :, None]
     live = lo < hi
-    q_words = _words(qg.permute(0, 2, 1, 3, 4).reshape(B, KV, R, hd))
+    q_words = words(qg.permute(0, 2, 1, 3, 4).reshape(B, KV, R, hd))
     m = torch.full((B, KV, R, 1), M_INIT, dtype=ACCUM_DTYPE,
                    device=qg.device)
     l = torch.zeros_like(m)
@@ -278,7 +347,7 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for j0 in range(first, last, block_k):
         kb = k[:, j0:j0 + block_k].permute(0, 2, 3, 1)   # (B, KV, hd, bk)
         vb = v[:, j0:j0 + block_k].permute(0, 2, 1, 3)   # (B, KV, bk, hd_v)
-        s = _product(q_words, _words(kb), step) * scale
+        s = _product(q_words, words(kb), step, pairs) * scale
         if cap is not None:
             s = cap * torch.tanh(s / cap)
         j = torch.arange(j0, j0 + kb.shape[-1], device=qg.device)
@@ -286,10 +355,10 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
-        p_words = bf16_words(p) if form == "wgmma" else tf32_words(p)
-        l_blk = torch.matmul(torch.cat(p_words, -1),
-                             torch.ones(len(p_words) * p.shape[-1], 1,
-                                        dtype=ACCUM_DTYPE, device=p.device))
+        p_words = bf16_words(p) if form != "mma_sync" else tf32_words(p)
+        # (a sum, not a product with a ones column: on the CPU a matrix
+        # by a vector adds in an order that depends on the batch)
+        l_blk = torch.cat(p_words, -1).sum(-1, keepdim=True)
         l_old, c_old = l * corr, c * corr
         y = l_blk - c_old
         t = l_old + y
@@ -298,7 +367,7 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.where(touch, t, l)
         pv_words = p_words if v.dtype == torch.float32 \
             else (p.to(v.dtype).to(ACCUM_DTYPE),)
-        acc = acc * corr + _product(pv_words, _words(vb), block_k)
+        acc = acc * corr + _product(pv_words, words(vb), block_k, pairs)
         m = m_new
     lf = l - c
     o = torch.where(lf > 0.0, acc / torch.where(lf > 0.0, lf, 1.0), 0.0)
@@ -310,8 +379,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mma_attention")
     ptr, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_float)
-    lib.b9_attention.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, i,
-                                 i, i, i, i, i, i, i, ll, f, i, f, ptr]
+    lib.b9_attention.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i, i,
+                                 i, i, i, i, i, i, i, i, i, ll, f, i, f,
+                                 ptr]
     lib.b9_attention.restype = i
     lib.b9_attention_form.argtypes = [i, i, ll, i, i]
     lib.b9_attention_form.restype = i
@@ -329,7 +399,7 @@ def cuda_form(q_dtype, kv_dtype, rows_per_head: int, hd: int,
              else _DTYPES[getattr(torch, d)] for d in (q_dtype, kv_dtype)]
     got = _lib().b9_attention_form(*codes, int(rows_per_head), int(hd),
                                    int(hd_v))
-    return "wgmma" if got else "mma_sync"
+    return _FORMS[got]
 
 
 def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -339,7 +409,10 @@ def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hd) and v (B, Sk, KV, hd_v) f32 / bf16 (one dtype for both), qpos
     (B, Sq) int32, kv_len None or (B,) int32, all contiguous on one card
     (the cache is never copied).  Returns a new (B, Sq, KV, G, hd_v)
-    tensor in v's dtype; one launch, checked."""
+    tensor in v's dtype; one launch (two on the f32 prefill form: its
+    word pass into a scratch of bf16 word planes, then the attention
+    kernel), checked.  A failed build or launch raises: no form falls
+    back to another."""
     dev = qg.device
     for nm, t in (("qg", qg), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != dev or t.dtype not in _DTYPES:
@@ -378,14 +451,27 @@ def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sk == 0 or hd == 0:
         return out.zero_()
     form = walk(qg.dtype, k.dtype, Sq * G, hd, hd_v)[0]
-    if form == "wgmma":
-        # TMA and cp.async read from 16-byte-aligned bases: a view that
-        # starts elsewhere is copied (the form is fixed by the shape).
+    words = None
+    if form != "mma_sync":
+        # TMA, cp.async and the word pass's 16-byte loads read from
+        # 16-byte-aligned bases: a view that starts elsewhere is copied
+        # (the form is fixed by the shape).
         qg, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                     for t in (qg, k, v))
+    if form == "wgmma_f32":
+        if max(B * Sq * KV * G, B * Sk * KV) >= 2 ** 31:
+            raise ValueError(f"B9's f32 prefill form takes fewer than 2^31 "
+                             f"rows of q and of k, got {tuple(qg.shape)}, "
+                             f"Sk={Sk}")
+        # The word pass's planes: three bf16 words of q (rows packed per
+        # (batch, KV head), r = i G + g), of k and of v.
+        words = torch.empty(
+            WF_WORDS * B * KV * (Sq * G * hd + Sk * (hd + hd_v)),
+            dtype=torch.bfloat16, device=dev)
     lib = _lib()
     args = (qg.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
+            None if words is None else words.data_ptr(),
             B, Sq, Sk, KV, G, hd, hd_v, _DTYPES[qg.dtype], _DTYPES[k.dtype],
             int(bool(causal)), 0 if window is None else 1,
             0 if window is None else int(window), float(scale),
@@ -399,6 +485,5 @@ def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc:
         msg = lib.mma_attention_error_string(rc).decode()
         raise RuntimeError(f"b9_attention launch failed: {msg} ({rc})")
-    LAUNCHES["b9_attention_wgmma" if form == "wgmma" else "b9_attention"] += 1
+    LAUNCHES[_COUNTERS[form]] += 1
     return out
-

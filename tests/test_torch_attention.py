@@ -7,14 +7,16 @@ B9's plain version, the ``attention`` op's engines and
     own tests run it here, in interpret mode: the reference's
     ``FUSED_CASES`` (``tests/test_attention_fused.py``), a hypothesis
     sweep with the reference's strategy, the softcap and per-row decode
-    with ``kv_len``, and bf16 problems on the wgmma form's walk (64-key
-    blocks, three bf16 words of p in the row sums); tolerances are the
-    reference's own, 1e-4 in f32 and 6e-2 in bf16 (relative and
-    absolute);
+    with ``kv_len``, bf16 problems on the wgmma form's walk (64-key
+    blocks, three bf16 words of p in the row sums) and f32 problems on
+    the f32 prefill form's walk (three bf16 words of every operand, six
+    products, 64-column q.k steps); tolerances are the reference's own,
+    1e-4 in f32 and 6e-2 in bf16 (relative and absolute);
   * ``walk``, B9's form chooser: a function of the dtypes, the rows a
     head and the head dims alone, its boundaries where the CUDA
-    source's ``wg::form`` puts them, and the wgmma form's shared memory
-    within the card's at hd 256;
+    source's ``wg::form`` and ``wf::form`` put them, the two wgmma
+    forms' shared memory within the card's at hd 256, and the f32
+    prefill form's products at 21 bits or more;
   * every engine of ``dispatch('attention', ...)`` against the
     reference's dispatch of the same engine, at the f32 tolerance above
     (f32: the engines differ only in the order of their f32 adds and,
@@ -272,11 +274,12 @@ def test_attention_plain_wgmma_walk_matches_the_reference_kernel(
 
 
 def test_walk_is_a_function_of_dtypes_and_shape():
-    """B9's two forms: the wgmma walk for bf16 q, k and v with more than
-    16 rows a head and hd, hd_v multiples of 16 up to 256; the mma.sync
-    walk for f32, mixed, a decode step's rows and odd head dims.  Its
-    arguments hold no batch size, and its boundaries are those of the
-    CUDA source's chooser."""
+    """B9's three forms: the wgmma walk for bf16 q, k and v with more
+    than 16 rows a head and hd, hd_v multiples of 16 up to 256; the
+    wgmma_f32 walk for f32 q, k and v under the same conditions; the
+    mma.sync walk for mixed dtypes, a decode step's rows and odd head
+    dims.  Its arguments hold no batch size, and its boundaries are
+    those of the CUDA source's choosers."""
     import inspect
     import re
     from pathlib import Path
@@ -296,15 +299,29 @@ def test_walk_is_a_function_of_dtypes_and_shape():
     assert ma.walk(bf, bf, 8192, 272, 256) == sync
     assert ma.walk(bf, bf, 8192, 288, 256) == sync      # _FUSED_MAX_HEAD
     assert ma.walk(bf, bf, 8192, 192, 128)[0] == "wgmma"
-    assert ma.walk(f32, f32, 8192, 256, 256) == sync
+    wf = ("wgmma_f32", ma.BLOCK_K_WF, ma.STEP_WF, False)
+    assert ma.walk(f32, f32, 8192, 256, 256) == wf
+    assert ma.walk("float32", "float32", 8192, 256, 256) == wf
+    assert ma.walk(f32, f32, 17, 64, 64) == wf
+    assert ma.walk(f32, f32, 8192, 192, 128) == wf
+    assert ma.walk(f32, f32, 8192, 16, 16) == wf
+    assert ma.walk(f32, f32, 16, 256, 256) == sync      # a decode step
+    assert ma.walk(f32, f32, 1, 256, 256) == sync
+    assert ma.walk(f32, f32, 8192, 12, 8) == sync       # hd 12
+    assert ma.walk(f32, f32, 8192, 24, 16) == sync
+    assert ma.walk(f32, f32, 8192, 288, 256) == sync
     assert ma.walk(f32, bf, 8192, 256, 256) == sync     # the mixed form
     assert ma.walk(bf, f32, 8192, 256, 256) == sync
     tiles = ma.WG_MAX_TILES * ma.BLOCK_ROWS_WG
     assert ma.walk(bf, bf, tiles, 64, 64)[0] == "wgmma"
     assert ma.walk(bf, bf, tiles + 1, 64, 64) == sync
+    tiles = ma.WG_MAX_TILES * ma.BLOCK_ROWS_WF
+    assert ma.walk(f32, f32, tiles, 64, 64) == wf
+    assert ma.walk(f32, f32, tiles + 1, 64, 64) == sync
     # the CUDA chooser (namespace wg) holds the same constants
     cu = (Path(ma.__file__).parent / "csrc" / "mma_attention.cu").read_text()
     body = cu[cu.index("namespace wg {"):]
+    body = body[:body.index("}  // namespace wg")]
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", body))
     assert int(consts["kRows"]) == ma.BLOCK_ROWS_WG
     assert int(consts["kBK"]) == ma.BLOCK_K_WG
@@ -316,6 +333,25 @@ def test_walk_is_a_function_of_dtypes_and_shape():
     assert f"hd_v <= {ma.WG_MAX_HEAD}" in chooser
     assert "hd % 16 == 0" in chooser and "hd_v % 16 == 0" in chooser
     assert "q_dtype == kBF16 && kv_dtype == kBF16" in chooser
+    # ... and namespace wf, the f32 prefill form's
+    body = cu[cu.index("namespace wf {"):]
+    body = body[:body.index("}  // namespace wf")]
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", body))
+    assert int(consts["kRows"]) == ma.BLOCK_ROWS_WF
+    assert int(consts["kBK"]) == ma.BLOCK_K_WF
+    assert int(consts["kStep"]) == ma.STEP_WF
+    assert int(consts["kWords"]) == ma.WF_WORDS
+    assert int(consts["kProducts"]) == len(ma.WF_PRODUCTS)
+    assert int(consts["kStagesMax"]) == ma.WF_STAGES_MAX
+    assert int(consts["kMaxTiles"]) == ma.WG_MAX_TILES
+    chooser = body[body.index("inline int form("):]
+    chooser = chooser[:chooser.index("}")]
+    assert f"rows > {ma.WG_MIN_ROWS}" in chooser
+    assert f"hd <= {ma.WG_MAX_HEAD}" in chooser
+    assert f"hd_v <= {ma.WG_MAX_HEAD}" in chooser
+    assert "hd % 16 == 0" in chooser and "hd_v % 16 == 0" in chooser
+    assert "q_dtype == kF32 && kv_dtype == kF32" in chooser
+    assert "stages(hd) >= 2" in chooser
 
 
 def test_wgmma_form_shared_memory_fits_the_card():
@@ -330,6 +366,121 @@ def test_wgmma_form_shared_memory_fits_the_card():
         == ma.smem_bytes(64, 64, False, False, form="wgmma")
     for hd, hd_v in ((256, 256), (192, 128), (64, 64), (16, 16)):
         assert ma.refusal(hd, hd_v, ("bfloat16",) * 3) is None
+
+
+def test_wgmma_f32_form_shared_memory_fits_the_card():
+    """The f32 prefill form holds Q's three words of 64 rows (96 KB at hd
+    256), p's three words of a 64 x 64 block (24 KB) and as many 24 KB
+    ring stages as fit beside them, at most 8: 4 at hd 256 (223,448
+    bytes, within 227 KB), 5 at 192, 7 at 64; its shared memory does not
+    grow with hd_v."""
+    extra = 512 + 8 * (1 + 2 * 8) + 2 * 64 * 4 + 4 * 5 * 4
+    assert ma.WF_EXTRA_BYTES == extra
+    need = ma.smem_bytes(256, 256, form="wgmma_f32")
+    assert ma.wf_stages(256) == 4
+    assert need == 1024 + 3 * 64 * 256 * 2 + (4 + 1) * 3 * 64 * 128 + extra
+    assert need <= ma.SMEM_LIMIT
+    assert ma.wf_stages(192) == 5
+    assert ma.smem_bytes(192, 128, form="wgmma_f32") <= ma.SMEM_LIMIT
+    assert ma.smem_bytes(256, 16, form="wgmma_f32") == need
+    assert ma.wf_stages(64) == 7
+    assert ma.smem_bytes(64, 64, form="wgmma_f32") <= ma.SMEM_LIMIT
+    # the CUDA source's reckoning of the same bytes
+    from pathlib import Path
+    cu = (Path(ma.__file__).parent / "csrc" / "mma_attention.cu").read_text()
+    body = cu[cu.index("namespace wf {"):]
+    assert "constexpr int kExtra = kOnesBytes + 8 * (1 + 2 * kStagesMax) " \
+           "+ 2 * kRows * 4 +\n                       4 * 5 * 4;" in body
+    assert "static_cast<long long>(stages(hd) + 1) * kStage + kExtra" in body
+
+
+def test_wgmma_f32_form_products_keep_21_bits():
+    """The f32 prefill form's word products are B10's f32 form's: three
+    bf16 words a side, the six products with i + j < 3 in B10's order
+    (the smaller first), at least the 21 bits the error model credits B9
+    with (``engine_bits``)."""
+    mnm = importlib.import_module("repro_torch.kernels.mma_norm_matmul")
+    wk = mnm.Walk(ma.STEP_WF, ma.WF_WORDS, ma.WF_WORDS, 3, False, 1, 1)
+    assert tuple(mnm.products(wk)) == ma.WF_PRODUCTS
+    assert mnm.product_bits(wk) >= 21
+    assert td.op_spec("attention").engine_bits["fused_pallas"] == 21
+    # the plain version's words are exact: they sum back to the value
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(64, 64)).astype(np.float32))
+    hi, mid, lo = ma.bf16_words(x, ma.WF_WORDS)
+    for w in (hi, mid, lo):
+        assert torch.equal(w, w.to(torch.bfloat16).to(torch.float32))
+    assert float((hi + mid + lo - x).abs().max()) <= 2.0 ** -24 * float(
+        x.abs().max())
+
+
+# f32 problems that take the f32 prefill form (more than 16 rows a head):
+# hd / hd_v 64, 128, 192 / 128 and 256; Sk ragged against its 64-key
+# blocks; causal, a window, the softcap, padded rows (position -1: no
+# key) and kv_len with per-row positions.
+WF_CASES = [
+    # (B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len, padded)
+    (2, 20, 83, 1, 64, 64, True, None, None, None, False),
+    (1, 24, 150, 2, 64, 64, True, 40, 30.0, None, True),
+    (2, 9, 70, 3, 128, 128, False, None, None, (70, 41), False),
+    (1, 18, 100, 1, 192, 128, True, None, 50.0, None, False),
+    (2, 12, 130, 2, 192, 128, True, 20, None, (130, 77), False),
+    (1, 30, 90, 1, 256, 256, True, None, 50.0, None, True),
+]
+
+
+def _wf_problem(B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len,
+                padded):
+    arrays = _problem(Sq * 100 + Sk + hd, B=B, Sq=Sq, Sk=Sk, KV=2, G=G,
+                      hd=hd, hd_v=hd_v)
+    ends = np.full(B, Sk) if kv_len is None else np.asarray(kv_len)
+    qpos = (np.arange(Sq)[None] + ends[:, None] - Sq).astype(np.int32)
+    if padded:
+        qpos[:, 0] = -1
+    kl = None if kv_len is None else np.asarray(kv_len, np.int32)
+    kw = dict(causal=causal, window=window, scale=hd ** -0.5, cap=cap)
+    return arrays, qpos, kl, kw
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,G,hd,hd_v,causal,window,cap,kv_len,padded", WF_CASES)
+def test_attention_plain_wgmma_f32_walk_matches_the_reference_kernel(
+        B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len, padded):
+    arrays, qpos, kl, kw = _wf_problem(B, Sq, Sk, G, hd, hd_v, causal,
+                                       window, cap, kv_len, padded)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    assert ma.walk(tq.dtype, tk.dtype, Sq * G, hd, hd_v) \
+        == ("wgmma_f32", ma.BLOCK_K_WF, ma.STEP_WF, False)
+    want = j_mma_attention(jq, jk, jv, qpos=jnp.asarray(qpos),
+                           kv_len=None if kl is None else jnp.asarray(kl),
+                           chain=2, **kw)
+    got = ops.mma_attention(tq, tk, tv, qpos=torch.from_numpy(qpos),
+                            kv_len=None if kl is None
+                            else torch.from_numpy(kl), **kw)
+    assert got.dtype == tv.dtype and got.shape == tuple(want.shape)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+    if padded:
+        assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+
+
+@pytest.mark.parametrize("case", [WF_CASES[1], WF_CASES[4]])
+def test_attention_plain_wgmma_f32_rows_do_not_depend_on_the_batch(case):
+    """A row's bits on the f32 prefill form's walk are the same whether
+    it comes alone or beside other batch rows."""
+    B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len, padded = case
+    arrays, qpos, kl, kw = _wf_problem(4, Sq, Sk, G, hd, hd_v, causal,
+                                       window, cap, None if kv_len is None
+                                       else (kv_len * 2)[:4], padded)
+    tq, tk, tv = (torch.from_numpy(a) for a in arrays)
+    qp = torch.from_numpy(qpos)
+    klt = None if kl is None else torch.from_numpy(kl)
+    full = ma.attention_plain(tq, tk, tv, qpos=qp, kv_len=klt, **kw)
+    for rows in (1, 3):
+        part = ma.attention_plain(
+            tq[:rows].contiguous(), tk[:rows].contiguous(),
+            tv[:rows].contiguous(), qpos=qp[:rows].contiguous(),
+            kv_len=None if klt is None else klt[:rows].contiguous(), **kw)
+        assert torch.equal(part, full[:rows]), rows
 
 
 # ------------------------------------------------ the attention op

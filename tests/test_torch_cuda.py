@@ -39,8 +39,10 @@ bf16 v to 2^-8 of that scale more plus one bf16 ulp (both round p to
 bf16, and a p near a rounding boundary may round the other way); it
 repeats its bits, a row's bits do not depend on the batch, and a row
 with no valid key is exactly 0.  Its bf16 prefill form (wgmma fed by
-TMA) is held to the same bounds at the shapes that take it, counts its
-launches apart, and its CUDA chooser agrees with ``walk``.
+TMA) and its f32 prefill form (three bf16 words of each operand made
+once, then wgmma fed by TMA) are held to the same bounds at the shapes
+that take them, count their launches apart, and its CUDA chooser agrees
+with ``walk``.
 """
 
 import importlib
@@ -959,7 +961,42 @@ def test_attention_wgmma_form_matches_plain_on_card(cuda, B, Sq, Sk, KV, G,
               scale=hd ** -0.5, cap=cap)
     ma.reset_launches()
     got = ma.attention_cuda(qg, k, v, **kw)
-    assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 1}
+    assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 1,
+                           "b9_attention_f32": 0}
+    assert got.dtype == v.dtype and got.shape == (B, Sq, KV, G, hd_v)
+    _attn_close(got, ma.attention_plain(qg, k, v, **kw),
+                _attn_scales(qg, k, v, **kw))
+    assert torch.equal(got, ma.attention_cuda(qg, k, v, **kw))
+    if qpos == "padded":
+        assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+    if B > 1:
+        part = ma.attention_cuda(
+            qg[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous(),
+            **dict(kw, qpos=pos[:1].contiguous(),
+                   kv_len=None if kvl is None else kvl[:1].contiguous()))
+        assert torch.equal(part, got[:1])
+
+
+# f32 problems the f32 prefill form takes: the same shapes (rows a head
+# 17 to 8192, hd 16 to 256, hd_v 80 past a 64-column chunk).
+ATTN_WF_CASES = ATTN_WG_CASES
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,KV,G,hd,hd_v,causal,window,cap,qpos,kv_len", ATTN_WF_CASES)
+def test_attention_wgmma_f32_form_matches_plain_on_card(
+        cuda, B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos,
+        kv_len):
+    assert ma.walk(torch.float32, torch.float32, Sq * G, hd,
+                   hd_v)[0] == "wgmma_f32"
+    qg, k, v, pos, kvl = _attn_inputs(B, Sq, Sk, KV, G, hd, hd_v, "f32",
+                                      Sq + Sk + hd, qpos=qpos, kv_len=kv_len)
+    kw = dict(qpos=pos, causal=causal, window=window, kv_len=kvl,
+              scale=hd ** -0.5, cap=cap)
+    ma.reset_launches()
+    got = ma.attention_cuda(qg, k, v, **kw)
+    assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 0,
+                           "b9_attention_f32": 1}
     assert got.dtype == v.dtype and got.shape == (B, Sq, KV, G, hd_v)
     _attn_close(got, ma.attention_plain(qg, k, v, **kw),
                 _attn_scales(qg, k, v, **kw))
@@ -991,6 +1028,8 @@ def test_attention_cuda_chooser_mirrors_walk(cuda):
                                                         hd, hd_v)
     assert ma.walk(torch.bfloat16, torch.bfloat16, 17, 256, 256)[0] \
         == "wgmma"
+    assert ma.walk(torch.float32, torch.float32, 17, 256, 256)[0] \
+        == "wgmma_f32"
 
 
 @pytest.mark.parametrize("kind", list(ATTN_KINDS))
@@ -1042,8 +1081,10 @@ def test_attention_wrapper_counts_launches_and_raises(cuda):
 
 def test_attention_layer_runs_b9_on_the_card(cuda):
     """models.attention.attention with attn_method='fused_pallas' on the
-    card: prefill into a bf16 cache and a per-row decode step, both
-    through B9, each held to the vpu engine's output."""
+    card: prefill into a bf16 cache (f32 q, k and v: B9's f32 prefill
+    form) and a per-row decode step (f32 q against the bf16 cache: the
+    mma.sync form), both through B9, each held to the vpu engine's
+    output."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.models import attention as A
@@ -1057,7 +1098,8 @@ def test_attention_layer_runs_b9_on_the_card(cuda):
     ma.reset_launches()
     out, cache = A.attention(params, cfg, x, positions=torch.arange(12,
                              device="cuda"), cache=cache, kind="local")
-    assert ma.LAUNCHES["b9_attention"] == 1
+    assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 0,
+                           "b9_attention_f32": 1}
     vpu = dataclasses.replace(cfg, attn_method="vpu")
     want, _ = A.attention(params, vpu, x, positions=torch.arange(
         12, device="cuda"), kind="local")
@@ -1066,6 +1108,7 @@ def test_attention_layer_runs_b9_on_the_card(cuda):
     step = torch.randn(2, 1, cfg.d_model, device="cuda", generator=gen)
     out, _ = A.attention(params, cfg, step, positions=pos, cache=cache,
                          decode=True, kind="local")
-    assert ma.LAUNCHES["b9_attention"] == 2
+    assert ma.LAUNCHES == {"b9_attention": 1, "b9_attention_wgmma": 0,
+                           "b9_attention_f32": 1}
     assert out.shape == (2, 1, cfg.d_model)
     assert bool(torch.all(torch.isfinite(out)))
