@@ -181,10 +181,12 @@ The attention path (kernel B9; CUDA C++ in ``csrc/mma_attention.cu``):
 ``repro_torch.models.attention.attention`` -> ``core.dispatch`` op
 ``attention`` -> the engines ``fused_pallas`` (B9), ``unfused_mma``
 (the KV-chunked online softmax) and ``vpu`` (the unchunked oracle).  B9
-has three forms, chosen from dtypes and shape (``walk``): the bf16
+has four forms, chosen from dtypes and shape (``walk``): the bf16
 prefill form (wgmma fed by TMA; counter ``b9_attention_wgmma``), the f32
-prefill form (a word pass, then wgmma fed by TMA; ``b9_attention_f32``)
-and the mma.sync form for the rest (``b9_attention``).  Its phases:
+prefill form (a word pass, then wgmma fed by TMA; ``b9_attention_f32``),
+the decode form (each row's keys in chunks that blocks walk side by
+side, then a merge in chunk order; ``b9_attention_decode``) and the
+mma.sync form for the rest (``b9_attention``).  Its phases:
 
   2g. B9 against ``attention_plain`` on the card (B9_CASES): f32, bf16
       and f32 q beside a bf16 cache; hd 256 with G 2 and KV 4, 128, and
@@ -193,42 +195,50 @@ and the mma.sync form for the rest (``b9_attention``).  Its phases:
       B9_WG_CASES, which the wgmma form takes (rows a head 17 to 8192,
       Sk ragged against its 64-key blocks, hd 16 to 256), and in f32
       B9_WF_CASES (the f32 B9_CASES with more than 16 rows a head and
-      hd, hd_v multiples of 16 take the f32 prefill form too): within
-      2^-20 (1 + sigma) of each output's absolute-value scale (bf16 v
-      2^-8 of it more and one ulp; B9_RTOL), two calls the same bits, a
-      row's bits those of a one-row call, rows with no key exactly 0;
-      each case's counter is its form's, and the CUDA chooser agrees
-      with ``walk``; each of the three forms runs;
+      hd, hd_v multiples of 16 take the f32 prefill form too), and in
+      f32 q and in bf16 beside a bf16 cache B9_DC_CASES, which the decode
+      form takes (rows spanning one to three chunks, Sk not a multiple of
+      the chunk, rows with no key, 1 to 16 rows a head; the decode
+      B9_CASES take it too): within 2^-20 (1 + sigma) of each output's
+      absolute-value scale (bf16 v 2^-8 of it more and one ulp;
+      B9_RTOL), two calls the same bits, a row's bits those of a one-row
+      call, rows with no key exactly 0; each case's counter is its
+      form's, and the CUDA chooser agrees with ``walk``; each of the four
+      forms runs;
   3i. Gemma-2 2B's attention layer at full width (weights from the
       seed) through ``models.attention.attention`` with attn_method
       fused_pallas (B9), unfused_mma, vpu and auto: the global layer at
       4096 tokens and the local one at 8192 (f32 and bf16), and a decode
       step of 128 slots at per-row positions over [0, 32768) against
       bf16 ring caches of 32768 and 4096 slots (f32 and bf16
-      activations; unfused_mma refuses decode); each engine's attention
-      output held to the f64 oracle of its own qg / k / v within
-      ATTN_CEILINGS plus 100 * 2^-8 % per rounding to bf16; the wgmma
-      form's counter must move at the bf16 prefill shapes, the f32
-      prefill form's at the f32 ones and the mma.sync form's at decode,
-      each alone; auto within
-      1.25x of the fastest engine at every shape, the layer timed in
-      balanced orders;
+      activations), and against an f32 ring of 4096 slots (f32
+      activations; unfused_mma refuses decode); and GLM-4 9B's layer at
+      the same decode step over its bf16 ring of 32768 slots (f32
+      activations; 16 rows a KV head); each engine's attention output
+      held to the f64 oracle of its own qg / k / v within ATTN_CEILINGS
+      plus 100 * 2^-8 % per rounding to bf16; the wgmma form's counter
+      must move at the bf16 prefill shapes, the f32 prefill form's at the
+      f32 ones, the decode form's at the five decode steps over a bf16
+      ring and the mma.sync form's over the f32 ring, each alone; auto within 1.25x of the fastest engine at every
+      shape, the layer timed in balanced orders;
   5g. B9 timed at 3i's shapes beside its bound (bytes / 3.35 TB/s or 2
       (hd + hd_v) flops per live score / 495 TF32 or 989 bf16 TFLOP/s),
       ``attention_plain`` and ``unfused_mma``; with cap=None B9 beside
       ``F.scaled_dot_product_attention``, the library yardstick (no
-      softcap there), at the prefill shapes and the global decode
-      shape; at the f32 prefill shapes also the mma.sync form as f32
-      prefill ran before the f32 form (``probes/b9_f32_limits.py``'s
-      mma_sync build) and the f32 form's word pass and attention kernel
-      by torch.profiler's device time; both wgmma forms' registers and
-      spills from ptxas (no spills); the cost
-      model's B9 flop and byte rates and its attention host times per
-      call refitted.
+      softcap there), at every shape; at the f32 prefill shapes and the
+      five decode steps over a bf16 ring also the mma.sync form as they
+      ran before the f32 prefill and decode forms
+      (``probes/b9_variants.py``'s mma_sync build), and the f32
+      form's word pass and attention kernel, or the decode form's walk
+      and merge, by torch.profiler's device time; the wgmma forms' and
+      the decode form's registers and spills from ptxas (no spills); the
+      cost model's B9 flop and byte rates and its attention host times
+      per call refitted.
 
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
-prefill, the mma.sync form at the global decode step), and last
+prefill, the decode form at the global decode step with f32 q, the
+mma.sync form at the local decode step over an f32 ring), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -544,9 +554,22 @@ B9_WG_CASES = (
 B9_WF_CASES = (
     (1, 4096, 4131, 1, 2, 256, 256, True, None, 50.0, "tail", False),
 )
+# Decode cases on B9's decode form (at most 16 rows a head beside a bf16
+# cache; run in f32 q and in bf16), in chunks of DECODE_CHUNK (2048)
+# keys: kv_len draws rows over one to three chunks, Sk not a multiple of
+# the chunk; 1, 2, 8 and 16 rows a head; hd 16 to 256; a causal window
+# across a chunk boundary; padded rows (no key: exactly 0).
+B9_DC_CASES = (
+    (4, 1, 4396, 2, 2, 64, 64, False, None, 50.0, "tail", True),
+    (3, 1, 6221, 4, 2, 256, 256, False, None, None, "tail", True),
+    (2, 1, 2053, 2, 1, 16, 16, False, None, None, "tail", True),
+    (2, 4, 4101, 2, 2, 128, 128, True, 1200, 30.0, "tail", False),
+    (2, 8, 2088, 1, 2, 192, 128, True, None, None, "padded", False),
+)
 # B9's launch counter by form.
 B9_COUNTERS = {"mma_sync": "b9_attention", "wgmma": "b9_attention_wgmma",
-               "wgmma_f32": "b9_attention_f32"}
+               "wgmma_f32": "b9_attention_f32",
+               "decode": "b9_attention_decode"}
 # Phase 3i: Gemma-2 2B's attention layer at full width
 # (repro_torch/configs/gemma2_2b.py: d_model 2304, 8 heads over 4 KV
 # heads, head_dim 256, softcap 50, window 4096), weights from the seed.
@@ -554,17 +577,24 @@ B9_COUNTERS = {"mma_sync": "b9_attention", "wgmma": "b9_attention_wgmma",
 # and the local layer at twice that, so that the window masks; decode:
 # one step of SHAPES["decode_32k"].global_batch = 128 slots at per-row
 # positions over [0, 32768) against bf16 ring caches of 32768 (global)
-# and 4096 (local) slots.  Each engine's attention output is held to an
-# f64 oracle of the qg / k / v it was given (Frobenius % error), with
+# and 4096 (local) slots, and against an f32 ring of 4096 (a model kept
+# in f32 end to end: the mma.sync form's decode).  Each engine's
+# attention output is held to an f64 oracle of the qg / k / v it was given (Frobenius % error), with
 # the reduce tiers' ceilings (CEILINGS: fused_pallas and unfused_mma
 # 5e-3 %, vpu 5e-4 %) plus 100 * 2^-8 % for each rounding to bf16 on the
 # engine's path: with a bf16 v each engine rounds p and its output (2).
 ATTN_ARCH = "gemma2-2b"
+# ... and GLM-4 9B's decode step over the global ring (32 heads over 2 KV
+# heads, head_dim 128, no softcap): 16 rows a KV head, the most B9's
+# decode form takes, where its MMAs carry the most columns a key.
+ATTN_ROWS_ARCH = "glm4-9b"
 ATTN_METHODS = ("fused_pallas", "unfused_mma", "vpu", "auto")
 ATTN_CEILINGS = {"fused_pallas": 5e-3, "unfused_mma": 5e-3, "vpu": 5e-4}
 ATTN_BF16_ROUNDINGS = 2
-# Phase 5g also times B9 per launch in a run of this many back to back.
+# Phase 5g also times B9 per launch in a run of this many back to back,
+# and reads its launches' device time from a trace of this many calls.
 B9_RUN = 10
+B9_TRACED = 3
 # Phase 5g fits the attention host time per call at this toy size
 # (B, S, KV, G, hd), where the card's work is negligible.
 ATTN_HOST_SHAPE = (1, 64, 4, 2, 256)
@@ -2762,9 +2792,11 @@ def attn_diff(got, want, a, sigma) -> tuple:
 
 def check_attention_kernel(ma, gen) -> dict:
     """B9 against attention_plain on the same card inputs: B9_CASES for
-    f32, bf16 and f32 q beside a bf16 cache, and B9_WG_CASES in bf16 (the
-    wgmma form) and B9_WF_CASES in f32 (the f32 prefill form, which the
-    f32 B9_CASES with more than 16 rows a head take too); each launch
+    f32, bf16 and f32 q beside a bf16 cache, B9_WG_CASES in bf16 (the
+    wgmma form), B9_WF_CASES in f32 (the f32 prefill form, which the
+    f32 B9_CASES with more than 16 rows a head take too) and B9_DC_CASES
+    in f32 q and in bf16 beside a bf16 cache (the decode form, which the
+    decode B9_CASES beside a bf16 cache take too); each launch
     moves its form's counter, the CUDA chooser
     agrees with walk; two calls give the same bits, rows 0..k of a B-row
     call equal a (k + 1)-row call, and rows with no valid key are
@@ -2776,13 +2808,21 @@ def check_attention_kernel(ma, gen) -> dict:
     # after this one see the same random data as before they were added.
     wg_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     wf_gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    dc_gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cases = [(kind, case, gen) for kind in ATTN_KINDS for case in B9_CASES] \
         + [("bf16", case, wg_gen) for case in B9_WG_CASES] \
-        + [("f32", case, wf_gen) for case in B9_WF_CASES]
+        + [("f32", case, wf_gen) for case in B9_WF_CASES] \
+        + [(kind, case, dc_gen) for kind in ("mixed", "bf16")
+           for case in B9_DC_CASES]
     for kind, (B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos,
                kv_len), case_gen in cases:
         qg, k, v, pos, kvl = attn_inputs(B, Sq, Sk, KV, G, hd, hd_v,
                                          kind, qpos, kv_len, case_gen)
+        if kvl is not None and case_gen is dc_gen:
+            # a row with no key, and one past the first chunk boundary
+            kvl[0] = 0
+            kvl[-1] = max(int(kvl[-1]), 2049)
+            pos = (kvl[:, None] - 1).expand(B, Sq).contiguous()
         kw = dict(qpos=pos, causal=causal, window=window, kv_len=kvl,
                   scale=hd ** -0.5, cap=cap)
         form = ma.walk(qg.dtype, k.dtype, Sq * G, hd, hd_v)[0]
@@ -2820,6 +2860,10 @@ def check_attention_kernel(ma, gen) -> dict:
         if qpos == "padded":
             check(torch.equal(got[:, 0], torch.zeros_like(got[:, 0])),
                   f"{what}: a row with no valid key is not exactly 0")
+        if kvl is not None and int(kvl.min()) == 0:
+            zero = int(torch.argmin(kvl))
+            check(torch.equal(got[zero], torch.zeros_like(got[zero])),
+                  f"{what}: a row with kv_len 0 is not exactly 0")
         if B > 1:
             part = ma.attention_cuda(
                 qg[:1].contiguous(), k[:1].contiguous(),
@@ -2869,47 +2913,55 @@ class AttnCapture:
 
 
 def attn_problems(registry, base) -> list:
-    """Phase 3i's (label, kind, phase, tokens or slots, capacity, dtypes):
-    the global and local layers at prefill and at a decode step."""
+    """Phase 3i's (label, arch, kind, phase, tokens or slots, capacity,
+    dtypes): Gemma-2 2B's global and local layers at prefill and at a
+    decode step, and GLM-4 9B's decode step (ATTN_ROWS_ARCH)."""
     seq = base.SHAPES["train_4k"].seq_len
     slots = base.SHAPES["decode_32k"].global_batch
     cache = base.SHAPES["decode_32k"].seq_len
     cfg = registry.get_config(ATTN_ARCH)
-    return [("prefill global", "global", "prefill", seq, None,
+    return [("prefill global", ATTN_ARCH, "global", "prefill", seq, None,
              ("f32", "bf16")),
-            ("prefill local", "local", "prefill", 2 * seq, None,
+            ("prefill local", ATTN_ARCH, "local", "prefill", 2 * seq, None,
              ("f32", "bf16")),
-            ("decode global", "global", "decode", slots, cache,
+            ("decode global", ATTN_ARCH, "global", "decode", slots, cache,
              ("mixed", "bf16")),
-            ("decode local", "local", "decode", slots, cfg.window,
-             ("mixed", "bf16"))]
+            ("decode local", ATTN_ARCH, "local", "decode", slots,
+             cfg.window, ("mixed", "bf16")),
+            ("decode local", ATTN_ARCH, "local", "decode", slots,
+             cfg.window, ("f32",)),
+            ("decode 16 rows", ATTN_ROWS_ARCH, "global", "decode", slots,
+             cache, ("mixed",))]
 
 
 def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
     """models.attention.attention with attn_method per engine at Gemma-2
-    2B's full width (attn_problems): each engine's attention output
+    2B's and GLM-4 9B's full widths (attn_problems): each engine's attention output
     against the f64 oracle of its own qg / k / v within ATTN_CEILINGS
     (+ 100 * 2^-8 % per rounding to bf16); auto within PICK_SLACK of the
     fastest engine, the layer timed in balanced_orders.  B9's wgmma form
     must launch at the bf16 prefill shapes, its f32 prefill form at the
-    f32 ones and its mma.sync form at decode, each alone.  Returns (rows,
-    picks, shapes) where shapes keeps
-    each problem's operands for 5g."""
+    f32 ones, its decode form at decode over a bf16 ring and its mma.sync
+    form over an f32 ring, each alone.  Returns (rows, picks, shapes)
+    where shapes keeps each problem's operands for 5g."""
     import dataclasses
-    cfg0 = registry.get_config(ATTN_ARCH)
-    params = param.init_tree(gen, A.attn_specs(cfg0), device="cuda")
-    rows_out, picks, shapes = [], [], []
-    for label, kind, phase, n, capacity, kinds in attn_problems(registry,
-                                                                base):
+    rows_out, picks, shapes, params = [], [], [], {}
+    for label, arch, kind, phase, n, capacity, kinds in attn_problems(
+            registry, base):
+        cfg0 = registry.get_config(arch)
+        if arch not in params:
+            params[arch] = param.init_tree(gen, A.attn_specs(cfg0),
+                                           device="cuda")
         decode = phase == "decode"
         if decode:
-            cache = A.make_cache(cfg0, n, capacity)
+            cache = A.make_cache(cfg0, n, capacity,
+                                 dtype=ATTN_KINDS[kinds[0]][1])
             cache["k"].copy_(torch.randn(cache["k"].shape, device="cuda",
                                          generator=gen,
-                                         dtype=torch.bfloat16))
+                                         dtype=cache["k"].dtype))
             cache["v"].copy_(torch.randn(cache["v"].shape, device="cuda",
                                          generator=gen,
-                                         dtype=torch.bfloat16))
+                                         dtype=cache["v"].dtype))
             positions = torch.randint(0, base.SHAPES["decode_32k"].seq_len,
                                       (n, 1), device="cuda", generator=gen)
             x32 = torch.randn(n, 1, cfg0.d_model, device="cuda",
@@ -2928,8 +2980,8 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
             before = dict(ma.LAUNCHES)
             for method in methods:
                 cfg = dataclasses.replace(cfg0, attn_method=method)
-                call = (lambda c=cfg: A.attention(
-                    params, c, x, positions=positions, kind=kind,
+                call = (lambda c=cfg, w=params[arch]: A.attention(
+                    w, c, x, positions=positions, kind=kind,
                     cache=cache, decode=decode)[0])
                 torch.cuda.synchronize()
                 with AttnCapture(A) as cap:
@@ -2985,8 +3037,9 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
             pick = check_pick(f"{problem} attention", {
                 m: times[m] for m in methods if m != "auto"}, times["auto"])
             moved = {key: ma.LAUNCHES[key] - before[key] for key in before}
-            form = B9_COUNTERS["mma_sync" if decode else
-                               "wgmma" if dkind == "bf16" else "wgmma_f32"]
+            form = B9_COUNTERS[
+                ("mma_sync" if dkind == "f32" else "decode") if decode
+                else "wgmma" if dkind == "bf16" else "wgmma_f32"]
             check(moved[form] > 0 and sum(moved.values()) == moved[form],
                   f"{problem}: B9 launches by form {moved}, expected "
                   f"{form} alone")
@@ -3088,16 +3141,18 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
     version) beside its bound, the plain version and unfused_mma (at
     prefill; it refuses decode); and, with cap=None, beside B9 without
     the softcap and F.scaled_dot_product_attention, the library
-    yardstick (every prefill shape, a window as SDPA's mask, and the
-    global decode step).  The cost model's B9 rates
-    are refitted: _B9_FLOPS_PER_US from the prefill shapes,
-    _B9_BYTES_PER_US from the decode ones.  At the f32 prefill shapes the
-    mma.sync form as f32 prefill ran before the f32 prefill form (the
-    probe's mma_sync build, ``sync_dll``) is timed in turns with it, and
-    the f32 form's two launches are read by torch.profiler.  The
+    yardstick (every shape, a window as SDPA's mask).  The cost model's
+    B9 rates are refitted: _B9_FLOPS_PER_US from the prefill shapes,
+    _B9_BYTES_PER_US from the decode form's at 2 rows a head and
+    _B9_DECODE_FLOPS_PER_US from its 16-row step.  At the f32 prefill shapes
+    and the decode steps over a bf16 ring the mma.sync form as they ran
+    before the f32 prefill and decode forms (the probe's mma_sync build,
+    ``sync_dll``) is timed in turns with B9, and the f32 form's or the
+    decode form's two launches are read by torch.profiler.  The
     ``kernels`` line takes the wgmma and f32 prefill forms at the global
-    prefill and the mma.sync form at the global decode step (mixed);
-    every case goes to the details."""
+    prefill, the decode form at the global decode step (mixed) and the
+    mma.sync form at the local decode step over an f32 ring; every case
+    goes to the details."""
     entries, details, fits = {}, [], {}
     for problem, dkind, decode, op in shapes:
         qg, k, v, kw = op["qg"], op["k"], op["v"], dict(op["kw"])
@@ -3118,7 +3173,7 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
         form = ma.walk(qg.dtype, k.dtype, qg.shape[1] * qg.shape[3],
                        qg.shape[-1], v.shape[-1])[0]
         sync = sync_ms = device = None
-        if form == "wgmma_f32":
+        if form in ("wgmma_f32", "decode"):
             sync = probe.variant_call(sync_dll, qg, k, v, kk)
         # in turns: plain, mma.sync, B9, B9, mma.sync, plain
         p1 = median_ms(plain, reps=1, warmup=0)
@@ -3129,9 +3184,18 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
         p2 = median_ms(plain, reps=1, warmup=0)
         if sync is not None:
             sync_ms = min(s1, s2)
-            device = probe.device_ms(kern)
-            check(set(device) == {"words_kernel", "attn_f32_kernel"},
-                  f"torch.profiler saw {device} of B9's f32 form")
+            keys = ("words_kernel", "attn_f32_kernel") \
+                if form == "wgmma_f32" else ("attn_decode_kernel",
+                                             "merge_kernel")
+            device = probe.device_ms(kern, keys, calls=B9_TRACED)
+            check(set(device) == set(keys),
+                  f"torch.profiler saw {device} of B9's {form} form")
+            lost = {key: val["launches"] for key, val in device.items()
+                    if val["launches"] != B9_TRACED}
+            if lost:
+                print(f"  b9 {problem}: the trace holds {lost} launches of "
+                      f"{B9_TRACED} calls; device ms are over the launches "
+                      f"it holds", flush=True)
         # per launch in a run of B9_RUN back to back: the card's time
         # without the host's per-call work between launches
         run_ms = median_ms(lambda: [kern() for _ in range(B9_RUN)], reps=3,
@@ -3143,13 +3207,10 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
                 "attention", qg, plan, k=k, v=v, chunk=1024,
                 **{key: kw[key] for key in kw if key != "kv_len"}),
                 reps=3, warmup=1)
-        lib_ms = nocap_ms = None
-        if problem.startswith(("prefill", "decode global")):
-            nocap = dict(kk, cap=None)
-            nocap_ms = median_ms(lambda: ma.attention_cuda(qg, k, v,
-                                                           **nocap),
-                                 reps=5, warmup=1)
-            lib_ms = median_ms(sdpa_call(qg, k, v, kk), reps=5, warmup=1)
+        nocap = dict(kk, cap=None)
+        nocap_ms = median_ms(lambda: ma.attention_cuda(qg, k, v, **nocap),
+                             reps=5, warmup=1)
+        lib_ms = median_ms(sdpa_call(qg, k, v, kk), reps=5, warmup=1)
         bound_ms, bound_by, nbytes, flops = attn_bound(qg, k, v, kk)
         ms = min(k1, k2)
         kname = B9_COUNTERS[form]
@@ -3169,26 +3230,34 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
               f"({run_ms:.4f} back to back; {row['tflops']:.1f} "
               f"TFLOP/s, {row['gbps']:.0f} GB/s) plain {row['plain_ms']:.3f}"
               f" ms unfused_mma {u_ms if u_ms is None else round(u_ms, 4)} "
-              f"ms; cap=None: B9 {nocap_ms if nocap_ms is None else round(nocap_ms, 4)}"
-              f" ms, SDPA {lib_ms if lib_ms is None else round(lib_ms, 4)} "
-              f"ms; bound {bound_ms:.4f} ms ({bound_by}; "
+              f"ms; cap=None: B9 {nocap_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+              f"({nocap_ms / lib_ms:.3f}x); bound {bound_ms:.4f} ms ({bound_by}; "
               f"{100 * row['share_of_bound']:.1f} % of it) |diff| "
               f"{diff:.3g}"
               + ("" if sync_ms is None else
                  f"; the mma.sync form {sync_ms:.4f} ms ({ms / sync_ms:.3f}x "
                  f"of it); device ms by launch {device}"), flush=True)
         if decode:
-            # the model's bytes: every slot of the cache, q and o
+            # the model's bytes (every slot of the cache, q and o) over
+            # time: the decode form's rate at 2 rows a head, or the
+            # mma.sync form's (an f32 cache); past 2 rows the decode
+            # form's flops (every slot) over time
             B, Sq, KV, G, hd = qg.shape
             io = B * k.shape[1] * KV * (hd + v.shape[-1]) * k.element_size() \
                 + B * Sq * KV * G * (hd * qg.element_size()
                                      + v.shape[-1] * v.element_size())
-            fits.setdefault("bytes", []).append(io / (ms * 1e3))
-        else:
+            if form == "decode" and Sq * G > 2:
+                fits.setdefault("decode_flops", []).append(
+                    2.0 * (hd + v.shape[-1]) * B * Sq * KV * G * k.shape[1]
+                    / (ms * 1e3))
+            else:
+                fits.setdefault("bytes" if form == "decode"
+                                else "sync_bytes", []).append(io / (ms * 1e3))
+        elif not decode:
             fits.setdefault({"f32": "float32", "bf16": "bfloat16"}[dkind],
                             []).append(flops / (ms * 1e3))
         if problem in ("prefill global bf16", "prefill global f32",
-                       "decode global mixed"):
+                       "decode global mixed", "decode local f32"):
             entries[kname] = {
                 "name": kname, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/mma_attention.cu",
@@ -3198,18 +3267,25 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
                 "ms": ms, "plain_ms": row["plain_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms}
+    byte_keys = ("bytes", "sync_bytes", "decode_flops")
     fit = {key: statistics.fmean(val) for key, val in fits.items()
-           if key != "bytes"}
-    fit["bytes"] = min(fits["bytes"])
+           if key not in byte_keys}
+    fit.update({key: min(fits[key]) for key in byte_keys})
     print(f"phase 5g: fitted _B9_FLOPS_PER_US "
-          f"{ {key: round(val / 1e6, 2) for key, val in fit.items() if key != 'bytes'} }"
-          f" x 1e6 (flops over time, per prefill case {fits}), "
+          f"{ {key: round(val / 1e6, 2) for key, val in fit.items() if key not in byte_keys} }"
+          f" x 1e6 (flops over time, per case {fits}), "
           f"_B9_BYTES_PER_US {fit['bytes'] / 1e6:.4g} x 1e6 (the model's "
-          f"bytes over time, the slowest decode case); committed "
-          f"{autotune._B9_FLOPS_PER_US}, {autotune._B9_BYTES_PER_US}",
-          flush=True)
+          f"bytes over time, the decode form's slowest case at 2 rows a "
+          f"head), _B9_DECODE_FLOPS_PER_US {fit['decode_flops'] / 1e6:.4g} "
+          f"x 1e6 (the model's flops over time at 16 rows a head), "
+          f"_B9_SYNC_BYTES_PER_US {fit['sync_bytes'] / 1e6:.4g} x 1e6 (the "
+          f"mma.sync form over the f32 ring); committed "
+          f"{autotune._B9_FLOPS_PER_US}, {autotune._B9_BYTES_PER_US}, "
+          f"{autotune._B9_DECODE_FLOPS_PER_US}, "
+          f"{autotune._B9_SYNC_BYTES_PER_US}", flush=True)
     return [entries["b9_attention_wgmma"], entries["b9_attention_f32"],
-            entries["b9_attention"]], details, fit
+            entries["b9_attention_decode"], entries["b9_attention"]], \
+        details, fit
 
 
 def fit_attn_host(dispatch, autotune, gen) -> dict:
@@ -3552,13 +3628,14 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
     t0 = time.perf_counter()
-    # The mma.sync form as f32 prefill ran it before B9's f32 prefill form
-    # (phase 5g's yardstick), built beside the libraries.
+    # The mma.sync form as f32 prefill and decode ran it before B9's f32
+    # prefill and decode forms (phase 5g's yardstick), built beside the
+    # libraries.
     spec = importlib.util.spec_from_file_location(
-        "b9_f32_limits", os.path.join(ROOT, "probes", "b9_f32_limits.py"))
+        "b9_variants", os.path.join(ROOT, "probes", "b9_variants.py"))
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    sync_build = probe.start_builds(("mma_sync",))
+    sync_build = probe.start_builds({"mma_sync": probe.MMA_SYNC}, "b9")
     libs = _build.build_all()
     sync_dll = probe.finish_builds(sync_build)[0]["mma_sync"]
     build_s = time.perf_counter() - t0
@@ -3644,7 +3721,8 @@ def main() -> int:
           flush=True)
     check(nm_launches > 0, "kernel b10_norm_matmul was not launched on the "
                            "norm_matmul path")
-    print("phase 3i: the attention layer at Gemma-2 2B's full width",
+    print("phase 3i: the attention layer at Gemma-2 2B's and GLM-4 9B's "
+          "full widths",
           flush=True)
     ma.reset_launches()
     attn_rows, attn_picks, attn_shapes = run_attention_path(
@@ -3723,6 +3801,17 @@ def main() -> int:
     check(len(wf_ptxas) == 9
           and all(spill == 0 for _, spill in wf_ptxas.values()),
           f"the f32 prefill form spills: {wf_ptxas}")
+    dc_ptxas = {**ptxas_kernels(libs["mma_attention"], "attn_decode_kernel"),
+                **ptxas_kernels(libs["mma_attention"], "merge_kernel")}
+    shown = {name[name.find("attn_decode") if "attn_decode" in name
+                  else name.find("merge"):][:40]: val
+             for name, val in dc_ptxas.items()}
+    print(f"phase 5g: ptxas (registers, spill store bytes) of the decode "
+          f"form by rows and value width, and its merge: {shown}",
+          flush=True)
+    check(len(dc_ptxas) == 7
+          and all(spill == 0 for _, spill in dc_ptxas.values()),
+          f"the decode form spills: {dc_ptxas}")
     attn_host = fit_attn_host(dispatch, autotune, gen)
 
     print("phase 6: the cost model against measured times (f32, bf16, "
@@ -3779,6 +3868,7 @@ def main() -> int:
                    "attention_timings": attn_timing_rows,
                    "b9_fit": attn_fit, "attn_host_us": attn_host,
                    "b9_wgmma_ptxas": wg_ptxas, "b9_f32_ptxas": wf_ptxas,
+                   "b9_decode_ptxas": dc_ptxas,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

@@ -755,30 +755,46 @@ def _cost_norm_matmul(plan: ReductionPlan, n: int, itemsize: int, dtype,
 # the CUDA cores (TF32 off).  Kernel B9 reads and writes the operands
 # once and skips whole blocks past the causal / window band; its loads
 # overlap its MMAs, so it costs the larger of its bytes at
-# _B9_BYTES_PER_US and its flops, 2 (hd + hd_v) per live score, at
-# _B9_FLOPS_PER_US.  A call also costs host time (_ATTN_HOST_US; for
+# _B9_BYTES_PER_US (_B9_SYNC_BYTES_PER_US where ``walk`` sends the call
+# to its mma.sync form) and its flops, 2 (hd + hd_v) per live score, at
+# _B9_FLOPS_PER_US (_B9_DECODE_FLOPS_PER_US where ``walk`` sends it to
+# the decode form).  A call also costs host time (_ATTN_HOST_US; for
 # unfused_mma per chunk, at the plan's chunk).  Not priced: blocks B9
 # skips past a dynamic kv_len (the model counts every slot).
-# The three fitted constants below come from chip_smoke.py (phase 5g) on
-# one H100 80GB HBM3 (700 W), which prints their fit each run.  Kernel
-# B9's useful flops per µs by its (q, kv) dtypes, fitted at Gemma-2 2B's
+# The fitted constants below come from chip_smoke.py (phase 5g) on one
+# H100 80GB HBM3 (700 W), which prints their fit each run.  Kernel B9's
+# useful flops per µs by its (q, kv) dtypes, fitted at Gemma-2 2B's
 # prefill shapes as flops over time, the mean of the global (4096
 # tokens) and local (8192) fits.  bf16 prefill runs on B9's wgmma form,
 # f32 prefill on its f32 prefill form (48.83e6: 46.7e6 global, 51.0e6
-# local; the mma.sync form it replaced fitted 14.17e6).
-# The mixed form, f32 q beside a bf16 cache, runs only at decode, on the
-# mma.sync form, and keeps that form's f32 rate:
+# local; the mma.sync form it replaced fitted 14.17e6).  f32 q beside a
+# bf16 cache runs on the mma.sync form only past 16 rows a head and keeps
+# that form's f32 rate.
 _B9_FLOPS_PER_US = {"float32": 48.83e6, "bfloat16": 255.1e6,
                     "float32/bfloat16": 14.17e6}
-# Bytes per µs B9 streams at a decode step (128 slots, 2 query rows a KV
-# head: its MMAs fill 2 of 16 rows and a block walks its keys alone),
-# fitted as the model's bytes (every slot) over time where the rows read
-# nearly all of the cache (the slowest decode case), the lower of two
-# runs' fits (1.436 and 1.600): 43 % of the card's 3.35 TB/s.  Where the
-# rows read half the cache (the 32768-slot ring at spread positions) B9
-# runs about twice as fast as this prices it, so at a bf16 decode step
-# there the model takes vpu, which ran 1.09x B9 (the layer's time).
-_B9_BYTES_PER_US = 1.436e6
+# With at most 16 rows a head B9 takes its decode form, whose work a key
+# grows with the rows (q's words are the MMAs' columns, one warp a block
+# runs the softmax of every row): at GLM-4 9B's step, 16 rows a KV head
+# at hd 128 over the 32768-slot ring with f32 q, it runs at 34 % of its
+# byte bound.  Fitted there as the model's flops (every slot) over time;
+# at Gemma-2 2B's 2 rows a head the bytes price it (the flops at this
+# rate take under a third of their time).
+_B9_DECODE_FLOPS_PER_US = 39.34e6
+# Bytes per µs B9's decode form streams (a bf16 cache; 128 slots, each
+# row's keys in chunks of 2048 that blocks walk side by side), fitted as
+# the model's bytes (every slot) over time where the rows read nearly
+# all of the cache (the 4096-slot ring, the slowest decode case; 2.742e6
+# and 2.752e6 with f32 and bf16 q): 82 % of the card's 3.35 TB/s.  Where
+# the rows read about half of the cache (the 32768-slot ring at spread
+# positions) B9 runs about twice as fast as this prices it (ROADMAP queue
+# B item 10); the pick is B9 there all the same.  The mma.sync form it
+# replaced at decode fitted 1.436e6.
+_B9_BYTES_PER_US = 2.742e6
+# ... and its mma.sync form at a decode step over an f32 cache, where one
+# block walks a row's keys alone (Gemma-2 2B's local ring of 4096 f32
+# slots), fitted the same way; vpu runs that step 1.35x faster than B9
+# (the layer's time), and the model takes vpu there.
+_B9_SYNC_BYTES_PER_US = 1.386e6
 # µs of host time an attention call costs (Python, the context and plan
 # lookup, the per-head bmms' and the elementwise ops' launches; for
 # unfused_mma per chunk), fitted at a toy size (1 x 64 tokens, 4 KV
@@ -813,8 +829,14 @@ def _cost_attention(plan: ReductionPlan, n: int, itemsize: int, dtype,
         rate = _B9_FLOPS_PER_US.get(kind)
         if rate is None:        # dtypes B9 does not take
             return math.inf
+        from repro_torch.kernels.mma_attention import walk
+        b9_form = walk(q_name, kv_name, rows, hd, hd_v)[0]
+        if b9_form == "decode":
+            rate = _B9_DECODE_FLOPS_PER_US
         flops = 2.0 * (hd + hd_v) * n * _attn_live_share(form)
-        return max(io / _B9_BYTES_PER_US, flops / rate) \
+        byte_rate = _B9_SYNC_BYTES_PER_US if b9_form == "mma_sync" \
+            else _B9_BYTES_PER_US
+        return max(io / byte_rate, flops / rate) \
             + _ATTN_HOST_US[plan.method]
     cap = 24.0 if form.get("cap") else 0.0
     nbytes = io + (n / rows * hd * 8.0 if kv_item < itemsize else 0.0)

@@ -80,9 +80,9 @@
 // words plus 4, bf16 to 64 elements plus 8) so that every fragment load
 // is free of bank conflicts and every row starts 16-byte aligned.
 //
-// Two forms.  b9_attention picks one by wg::form, a pure function of the
-// dtypes and the shape, before launch (kernels/mma_attention.py walk is its
-// mirror; the wrapper counts each form's launches apart):
+// Four forms.  b9_attention picks one by form (at the end), a pure function
+// of the dtypes and the shape, before launch (kernels/mma_attention.py walk
+// is its mirror; the wrapper counts each form's launches apart):
 //
 //   * the bf16 prefill form (namespace wg below): qg, k and v bf16, more
 //     than 16 rows a head, hd and hd_v multiples of 16 up to 256.  It
@@ -93,23 +93,30 @@
 //     blocks.  Its walk differs (64-key blocks, one q.k chain, l from three
 //     bf16 words of p, p x v accumulated in the wgmma accumulator), so a
 //     16-bit prefill row's bits differ from a decode call's;
-//   * the mma.sync form (attn_kernel below) for the rest: f32, f32 q
-//     beside a bf16 cache, a decode step's few rows, odd head dims.
+//   * the f32 prefill form (namespace wf): qg, k and v f32 under the same
+//     conditions of rows and head dims;
+//   * the decode form (namespace dc): at most 16 rows a head, a bf16
+//     cache (q f32 or bf16), hd and hd_v multiples of 16 up to 256.  Each
+//     row's keys are cut into chunks of dc::kChunk that blocks walk side
+//     by side, and a second launch folds the chunks' states in key order;
+//   * the mma.sync form (attn_kernel below) for the rest: f32 q, k and v
+//     at a decode step, f32 q beside a bf16 cache with more than 16 rows,
+//     odd head dims.
 //
 // Bound on the H100: operations at prefill (Gemma-2 2B's global layer at
 // 4096 tokens: 2 (256 + 256) flops on each of ~67M live scores a head
 // pair, 0.0695 ms at 989 bf16 TFLOP/s), bytes at decode (128 slots over a
-// 32768-slot bf16 cache: 8.6 GB each for k and v, read as far as each
-// row's kv_len).  The bf16 prefill form spends its time in the tensor
+// 32768-slot bf16 cache: 8.8 GB of k and v read as far as each row's
+// kv_len, 2.64 ms).  The bf16 prefill form spends its time in the tensor
 // cores and in the softmax between them (ex2 and, with a softcap, a
 // second ex2 and a reciprocal per score on the SFU, and three bf16 words
 // of p for the row sums); its two warpgroups overlap only as they fall,
 // and there is no producer warp or setmaxnreg.
 // The mma.sync form reaches neither bound: it splits words at every
 // fragment load, runs 2-3 mma.sync per useful f32 product, and at decode
-// a block's MMAs fill 2 of their 16 rows.  A split of the keys for decode
-// with a fixed-order second stage is later work; chip_smoke.py times both
-// forms against their bounds.
+// a block's MMAs fill 2 of their 16 rows while one block walks a row's
+// keys alone.  The decode form is its redesign for a decode step;
+// chip_smoke.py times every form against its bound.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1234,8 +1241,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // The 4-d map of a bf16 (B, Sk, KV, d) array: boxes of 64 columns x 1 head
-// x 64 keys x 1 batch row, 128-byte swizzled, zero past each extent.
-int encode(CUtensorMap* map, const void* base, int B, int Sk, int KV, int d) {
+// x box_keys keys x 1 batch row, 128-byte swizzled, zero past each extent
+// (the decode form's boxes hold fewer keys).
+int encode(CUtensorMap* map, const void* base, int B, int Sk, int KV, int d,
+           int box_keys) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -1245,7 +1254,8 @@ int encode(CUtensorMap* map, const void* base, int B, int Sk, int KV, int d) {
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(KV) * d * 2,
                                  static_cast<cuuint64_t>(Sk) * KV * d * 2};
-  const cuuint32_t box[4] = {kSlab, 1, kBK, 1};
+  const cuuint32_t box[4] = {kSlab, 1, static_cast<cuuint32_t>(box_keys),
+                             1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(base), dims, strides, box, unit,
@@ -1266,9 +1276,9 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
   };
   if (!aligned(q) || !aligned(k) || !aligned(v)) return cudaErrorMisalignedAddress;
   CUtensorMap tmk, tmv;
-  int e = encode(&tmk, k, B, Sk, KV, hd);
+  int e = encode(&tmk, k, B, Sk, KV, hd, kBK);
   if (e) return e;
-  e = encode(&tmv, v, B, Sk, KV, hd_v);
+  e = encode(&tmv, v, B, Sk, KV, hd_v, kBK);
   if (e) return e;
   const int bytes = static_cast<int>(smem_bytes(hd, hd_v));
   auto kernel = attn_wgmma_kernel<NV, CAP>;
@@ -1922,11 +1932,569 @@ int launch_width(const float* q, const float* k, const float* v,
 
 }  // namespace wf
 
+// ---------------------------------------------------------------------------
+// The decode form: a row's keys cut into chunks that blocks walk side by
+// side, then a merge that folds the chunks' states in key order.
+//
+// Taken by dc::form (below) when a head has at most 16 rows (a decode
+// step: Sq G rows, 2 at Gemma-2 2B), the cache (k and v) is bf16, q is f32
+// or bf16, and hd and hd_v are multiples of 16 up to 256.  It replaces
+// attn_kernel for those problems, where one block walked each row's keys
+// alone (up to 1024 blocks of 32 at the 32768-slot ring), its MMAs filled
+// 2 of their 16 rows, and f32 q was split into TF32 words at every
+// fragment load of every key block.
+//
+// The walk per row.  Keys are cut at absolute multiples of kChunk.  A
+// chunk that holds a valid key of the row is walked from the fresh state
+// (m = -1e30, l = c = acc = 0) in blocks of kBK = 16 keys, each block
+// that holds a valid key of the row updating it as attn_kernel's walk
+// does; the chunk ends with its state (m_c, l_c - c_c, acc_c) in f32.
+// The merge folds the chunks' states in chunk order, from M = -1e30, L = C
+// = A = 0:
+//
+//   M' = max(M, m_c);  a = exp(M - M');  b = exp(m_c - M')
+//   y = (l_c - c_c) b - C a;  t = L a + y;  C = (t - L a) - y;  L = t
+//   A = A a + acc_c b;  M = M'
+//
+// and o = A / (L - C) where L - C > 0, else 0, all with _rn intrinsics.
+// For a row whose keys lie in one chunk, a = exp(-1e30 - m_c) is 0 and b
+// is 1, so o is exactly that chunk's acc_c / (l_c - c_c): a short row
+// has the bits of an unsplit walk.  A row's bits depend on its own q,
+// positions and keys alone, never on the rows or slots beside it.
+//
+// Products.  Sᵀ = K qᵀ on m16n8k16 bf16 mma.sync: the A operand is 16
+// keys by 16 hd columns of K (ldmatrix from the 128-byte swizzled TMA
+// tile), the B operand q's words as 8 columns: each row is four columns,
+// hi = bf16(q), mid = bf16(q - hi), lo = bf16(q - hi - mid) and a zero
+// (a bf16 q is its hi word, the others 0), so two rows an n-tile.  Each
+// word product is exact in f32; each column is one chain over the whole
+// hd from zero, and a score is (hi + mid) + lo, added on the CUDA cores:
+// ~24 bits of an f32 q, whose words are made once a block.  Oᵀ = Vᵀ pᵀ the
+// same way: A is 16 value columns by 16 keys of V (ldmatrix.trans), B is
+// p rounded to bf16 for eight rows (p's words pass through a few hundred
+// bytes of shared memory), from zero per block and added to acc corr with
+// __fmul_rn / __fadd_rn.  l_blk is a ones-MMA over p's three bf16 words,
+// from zero per block; the Kahan step as above.  So a truncating
+// tensor-core add touches one block's partial, never a running sum.
+//
+// Two launches a call:
+//   attn_decode_kernel  one warp a block, one block per (chunk, KV head,
+//                       batch row) (gridDim.x chunk KV + head, the heads
+//                       of a key range side by side), built for 2, 8 or
+//                       16 rows; a block whose chunk holds no valid key of
+//                       any of its rows exits at once.  K and V come by TMA (the 4-d maps of
+//                       the bf16 prefill form, boxes of 16 keys) through
+//                       a ring of stages(hd, hd_v, rt) stages: at 2 rows
+//                       3 of 16 KB at hd = hd_v = 256, so that four
+//                       blocks, 192 KB of loads, fit an SM; at 8 or 16
+//                       rows a smaller ring beside q's words (2 stages of
+//                       8 KB at hd 128, six 16-row blocks an SM).  It writes its rows' chunk
+//                       states to an f32 scratch the wrapper allocates
+//                       (not zeroed): [b][h][chunk][row][m, l - c, acc];
+//   merge_kernel        one block per (KV head, batch row), a thread per
+//                       (row, value column), folding the row's live
+//                       chunks in order and writing o in bf16.
+// Bound: bytes (the keys and values each row reads).  At the global
+// decode step the grid holds ~4200 live blocks of at most 2 MB each,
+// against 512 blocks of up to 16 MB for attn_kernel, so the waves balance
+// however the rows' kv_len fall (probes/b9_decode_limits.py chose 2048
+// keys a chunk over 512 and 1024).
+namespace dc {
+
+using namespace hopper;
+
+constexpr int kChunk = 2048;        // keys a chunk (DECODE_CHUNK)
+constexpr int kBK = 16;             // keys a block of the walk
+constexpr int kMaxRows = 16;        // rows a head
+constexpr int kSlab = 64;           // bf16 columns of a 128-byte row
+constexpr int kSlabBytes = kBK * 128;
+// The ring's budget: at 2 rows a block 3 stages at hd 256; at 8 or 16,
+// where q's words take much room and the warp's work a key grows with
+// the rows, 2 stages at hd 128, so that twice the blocks fit an SM (1.77x
+// faster at GLM-4 9B's 16 rows, probes/b9_decode_limits.py).
+constexpr int kRingBytes = 49152;
+constexpr int kRingBytesRows = 16384;
+constexpr int kStagesMin = 2;
+constexpr int kStagesMax = 8;
+constexpr int kPS = 24;             // a row of p's words: 16 keys + 8
+constexpr int kMergeThreads = 256;
+constexpr uint32_t kOnes = 0x3f803f80u;  // two bf16 ones
+
+__host__ __device__ constexpr int round32(int d) { return (d + 31) / 32 * 32; }
+__host__ __device__ constexpr int slabs(int d) { return (d + kSlab - 1) / kSlab; }
+// One ring stage: a block's keys and values, each in slabs of 64 columns.
+__host__ __device__ constexpr int stage_bytes(int hd, int hd_v) {
+  return (slabs(hd) + slabs(hd_v)) * kSlabBytes;
+}
+__host__ __device__ constexpr int stages(int hd, int hd_v, int rt) {
+  const int fit = (rt > 2 ? kRingBytesRows : kRingBytes) / stage_bytes(hd, hd_v);
+  return fit < kStagesMin ? kStagesMin : fit < kStagesMax ? fit : kStagesMax;
+}
+
+// Shared memory of a block of rt rows (2, 8 or 16; kernels/mma_attention.py
+// smem_bytes mirrors it): the 1024-byte alignment slack, the ring, q's four
+// word columns a row (rows round32(hd) + 8 elements: conflict-free
+// ldmatrix), p's three words of the rows' n-tiles (8 rows each), the rows'
+// corr and bounds, and the ring's mbarriers.
+__host__ __device__ constexpr long long smem_bytes(int hd, int hd_v, int rt) {
+  return 1024LL + static_cast<long long>(stages(hd, hd_v, rt)) * stage_bytes(hd, hd_v) +
+         4LL * rt * (round32(hd) + 8) * 2 + 3LL * ((rt + 7) / 8 * 8) * kPS * 2 +
+         kMaxRows * 12 + kStagesMax * 8;
+}
+
+// The form chooser, a pure function of dtypes and shape (mirrored by
+// kernels/mma_attention.py walk): 1 for this form.  q may be f32 or bf16.
+__host__ __device__ inline int form(int q_dtype, int kv_dtype, long long rows,
+                                    int hd, int hd_v) {
+  return (q_dtype == kF32 || q_dtype == kBF16) && kv_dtype == kBF16 &&
+         rows <= 16 && hd % 16 == 0 && hd_v % 16 == 0 && hd >= 16 &&
+         hd <= 256 && hd_v >= 16 && hd_v <= 256;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// The byte offset of the 16-byte chunk holding column col of row key in a
+// TMA tile: slabs of 64 columns x kBK rows of 128 bytes, 128-byte swizzled
+// (chunk c of row key at chunk c ^ (key mod 8)).
+__device__ __forceinline__ uint32_t tile_off(int key, int col) {
+  return (col >> 6) * kSlabBytes + key * 128 +
+         ((((col & 63) >> 3) ^ (key & 7)) << 4);
+}
+
+// Row r's valid keys [lo, hi) as attn_kernel's; a row past the last holds
+// none.
+__device__ __forceinline__ int2 row_range(int r, int R, int b, int Sq, int G,
+                                          int Sk, const int* qpos,
+                                          const int* kvlen, int causal,
+                                          int has_window, long long window) {
+  long long lo = 0, hi = 0;
+  if (r < R) {
+    const long long qp = qpos[static_cast<long long>(b) * Sq + r / G];
+    hi = Sk;
+    if (kvlen != nullptr) hi = min(hi, static_cast<long long>(kvlen[b]));
+    if (causal) hi = min(hi, qp + 1);
+    if (has_window) lo = qp - window + 1;
+    lo = max(0LL, min(lo, static_cast<long long>(Sk)));
+    hi = max(0LL, hi);
+  }
+  return make_int2(static_cast<int>(lo), static_cast<int>(hi));
+}
+
+// x as three bf16 words, hi first (the rests are exact in f32).
+__device__ __forceinline__ void words3(float x, __nv_bfloat16 (&w)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    w[i] = __float2bfloat16_rn(x);
+    x = __fsub_rn(x, __bfloat162float(w[i]));
+  }
+}
+
+// RT: the rows a block holds (2, 8 or 16; q's words take RT / 2 n-tiles of
+// 8 columns, p's rows (RT + 7) / 8); NV: 16-column tiles of the value head
+// it can hold (hd_v / 16 of them run).
+template <int RT, int NV>
+__global__ void __launch_bounds__(32)
+    attn_decode_kernel(const __grid_constant__ CUtensorMap tmk,
+                       const __grid_constant__ CUtensorMap tmv,
+                       const void* __restrict__ q, int q_f32,
+                       const int* __restrict__ qpos,
+                       const int* __restrict__ kvlen,
+                       float* __restrict__ state, int Sq, int Sk, int KV, int G,
+                       int hd, int hd_v, int nch, int causal, int has_window,
+                       long long window, float scale, int has_cap, float cap) {
+  constexpr int NQ = RT / 2;
+  constexpr int NQH = NQ < 4 ? NQ : 4;
+  constexpr int NP = (RT + 7) / 8;
+  constexpr int NR = 8 * NP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const int mat = lane >> 3, mr = lane & 7;  // an ldmatrix address's matrix, row
+  const int h = blockIdx.x % KV, chunk = blockIdx.x / KV, b = blockIdx.y;
+  const int R = Sq * G;
+  const int c0 = chunk * kChunk;
+  const int c1 = Sk - c0 < kChunk ? Sk : c0 + kChunk;
+
+  // The block's keys: from the first valid key of any row in the chunk to
+  // the last; none, and the block exits.
+  int first = INT_MAX, last = 0;
+  for (int r = 0; r < R; ++r) {
+    const int2 rg = row_range(r, R, b, Sq, G, Sk, qpos, kvlen, causal,
+                              has_window, window);
+    const int lo = max(rg.x, c0), hi = min(rg.y, c1);
+    if (lo < hi) {
+      first = min(first, lo);
+      last = max(last, hi);
+    }
+  }
+  if (first == INT_MAX) return;
+  const int kb0 = first / kBK * kBK;
+  const int nblk = (last - kb0 + kBK - 1) / kBK;
+
+  const int nst = stages(hd, hd_v, RT), sb = stage_bytes(hd, hd_v);
+  const int k_bytes = slabs(hd) * kSlabBytes;
+  const int qstride = round32(hd) + 8;
+  unsigned char* ring = smem;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(ring + nst * sb);
+  __nv_bfloat16* ps = qs + 4 * RT * qstride;  // [word][row][key]
+  float* corr_s = reinterpret_cast<float*>(ps + 3 * NR * kPS);
+  int2* rb_s = reinterpret_cast<int2*>(corr_s + kMaxRows);  // rows' [lo, hi)
+  uint64_t* full = reinterpret_cast<uint64_t*>(rb_s + kMaxRows);
+
+  if (lane == 0) {
+    for (int i = 0; i < nst; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  // Block it's keys and values into stage it mod nst (keys past Sk and
+  // columns past hd / hd_v zero).
+  auto load = [&](int it) {
+    const int st = it % nst;
+    unsigned char* d = ring + st * sb;
+    mbar_expect_tx(&full[st], static_cast<uint32_t>(sb));
+    const int j = kb0 + it * kBK;
+    for (int s = 0; s < slabs(hd); ++s)
+      tma_load_4d(d + s * kSlabBytes, &tmk, &full[st], s * kSlab, h, j, b);
+    for (int s = 0; s < slabs(hd_v); ++s)
+      tma_load_4d(d + k_bytes + s * kSlabBytes, &tmv, &full[st], s * kSlab, h,
+                  j, b);
+  };
+  if (lane == 0)
+    for (int it = 0; it < nst && it < nblk; ++it) load(it);
+
+  // q's words once a block: column 4 r + w of row r (zero past hd, past
+  // the last row and in the fourth word).
+  for (int i = lane; i < RT * qstride; i += 32) {
+    const int r = i / qstride, col = i % qstride;
+    float x = 0.0f;
+    if (r < R && col < hd) {
+      const long long row =
+          ((static_cast<long long>(b) * Sq + r / G) * KV + h) * G + r % G;
+      x = q_f32 ? __ldg(static_cast<const float*>(q) + row * hd + col)
+                : __bfloat162float(
+                      static_cast<const __nv_bfloat16*>(q)[row * hd + col]);
+    }
+    __nv_bfloat16 w[3];
+    words3(x, w);
+#pragma unroll
+    for (int wd = 0; wd < 3; ++wd) qs[(4 * r + wd) * qstride + col] = w[wd];
+    qs[(4 * r + 3) * qstride + col] = __float2bfloat16_rn(0.0f);
+  }
+  for (int i = lane; i < 3 * NR * kPS; i += 32)
+    ps[i] = __float2bfloat16_rn(0.0f);
+  // The rows' bounds (in shared memory, not in registers, beside a
+  // 16-row block's accumulators).
+  for (int i = lane; i < kMaxRows; i += 32) {
+    corr_s[i] = 1.0f;
+    rb_s[i] = row_range(i, R, b, Sq, G, Sk, qpos, kvlen, causal, has_window,
+                        window);
+  }
+  __syncwarp();
+
+  float m[NQ];
+#pragma unroll
+  for (int nt = 0; nt < NQ; ++nt) m[nt] = kMInit;
+  float l[NP][2], c[NP][2], acc[NV][NP][4];
+#pragma unroll
+  for (int np = 0; np < NP; ++np) {
+    l[np][0] = l[np][1] = c[np][0] = c[np][1] = 0.0f;
+#pragma unroll
+    for (int mt = 0; mt < NV; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][np][i] = 0.0f;
+  }
+  const uint32_t ring_u = smem_u32(ring), qs_u = smem_u32(qs),
+                 ps_u = smem_u32(ps);
+  const int nk = round32(hd) / 16;  // the S chain's k steps (zero past hd)
+  const int nmt = hd_v / 16;
+  const uint32_t ones[4] = {kOnes, kOnes, kOnes, kOnes};
+
+  for (int it = 0; it < nblk; ++it) {
+    const int st = it % nst, j0 = kb0 + it * kBK;
+    mbar_wait(&full[st], (it / nst) & 1);
+    const uint32_t kt = ring_u + st * sb, vt = kt + k_bytes;
+
+    // Sᵀ = K qᵀ: each word column one chain over hd from zero, NQH n-tiles
+    // at a time (two passes over the keys at 16 rows: 16 rows' scores
+    // beside their accumulators spilled).  Then, per n-tile, the scores
+    // (hi + mid) + lo of keys g and g + 8, scaled, capped and masked; the
+    // block's row max; corr and p; p's words to shared memory (key g from
+    // even lanes, g + 8 from odd) and corr beside them.  This lane's rows
+    // of the block: in this score layout row 2 nt + t / 2 (t even: words
+    // hi and mid; odd: lo and the zero column), in the value layout below
+    // rows 8 np + 2 t + e.
+#pragma unroll
+    for (int q0 = 0; q0 < NQ; q0 += NQH) {
+      float s[NQH][4];
+#pragma unroll
+      for (int nh = 0; nh < NQH; ++nh)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nh][i] = 0.0f;
+      for (int kk = 0; kk < nk; kk += 2) {
+        uint32_t a0[4], a1[4];
+        const int key = mr + 8 * (mat & 1);
+        ldsm_x4(a0, kt + tile_off(key, 16 * kk + 8 * (mat >> 1)));
+        ldsm_x4(a1, kt + tile_off(key, 16 * kk + 16 + 8 * (mat >> 1)));
+#pragma unroll
+        for (int nh = 0; nh < NQH; ++nh) {
+          uint32_t bq[4];
+          ldsm_x4(bq, qs_u + ((8 * (q0 + nh) + mr) * qstride + 16 * kk +
+                              8 * mat) * 2);
+          const uint32_t b0[2] = {bq[0], bq[1]}, b1[2] = {bq[2], bq[3]};
+          mma_bf16(s[nh], a0, b0);
+          mma_bf16(s[nh], a1, b1);
+        }
+      }
+#pragma unroll
+      for (int nh = 0; nh < NQH; ++nh) {
+        const int nt = q0 + nh, r = 2 * nt + (t >> 1);
+        const int2 rg = rb_s[r];
+        const float x0 = (t & 1) ? s[nh][0] : __fadd_rn(s[nh][0], s[nh][1]);
+        const float x1 = (t & 1) ? s[nh][2] : __fadd_rn(s[nh][2], s[nh][3]);
+        const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
+        const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+        const float v0 = score((t & 1) ? __fadd_rn(y0, x0) : __fadd_rn(x0, y0),
+                               j0 + g, rg.x, rg.y, scale, has_cap, cap);
+        const float v1 = score((t & 1) ? __fadd_rn(y1, x1) : __fadd_rn(x1, y1),
+                               j0 + g + 8, rg.x, rg.y, scale, has_cap, cap);
+        float mx = fmaxf(v0, v1);
+#pragma unroll
+        for (int off = 4; off <= 16; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float mn = fmaxf(m[nt], mx);
+        const float corr = expf(__fsub_rn(m[nt], mn));
+        m[nt] = mn;
+        if (g == 0 && (t & 1) == 0) corr_s[r] = corr;
+        __nv_bfloat16 w[3];
+        words3(expf(__fsub_rn((t & 1) ? v1 : v0, mn)), w);
+        const int key = g + 8 * (t & 1);
+#pragma unroll
+        for (int wd = 0; wd < 3; ++wd) ps[(wd * NR + r) * kPS + key] = w[wd];
+      }
+    }
+    __syncwarp();
+
+    // The row sums (p's three words against ones, from zero) and their
+    // Kahan steps; p's hi word is p x v's B operand.
+    uint32_t bh[NP][2];
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      uint32_t bw[4], bl[2];
+      ldsm_x4(bw, ps_u + (((mat >> 1) * NR + 8 * np + mr) * kPS + 8 * (mat & 1)) * 2);
+      ldsm_x2(bl, ps_u + ((2 * NR + 8 * np + mr) * kPS + 8 * (mat & 1)) * 2);
+      bh[np][0] = bw[0];
+      bh[np][1] = bw[1];
+      const uint32_t bm[2] = {bw[2], bw[3]};
+      float dl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_bf16(dl, ones, bh[np]);
+      mma_bf16(dl, ones, bm);
+      mma_bf16(dl, ones, bl);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int2 rg = rb_s[8 * np + 2 * t + e];
+        if (rg.x < rg.y && j0 < rg.y && j0 + kBK > rg.x)
+          kahan(l[np][e], c[np][e], corr_s[8 * np + 2 * t + e], dl[e]);
+      }
+    }
+    // acc = acc corr + p x v per 16 value columns, each from zero.
+    float ca[NP], cb[NP];
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      ca[np] = corr_s[8 * np + 2 * t];
+      cb[np] = corr_s[8 * np + 2 * t + 1];
+    }
+#pragma unroll
+    for (int mt = 0; mt < NV; ++mt) {
+      if (mt >= nmt) break;
+      uint32_t av[4];
+      ldsm_x4_t(av, vt + tile_off(mr + 8 * (mat >> 1), 16 * mt + 8 * (mat & 1)));
+#pragma unroll
+      for (int np = 0; np < NP; ++np) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(part, av, bh[np]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[mt][np][i] = __fadd_rn(
+              __fmul_rn(acc[mt][np][i], (i & 1) ? cb[np] : ca[np]), part[i]);
+      }
+    }
+    // Every lane is done with this stage, p's words and corr: the stage
+    // takes block it + nst.
+    __syncwarp();
+    if (lane == 0 && it + nst < nblk) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load(it + nst);
+    }
+  }
+
+  // The chunk's state of each row: m (score layout), l - c and acc (value
+  // layout).
+  const long long base =
+      ((static_cast<long long>(b) * KV + h) * nch + chunk) * R;
+  const int width = hd_v + 2;
+  if (g == 0 && (t & 1) == 0) {
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt) {
+      const int r = 2 * nt + (t >> 1);
+      if (r < R) state[(base + r) * width] = m[nt];
+    }
+  }
+#pragma unroll
+  for (int np = 0; np < NP; ++np)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * np + 2 * t + e;
+      if (r >= R) continue;
+      float* row = state + (base + r) * width;
+      if (g == 0) row[1] = __fsub_rn(l[np][e], c[np][e]);
+#pragma unroll
+      for (int mt = 0; mt < NV; ++mt) {
+        if (mt >= nmt) break;
+        row[2 + 16 * mt + g] = acc[mt][np][e];
+        row[2 + 16 * mt + g + 8] = acc[mt][np][2 + e];
+      }
+    }
+}
+
+// The merge: block (h, b), a thread per (row, value column) in turn; each
+// folds its row's live chunks (those holding a valid key of it) in chunk
+// order and writes o in bf16.
+__global__ void __launch_bounds__(kMergeThreads)
+    merge_kernel(const float* __restrict__ state, const int* __restrict__ qpos,
+                 const int* __restrict__ kvlen, __nv_bfloat16* __restrict__ out,
+                 int Sq, int Sk, int KV, int G, int hd_v, int nch, int causal,
+                 int has_window, long long window) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int R = Sq * G, width = hd_v + 2;
+  for (int idx = threadIdx.x; idx < R * hd_v; idx += kMergeThreads) {
+    const int r = idx / hd_v, col = idx % hd_v;
+    const int2 rg = row_range(r, R, b, Sq, G, Sk, qpos, kvlen, causal,
+                              has_window, window);
+    float M = kMInit, L = 0.0f, C = 0.0f, A = 0.0f;
+    if (rg.x < rg.y) {
+      for (long long ch = rg.x / kChunk; ch * kChunk < rg.y; ++ch) {
+        const float* st =
+            state + ((((static_cast<long long>(b) * KV + h) * nch + ch) * R) + r) *
+                        width;
+        const float mc = st[0], lf = st[1], ac = st[2 + col];
+        const float mn = fmaxf(M, mc);
+        const float a = expf(__fsub_rn(M, mn)), bb = expf(__fsub_rn(mc, mn));
+        const float y = __fsub_rn(__fmul_rn(lf, bb), __fmul_rn(C, a));
+        const float la = __fmul_rn(L, a);
+        const float tt = __fadd_rn(la, y);
+        C = __fsub_rn(__fsub_rn(tt, la), y);
+        L = tt;
+        A = __fadd_rn(__fmul_rn(A, a), __fmul_rn(ac, bb));
+        M = mn;
+      }
+    }
+    const float lf = __fsub_rn(L, C);
+    const float o = lf > 0.0f ? __fdiv_rn(A, lf) : 0.0f;
+    const long long row =
+        ((static_cast<long long>(b) * Sq + r / G) * KV + h) * G + r % G;
+    out[row * hd_v + col] = __float2bfloat16_rn(o);
+  }
+}
+
+template <int RT, int NV>
+int launch(const void* q, int q_f32, const void* k, const void* v,
+           const int* qpos, const int* kvlen, void* out, float* state, int B,
+           int Sq, int Sk, int KV, int G, int hd, int hd_v, int causal,
+           int has_window, long long window, float scale, int has_cap,
+           float cap, cudaStream_t s) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (!aligned(k) || !aligned(v) || state == nullptr)
+    return cudaErrorInvalidValue;
+  const long long nch = (static_cast<long long>(Sk) + kChunk - 1) / kChunk;
+  if (nch * KV >= INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tmk, tmv;
+  int e = wg::encode(&tmk, k, B, Sk, KV, hd, kBK);
+  if (e) return e;
+  e = wg::encode(&tmv, v, B, Sk, KV, hd_v, kBK);
+  if (e) return e;
+  const int bytes = static_cast<int>(smem_bytes(hd, hd_v, RT));
+  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = attn_decode_kernel<RT, NV>;
+  // The shared memory granted to this kernel on each card, asked for once.
+  static int granted[64] = {};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return ce;
+  if (dev >= 64 || granted[dev] < bytes) {
+    ce = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+    if (ce != cudaSuccess) return ce;
+    if (dev < 64) granted[dev] = bytes;
+  }
+  kernel<<<dim3(static_cast<unsigned>(nch * KV), B), 32, bytes, s>>>(
+      tmk, tmv, q, q_f32, qpos, kvlen, state, Sq, Sk, KV, G, hd, hd_v,
+      static_cast<int>(nch), causal, has_window, window, scale, has_cap, cap);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess) return ce;
+  merge_kernel<<<dim3(KV, B), kMergeThreads, 0, s>>>(
+      state, qpos, kvlen, static_cast<__nv_bfloat16*>(out), Sq, Sk, KV, G,
+      hd_v, static_cast<int>(nch), causal, has_window, window);
+  return cudaGetLastError();
+}
+
+// Blocks of 2 rows (a decode step of two heads a group), 8 or 16; value
+// heads up to 128 or 256 columns.
+int launch_rows(const void* q, int q_f32, const void* k, const void* v,
+                const int* qpos, const int* kvlen, void* out, float* state,
+                int B, int Sq, int Sk, int KV, int G, int hd, int hd_v,
+                int causal, int has_window, long long window, float scale,
+                int has_cap, float cap, cudaStream_t s) {
+#define B9_DC_LAUNCH(RT, NV)                                                  \
+  return launch<RT, NV>(q, q_f32, k, v, qpos, kvlen, out, state, B, Sq, Sk,  \
+                        KV, G, hd, hd_v, causal, has_window, window, scale,  \
+                        has_cap, cap, s)
+  const int rows = Sq * G;
+  if (rows <= 2) {
+    if (hd_v <= 128) B9_DC_LAUNCH(2, 8);
+    B9_DC_LAUNCH(2, 16);
+  }
+  if (rows <= 8) {
+    if (hd_v <= 128) B9_DC_LAUNCH(8, 8);
+    B9_DC_LAUNCH(8, 16);
+  }
+  if (hd_v <= 128) B9_DC_LAUNCH(16, 8);
+  B9_DC_LAUNCH(16, 16);
+#undef B9_DC_LAUNCH
+}
+
+}  // namespace dc
+
 // The form b9_attention launches (kernels/mma_attention.py walk mirrors
-// it): 1 the bf16 prefill form, 2 the f32 prefill form, 0 attn_kernel.
+// it): 1 the bf16 prefill form, 2 the f32 prefill form, 3 the decode form,
+// 0 attn_kernel.
 int form(int q_dtype, int kv_dtype, long long rows, int hd, int hd_v) {
   if (wg::form(q_dtype, kv_dtype, rows, hd, hd_v)) return 1;
   if (wf::form(q_dtype, kv_dtype, rows, hd, hd_v)) return 2;
+  if (dc::form(q_dtype, kv_dtype, rows, hd, hd_v)) return 3;
   return 0;
 }
 
@@ -1950,6 +2518,12 @@ int launch_width(const void* q, const void* k, const void* v, const int* qpos,
     return wg::launch_width(q, k, v, qpos, kvlen, out, B, Sq, Sk, KV, G, hd,
                             hd_v, causal, has_window, window, scale, has_cap,
                             cap, s);
+  if (!KVF32 && dc::form(QF32 ? kF32 : kBF16, kBF16,
+                         static_cast<long long>(Sq) * G, hd, hd_v))
+    return dc::launch_rows(q, QF32, k, v, qpos, kvlen, out,
+                           static_cast<float*>(words), B, Sq, Sk, KV, G, hd,
+                           hd_v, causal, has_window, window, scale, has_cap,
+                           cap, s);
 #define B9_LAUNCH(NV)                                                     \
   return launch_rows<QF32, KVF32, NV>(q, k, v, qpos, kvlen, out, B, Sq, Sk, \
                                       KV, G, hd, hd_v, causal, has_window,  \
@@ -1972,7 +2546,8 @@ const char* mma_attention_error_string(int code) {
 
 // The form b9_attention launches for these dtypes (0 f32, 1 bf16) and
 // shape: 1 the bf16 prefill form (wgmma and TMA), 2 the f32 prefill form
-// (its word pass, then wgmma and TMA), 0 the mma.sync form.
+// (its word pass, then wgmma and TMA), 3 the decode form (chunks walked
+// side by side, then their merge), 0 the mma.sync form.
 int b9_attention_form(int q_dtype, int kv_dtype, long long rows, int hd,
                       int hd_v) {
   return form(q_dtype, kv_dtype, rows, hd, hd_v);
@@ -1984,7 +2559,9 @@ int b9_attention_form(int q_dtype, int kv_dtype, long long rows, int hd,
 // null; causal, has_window with window, has_cap with cap as flags.
 // words: for the f32 prefill form (b9_attention_form 2) a bf16 scratch of
 // 3 B KV (Sq G hd + Sk (hd + hd_v)) elements, 16-byte aligned, for the
-// operands' word planes; null otherwise.  Every array row-major and
+// operands' word planes; for the decode form (3) an f32 scratch of B KV
+// ceil(Sk / dc::kChunk) Sq G (hd_v + 2) elements for the chunks' states; null
+// otherwise.  Every array row-major and
 // contiguous; hd_v <= 256.
 int b9_attention(const void* q, const void* k, const void* v, const int* qpos,
                  const int* kvlen, void* out, void* words, int B, int Sq,

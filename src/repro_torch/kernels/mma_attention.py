@@ -34,7 +34,7 @@ starting from m = ``M_INIT``, l = c = acc = 0, and ending
 depend on its own positions alone, not on the rows beside it in a tile
 or a batch, and the kernel may skip a block no row of its tile touches.
 
-Three forms of the kernel walk it, chosen by ``walk`` from the dtypes
+Four forms of the kernel walk it, chosen by ``walk`` from the dtypes
 and the shape alone (the CUDA source's ``form`` mirrors it):
 
 * ``"wgmma"``, the bf16 prefill form: qg, k and v bf16, more than 16
@@ -52,8 +52,32 @@ and the shape alone (the CUDA source's ``form`` mirrors it):
   = 64 columns of hd (one chain from zero), the steps added in order in
   f32; l sums p's three bf16 words; p @ v is p's three words against
   v's three, from zero per block, added to acc corr.
-* ``"mma_sync"``, every other problem (f32 q beside a bf16 cache, a
-  decode step's few rows, odd head dims).  Blocks of ``BLOCK_K`` = 32
+* ``"decode"``, a decode step: at most 16 rows a head (``Sq G`` <=
+  ``WG_MIN_ROWS``), a bf16 cache, q f32 or bf16, hd and hd_v multiples of
+  16 up to 256.  Each row's keys are cut at absolute multiples of
+  ``DECODE_CHUNK`` keys.  A chunk that holds a valid key of the row is
+  walked alone, from the fresh state, in blocks of ``BLOCK_K_DC`` = 16
+  keys by the update above, and ends with a state (m_c, l_c, c_c,
+  acc_c); ``decode_merge`` then folds the row's chunks in chunk order,
+  from M = ``M_INIT``, L = C = A = 0:
+
+      M' = max(M, m_c);  a = exp(M - M');  b = exp(m_c - M')
+      y = (l_c - c_c) b - C a;  t = L a + y;  C = (t - L a) - y;  L = t
+      A = A a + acc_c b;  M = M'
+
+  ending ``o = A / (L - C)`` where ``L - C > 0``, else 0.  For a row whose
+  keys lie in one chunk, a = exp(M_INIT - m_c) is 0 in f32 and b = 1, so o
+  is exactly that chunk's ``acc_c / (l_c - c_c)``: a short row has the
+  bits of an unsplit walk.  q goes in as three bf16 words (hi = bf16(q),
+  then the rests; a bf16 q is its hi word), each against the exact bf16
+  k in one chain over the whole hd, a score ``(hi + mid) + lo``; l sums
+  p's three bf16 words; p rounded to bf16 for p @ v, from zero per block
+  and added to acc corr.  The kernel walks the chunks of every row side
+  by side (one block per chunk, KV head and batch row), then merges them
+  in a second launch.
+* ``"mma_sync"``, every other problem (f32 q, k and v at a decode step,
+  f32 q beside a bf16 cache with more than 16 rows, odd head dims).
+  Blocks of ``BLOCK_K`` = 32
   keys.  Products in 3xTF32: f32 operands as two TF32 words
   (``hi = rna(x)``, ``lo = rna(x - hi)``), the lo x lo term dropped; a
   bf16 operand is exact in one word.  q.k is summed per ``STEP``
@@ -64,20 +88,22 @@ and the shape alone (the CUDA source's ``form`` mirrors it):
   zero per block and is added to acc corr.
 
 So a prefill row's bits differ from those of the same row in a decode
-call; within a form they depend on the row alone.  Every partial is
+call; within a form they depend on the row alone (its own q, positions
+and keys), never on the rows or batch slots beside it.  Every partial is
 f32.
 
 ``attention_plain`` computes the same walk in plain PyTorch: the same
 words, the same steps, one f32 matmul per step and per block.  Kernel
 and plain version differ in the order of the adds inside an MMA or a
 matmul and in exp / tanh's last bits (``expf`` / ``tanhf`` on the
-mma.sync and f32 prefill forms; ``ex2.approx`` on the bf16 prefill
-form, a few 2^-22 of p).  The wrapper
+mma.sync, f32 prefill and decode forms; ``ex2.approx`` on the bf16
+prefill form, a few 2^-22 of p).  The wrapper
 ``kernels.ops.mma_attention`` uses it for CPU tensors, and only there.
 ``LAUNCHES`` counts the kernel's calls by form: ``b9_attention`` the
 mma.sync form, ``b9_attention_wgmma`` the bf16 prefill form,
 ``b9_attention_f32`` the f32 prefill form (its word pass and its
-attention kernel, two launches a call).
+attention kernel, two launches a call), ``b9_attention_decode`` the
+decode form (its chunks' walk and their merge, two launches a call).
 """
 
 from __future__ import annotations
@@ -92,7 +118,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mma_norm_matmul import tf32_words
 
 LAUNCHES = {"b9_attention": 0, "b9_attention_wgmma": 0,
-            "b9_attention_f32": 0}
+            "b9_attention_f32": 0, "b9_attention_decode": 0}
 
 NEG_INF = -2.0e38     # the masked score, as models.attention.NEG_INF
 M_INIT = -1.0e30      # the row max's seed: exp(M_INIT - M_INIT) == 1
@@ -119,6 +145,14 @@ BLOCK_K_WF, BLOCK_ROWS_WF, STEP_WF, WF_WORDS = 64, 64, 64, 3
 WF_PRODUCTS = ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
 WF_STAGE_BYTES, WF_STAGES_MAX = WF_WORDS * 64 * 128, 8
 WF_EXTRA_BYTES = 512 + 8 * (1 + 2 * WF_STAGES_MAX) + 2 * 64 * 4 + 4 * 5 * 4
+# The decode form (csrc namespace dc): keys a chunk, keys a block of the
+# walk, the ring's budget in bytes (at 2 rows a block, and at 8 or 16),
+# its least and most stages, and a row of p's words in shared memory (16
+# keys and 8 of padding).  Its rows and head dims: at most WG_MIN_ROWS
+# rows a head, hd and hd_v multiples of 16 up to WG_MAX_HEAD.
+DECODE_CHUNK, BLOCK_K_DC = 2048, 16
+DC_RING_BYTES, DC_RING_BYTES_ROWS = 49152, 16384
+DC_STAGES_MIN, DC_STAGES_MAX, DC_PS = 2, 8, 24
 # Shared memory a block may use on the H100 (227 KB).
 SMEM_LIMIT = 232448
 # The accumulator lives in registers, hd_v / 2 f32 a thread (128 at
@@ -126,9 +160,10 @@ SMEM_LIMIT = 232448
 MAX_HEAD_V = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The CUDA chooser's codes (csrc form) and each form's launch counter.
-_FORMS = ("mma_sync", "wgmma", "wgmma_f32")
+_FORMS = ("mma_sync", "wgmma", "wgmma_f32", "decode")
 _COUNTERS = {"mma_sync": "b9_attention", "wgmma": "b9_attention_wgmma",
-             "wgmma_f32": "b9_attention_f32"}
+             "wgmma_f32": "b9_attention_f32",
+             "decode": "b9_attention_decode"}
 
 
 def reset_launches() -> None:
@@ -165,8 +200,31 @@ def wf_stages(hd: int) -> int:
     return min(WF_STAGES_MAX, fit)
 
 
+def _dc_stage_bytes(hd: int, hd_v: int) -> int:
+    """A decode-form ring stage (csrc dc::stage_bytes): a block's keys
+    and values in slabs of 64 columns x 16 keys x 128 bytes."""
+    return (-(-hd // 64) + -(-hd_v // 64)) * BLOCK_K_DC * 128
+
+
+def dc_stages(hd: int, hd_v: int, rt: int) -> int:
+    """The decode form's ring stages for a block of rt rows (csrc
+    dc::stages): as many as DC_RING_BYTES holds at 2 rows,
+    DC_RING_BYTES_ROWS at 8 or 16, from DC_STAGES_MIN to DC_STAGES_MAX:
+    3 at hd = hd_v = 256 and 2 rows, 2 at hd = hd_v = 128 and 16."""
+    fit = (DC_RING_BYTES_ROWS if rt > 2 else DC_RING_BYTES) \
+        // _dc_stage_bytes(hd, hd_v)
+    return max(DC_STAGES_MIN, min(DC_STAGES_MAX, fit))
+
+
+def dc_row_tile(rows: int) -> int:
+    """The rows a decode-form block holds (csrc dc::launch_rows): 2, 8 or
+    16."""
+    return 2 if rows <= 2 else 8 if rows <= 8 else 16
+
+
 def smem_bytes(hd: int, hd_v: int, q_f32: bool = True,
-               kv_f32: bool = True, form: str = "mma_sync") -> int:
+               kv_f32: bool = True, form: str = "mma_sync",
+               rows: int = WG_MIN_ROWS) -> int:
     """Shared memory of a B9 block.  The mma.sync form (csrc
     smem_bytes), the larger of its two tiles: two stages of a block of
     keys and a block of values, and either 64 query rows with their
@@ -180,7 +238,18 @@ def smem_bytes(hd: int, hd_v: int, q_f32: bool = True,
     wf::smem_bytes, f32 only): the alignment slack, Q's three words of 64
     rows, ``wf_stages(hd)`` ring stages of 24 KB, p's three words (a
     stage's size) and WF_EXTRA_BYTES; it does not grow with hd_v (a value
-    chunk is a stage)."""
+    chunk is a stage).  The decode form (csrc dc::smem_bytes, a bf16
+    cache; ``rows`` a head): the alignment slack, ``dc_stages`` ring
+    stages, q's four word columns a row of its row tile (rows of
+    round32(hd) + 8 elements), p's three words of its 8-row tiles
+    (DC_PS elements a row), 16 rows' corrections and bounds, and 8
+    mbarriers."""
+    if form == "decode":
+        rt = dc_row_tile(rows)
+        return (1024 + dc_stages(hd, hd_v, rt) * _dc_stage_bytes(hd, hd_v)
+                + 4 * rt * (-(-hd // 32) * 32 + 8) * 2
+                + 3 * (-(-rt // 8) * 8) * DC_PS * 2
+                + WG_MIN_ROWS * 12 + DC_STAGES_MAX * 8)
     if form == "wgmma":
         return (1024 + 2 * BLOCK_ROWS_WG * _round64(hd)
                 + 2 * 2 * BLOCK_K_WG * (_round64(hd) + _round64(hd_v))
@@ -210,8 +279,10 @@ def refusal(hd: int, hd_v: int, dtypes: tuple):
     if hd_v > MAX_HEAD_V:
         return (f"value head dim {hd_v} exceeds kernel B9's register "
                 f"accumulator ({MAX_HEAD_V})")
-    # The mma.sync form serves every row count (a decode step's few rows
-    # always take it); the wgmma form is chosen only where it fits (walk).
+    # The mma.sync form serves every row count; the wgmma forms and the
+    # decode form are chosen only where they fit (walk); the decode form's
+    # shared memory (at most ~90 KB, at hd 256 and 16 rows) fits at every
+    # head dim it takes.
     need = smem_bytes(hd, hd_v, dtypes[0] == "float32",
                       dtypes[-1] == "float32")
     if need > SMEM_LIMIT:
@@ -241,8 +312,11 @@ def walk(q_dtype, kv_dtype, rows_per_head: int, hd: int, hd_v: int) -> tuple:
     ``("mma_sync", 32, 32, False)``.  ``step`` is the hd columns of one
     chain of q.k MMAs from zero; ``pv_accumulates`` says p @ v
     accumulates into acc itself rather than from zero per block.  A pure
-    function of dtypes and shape (never of B): the CUDA source's
-    ``form`` is its mirror."""
+    function of dtypes and shape (never of B, kv_len or Sk): the CUDA
+    source's ``form`` is its mirror.  ``("decode", 16, hd, False)`` is the
+    decode form: at most 16 rows a head, a bf16 cache (q f32 or bf16), hd
+    and hd_v multiples of 16 up to 256; its q.k is one chain over the
+    whole hd per word of q."""
     q, kv = (d if isinstance(d, str) else dtype_name(d)
              for d in (q_dtype, kv_dtype))
     rows = int(rows_per_head)
@@ -256,6 +330,10 @@ def walk(q_dtype, kv_dtype, rows_per_head: int, hd: int, hd_v: int) -> tuple:
             and wf_stages(hd) >= 2
             and smem_bytes(hd, hd_v, form="wgmma_f32") <= SMEM_LIMIT):
         return "wgmma_f32", BLOCK_K_WF, STEP_WF, False
+    if (kv == "bfloat16" and q in ("float32", "bfloat16")
+            and rows <= WG_MIN_ROWS and hd % 16 == 0 and hd_v % 16 == 0
+            and 16 <= hd <= WG_MAX_HEAD and 16 <= hd_v <= WG_MAX_HEAD):
+        return "decode", BLOCK_K_DC, hd, False
     return "mma_sync", BLOCK_K, STEP, False
 
 
@@ -326,13 +404,19 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if min(B, R, KV, Sk) == 0:
         return out
     form, block_k, step, _ = walk(qg.dtype, k.dtype, R, hd, hd_v)
+    lo, hi = row_bounds(qpos, kv_len, sk=Sk, causal=causal, window=window)
+    if form == "decode":
+        o = _decode_plain(qg, k, v, lo.repeat_interleave(G, dim=1),
+                          hi.repeat_interleave(G, dim=1), scale=scale,
+                          cap=cap)
+        return o.reshape(B, KV, Sq, G, hd_v).permute(0, 2, 1, 3, 4) \
+            .to(v.dtype)
     f32_form = form == "wgmma_f32"
     # The operands' MMA words: three bf16 words of each f32 operand on the
     # f32 prefill form (made once, as its word pass makes them), else
     # the mma.sync form's TF32 words; and the word pairs of a product.
     words = (lambda x: bf16_words(x, WF_WORDS)) if f32_form else _words
     pairs = WF_PRODUCTS if f32_form else None
-    lo, hi = row_bounds(qpos, kv_len, sk=Sk, causal=causal, window=window)
     lo = lo.repeat_interleave(G, dim=1)[:, None, :, None]   # (B, 1, R, 1)
     hi = hi.repeat_interleave(G, dim=1)[:, None, :, None]
     live = lo < hi
@@ -374,6 +458,88 @@ def attention_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, KV, Sq, G, hd_v).permute(0, 2, 1, 3, 4).to(v.dtype)
 
 
+def decode_merge(m: torch.Tensor, l: torch.Tensor, c: torch.Tensor,
+                 acc: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """The decode form's merge: chunk states m, l, c (..., nch, R, 1) and
+    acc (..., nch, R, hd_v), f32, with ``live`` (broadcastable to m) true
+    where the chunk holds a valid key of the row, folded in chunk order
+    (the module docstring's fold; a chunk that is not live is skipped) ->
+    o (..., R, hd_v) f32, 0 for a row with no live chunk."""
+    M = torch.full_like(m[..., 0, :, :], M_INIT)
+    L = torch.zeros_like(M)
+    C = torch.zeros_like(M)
+    A = torch.zeros_like(acc[..., 0, :, :])
+    live = live.expand(m.shape)
+    for ch in range(m.shape[-3]):
+        mc, ac, lv = m[..., ch, :, :], acc[..., ch, :, :], live[..., ch, :, :]
+        lf = l[..., ch, :, :] - c[..., ch, :, :]
+        mn = torch.maximum(M, mc)
+        a = torch.exp(M - mn)
+        b = torch.exp(mc - mn)
+        y = lf * b - C * a
+        la = L * a
+        t = la + y
+        C = torch.where(lv, (t - la) - y, C)
+        L = torch.where(lv, t, L)
+        A = torch.where(lv, A * a + ac * b, A)
+        M = torch.where(lv, mn, M)
+    lf = L - C
+    return torch.where(lf > 0.0, A / torch.where(lf > 0.0, lf, 1.0), 0.0)
+
+
+def _decode_plain(qg, k, v, lo, hi, *, scale: float, cap) -> torch.Tensor:
+    """The decode form's walk: qg (B, Sq, KV, G, hd) f32 / bf16, k and v
+    bf16, lo / hi (B, R) int64 row bounds (rows r = i G + g) -> o (B, KV,
+    R, hd_v) f32.  Every chunk of every row is walked side by side along a
+    chunk axis, DECODE_CHUNK / BLOCK_K_DC blocks in all, then
+    ``decode_merge`` folds them."""
+    B, Sq, KV, G, hd = qg.shape
+    Sk, hd_v = k.shape[1], v.shape[-1]
+    R, bk, dev = Sq * G, BLOCK_K_DC, qg.device
+    nch = -(-Sk // DECODE_CHUNK)
+    q_words = bf16_words(qg.permute(0, 2, 1, 3, 4).reshape(B, KV, 1, R, hd)
+                         .to(ACCUM_DTYPE))
+    lo = lo[:, None, None, :, None]                      # (B, 1, 1, R, 1)
+    hi = hi[:, None, None, :, None]
+    c0 = torch.arange(nch, device=dev) * DECODE_CHUNK
+    cv = c0.view(1, 1, nch, 1, 1)
+    live = (lo < hi) & (cv < hi) & (cv + DECODE_CHUNK > lo)
+    m = torch.full((B, KV, nch, R, 1), M_INIT, dtype=ACCUM_DTYPE, device=dev)
+    l = torch.zeros_like(m)
+    c = torch.zeros_like(m)
+    acc = torch.zeros(B, KV, nch, R, hd_v, dtype=ACCUM_DTYPE, device=dev)
+    for i in range(0, DECODE_CHUNK, bk):
+        j = c0[:, None] + i + torch.arange(bk, device=dev)   # (nch, bk)
+        inside = (j < Sk)[None, :, :, None, None]
+        jc = j.clamp(max=Sk - 1)
+        # (B, KV, nch, hd, bk) and (B, KV, nch, bk, hd_v); keys past Sk 0
+        kb = torch.where(inside, k[:, jc], 0).permute(0, 3, 1, 4, 2) \
+            .to(ACCUM_DTYPE)
+        vb = torch.where(inside, v[:, jc], 0).permute(0, 3, 1, 2, 4) \
+            .to(ACCUM_DTYPE)
+        sw = [torch.matmul(w, kb) for w in q_words]
+        s = ((sw[0] + sw[1]) + sw[2]) * scale
+        if cap is not None:
+            s = cap * torch.tanh(s / cap)
+        jv = j.view(1, 1, nch, 1, bk)
+        s = torch.where((jv >= lo) & (jv < hi), s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        p_words = bf16_words(p)
+        l_blk = torch.cat(p_words, -1).sum(-1, keepdim=True)
+        l_old, c_old = l * corr, c * corr
+        y = l_blk - c_old
+        t = l_old + y
+        j0 = cv + i
+        touch = live & (j0 < hi) & (j0 + bk > lo)
+        c = torch.where(touch, (t - l_old) - y, c)
+        l = torch.where(touch, t, l)
+        acc = acc * corr + torch.matmul(p_words[0], vb)
+        m = m_new
+    return decode_merge(m, l, c, acc, live)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mma_attention")
@@ -411,8 +577,9 @@ def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (the cache is never copied).  Returns a new (B, Sq, KV, G, hd_v)
     tensor in v's dtype; one launch (two on the f32 prefill form: its
     word pass into a scratch of bf16 word planes, then the attention
-    kernel), checked.  A failed build or launch raises: no form falls
-    back to another."""
+    kernel; two on the decode form: its chunks' walk into an f32 scratch
+    of their states, then their merge), checked.  A failed build or
+    launch raises: no form falls back to another."""
     dev = qg.device
     for nm, t in (("qg", qg), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != dev or t.dtype not in _DTYPES:
@@ -458,6 +625,16 @@ def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # (the form is fixed by the shape).
         qg, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                     for t in (qg, k, v))
+    if form == "decode":
+        nch = -(-Sk // DECODE_CHUNK)
+        if nch * KV >= 2 ** 31:
+            raise ValueError(f"B9's decode form takes fewer than 2^31 chunks "
+                             f"of its KV heads, got {nch} x {KV}")
+        # The chunks' states: [b][h][chunk][row][m, l - c, acc], written by
+        # the blocks whose chunk holds a valid key, read by the merge for
+        # those alone (so not zeroed).
+        words = torch.empty(B * KV * nch * Sq * G * (hd_v + 2),
+                            dtype=torch.float32, device=dev)
     if form == "wgmma_f32":
         if max(B * Sq * KV * G, B * Sk * KV) >= 2 ** 31:
             raise ValueError(f"B9's f32 prefill form takes fewer than 2^31 "

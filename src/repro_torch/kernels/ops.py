@@ -352,8 +352,8 @@ def mma_attention(qg, k, v, *, qpos, causal: bool = False, window=None,
     tensors run its plain version; there is no fallback from one to the
     other.  The geometry is fixed by the card and by the kernel's form
     (``kernels.mma_attention.walk``: 64 query rows and 32 keys a step on
-    mma.sync, 128 rows and 64 keys on the bf16 prefill form's wgmma), not
-    tuned: the reference's ``chain`` / ``block_rows`` shaped its TPU
+    mma.sync, 128 rows and 64 keys on the bf16 prefill form's wgmma, chunks
+    of 2048 keys walked 16 at a time on the decode form), not tuned: the reference's ``chain`` / ``block_rows`` shaped its TPU
     grid.
 
     Reached through the ``attention`` registry entry as the

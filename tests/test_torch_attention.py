@@ -8,15 +8,22 @@ B9's plain version, the ``attention`` op's engines and
     ``FUSED_CASES`` (``tests/test_attention_fused.py``), a hypothesis
     sweep with the reference's strategy, the softcap and per-row decode
     with ``kv_len``, bf16 problems on the wgmma form's walk (64-key
-    blocks, three bf16 words of p in the row sums) and f32 problems on
+    blocks, three bf16 words of p in the row sums), f32 problems on
     the f32 prefill form's walk (three bf16 words of every operand, six
-    products, 64-column q.k steps); tolerances are the reference's own,
-    1e-4 in f32 and 6e-2 in bf16 (relative and absolute);
+    products, 64-column q.k steps) and decode problems on the decode
+    form's walk (chunks of ``DECODE_CHUNK`` keys walked side by side, then
+    merged in order), whose rows span several chunks; tolerances are the
+    reference's own, 1e-4 in f32 and 6e-2 in bf16 (relative and
+    absolute);
+  * the decode form's merge: a row inside one chunk gets that chunk's
+    own ``acc / (l - c)`` bit for bit; a row's bits do not depend on the
+    batch, and a row with no valid key is exactly 0;
   * ``walk``, B9's form chooser: a function of the dtypes, the rows a
     head and the head dims alone, its boundaries where the CUDA
-    source's ``wg::form`` and ``wf::form`` put them, the two wgmma
-    forms' shared memory within the card's at hd 256, and the f32
-    prefill form's products at 21 bits or more;
+    source's ``wg::form``, ``wf::form`` and ``dc::form`` put them, the
+    wgmma forms' and the decode form's shared memory within the card's
+    at hd 256, and the f32 prefill and decode forms' products at 21 bits
+    or more;
   * every engine of ``dispatch('attention', ...)`` against the
     reference's dispatch of the same engine, at the f32 tolerance above
     (f32: the engines differ only in the order of their f32 adds and,
@@ -274,12 +281,14 @@ def test_attention_plain_wgmma_walk_matches_the_reference_kernel(
 
 
 def test_walk_is_a_function_of_dtypes_and_shape():
-    """B9's three forms: the wgmma walk for bf16 q, k and v with more
+    """B9's four forms: the wgmma walk for bf16 q, k and v with more
     than 16 rows a head and hd, hd_v multiples of 16 up to 256; the
     wgmma_f32 walk for f32 q, k and v under the same conditions; the
-    mma.sync walk for mixed dtypes, a decode step's rows and odd head
-    dims.  Its arguments hold no batch size, and its boundaries are
-    those of the CUDA source's choosers."""
+    decode walk for at most 16 rows a head beside a bf16 cache (q f32 or
+    bf16) under the same head dims; the mma.sync walk for the rest: f32
+    caches at a decode step, mixed dtypes with more rows, odd head dims.
+    Its arguments hold no batch size, kv_len or Sk, and its boundaries
+    are those of the CUDA source's choosers."""
     import inspect
     import re
     from pathlib import Path
@@ -288,11 +297,16 @@ def test_walk_is_a_function_of_dtypes_and_shape():
     bf, f32 = torch.bfloat16, torch.float32
     wg = ("wgmma", 64, 256, True)
     sync = ("mma_sync", ma.BLOCK_K, ma.STEP, False)
+    dc = ("decode", ma.BLOCK_K_DC, 256, False)
     assert ma.walk(bf, bf, 8192, 256, 256) == wg
     assert ma.walk("bfloat16", "bfloat16", 8192, 256, 256) == wg
     assert ma.walk(bf, bf, 17, 64, 64)[0] == "wgmma"
-    assert ma.walk(bf, bf, 16, 64, 64) == sync          # a decode step
-    assert ma.walk(bf, bf, 1, 256, 256) == sync
+    assert ma.walk(bf, bf, 16, 64, 64) \
+        == ("decode", ma.BLOCK_K_DC, 64, False)         # a decode step
+    assert ma.walk(bf, bf, 1, 256, 256) == dc
+    assert ma.walk(bf, bf, 2, 24, 16) == sync           # odd head dims
+    assert ma.walk(bf, bf, 2, 256, 8) == sync
+    assert ma.walk(bf, bf, 2, 272, 256) == sync
     assert ma.walk(bf, bf, 8192, 12, 8) == sync         # hd 12
     assert ma.walk(bf, bf, 8192, 16, 16)[0] == "wgmma"
     assert ma.walk(bf, bf, 8192, 24, 16) == sync        # not a multiple of 16
@@ -305,12 +319,17 @@ def test_walk_is_a_function_of_dtypes_and_shape():
     assert ma.walk(f32, f32, 17, 64, 64) == wf
     assert ma.walk(f32, f32, 8192, 192, 128) == wf
     assert ma.walk(f32, f32, 8192, 16, 16) == wf
-    assert ma.walk(f32, f32, 16, 256, 256) == sync      # a decode step
+    assert ma.walk(f32, f32, 16, 256, 256) == sync      # an f32 cache
     assert ma.walk(f32, f32, 1, 256, 256) == sync
     assert ma.walk(f32, f32, 8192, 12, 8) == sync       # hd 12
     assert ma.walk(f32, f32, 8192, 24, 16) == sync
     assert ma.walk(f32, f32, 8192, 288, 256) == sync
     assert ma.walk(f32, bf, 8192, 256, 256) == sync     # the mixed form
+    assert ma.walk(f32, bf, 17, 256, 256) == sync
+    assert ma.walk(f32, bf, 2, 256, 256) == dc          # ... at decode
+    assert ma.walk(f32, bf, 16, 16, 16)[0] == "decode"
+    assert ma.walk(f32, bf, 2, 12, 8) == sync
+    assert ma.walk(bf, f32, 2, 256, 256) == sync
     assert ma.walk(bf, f32, 8192, 256, 256) == sync
     tiles = ma.WG_MAX_TILES * ma.BLOCK_ROWS_WG
     assert ma.walk(bf, bf, tiles, 64, 64)[0] == "wgmma"
@@ -352,6 +371,28 @@ def test_walk_is_a_function_of_dtypes_and_shape():
     assert "hd % 16 == 0" in chooser and "hd_v % 16 == 0" in chooser
     assert "q_dtype == kF32 && kv_dtype == kF32" in chooser
     assert "stages(hd) >= 2" in chooser
+    # ... and namespace dc, the decode form's
+    body = cu[cu.index("namespace dc {"):]
+    body = body[:body.index("}  // namespace dc")]
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", body))
+    assert int(consts["kChunk"]) == ma.DECODE_CHUNK
+    assert int(consts["kBK"]) == ma.BLOCK_K_DC
+    assert int(consts["kMaxRows"]) == ma.WG_MIN_ROWS
+    assert int(consts["kRingBytes"]) == ma.DC_RING_BYTES
+    assert int(consts["kRingBytesRows"]) == ma.DC_RING_BYTES_ROWS
+    assert int(consts["kStagesMin"]) == ma.DC_STAGES_MIN
+    assert int(consts["kStagesMax"]) == ma.DC_STAGES_MAX
+    assert int(consts["kPS"]) == ma.DC_PS
+    chooser = body[body.index("inline int form("):]
+    chooser = chooser[:chooser.index("}")]
+    assert f"rows <= {ma.WG_MIN_ROWS}" in chooser
+    assert f"hd <= {ma.WG_MAX_HEAD}" in chooser
+    assert f"hd_v <= {ma.WG_MAX_HEAD}" in chooser
+    assert "hd % 16 == 0" in chooser and "hd_v % 16 == 0" in chooser
+    assert "kv_dtype == kBF16" in chooser
+    top = cu[cu.index("\nint form(int q_dtype"):]
+    assert "return 3;" in top[:top.index("}")]
+    assert ma._FORMS[3] == "decode"
 
 
 def test_wgmma_form_shared_memory_fits_the_card():
@@ -412,6 +453,178 @@ def test_wgmma_f32_form_products_keep_21_bits():
         assert torch.equal(w, w.to(torch.bfloat16).to(torch.float32))
     assert float((hi + mid + lo - x).abs().max()) <= 2.0 ** -24 * float(
         x.abs().max())
+
+
+def test_decode_form_shared_memory_fits_the_card():
+    """The decode form's block holds dc_stages ring stages of 16 keys and
+    values (at 2 rows 3 of 16 KB at hd = hd_v = 256, so four blocks fit an
+    SM; at 16 rows 2 of 8 KB at hd = hd_v = 128, so six do), q's four
+    word columns a row of its rows (2, 8 or 16) and p's three words: at
+    most ~75 KB (hd 256, 16 rows), within 227 KB at every head dim it
+    takes."""
+    assert ma.dc_stages(256, 256, 2) == 3
+    assert ma.dc_stages(128, 128, 2) == 6
+    assert ma.dc_stages(64, 64, 2) == 8 == ma.DC_STAGES_MAX
+    assert ma.dc_stages(256, 256, 16) == 2 == ma.DC_STAGES_MIN
+    assert ma.dc_stages(128, 128, 16) == ma.dc_stages(128, 128, 8) == 2
+    assert ma.dc_stages(64, 64, 16) == 4
+    need = ma.smem_bytes(256, 256, form="decode", rows=2)
+    assert need == 1024 + 3 * 8 * 16 * 128 + 4 * 2 * 264 * 2 \
+        + 3 * 8 * 24 * 2 + 16 * 12 + 8 * 8
+    assert 4 * (need + 1024) <= 233472          # four blocks an SM
+    need = ma.smem_bytes(128, 128, form="decode", rows=16)
+    assert need == 1024 + 2 * 4 * 16 * 128 + 4 * 16 * 136 * 2 \
+        + 3 * 16 * 24 * 2 + 16 * 12 + 8 * 8
+    assert 6 * (need + 1024) <= 233472          # six blocks an SM
+    for rows in (1, 2, 3, 8, 9, 16):
+        for hd, hd_v in ((256, 256), (192, 128), (64, 64), (16, 16)):
+            got = ma.smem_bytes(hd, hd_v, form="decode", rows=rows)
+            assert got <= ma.SMEM_LIMIT, (rows, hd, hd_v)
+            assert ma.refusal(hd, hd_v, ("float32", "bfloat16",
+                                         "bfloat16")) is None
+    assert [ma.dc_row_tile(r) for r in (1, 2, 3, 8, 9, 16)] \
+        == [2, 2, 8, 8, 16, 16]
+    # the CUDA source's reckoning of the same bytes
+    from pathlib import Path
+    cu = (Path(ma.__file__).parent / "csrc" / "mma_attention.cu").read_text()
+    body = cu[cu.index("namespace dc {"):]
+    assert "4LL * rt * (round32(hd) + 8) * 2 + 3LL * ((rt + 7) / 8 * 8) * " \
+           "kPS * 2 +\n         kMaxRows * 12 + kStagesMax * 8;" in body
+
+
+def test_decode_form_products_keep_21_bits():
+    """The decode form's q.k takes q as three bf16 words against the exact
+    bf16 k (every word product exact in f32): at least the 21 bits the
+    error model credits B9 with; a bf16 q is its hi word alone."""
+    mnm = importlib.import_module("repro_torch.kernels.mma_norm_matmul")
+    wk = mnm.Walk(256, 3, 1, 3, False, 1, 1)
+    assert mnm.product_bits(wk) >= 21
+    assert td.op_spec("attention").engine_bits["fused_pallas"] == 21
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(16, 256)).astype(np.float32))
+    hi, mid, lo = ma.bf16_words(x)
+    assert float((hi + mid + lo - x).abs().max()) <= 2.0 ** -24 * float(
+        x.abs().max())
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    hi, mid, lo = ma.bf16_words(xb)
+    assert torch.equal(hi, xb) and not mid.any() and not lo.any()
+
+
+_C = ma.DECODE_CHUNK
+# Decode problems the decode form takes, with rows spanning two or three
+# chunks: (B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len, q dtype)
+# beside a bf16 cache.
+DC_CASES = [
+    (2, 1, 2 * _C + 37, 2, 32, 32, False, None, 30.0, (2 * _C + 37, _C + 300),
+     "float32"),
+    (2, 1, 2 * _C + 37, 2, 32, 32, False, None, 30.0, (2 * _C + 37, _C + 300),
+     "bfloat16"),
+    (3, 1, 3 * _C + 5, 1, 16, 16, False, None, None,
+     (3 * _C + 5, 2 * _C, 700), "float32"),
+    (2, 4, 2 * _C + 9, 2, 64, 32, True, _C // 2, 50.0, None, "float32"),
+]
+
+
+def _dc_problem(B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len, qdt):
+    arrays = _problem(Sk + hd + G, B=B, Sq=Sq, Sk=Sk, KV=2, G=G, hd=hd,
+                      hd_v=hd_v)
+    ends = np.full(B, Sk) if kv_len is None else np.asarray(kv_len)
+    qpos = (np.arange(Sq)[None] + ends[:, None] - Sq).astype(np.int32)
+    kl = None if kv_len is None else np.asarray(kv_len, np.int32)
+    kw = dict(causal=causal, window=window, scale=hd ** -0.5, cap=cap)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "bfloat16")
+    if qdt == "float32":
+        jq, tq = jnp.asarray(arrays[0]), torch.from_numpy(arrays[0])
+    return (jq, jk, jv), (tq, tk, tv), qpos, kl, kw
+
+
+def _assert_close_at_output_scale(got, want):
+    """|got - want| within 2^-8 of want's largest magnitude plus one bf16
+    ulp of each element (the bf16 output's own rounding).  Two walks that
+    round p to bf16 against different running maxima differ by about
+    2^-10 of that scale at decode sizes, where an output's typical size is
+    sqrt(e / keys): so a lost or mis-weighted chunk, which moves outputs by
+    a good share of their size, fails where rtol = atol = 6e-2 would
+    not."""
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    ulp = np.exp2(np.frexp(np.abs(want))[1] - 8.0)
+    limit = 2.0 ** -8 * np.abs(want).max() + ulp
+    over = np.abs(got - want) > limit
+    assert not over.any(), (int(over.sum()),
+                            float(np.abs(got - want).max()),
+                            float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,G,hd,hd_v,causal,window,cap,kv_len,qdt", DC_CASES)
+def test_attention_plain_decode_walk_matches_the_reference_kernel(
+        B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len, qdt):
+    (jq, jk, jv), (tq, tk, tv), qpos, kl, kw = _dc_problem(
+        B, Sq, Sk, G, hd, hd_v, causal, window, cap, kv_len, qdt)
+    assert ma.walk(tq.dtype, tk.dtype, Sq * G, hd, hd_v) \
+        == ("decode", ma.BLOCK_K_DC, hd, False)
+    want = j_mma_attention(jq, jk, jv, qpos=jnp.asarray(qpos),
+                           kv_len=None if kl is None else jnp.asarray(kl),
+                           chain=2, **kw)
+    got = ops.mma_attention(tq, tk, tv, qpos=torch.from_numpy(qpos),
+                            kv_len=None if kl is None
+                            else torch.from_numpy(kl), **kw)
+    assert got.dtype == tv.dtype and got.shape == tuple(want.shape)
+    _assert_close_at_output_scale(_np(got), _np(want))
+    # ... and the f32 oracle, to the bf16 output's rounding
+    oracle = tref.attention_ref(tq, tk, tv, qpos=torch.from_numpy(qpos),
+                                kv_len=None if kl is None
+                                else torch.from_numpy(kl), **kw)
+    np.testing.assert_allclose(_np(got), _np(oracle), rtol=1e-2, atol=1e-2)
+
+
+def test_decode_merge_of_one_chunk_is_its_own_walk():
+    """The merge gives a row whose keys lie in one chunk exactly that
+    chunk's acc / (l - c), bit for bit (a = exp(M_INIT - m_c) is 0, b = 1),
+    wherever the chunk lies; no live chunk gives exactly 0; two live
+    chunks give the softmax-weighted fold."""
+    rng = np.random.default_rng(8)
+    nch, R, hd_v = 4, 3, 8
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    m, acc = t(2, nch, R, 1) * 5, t(2, nch, R, hd_v)
+    l = t(2, nch, R, 1).abs() + 1.0
+    c = t(2, nch, R, 1) * 2.0 ** -26
+    for ch in range(nch):
+        live = torch.zeros(2, nch, R, 1, dtype=torch.bool)
+        live[:, ch] = True
+        got = ma.decode_merge(m, l, c, acc, live)
+        assert torch.equal(got, acc[:, ch] / (l[:, ch] - c[:, ch])), ch
+    none = torch.zeros(2, nch, R, 1, dtype=torch.bool)
+    assert torch.equal(ma.decode_merge(m, l, c, acc, none),
+                       torch.zeros(2, R, hd_v))
+    live = torch.zeros(2, nch, R, 1, dtype=torch.bool)
+    live[:, 1:3] = True
+    w = torch.exp(m[:, 1:3] - m[:, 1:3].amax(1, keepdim=True).expand(-1, 2,
+                                                                      -1, -1))
+    want = (acc[:, 1:3] * w).sum(1) / ((l[:, 1:3] - c[:, 1:3]) * w).sum(1)
+    torch.testing.assert_close(ma.decode_merge(m, l, c, acc, live), want,
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("qdt", ["float32", "bfloat16"])
+def test_attention_plain_decode_rows_do_not_depend_on_the_batch(qdt):
+    """On the decode form's walk a row's bits are the same alone or beside
+    other batch rows, and a row with no valid key (kv_len 0) is exactly
+    0."""
+    kv_len = (3 * _C + 5, 0, 2 * _C + 1, _C - 3)
+    (_, _, _), (tq, tk, tv), qpos, kl, kw = _dc_problem(
+        4, 1, 3 * _C + 5, 2, 32, 32, False, None, 30.0, kv_len, qdt)
+    qp, klt = torch.from_numpy(qpos), torch.from_numpy(kl)
+    full = ma.attention_plain(tq, tk, tv, qpos=qp, kv_len=klt, **kw)
+    assert torch.equal(full[1], torch.zeros_like(full[1]))
+    for rows in (slice(0, 1), slice(2, 4), slice(1, 3)):
+        part = ma.attention_plain(
+            tq[rows].contiguous(), tk[rows].contiguous(),
+            tv[rows].contiguous(), qpos=qp[rows].contiguous(),
+            kv_len=klt[rows].contiguous(), **kw)
+        assert torch.equal(part, full[rows]), rows
 
 
 # f32 problems that take the f32 prefill form (more than 16 rows a head):
@@ -609,10 +822,12 @@ def test_auto_error_budget_picks(fresh_registries):
 
 
 def test_cost_model_prices_the_layer_shapes():
-    """The model's picks at Gemma-2 2B's attention shapes (phase 3i of
-    chip_smoke.py): B9 at prefill and decode; the engines' order as the
-    runners count it (vpu materialises the scores, unfused_mma passes
-    over them per chunk)."""
+    """The model's picks at the attention shapes of phase 3i of
+    chip_smoke.py (Gemma-2 2B's layers; GLM-4 9B's decode step, 16 rows
+    a KV head at hd 128): B9 at prefill and decode; the engines' order
+    as the runners count it (vpu materialises the scores, unfused_mma
+    passes over them per chunk).  B9's decode form is priced by its
+    bytes at 2 rows a head and by its work a key at 16."""
     cases = [
         (4096 * 8 * 4096, torch.float32,
          dict(causal=1, window=0, has_kv_len=0, rows=8192, sk=4096)),
@@ -621,14 +836,29 @@ def test_cost_model_prices_the_layer_shapes():
         (128 * 8 * 32768, torch.float32,
          dict(causal=0, window=0, has_kv_len=1, rows=2, sk=32768,
               kv_dtype="bfloat16")),
+        (128 * 32 * 32768, torch.float32,
+         dict(causal=0, window=0, has_kv_len=1, rows=16, sk=32768,
+              kv_dtype="bfloat16", hd=128, hd_v=128)),
     ]
     for n, dt, extra in cases:
-        form = tuple(dict(hd=256, hd_v=256, cap=1, **extra).items())
+        form = dict(hd=256, hd_v=256, cap=1)
+        form.update(extra)
         cost = {m: tat.model_cost(tat.ReductionPlan(method=m, block_rows=512),
-                                  n, dt, op="attention", form=form)
+                                  n, dt, op="attention",
+                                  form=tuple(form.items()))
                 for m in ENGINES}
         assert min(cost, key=cost.get) == "fused_pallas", (extra, cost)
         assert cost["unfused_mma"] > cost["vpu"] or extra["has_kv_len"]
+        if extra["rows"] <= 16:         # the decode form
+            cache = n / form["rows"] * (form["hd"] + form["hd_v"]) * 2
+            q_o = n / form["sk"] * (form["hd"] * 4 + form["hd_v"] * 2)
+            by_bytes = (cache + q_o) / tat._B9_BYTES_PER_US
+            by_flops = 2.0 * (form["hd"] + form["hd_v"]) * n \
+                / tat._B9_DECODE_FLOPS_PER_US
+            assert (by_bytes > by_flops) == (extra["rows"] == 2)
+            assert cost["fused_pallas"] == pytest.approx(
+                max(by_bytes, by_flops) + tat._ATTN_HOST_US["fused_pallas"],
+                rel=1e-12)
     share = tat._attn_live_share
     assert share({"causal": 1, "sk": 4096}) == pytest.approx(0.5)
     assert share({"causal": 1, "window": 4096, "sk": 8192}) \

@@ -39,10 +39,11 @@ bf16 v to 2^-8 of that scale more plus one bf16 ulp (both round p to
 bf16, and a p near a rounding boundary may round the other way); it
 repeats its bits, a row's bits do not depend on the batch, and a row
 with no valid key is exactly 0.  Its bf16 prefill form (wgmma fed by
-TMA) and its f32 prefill form (three bf16 words of each operand made
-once, then wgmma fed by TMA) are held to the same bounds at the shapes
-that take them, count their launches apart, and its CUDA chooser agrees
-with ``walk``.
+TMA), its f32 prefill form (three bf16 words of each operand made
+once, then wgmma fed by TMA) and its decode form (each row's keys cut
+into chunks that blocks walk side by side, then a merge in chunk order)
+are held to the same bounds at the shapes that take them, count their
+launches apart, and its CUDA chooser agrees with ``walk``.
 """
 
 import importlib
@@ -962,7 +963,7 @@ def test_attention_wgmma_form_matches_plain_on_card(cuda, B, Sq, Sk, KV, G,
     ma.reset_launches()
     got = ma.attention_cuda(qg, k, v, **kw)
     assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 1,
-                           "b9_attention_f32": 0}
+                           "b9_attention_f32": 0, "b9_attention_decode": 0}
     assert got.dtype == v.dtype and got.shape == (B, Sq, KV, G, hd_v)
     _attn_close(got, ma.attention_plain(qg, k, v, **kw),
                 _attn_scales(qg, k, v, **kw))
@@ -996,7 +997,7 @@ def test_attention_wgmma_f32_form_matches_plain_on_card(
     ma.reset_launches()
     got = ma.attention_cuda(qg, k, v, **kw)
     assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 0,
-                           "b9_attention_f32": 1}
+                           "b9_attention_f32": 1, "b9_attention_decode": 0}
     assert got.dtype == v.dtype and got.shape == (B, Sq, KV, G, hd_v)
     _attn_close(got, ma.attention_plain(qg, k, v, **kw),
                 _attn_scales(qg, k, v, **kw))
@@ -1011,10 +1012,64 @@ def test_attention_wgmma_f32_form_matches_plain_on_card(
         assert torch.equal(part, got[:1])
 
 
+# Decode problems the decode form takes (at most 16 rows a head, a bf16
+# cache), in chunks of ma.DECODE_CHUNK keys: Sk not a multiple of the
+# chunk, rows whose kv_len crosses one, two or three chunk boundaries or
+# none, rows with no key (kv_len 0 or position -1), 1, 2, 8 and 16 rows a
+# head, hd 16 to 256, a window and the causal mask.
+_C = ma.DECODE_CHUNK
+ATTN_DC_CASES = [
+    # (B, Sq, Sk, KV, G, hd, hd_v, causal, window, cap, qpos, kv_len)
+    (4, 1, 2 * _C + 300, 2, 2, 64, 64, False, None, 50.0, "tail", True),
+    (3, 1, 3 * _C + 77, 4, 2, 256, 256, False, None, None, "tail", True),
+    (2, 1, _C + 5, 2, 1, 16, 16, False, None, None, "tail", True),
+    (2, 4, 2 * _C + 5, 2, 2, 128, 128, True, _C // 2 + 100, 30.0, "tail",
+     False),
+    (2, 8, _C + 40, 1, 2, 192, 128, True, None, None, "padded", False),
+]
+
+
+@pytest.mark.parametrize("kind", ["mixed", "bf16"])
+@pytest.mark.parametrize(
+    "B,Sq,Sk,KV,G,hd,hd_v,causal,window,cap,qpos,kv_len", ATTN_DC_CASES)
+def test_attention_decode_form_matches_plain_on_card(cuda, B, Sq, Sk, KV, G,
+                                                     hd, hd_v, causal, window,
+                                                     cap, qpos, kv_len,
+                                                     kind):
+    qd, kd = ATTN_KINDS[kind]
+    assert ma.walk(qd, kd, Sq * G, hd, hd_v)[0] == "decode"
+    qg, k, v, pos, kvl = _attn_inputs(B, Sq, Sk, KV, G, hd, hd_v, kind,
+                                      Sq + Sk + hd, qpos=qpos, kv_len=kv_len)
+    if kvl is not None:     # a row with no key, and one past the chunks'
+        kvl[0] = 0          # first boundary
+        kvl[-1] = max(int(kvl[-1]), _C + 1)
+        pos = (kvl[:, None] - 1).expand(B, Sq).contiguous()
+    kw = dict(qpos=pos, causal=causal, window=window, kv_len=kvl,
+              scale=hd ** -0.5, cap=cap)
+    ma.reset_launches()
+    got = ma.attention_cuda(qg, k, v, **kw)
+    assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 0,
+                           "b9_attention_f32": 0, "b9_attention_decode": 1}
+    assert got.dtype == v.dtype and got.shape == (B, Sq, KV, G, hd_v)
+    _attn_close(got, ma.attention_plain(qg, k, v, **kw),
+                _attn_scales(qg, k, v, **kw))
+    assert torch.equal(got, ma.attention_cuda(qg, k, v, **kw))
+    if kvl is not None:
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+    if qpos == "padded":
+        assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+    part = ma.attention_cuda(
+        qg[-1:].contiguous(), k[-1:].contiguous(), v[-1:].contiguous(),
+        **dict(kw, qpos=pos[-1:].contiguous(),
+               kv_len=None if kvl is None else kvl[-1:].contiguous()))
+    assert torch.equal(part, got[-1:])
+
+
 def test_attention_cuda_chooser_mirrors_walk(cuda):
     """The CUDA source's form chooser and ``walk`` agree, at the
-    boundaries: rows a head 16 / 17, hd 12, 16, 256, 272, 288, hd_v 8,
-    16, 256, and every dtype pair."""
+    boundaries: rows a head 1, 16 / 17, hd 12, 16, 256, 272, 288, hd_v 8,
+    16, 256, and every dtype pair; a decode step's rows take the decode
+    form beside a bf16 cache and the mma.sync form beside an f32 one."""
     for q_dt, kv_dt in ((torch.bfloat16, torch.bfloat16),
                         (torch.float32, torch.float32),
                         (torch.float32, torch.bfloat16),
@@ -1030,14 +1085,23 @@ def test_attention_cuda_chooser_mirrors_walk(cuda):
         == "wgmma"
     assert ma.walk(torch.float32, torch.float32, 17, 256, 256)[0] \
         == "wgmma_f32"
+    for q_dt in (torch.float32, torch.bfloat16):
+        assert ma.cuda_form(q_dt, torch.bfloat16, 2, 256, 256) == "decode"
+        assert ma.cuda_form(q_dt, torch.bfloat16, 16, 16, 16) == "decode"
+    assert ma.cuda_form(torch.float32, torch.float32, 2, 256, 256) \
+        == "mma_sync"
+    assert ma.cuda_form(torch.float32, torch.bfloat16, 17, 256, 256) \
+        == "mma_sync"
 
 
 @pytest.mark.parametrize("kind", list(ATTN_KINDS))
 def test_attention_kernel_is_batch_independent(cuda, kind):
     """A row's bits do not depend on the rows beside it: rows 0..k of a
-    B-row call equal a (k + 1)-row call, at prefill and at decode."""
-    for Sq, kv_len in ((40, False), (1, True)):
-        qg, k, v, pos, kvl = _attn_inputs(6, Sq, 200, 2, 2, 256, 256, kind,
+    B-row call equal a (k + 1)-row call, at prefill and at decode (the
+    decode form beside a bf16 cache, its rows crossing chunks)."""
+    for Sq, Sk, kv_len in ((40, 200, False), (1, 200, True),
+                           (1, 3 * ma.DECODE_CHUNK + 5, True)):
+        qg, k, v, pos, kvl = _attn_inputs(6, Sq, Sk, 2, 2, 256, 256, kind,
                                           5, kv_len=kv_len)
         kw = dict(causal=not kv_len, window=None, scale=0.0625, cap=50.0)
         full = ma.attention_cuda(qg, k, v, qpos=pos, kv_len=kvl, **kw)
@@ -1057,11 +1121,12 @@ def test_attention_wrapper_counts_launches_and_raises(cuda):
     kw = dict(k=k, v=v, qpos=pos, kv_len=kvl, scale=0.25)
     ma.reset_launches()
     got = dispatch.dispatch("attention", qg, method="fused_pallas", **kw)
-    assert ma.LAUNCHES["b9_attention"] == 1 and got.dtype == torch.bfloat16
+    assert ma.LAUNCHES["b9_attention_decode"] == 1 \
+        and got.dtype == torch.bfloat16
     dispatch.dispatch("attention", qg.cpu(), method="fused_pallas",
                       **{n: t.cpu() if torch.is_tensor(t) else t
                          for n, t in kw.items()})
-    assert ma.LAUNCHES["b9_attention"] == 1     # the CPU runs the plain one
+    assert ma.LAUNCHES["b9_attention_decode"] == 1  # the CPU: the plain one
     call = dict(qpos=pos, kv_len=kvl, scale=0.25)
     with pytest.raises(ValueError, match="f32 or bf16"):
         ma.attention_cuda(qg.half(), k, v, **call)
@@ -1076,14 +1141,14 @@ def test_attention_wrapper_counts_launches_and_raises(cuda):
     with pytest.raises(ValueError, match="fused_pallas"):
         dispatch.dispatch("attention", qg.half(), method="fused_pallas",
                           **kw)
-    assert ma.LAUNCHES["b9_attention"] == 1
+    assert ma.LAUNCHES["b9_attention_decode"] == 1
 
 
 def test_attention_layer_runs_b9_on_the_card(cuda):
     """models.attention.attention with attn_method='fused_pallas' on the
     card: prefill into a bf16 cache (f32 q, k and v: B9's f32 prefill
     form) and a per-row decode step (f32 q against the bf16 cache: the
-    mma.sync form), both through B9, each held to the vpu engine's
+    decode form), both through B9, each held to the vpu engine's
     output."""
     import dataclasses
     from repro_torch.configs import registry
@@ -1099,7 +1164,7 @@ def test_attention_layer_runs_b9_on_the_card(cuda):
     out, cache = A.attention(params, cfg, x, positions=torch.arange(12,
                              device="cuda"), cache=cache, kind="local")
     assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 0,
-                           "b9_attention_f32": 1}
+                           "b9_attention_f32": 1, "b9_attention_decode": 0}
     vpu = dataclasses.replace(cfg, attn_method="vpu")
     want, _ = A.attention(params, vpu, x, positions=torch.arange(
         12, device="cuda"), kind="local")
@@ -1108,7 +1173,7 @@ def test_attention_layer_runs_b9_on_the_card(cuda):
     step = torch.randn(2, 1, cfg.d_model, device="cuda", generator=gen)
     out, _ = A.attention(params, cfg, step, positions=pos, cache=cache,
                          decode=True, kind="local")
-    assert ma.LAUNCHES == {"b9_attention": 1, "b9_attention_wgmma": 0,
-                           "b9_attention_f32": 1}
+    assert ma.LAUNCHES == {"b9_attention": 0, "b9_attention_wgmma": 0,
+                           "b9_attention_f32": 1, "b9_attention_decode": 1}
     assert out.shape == (2, 1, cfg.d_model)
     assert bool(torch.all(torch.isfinite(out)))
