@@ -93,8 +93,10 @@ The segmented-sum path (kernel B7; CUDA C++ in ``csrc/mma_segment.cu``):
 contraction) and ``vpu`` (``index_add_``).  Its phases:
 
   2d. B7 against ``segment_plain`` on the card at n from 1 to 2^24
-      (ragged tails included), S in {1, 19, 128, 256, 4096} (4096 runs
-      the pass loop), random and sorted ids with -1 and out-of-range ids
+      (ragged tails included), S in {1, 19, 128, 256, 4096} (one, two
+      and 32 blocks of 128 segments: register and shared-memory sums;
+      4096 runs six passes at block_rows 512), random and sorted ids
+      with -1 and out-of-range ids
       mixed in, f32, bf16 and fp16, within 2^-20 of each segment's
       sum|x|; and on counting inputs, where kernel, plain version and
       the exact count agree bit for bit, also at n = 2^28 with S = 128;
@@ -107,10 +109,14 @@ contraction) and ``vpu`` (``index_add_``).  Its phases:
       printed, not gated); B7's counter is zeroed before it and must
       have moved after it;
   5d. B7 timed at 2^28 in both configurations (f32, bf16) beside its
-      bound, ``segment_plain``, ``index_add_`` and the ``vpu`` engine,
-      bit-identical over two calls (every time the median of 15 CUDA
-      event timings); the cost model's two segment constants refitted
-      from the f32 random case.
+      bound (bytes, or one MMA per group, word and 128-segment block
+      hit) and its share of it, ``segment_plain``, ``index_add_``,
+      ``torch.bincount`` (f64 out for bf16 weights) and the ``vpu``
+      engine, bit-identical over two calls (every time the median of 15
+      CUDA event timings); ``auto`` resolves to ``pallas`` and runs
+      within 1.25x of the fastest engine timed; the cost model's two
+      segment constants refitted from the f32 random case.  Phase 1
+      holds B7's build to 0 spill bytes.
 
 The norm path (kernels B8 and B10; CUDA C++ in ``csrc/mma_rmsnorm.cu``
 and ``csrc/mma_norm_matmul.cu``): ``repro_torch.models.layers.rmsnorm``
@@ -404,20 +410,22 @@ SEG_CEILING = CEILINGS["pallas"]
 # sum|x|.  Three bf16 words rebuild each f32 value exactly and every
 # one-hot product is exact, so both sum the same words and differ only
 # in the order of their f32 adds inside a warp (the tensor cores' 16
-# per MMA, then the warp's running slot): a few roundings of 2^-24
-# each, far under 2^-20.
+# products a word, a group's three words chained from zero, then the
+# warp's running sum): a few roundings of 2^-24 each, far under 2^-20.
 SEG_RTOL = 2.0 ** -20
 SEG_N_CHECK = (1, 13, 4096 + 13, (1 << 20) + 13, 1 << 24)
-SEG_COUNTS = (1, 19, 128, 256, 4096)   # 4096 > one pass at 8 warps in f32
+# One, two and 32 blocks of 128 segments (4096: six passes at 32 warps).
+SEG_COUNTS = (1, 19, 128, 256, 4096)
 SEG_BLOCK_ROWS = (16, 128, 512)
 # The path's two configurations: the reference's measured problem (128
 # segments, random ids: src/repro/core/autotune.py:718,
 # benchmarks/bench_scan.py:32) and DeepSeek-V3's 256 routed experts
 # with tokens ordered by expert (sorted ids in contiguous runs).
 SEG_CONFIGS = (("random", 128), ("sorted", 256))
-# Tensor-core flops per one-hot entry an MMA covers: m16n8k16 is 4096
-# flops per 16 segments x 16 elements.
-B7_TC_FLOPS_PER_ENTRY = 16
+# Tensor-core flops of one m16n8k16, which B7 runs per group of 16
+# elements, bf16 word and 128-segment block its ids hit.
+B7_MMA_FLOPS = 4096
+B7_BLOCK_SEGMENTS = 128
 
 # The norm path (phases 2e, 3g, 3h, 5e).  B8 against rmsnorm_plain:
 # |kernel - plain| <= 2^-20 * |plain| + 2^-24 per f32 output.  Both sum
@@ -2315,18 +2323,20 @@ def time_scan_kernel(ms, gen, launches: int, worst_abs: float) -> tuple:
 def seg_bound(x: torch.Tensor, ids: torch.Tensor, s: int) -> tuple:
     """Least time in ms for one B7 call on these inputs: values and ids
     read once and S floats written at HBM rate, against the tensor-core
-    flops of the MMAs this data needs, one per group of 16 elements and
-    16-segment tile that the group's valid ids hit (at 989 TFLOP/s: f32
-    runs bf16 words).  Returns (ms, what bounds it, MMAs)."""
+    flops of the MMAs this data needs in B7's encoding, one per group of
+    16 elements, bf16 word (three for f32) and 128-segment block that the
+    group's valid ids hit (at 989 TFLOP/s).  Returns (ms, what bounds it,
+    MMAs)."""
     n = x.numel()
     bytes_ms = (n * (x.element_size() + ids.element_size()) + 4 * s) \
         / HBM_BYTES_PER_S * 1e3
     keep = (ids >= 0) & (ids < s)
     group = torch.arange(n, device="cuda")[keep] // 16
-    tiles = -(-s // 16)
-    mmas = torch.unique(group * tiles + ids[keep].long() // 16).numel()
-    ops_ms = mmas * 16 * 16 * B7_TC_FLOPS_PER_ENTRY \
-        / TC_FLOPS[torch.bfloat16] * 1e3
+    blocks = -(-s // B7_BLOCK_SEGMENTS)
+    hits = torch.unique(group * blocks
+                        + ids[keep].long() // B7_BLOCK_SEGMENTS).numel()
+    mmas = hits * (3 if x.dtype == torch.float32 else 1)
+    ops_ms = mmas * B7_MMA_FLOPS / TC_FLOPS[torch.bfloat16] * 1e3
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes", mmas
     return ops_ms, "operations", mmas
@@ -2337,10 +2347,11 @@ def time_segment_kernel(sg, autotune, dispatch, gen, launches: int,
     """B7 at n = 2^28 in both configurations, f32 and bf16: held to
     SEG_RTOL against segment_plain and to the same bits over two calls,
     then timed beside its bound, segment_plain, the library's index_add_
-    and the vpu engine.  The f32 random S = 128 case (the reference's
-    measured problem) goes to the ``kernels`` line, every case to the
-    details; that case also refits the cost model's two segment
-    constants."""
+    and bincount, and the pallas and vpu engines; auto must resolve to
+    pallas and run within 1.25x of the fastest engine.  The f32 random
+    S = 128 case (the reference's measured problem) goes to the
+    ``kernels`` line, every case to the details; that case also refits
+    the cost model's two segment constants."""
     entry, details, fit = None, [], {}
     for kind, s in SEG_CONFIGS:
         ids = seg_ids(N_MAIN, s, kind, gen)
@@ -2363,6 +2374,13 @@ def time_segment_kernel(sg, autotune, dispatch, gen, launches: int,
                                            f"two calls differ")
             del got, again, want, scale
             vpu_plan = autotune.ReductionPlan(method="vpu")
+            pallas_plan = autotune.ReductionPlan(method="pallas",
+                                                 block_rows=BLOCK_ROWS)
+            auto_plan = autotune.get_plan(N_MAIN, dt, op="segment_sum",
+                                          backend="cuda")
+            check(auto_plan.method == "pallas",
+                  f"segment_sum auto resolves to {auto_plan.method} at "
+                  f"2^28 {kind} S={s} {name(dt)}, not pallas")
             p1 = median_ms(plain)
             k1 = median_ms(kern)
             k2 = median_ms(kern)
@@ -2370,27 +2388,48 @@ def time_segment_kernel(sg, autotune, dispatch, gen, launches: int,
             lib_ms = median_ms(lambda: torch.zeros(
                 s, device="cuda").index_add_(
                     0, ids, x if dt == torch.float32 else x.float()))
-            vpu_ms = median_ms(lambda: dispatch.execute(
-                "segment_sum", x, vpu_plan, segment_ids=ids,
-                num_segments=s))
+            counts = torch.bincount(ids, weights=x, minlength=s)
+            bincount_ms = median_ms(lambda: torch.bincount(
+                ids, weights=x, minlength=s))
+            engine_ms = {
+                engine: median_ms(lambda plan=plan: dispatch.execute(
+                    "segment_sum", x, plan, segment_ids=ids,
+                    num_segments=s))
+                for engine, plan in (("pallas", pallas_plan),
+                                     ("vpu", vpu_plan),
+                                     ("auto", auto_plan))}
+            vpu_ms = engine_ms["vpu"]
+            fastest = min(engine_ms["pallas"], vpu_ms)
+            check(engine_ms["auto"] <= 1.25 * fastest,
+                  f"segment_sum auto {engine_ms['auto']:.4f} ms > 1.25x "
+                  f"the fastest engine's {fastest:.4f} ms ({kind} S={s} "
+                  f"{name(dt)})")
             bound_ms, bound_by, mmas = seg_bound(x, ids, s)
             row = {"name": "b7_segment_sum", "ids": kind, "segments": s,
                    "dtype": name(dt), "n": N_MAIN, "block_rows": BLOCK_ROWS,
                    "blocks": blocks, "mmas": mmas,
-                   "tc_flops": mmas * 16 * 16 * B7_TC_FLOPS_PER_ENTRY,
+                   "tc_flops": mmas * B7_MMA_FLOPS,
                    "passes": sg.passes(s, dt, BLOCK_ROWS),
                    "ms": min(k1, k2), "ms_runs": [k1, k2],
                    "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
-                   "library_ms": lib_ms, "vpu_ms": vpu_ms,
+                   "library_ms": lib_ms, "bincount_ms": bincount_ms,
+                   "bincount_dtype": name(counts.dtype),
+                   "vpu_ms": vpu_ms, "engine_ms": engine_ms,
+                   "auto_block_rows": auto_plan.block_rows,
                    "bound_ms": bound_ms, "bound_by": bound_by,
+                   "share_of_bound": bound_ms / min(k1, k2),
                    "max_abs_err": diff, "diff_over_segment_abs": ratio}
+            del counts
             details.append(row)
             print(f"  b7 {kind:6s} S={s:<4d} {name(dt):8s} kernel "
                   f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-                  f"index_add_ {lib_ms:.4f} ms vpu engine {vpu_ms:.4f} ms "
-                  f"bound {bound_ms:.4f} ms ({bound_by}; {mmas} MMAs, "
-                  f"{row['tc_flops']:.4g} tensor-core flops) "
-                  f"|diff| {diff:.3g} ({ratio:.3g} of the segment's "
+                  f"index_add_ {lib_ms:.4f} ms bincount {bincount_ms:.4f} "
+                  f"ms ({row['bincount_dtype']} out) engines pallas "
+                  f"{engine_ms['pallas']:.4f} vpu {vpu_ms:.4f} auto "
+                  f"{engine_ms['auto']:.4f} ms (B{auto_plan.block_rows}) "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{100 * row['share_of_bound']:.1f} % of it; {mmas} "
+                  f"MMAs) |diff| {diff:.3g} ({ratio:.3g} of the segment's "
                   f"sum|x|)", flush=True)
             if (kind, s, dt) == ("random", 128, torch.float32):
                 entry = {"name": "b7_segment_sum", "route": "cuda",
@@ -2410,24 +2449,30 @@ def time_segment_kernel(sg, autotune, dispatch, gen, launches: int,
 
 def fit_segment_constants(autotune, row: dict, vpu_plan) -> dict:
     """The segment family's two fitted constants from the f32 random
-    S = 128 times: B7's us per one-hot entry, and the vpu engine's us
-    per element beyond the rest of its modelled cost."""
+    S = 128 times: B7's us per group of 16 elements and 128-segment
+    block beyond the rest of its modelled cost (its bytes), and the vpu
+    engine's us per element beyond the rest of its modelled cost."""
     n, s = row["n"], row["segments"]
-    saved = autotune._SEG_ATOMIC_US
+    pallas_plan = autotune.ReductionPlan(method="pallas",
+                                         block_rows=row["block_rows"])
+    saved = autotune._SEG_ATOMIC_US, autotune._B7_GROUP_US
     try:
-        autotune._SEG_ATOMIC_US = 0.0
+        autotune._SEG_ATOMIC_US = autotune._B7_GROUP_US = 0.0
         rest = autotune.model_cost(vpu_plan, n, torch.float32,
                                    op="segment_sum")
+        b7_rest = autotune.model_cost(pallas_plan, n, torch.float32,
+                                      op="segment_sum")
     finally:
-        autotune._SEG_ATOMIC_US = saved
-    fit = {"b7_entry_us": row["ms"] * 1e3 / (n * s),
+        autotune._SEG_ATOMIC_US, autotune._B7_GROUP_US = saved
+    units = -(-n // 16) * -(-s // B7_BLOCK_SEGMENTS)
+    fit = {"b7_group_us": max(row["ms"] * 1e3 - b7_rest, 0.0) / units,
            "seg_atomic_us": max(row["vpu_ms"] * 1e3 - rest, 0.0) / n}
     pick = autotune.autotune(n, torch.float32, op="segment_sum",
                              backend="cuda")
     fit["model_pick"] = pick.method
-    print(f"phase 5d: fitted _B7_ENTRY_US {fit['b7_entry_us']:.6g} us, "
+    print(f"phase 5d: fitted _B7_GROUP_US {fit['b7_group_us']:.6g} us, "
           f"_SEG_ATOMIC_US {fit['seg_atomic_us']:.6g} us; committed "
-          f"{autotune._B7_ENTRY_US}, {autotune._SEG_ATOMIC_US}; the model "
+          f"{autotune._B7_GROUP_US}, {autotune._SEG_ATOMIC_US}; the model "
           f"picks {pick.method} for segment_sum at n = 2^28 f32",
           flush=True)
     return fit
@@ -2674,16 +2719,23 @@ def b10_device_us(call, calls: int = 5) -> float:
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    total = sum(getattr(ev, "device_time_total", 0) or 0
-                for ev in prof.key_averages()
-                if any(k in ev.key for k in ("row_kernel", "weight_kernel",
-                                             "nm_kernel")))
-    check(total > 0, "torch.profiler saw no device time of B10's launches")
+    # A trace can come back without the card's activity (CUPTI lost its
+    # buffer): such a session is traced again, three sessions at most.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        total = sum(getattr(ev, "device_time_total", 0) or 0
+                    for ev in prof.key_averages()
+                    if any(k in ev.key for k in ("row_kernel",
+                                                 "weight_kernel",
+                                                 "nm_kernel")))
+        if total > 0:
+            break
+    check(total > 0, "torch.profiler saw no device time of B10's launches "
+                     "in three traces")
     return total / calls
 
 
@@ -3187,9 +3239,15 @@ def time_attention_kernel(ma, dispatch, autotune, shapes, launches: dict,
             keys = ("words_kernel", "attn_f32_kernel") \
                 if form == "wgmma_f32" else ("attn_decode_kernel",
                                              "merge_kernel")
-            device = probe.device_ms(kern, keys, calls=B9_TRACED)
+            # A trace can come back without a kernel's launches (CUPTI
+            # lost them): such a trace is taken again, three at most.
+            for _ in range(3):
+                device = probe.device_ms(kern, keys, calls=B9_TRACED)
+                if set(device) == set(keys):
+                    break
             check(set(device) == set(keys),
-                  f"torch.profiler saw {device} of B9's {form} form")
+                  f"torch.profiler saw {device} of B9's {form} form in "
+                  f"three traces")
             lost = {key: val["launches"] for key, val in device.items()
                     if val["launches"] != B9_TRACED}
             if lost:
@@ -3644,7 +3702,7 @@ def main() -> int:
     print(f"phase 1: ptxas (registers min-max, spill bytes) {ptxas}",
           flush=True)
     for lib, what in (("mma_scan", "B6"), ("mma_reduce", "B1-B3"),
-                      ("mma_norm_matmul", "B10")):
+                      ("mma_segment", "B7"), ("mma_norm_matmul", "B10")):
         check(ptxas[lib]["spill_bytes"] == 0,
               f"{what} spill: {ptxas[lib]}")
 

@@ -96,10 +96,10 @@ _HBM_BYTES_PER_US = 3.35e6
 _MEASURE_SEGMENTS = 128
 # Two fitted constants of the segment family: chip_smoke.py (phase 5d)
 # times kernel B7 and the vpu engine at n = 2^28 f32 with 128 random
-# segments on one H100 80GB HBM3 (700 W) and prints them.  µs per
-# one-hot entry (element x segment) of B7, whose integer work to build
-# the one-hot bounds it:
-_B7_ENTRY_US = 1.87e-7
+# segments on one H100 80GB HBM3 (700 W) and prints them.  µs per group
+# of 16 elements and block of 128 segments that B7 adds beyond its
+# bytes (its lane work: keys, compares, word split, masks, MMAs, adds):
+_B7_GROUP_US = 2.52e-5
 # µs per element the vpu engine's float atomics add beyond its memory
 # traffic (contention on S addresses):
 _SEG_ATOMIC_US = 1.96e-4
@@ -572,10 +572,11 @@ _ENGINE_COSTS = {
 # The segment family (op ``segment_sum``).  The plan key carries no
 # segment count, so the model prices S = _MEASURE_SEGMENTS.  ``mma``
 # builds the (n, S) one-hot (one compare per entry) and contracts it in
-# full f32 (one FMA per entry) on the CUDA cores; ``pallas`` (B7) takes
-# _B7_ENTRY_US per entry of its one-hot; ``vpu`` is one scatter add per
-# element, plus _SEG_ATOMIC_US per element for the float atomics'
-# contention on S addresses.
+# full f32 (one FMA per entry) on the CUDA cores; ``pallas`` (B7) moves
+# its bytes once per pass (``_F32_OUT_BYTES``) and takes _B7_GROUP_US
+# per group of 16 elements and 128-segment block beside them; ``vpu`` is
+# one scatter add per element, plus _SEG_ATOMIC_US per element for the
+# float atomics' contention on S addresses.
 
 
 def _cost_segment_vpu(plan: ReductionPlan, n: int) -> float:
@@ -589,7 +590,9 @@ def _cost_segment_mma(plan: ReductionPlan, n: int) -> float:
 
 
 def _cost_segment_pallas(plan: ReductionPlan, n: int) -> float:
-    return _B7_ENTRY_US * n * _MEASURE_SEGMENTS + _grid(plan, n)
+    groups = math.ceil(n / 16)
+    blocks = math.ceil(_MEASURE_SEGMENTS / 128)
+    return _B7_GROUP_US * groups * blocks + _grid(plan, n)
 
 
 _SEGMENT_COSTS = {

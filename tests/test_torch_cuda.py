@@ -505,16 +505,76 @@ def test_segment_kernel_counts_exactly_with_a_ragged_tail(cuda, dtype):
             assert torch.equal(got.long(), exact), (n, s)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_segment_kernel_across_block_edges(cuda, dtype):
+    # Counts at the 128-segment blocks' edges; the switch from register
+    # sums (one or two blocks) to shared memory (three or more); ids that
+    # hit only the second block; sorted ids (steps that skip blocks) and
+    # random ones; a ragged tail.  Same bits on a second call.
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n = (1 << 18) + 77
+    x = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    cases = [(s, sort) for s in (16, 127, 128, 129, 255, 256, 257, 384)
+             for sort in (False, True)]
+    second = torch.randint(128, 256, (n,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    for s, sort in cases + [(256, "second"), (384, "second")]:
+        ids = second if sort == "second" else _seg_ids(n, s, gen, sort)
+        for block_rows in (32, 128):
+            got = sg.segment_cuda(x, ids, s, block_rows=block_rows)
+            want = sg.segment_plain(
+                x, ids, s, block_rows=block_rows,
+                blocks=sg.grid_blocks(n, block_rows, "cuda"))
+            diff = (got.double() - want.double()).abs()
+            assert bool(torch.all(diff <= SEG_RTOL * _seg_scale(x, ids, s))), \
+                (s, sort, block_rows, float(diff.max()))
+            assert torch.equal(sg.segment_cuda(x, ids, s,
+                                               block_rows=block_rows), got)
+            if sort == "second":
+                assert bool(torch.all(got[:128] == 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_segment_kernel_keeps_each_element_with_its_id(cuda, dtype):
+    # Element e of a group takes k slot 2t, 2t + 1, 2t + 8 or 2t + 9 of
+    # lane t = (e mod 16) / 4: its value and id must travel together.
+    # Segment 8 (e mod 16) + (e / 16) mod 8 gets only the value
+    # 1 + e mod 16 + 16 ((e / 16) mod 8), so each segment's exact sum
+    # is its count times its own value; any element in another's slot
+    # moves a sum off it.
+    n = (1 << 16) + 29
+    e = torch.arange(n, device="cuda")
+    pos, grp = e % 16, (e // 16) % 8
+    ids = (8 * pos + grp).to(torch.int32)
+    x = (1 + pos + 16 * grp).to(dtype)
+    want = torch.zeros(128, dtype=torch.int64, device="cuda").index_add_(
+        0, ids.long(), x.long())
+    for block_rows in (16, 128, 512):
+        got = sg.segment_cuda(x, ids, 128, block_rows=block_rows)
+        assert torch.equal(got.long(), want), block_rows
+        assert torch.equal(got, got.round())
+    # The same past a pass's base (S = 2 passes at 32 warps, f32).
+    s = 2 * sg.pass_segments(torch.float32, 512)
+    far = ids + (s - 128)
+    got = sg.segment_cuda(x.float(), far, s, block_rows=512)
+    assert torch.equal(got[s - 128:].long(), want)
+    assert bool(torch.all(got[:s - 128] == 0))
+
+
 def test_segment_kernel_runs_passes_and_repeats_its_bits(cuda):
     gen = torch.Generator(device="cuda").manual_seed(3)
     n = (1 << 20) + 5
     x = torch.rand(n, device="cuda", generator=gen)
     lib = sg._lib()
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dt]
         for block_rows in (16, 128, 512):
             per = sg.pass_segments(dt, block_rows)
-            assert per == lib.b7_pass_segments(
-                {torch.float32: 0, torch.bfloat16: 1}[dt], block_rows)
+            assert per == lib.b7_pass_segments(code, block_rows)
+            assert sg.ring_bytes(dt, block_rows) == lib.b7_ring_bytes(
+                code, block_rows)
     # One segment past a pass: the last one comes from a second pass.
     s = sg.pass_segments(torch.float32, 512) + 1
     ids = _seg_ids(n, s, gen, sort=True)

@@ -144,7 +144,8 @@ def test_mma_segment_sum_matches_reference_kernel(dtype):
 
 def test_mma_segment_sum_many_segments():
     # The reference's VMEM clamp case: S = 4096 at 2000 elements; here
-    # the default block_rows stays and the card would run two passes.
+    # the default block_rows stays and the card would run one pass (16
+    # at block_rows 512, whose 32 warps' rings leave room for 256).
     rng = np.random.default_rng(19)
     x = rng.normal(size=2_000).astype(np.float32)
     ids = rng.integers(0, 4096, size=2_000)
@@ -153,10 +154,67 @@ def test_mma_segment_sum_many_segments():
                                 interpret=True)
     got = tops.mma_segment_sum(tx, torch.from_numpy(ids), 4096)
     _assert_segments_close(got, want, tx, ids, 4096)
-    assert tsg.passes(4096, torch.float32, 128) == 2
-    assert tsg.pass_segments(torch.float32, 128) == 2416
-    assert tsg.pass_segments(torch.bfloat16, 128) == 4096
-    assert tsg.pass_segments(torch.float32, 512) == 592
+    assert tsg.passes(4096, torch.float32, 128) == 1
+    assert tsg.passes(4096, torch.float32, 512) == 16
+    # 8 warps x (2 stages x 2 KB + 2 KB of operands) + mbarriers beside
+    # 44 blocks of 128 f32 sums a warp; bf16 stages are 1.5 KB and its
+    # operands 1 KB; at most 64 blocks a pass.
+    assert tsg.ring_bytes(torch.float32, 128) == 49280
+    assert tsg.pass_segments(torch.float32, 128) == 5632
+    assert tsg.pass_segments(torch.bfloat16, 128) == 6144
+    assert tsg.pass_segments(torch.float32, 512) == 256
+    assert tsg.pass_segments(torch.float32, 16) == 8192
+
+
+# Segment counts around B7's 128-segment blocks: one block, a block's
+# edges, the switch from register sums (one or two blocks) to shared
+# memory (three or more), and a count past a pass at 32 warps.
+BLOCK_EDGE_COUNTS = (1, 16, 127, 128, 129, 256, 4096)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", BLOCK_EDGE_COUNTS)
+def test_segment_plain_across_blocks_matches_reference(s, dtype):
+    # Stray ids (-1, S, 2^30) and a ragged tail (n is no multiple of a
+    # group or a step); a geometry of 3 blocks of 2 warps, so several
+    # warps take several steps each.
+    rng = np.random.default_rng(s)
+    n = 3_001
+    x = rng.normal(size=n).astype(np.float32)
+    ids = rng.integers(0, s, n)
+    stray = rng.random(n) < 0.1
+    ids = np.where(stray, rng.choice([-1, s, 1 << 30], n), ids).astype(
+        np.int32)
+    jx, tx = _values(x, dtype)
+    got = tsg.segment_plain(tx, torch.from_numpy(ids), s, block_rows=32,
+                            blocks=3)
+    assert got.dtype == torch.float32 and got.shape == (s,)
+    want = jops.mma_segment_sum(jx, jnp.asarray(ids), s, interpret=True)
+    _assert_segments_close(got, want, tx, ids, s)
+    _assert_segments_close(got, tref.segment_sum_ref(tx, torch.from_numpy(
+        ids), s), tx, ids, s)
+
+
+@pytest.mark.parametrize("block_rows,blocks", [(16, 1), (32, 3), (128, 2),
+                                               (512, 264)])
+@pytest.mark.parametrize("s", [1, 129, 4096])
+def test_segment_plain_counts_exactly_at_every_geometry(s, block_rows,
+                                                         blocks):
+    # Counting data (0 and 1; every order of adds is exact) in all three
+    # dtypes, with stray ids and a ragged tail: the plain version equals
+    # the exact count whatever the geometry.
+    rng = np.random.default_rng(s + block_rows)
+    n = 10_007
+    ids = rng.integers(-1, s + 1, n).astype(np.int32)
+    ids[::97] = 1 << 30
+    keep = (ids >= 0) & (ids < s)
+    ones = rng.random(n) < 0.5
+    count = np.bincount(ids[keep], weights=ones[keep], minlength=s)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        got = tsg.segment_plain(torch.from_numpy(ones).to(dt),
+                                torch.from_numpy(ids), s,
+                                block_rows=block_rows, blocks=blocks)
+        assert np.array_equal(got.double().numpy(), count), dt
 
 
 @pytest.mark.parametrize("block_rows,blocks", [(16, 1), (128, 3),
@@ -241,12 +299,23 @@ def test_segment_cost_model_and_candidates():
     assert [(p.method, p.chain, p.block_rows) for p in plans] == [
         ("mma", 1, 128), ("pallas", 1, 32), ("pallas", 1, 128),
         ("pallas", 1, 512), ("vpu", 1, 128)]
-    # mma is charged its one-hot mask, vpu its atomics: at the measured
-    # problem's size the model picks the kernel.
-    cost = {p.method: tat.model_cost(p, 1 << 28, torch.float32,
+    # mma is charged its one-hot mask, vpu its atomics, B7 its bytes
+    # once a pass and a term per group and 128-segment block: at the
+    # measured problem's size the model picks the kernel.
+    n = 1 << 28
+    cost = {p.method: tat.model_cost(p, n, torch.float32,
                                      op="segment_sum") for p in plans}
     assert min(cost, key=cost.get) == "pallas"
     assert cost["mma"] > cost["vpu"] > cost["pallas"]
+    b7 = plans[2]
+    assert (b7.method, b7.block_rows) == ("pallas", 128)
+    b7_cost = tat.model_cost(b7, n, torch.float32, op="segment_sum")
+    assert b7_cost == pytest.approx(
+        8.0 * n / tat._HBM_BYTES_PER_US + tat._B7_GROUP_US * n / 16
+        + tat._grid(b7, n))
+    # A 16-bit input moves 6 bytes an element, not 8.
+    assert tat.model_cost(b7, n, torch.bfloat16, op="segment_sum") \
+        == pytest.approx(b7_cost - 2.0 * n / tat._HBM_BYTES_PER_US)
     x, kw = tat._measure_problem("segment_sum", 4096, torch.float32, 0,
                                  "cpu")
     assert kw["num_segments"] == tat._MEASURE_SEGMENTS == 128
