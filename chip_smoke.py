@@ -241,6 +241,32 @@ mma.sync form for the rest (``b9_attention``).  Its phases:
       cost model's B9 flop and byte rates and its attention host times
       per call refitted.
 
+The model zoo's forward path (``models.transformer``, ``model_zoo``,
+``mla``, ``moe``, ``rwkv6``, ``rglru``) reaches B8, B9 and B10 under the
+config spellings ``reduce_method``, ``norm_matmul_method`` and
+``attn_method`` = 'fused_pallas'.  Its phase runs after 5g, once phase
+3i's operands are freed:
+
+  3j. (a) every arch at its SMOKE size on the card with the plain
+      engines: ``logits``, a finite loss within 3 of ln V, and a prefill
+      of 2 x 12 tokens then one decode step within the reference's
+      bound, max|got - ref| < 0.05 (max|ref| + 1), of the whole
+      sequence's last logits; (b) Gemma-2 2B (4 layers: 2 local + 2
+      global) and (c) DeepSeek-V3 (2 layers: one dense, one MoE; bf16
+      params) at full width with the kernel spellings: the launch
+      counters zeroed, a prefill of 4096 tokens and 16 decode steps
+      (over the 4096-slot local ring), the counters read (B8, B10 and
+      B9's wgmma form must move, and for Gemma-2 2B its decode form),
+      then those 17 positions' logits within the same bound of
+      ``logits`` over the whole sequence and of the plain engines on the
+      same params (DeepSeek-V3's plain attention the chunked
+      unfused_mma); the MoE's counts (= T k) and the tokens its capacity
+      dropped; the median ms per prefill and per decode step (CUDA
+      events, 5 calls after a warm one) beside the card's name and power
+      limit, and each call's device time (a torch.profiler trace); the
+      peak memory; (b') which engine ``auto`` takes for an f32 model's
+      decode step over f32 caches.
+
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
 prefill, the decode form at the global decode step with f32 q, the
@@ -608,6 +634,45 @@ B9_TRACED = 3
 ATTN_HOST_SHAPE = (1, 64, 4, 2, 256)
 
 # Phase 6b: the scan family's pick, at these sizes, in f32 and bf16.
+# The model path (phase 3j).  (a) every arch at its SMOKE size with the
+# plain engines; (b) Gemma-2 2B and (c) DeepSeek-V3 at full width, cut in
+# depth only, with the kernel spellings (B8 for the norms, B10 for the
+# dense MLPs and MLA's query chain, B9 for attention) against the plain
+# engines on the same params.  DeepSeek-V3's plain attention is the
+# chunked unfused_mma (its expanded prefill form at 4112 tokens and 128
+# heads would hold ~9 GB of f32 scores a tensor under vpu); its params
+# are bf16, drawn leaf by leaf (3 x 256 experts of 7168 x 2048 are 45 GB
+# in f32).  MODEL_BOUND is the reference's prefill + decode check,
+# max|got - ref| < 0.05 (max|ref| + 1) (tests/test_models.py).
+DEV = "cuda"
+MODEL_SMOKE_BATCH = (2, 12)
+MODEL_PROMPT = 4096             # 3i's prefill shape
+MODEL_STEPS = 16
+MODEL_BOUND = 0.05
+MODEL_TIMING_CALLS = 5
+KERNEL_SPELLINGS = {"reduce_method": "fused_pallas",
+                    "norm_matmul_method": "fused_pallas",
+                    "attn_method": "fused_pallas"}
+PLAIN_SPELLINGS = {"reduce_method": "mma",
+                   "norm_matmul_method": "unfused_mma",
+                   "attn_method": "vpu"}
+MODEL_FULL = {
+    "gemma2-2b": {
+        "part": "b", "cuts": {"num_layers": 4}, "param_dtype": None,
+        "reduced": ["num_layers 26 -> 4 (2 local + 2 global)"],
+        "kernels": ("b8_rmsnorm", "b10_norm_matmul", "b9_attention_wgmma",
+                    "b9_attention_decode")},
+    "deepseek-v3-671b": {
+        "part": "c", "cuts": {"num_layers": 2, "first_dense_layers": 1},
+        "param_dtype": torch.bfloat16,
+        "plain": {"attn_method": "unfused_mma"},
+        "reduced": ["num_layers 61 -> 2",
+                    "first_dense_layers 3 -> 1 (one dense, one MoE layer)",
+                    "params bf16 (f32 in the config)"],
+        "kernels": ("b8_rmsnorm", "b10_norm_matmul",
+                    "b9_attention_wgmma")},
+}
+
 SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
 SCAN_HOST_N = 1 << 12
 SCAN_ITERS = {1 << 12: 50, 1 << 20: 50, 1 << 24: 10, 1 << 26: 5,
@@ -3104,6 +3169,319 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
     return rows_out, picks, shapes
 
 
+# ------------------------------------------- phase 3j: the model path
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts, keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def model_bound(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|got - ref|, max|ref| + 1): the reference's prefill + decode
+    check holds the first below MODEL_BOUND times the second."""
+    got, ref = got.to(torch.float32), ref.to(torch.float32)
+    return (float(torch.max(torch.abs(got - ref))),
+            float(torch.max(torch.abs(ref))) + 1.0)
+
+
+def smoke_batch(cfg, gen, b: int, s: int) -> dict:
+    """A train batch of random tokens (and the modality inputs) on the
+    card, as ``tests/test_models.py`` makes one."""
+    def tokens(shape):
+        return torch.randint(0, cfg.vocab_size, shape, device=DEV,
+                             generator=gen, dtype=torch.int32)
+    out = {"tokens": tokens((b, s)), "labels": tokens((b, s)),
+           "mask": torch.ones((b, s), device=DEV)}
+    if cfg.vision_tokens:
+        out["vision_embeds"] = torch.randn(
+            b, cfg.vision_tokens, cfg.d_model, device=DEV,
+            generator=gen).to(torch.bfloat16)
+    if cfg.is_encdec:
+        out["src_embeds"] = torch.randn(b, s, cfg.d_model, device=DEV,
+                                        generator=gen).to(torch.bfloat16)
+    return out
+
+
+def run_model_smoke(registry, model_zoo, gen) -> list:
+    """Phase 3j (a): every arch at its SMOKE size on the card with the
+    plain engines: logits, the loss near ln V, and a prefill of
+    MODEL_SMOKE_BATCH tokens then one decode step against the whole
+    sequence's last logits within MODEL_BOUND."""
+    rows = []
+    b, s = MODEL_SMOKE_BATCH
+    for arch in registry.list_archs():
+        cfg = registry.get_config(arch, smoke=True)
+        model = model_zoo.build(cfg)
+        params = model.init(gen, DEV)
+        batch = smoke_batch(cfg, gen, b, s)
+        logits = model.logits(params, batch)
+        check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+              and logits.device.type == DEV
+              and bool(torch.all(torch.isfinite(logits))),
+              f"3j {arch}: logits {tuple(logits.shape)} on "
+              f"{logits.device}")
+        loss, metrics = model.loss(params, batch)
+        loss = float(loss)
+        check(math.isfinite(loss)
+              and abs(loss - math.log(cfg.vocab_size)) < 3.0,
+              f"3j {arch}: loss {loss} against ln V "
+              f"{math.log(cfg.vocab_size):.3f}")
+        prompt = {k: v for k, v in batch.items()
+                  if k not in ("labels", "mask")}
+        _, caches = model.prefill(params, prompt)
+        check(all(leaf.device.type == DEV for leaf in tree_leaves(caches)),
+              f"3j {arch}: a cache leaf is off the card")
+        nxt = torch.randint(0, cfg.vocab_size, (b, 1), device=DEV,
+                            generator=gen, dtype=torch.int32)
+        got, _ = model.decode_step(params, {"token": nxt, "pos": s,
+                                            "caches": caches})
+        full = model.logits(params, dict(
+            prompt, tokens=torch.cat([prompt["tokens"], nxt], 1)))[:, -1:]
+        diff, scale = model_bound(got, full)
+        check(diff < MODEL_BOUND * scale,
+              f"3j {arch}: prefill + decode {diff} against the full "
+              f"forward's last logits (bound {MODEL_BOUND * scale})")
+        rows.append({"arch": arch, "loss": loss,
+                     "metrics": {k: float(v) for k, v in metrics.items()},
+                     "decode_diff": diff, "decode_scale": scale})
+        del params, caches
+    print(f"phase 3j (a): ten archs at SMOKE size on the card: "
+          + ", ".join(f"{r['arch']} loss {r['loss']:.3f} decode "
+                      f"{r['decode_diff']:.2e}" for r in rows), flush=True)
+    return rows
+
+
+class MoeCapture:
+    """Records each ``moe._route`` call's tokens and expert ids, so that
+    phase 3j prints the MoE's counts and the tokens its capacity
+    dropped."""
+
+    def __init__(self, moe_module):
+        self.mod = moe_module
+        self.inner = moe_module._route
+        self.calls = []
+
+    def __enter__(self):
+        def spy(cfg, router_w, x_flat):
+            ids, w, probs = self.inner(cfg, router_w, x_flat)
+            mc = cfg.moe
+            t = x_flat.shape[0]
+            cap = max(8, int(math.ceil(mc.capacity_factor * t * mc.top_k
+                                       / mc.num_experts)))
+            counts = torch.bincount(ids.reshape(-1),
+                                    minlength=mc.num_experts)
+            self.calls.append({
+                "tokens": t, "counts_sum": int(counts.sum()),
+                "top_k": mc.top_k, "capacity": cap,
+                "dropped": int(torch.clamp(counts - cap, min=0).sum())})
+            return ids, w, probs
+        self.mod._route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.inner
+        return False
+
+
+def model_params(param, model, dtype):
+    """The model's parameters on the card from SEED; with ``dtype``
+    each leaf is drawn in f32 and cast as it is made, so that the f32
+    tree never stands whole."""
+    import dataclasses
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    if dtype is None:
+        return model.init(gen, DEV)
+    specs = tree_map(lambda p: dataclasses.replace(p, dtype=dtype),
+                     model.specs)
+    return param.init_tree(gen, specs, device=DEV)
+
+
+def full_width_cfg(registry, arch: str, cuts: dict):
+    """The arch's FULL config cut in depth only."""
+    import dataclasses
+    cfg = registry.get_config(arch)
+    if "first_dense_layers" in cuts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=cuts["first_dense_layers"]))
+    return dataclasses.replace(cfg, num_layers=cuts["num_layers"])
+
+
+def device_ms(call, calls: int = 3):
+    """ms of device time a call's kernels take (every CUDA event's time
+    in a torch.profiler trace over ``calls`` calls, per call), or None
+    when three traces saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        total = sum(ev.device_time_total for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / calls / 1e3
+    return None
+
+
+def run_model_full(arch: str, registry, model_zoo, param, moe,
+                   counters: tuple, smi: str) -> dict:
+    """Phase 3j (b) / (c): one model at full width, cut in depth
+    (MODEL_FULL[arch]), with the kernel spellings: a prefill of
+    MODEL_PROMPT tokens and MODEL_STEPS decode steps with the launch
+    counters zeroed just before and read just after (each of the
+    arch's kernels must move), then their logits against ``logits`` of
+    the whole sequence and against the plain engines' on the same
+    params, within MODEL_BOUND; the median ms per prefill and per decode
+    step (CUDA events, MODEL_TIMING_CALLS after a warm call) and the
+    peak memory."""
+    import dataclasses
+    spec = MODEL_FULL[arch]
+    base_cfg = full_width_cfg(registry, arch, spec["cuts"])
+    kcfg = dataclasses.replace(base_cfg, **KERNEL_SPELLINGS)
+    pcfg = dataclasses.replace(base_cfg, **{**PLAIN_SPELLINGS,
+                                            **spec.get("plain", {})})
+    model, plain = model_zoo.build(kcfg), model_zoo.build(pcfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_params(param, model, spec["param_dtype"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    tokens = torch.randint(0, kcfg.vocab_size,
+                           (1, MODEL_PROMPT + MODEL_STEPS), device=DEV,
+                           generator=gen, dtype=torch.int32)
+    prompt = tokens[:, :MODEL_PROMPT]
+
+    def decode(caches, i: int):
+        return model.decode_step(params, {
+            "token": tokens[:, MODEL_PROMPT + i - 1:MODEL_PROMPT + i]
+            if i <= MODEL_STEPS else tokens[:, -1:],
+            "pos": MODEL_PROMPT + i - 1, "caches": caches})
+
+    with MoeCapture(moe) as routed:
+        for mod in counters:
+            mod.reset_launches()
+        first, caches = model.prefill(params, {"tokens": prompt})
+        outs = [first]
+        for i in range(1, MODEL_STEPS + 1):
+            step, caches = decode(caches, i)
+            outs.append(step)
+        torch.cuda.synchronize()
+        launches = {kname: count for mod in counters
+                    for kname, count in mod.LAUNCHES.items()}
+    for kname in spec["kernels"]:
+        check(launches[kname] > 0,
+              f"3j {arch}: kernel {kname} was not launched on the model "
+              f"path ({launches})")
+    got = torch.cat(outs, dim=1)          # positions P-1 .. P+STEPS-1
+    full = model.logits(params, {"tokens": tokens})[:, MODEL_PROMPT - 1:] \
+        .clone()
+    vs_full = model_bound(got, full)
+    ref = plain.logits(params, {"tokens": tokens})[:, MODEL_PROMPT - 1:] \
+        .clone()
+    vs_plain = model_bound(got, ref)
+    full_vs_plain = model_bound(full, ref)
+    del full, ref
+    for what, (diff, scale) in (("prefill + decode vs logits", vs_full),
+                                ("prefill + decode vs plain", vs_plain),
+                                ("logits vs plain", full_vs_plain)):
+        check(diff < MODEL_BOUND * scale,
+              f"3j {arch}: {what} {diff} (bound {MODEL_BOUND * scale})")
+
+    prefill_ms = median_ms(lambda: model.prefill(params, {"tokens": prompt}),
+                           reps=MODEL_TIMING_CALLS, warmup=1)
+    state = {"caches": caches, "i": MODEL_STEPS + 1}
+
+    def one_step():
+        _, state["caches"] = decode(state["caches"], state["i"])
+        state["i"] += 1
+    decode_ms = median_ms(one_step, reps=MODEL_TIMING_CALLS, warmup=1)
+    # The device's busy share of a call: its kernels' device time (a
+    # trace) over its CUDA-event median.
+    busy = {"prefill_device_ms": device_ms(
+                lambda: model.prefill(params, {"tokens": prompt})),
+            "decode_device_ms": device_ms(one_step)}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    row = {"arch": arch, "cuts": spec["cuts"],
+           "reduced": spec["reduced"],
+           "param_dtype": name(spec["param_dtype"] or torch.float32),
+           "num_params": model.num_params(), "init_s": init_s,
+           "launches": launches, "vs_full": vs_full, "vs_plain": vs_plain,
+           "full_vs_plain": full_vs_plain, "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, **busy, "peak_gib": peak_gib,
+           "card": smi}
+    if routed.calls:
+        row["moe_prefill"] = routed.calls[0]
+        row["moe_decode_dropped"] = sum(c["dropped"]
+                                        for c in routed.calls[1:])
+        for c in routed.calls:
+            check(c["counts_sum"] == c["tokens"] * c["top_k"],
+                  f"3j {arch}: MoE counts sum {c['counts_sum']} != T k")
+    print(f"phase 3j ({spec['part']}): {arch} {json.dumps(row)}",
+          flush=True)
+    print(f"phase 3j ({spec['part']}): {arch} prefill of {MODEL_PROMPT} "
+          f"tokens {prefill_ms:.4f} ms, decode step {decode_ms:.4f} ms "
+          f"(median of {MODEL_TIMING_CALLS}, CUDA events); device time "
+          f"{busy['prefill_device_ms']} / {busy['decode_device_ms']} ms "
+          f"(torch.profiler) on {smi}", flush=True)
+    del params, caches, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_auto_f32_decode(registry, model_zoo, transformer, param, ma,
+                        smi: str) -> dict:
+    """Phase 3j (b'): which engine ``auto`` takes for an f32 model's
+    decode step over f32 caches (B9 serves an f32 cache only in its
+    mma.sync form; unfused_mma refuses a decode step's dynamic kv_len):
+    Gemma-2 2B cut as in (b), compute dtype f32 and attn_method 'auto',
+    a prefill of MODEL_PROMPT tokens into f32 caches, then one decode
+    step with B9's counters zeroed just before it."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        full_width_cfg(registry, "gemma2-2b",
+                       MODEL_FULL["gemma2-2b"]["cuts"]),
+        compute_dtype=torch.float32, attn_method="auto")
+    model = model_zoo.build(cfg)
+    params = model_params(param, model, None)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MODEL_PROMPT + 1),
+                           device=DEV, generator=gen, dtype=torch.int32)
+    caches = transformer.init_decoder_cache(
+        cfg, 1, MODEL_PROMPT + 64, dtype=torch.float32, device=DEV)
+    _, caches, _ = transformer.decoder_forward(
+        params, cfg, tokens[:, :MODEL_PROMPT], caches=caches)
+    torch.cuda.synchronize()
+    ma.reset_launches()
+    hidden, _, _ = transformer.decoder_forward(
+        params, cfg, tokens[:, MODEL_PROMPT:],
+        positions=torch.tensor([MODEL_PROMPT], device=DEV), caches=caches,
+        decode=True)
+    torch.cuda.synchronize()
+    launches = dict(ma.LAUNCHES)
+    check(bool(torch.all(torch.isfinite(hidden))),
+          "3j (b'): the f32 decode step is not finite")
+    engine = "fused_pallas (B9)" if sum(launches.values()) else "vpu"
+    print(f"phase 3j (b'): auto at an f32 decode step over f32 caches "
+          f"(Gemma-2 2B, 4 layers) takes {engine}; B9 launches "
+          f"{launches} on {smi}", flush=True)
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"engine": engine, "launches": launches}
+
+
 # ------------------------------------------------- phase 5g: B9 timings
 
 
@@ -3872,6 +4250,18 @@ def main() -> int:
           f"the decode form spills: {dc_ptxas}")
     attn_host = fit_attn_host(dispatch, autotune, gen)
 
+    print("phase 3j: the model zoo's forward path", flush=True)
+    from repro_torch.models import model_zoo, moe, transformer
+    torch.cuda.empty_cache()
+    print(f"phase 3j: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held "
+          f"by earlier phases", flush=True)
+    model_rows = run_model_smoke(registry, model_zoo, gen)
+    model_full = [run_model_full(arch, registry, model_zoo, param, moe,
+                                 (mrn, mnm, ma), smi)
+                  for arch in MODEL_FULL]
+    auto_f32 = run_auto_f32_decode(registry, model_zoo, transformer, param,
+                                   ma, smi)
+
     print("phase 6: the cost model against measured times (f32, bf16, "
           "fp16)", flush=True)
     t0 = time.perf_counter()
@@ -3927,6 +4317,8 @@ def main() -> int:
                    "b9_fit": attn_fit, "attn_host_us": attn_host,
                    "b9_wgmma_ptxas": wg_ptxas, "b9_f32_ptxas": wf_ptxas,
                    "b9_decode_ptxas": dc_ptxas,
+                   "model_smoke": model_rows, "model_full": model_full,
+                   "auto_f32_decode": auto_f32,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

@@ -44,6 +44,12 @@ once, then wgmma fed by TMA) and its decode form (each row's keys cut
 into chunks that blocks walk side by side, then a merge in chunk order)
 are held to the same bounds at the shapes that take them, count their
 launches apart, and its CUDA chooser agrees with ``walk``.
+The model zoo runs on the card: every arch at its SMOKE size (prefill
+and a decode step within the reference's model bound, max|got - ref| <
+0.05 (max|ref| + 1), of the full forward), Gemma-2 2B and DeepSeek-V3
+with the ``fused_pallas`` spellings moving B8's, B9's and B10's counters
+(within the same bound of the plain engines), and the MoE combine
+repeating its bits.
 """
 
 import importlib
@@ -1237,3 +1243,111 @@ def test_attention_layer_runs_b9_on_the_card(cuda):
                            "b9_attention_f32": 1, "b9_attention_decode": 1}
     assert out.shape == (2, 1, cfg.d_model)
     assert bool(torch.all(torch.isfinite(out)))
+
+
+# ------------------------------------------------------------ the models
+
+
+def _model_batch(cfg, gen, b: int = 2, s: int = 12) -> dict:
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                                   generator=gen, dtype=torch.int32)}
+    if cfg.vision_tokens:
+        out["vision_embeds"] = torch.randn(
+            b, cfg.vision_tokens, cfg.d_model, device="cuda",
+            generator=gen).to(torch.bfloat16)
+    if cfg.is_encdec:
+        out["src_embeds"] = torch.randn(b, s, cfg.d_model, device="cuda",
+                                        generator=gen).to(torch.bfloat16)
+    return out
+
+
+def _prefill_then_step(model, params, batch, nxt):
+    """(prefill + one decode step's logits, the whole sequence's last
+    logits), as ``tests/test_models.py`` compares them."""
+    _, caches = model.prefill(params, batch)
+    got, _ = model.decode_step(params, {"token": nxt,
+                                        "pos": batch["tokens"].shape[1],
+                                        "caches": caches})
+    full = model.logits(params, dict(
+        batch, tokens=torch.cat([batch["tokens"], nxt], 1)))[:, -1:]
+    return got, full
+
+
+def _within_model_bound(got, ref):
+    """The reference's bound: max|got - ref| < 0.05 (max|ref| + 1)."""
+    diff = float(torch.max(torch.abs(got.float() - ref.float())))
+    assert diff < 0.05 * (float(torch.max(torch.abs(ref.float()))) + 1.0)
+
+
+ARCHS = ("gemma3-27b", "gemma2-2b", "glm4-9b", "mistral-large-123b",
+         "deepseek-v3-671b", "arctic-480b", "rwkv6-7b",
+         "llama-3.2-vision-90b", "seamless-m4t-large-v2",
+         "recurrentgemma-2b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_prefill_then_decode_on_the_card(cuda, arch):
+    """Each arch at its SMOKE size with the plain engines: parameters,
+    caches and logits on the card, prefill + a decode step within the
+    model bound of the full forward."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    cfg = registry.get_config(arch, smoke=True)
+    model = model_zoo.build(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    assert all(t.is_cuda for t in integration._leaves(params))
+    batch = _model_batch(cfg, gen)
+    nxt = torch.randint(0, cfg.vocab_size, (2, 1), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    got, full = _prefill_then_step(model, params, batch, nxt)
+    assert got.is_cuda and got.shape == (2, 1, cfg.vocab_size)
+    _within_model_bound(got, full)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v3-671b"])
+def test_kernel_spellings_run_b8_b9_b10_in_the_model(cuda, arch):
+    """fused_pallas for the norms, the MLPs (and MLA's query chain) and
+    attention: B8's, B10's and B9's counters move over a prefill and a
+    decode step, and the logits stay within the model bound of the
+    plain engines' on the same params."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    base = registry.get_config(arch, smoke=True)
+    fused = dataclasses.replace(base, reduce_method="fused_pallas",
+                                norm_matmul_method="fused_pallas",
+                                attn_method="fused_pallas")
+    model, plain = model_zoo.build(fused), model_zoo.build(base)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = model.init(gen)
+    batch = _model_batch(base, gen)
+    nxt = torch.randint(0, base.vocab_size, (2, 1), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    for mod in (mrn, mnm, ma):
+        mod.reset_launches()
+    got, full = _prefill_then_step(model, params, batch, nxt)
+    torch.cuda.synchronize()
+    assert mrn.LAUNCHES["b8_rmsnorm"] > 0
+    assert mnm.LAUNCHES["b10_norm_matmul"] > 0
+    assert sum(ma.LAUNCHES.values()) > 0
+    _within_model_bound(got, full)
+    want, _ = _prefill_then_step(plain, params, batch, nxt)
+    _within_model_bound(got, want)
+
+
+def test_moe_combine_repeats_its_bits_on_the_card(cuda):
+    """The combine sums each token's k contributions in a fixed order
+    (no float atomics): two calls give the same bits."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import moe, param
+    cfg = registry.get_config("deepseek-v3-671b", smoke=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=64, top_k=8))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = param.init_tree(gen, moe.moe_specs(cfg))
+    x = torch.randn(4, 1024, cfg.d_model, device="cuda", generator=gen)
+    a, aux_a = moe.moe_block(params, cfg, x)
+    b, aux_b = moe.moe_block(params, cfg, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
