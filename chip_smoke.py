@@ -267,6 +267,33 @@ config spellings ``reduce_method``, ``norm_matmul_method`` and
       peak memory; (b') which engine ``auto`` takes for an f32 model's
       decode step over f32 caches.
 
+The serving path (``launch.serve``, ``models.kv_cache``,
+``data.pipeline``, ``core.autotune``'s warmup and sweep worker) runs
+after 3j:
+
+  3k. Gemma-2 2B at full width and depth (f32 params from SEED, the
+      kernel spellings): six requests (synthetic_requests, prompts of
+      64-960 tokens, 8-32 new) over four slots of 1024 tokens through
+      ``ContinuousServer`` over the paged int8 store
+      (``MmaPolicy(split_words=2)``), after one short warm request: the
+      launch counters zeroed before the stream and read after (B8, B10,
+      B9's wgmma and decode forms must move), the tokens against the
+      none store's and against each request alone through ``Server`` at
+      batch 1 (the same greedy tokens, or it fails), the logits rows'
+      bits against the requests alone (recorded), the store's dense view
+      of the first admitted slot against its prefill's bf16 cache (bit
+      for bit); tokens/s, the median engine step and its ``as_dense``,
+      decode and token-write parts, the median admission prefill (host
+      clock between synchronizes) and the peak memory beside the card's
+      name and power limit; streamed logprobs (a latency SLO) finite, <=
+      0 and within 1e-5 of ``batched_logprobs`` of their logits rows;
+      ``Server.score`` of two 512-token masked sequences within 1e-4
+      relative of an f64 log-softmax; ``warmup`` (4 prefill shapes,
+      then 0 new plans); background sweeps and ``close()`` within 5 s;
+      ``RunningStats(method='pallas')`` over 64 prefetched
+      ``SyntheticLMData`` batches on the card (B1 and B6 must move,
+      within 5e-3 % of the f64 sums).
+
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
 prefill, the decode form at the global decode step with f32 q, the
@@ -673,6 +700,32 @@ MODEL_FULL = {
                     "b9_attention_wgmma")},
 }
 
+# The serving path (phase 3k): Gemma-2 2B at full width and depth (f32
+# params, the config's), the kernel spellings, six requests over four
+# slots of 1024 tokens (admissions mid-stream) through the continuous
+# engine over the paged int8 store, against the none store and one
+# request at a time.  SERVE_CUTS cuts depth only (none: 26 layers);
+# SERVE_REDUCED lists what it cut.
+SERVE_ARCH = "gemma2-2b"
+SERVE_CUTS: dict = {}
+SERVE_REDUCED: list = []
+SERVE_REQUESTS = dict(n=6, seed=0, min_len=64, max_len=960, min_new=8,
+                      max_new=32, stagger=1)
+SERVE_ENGINE = dict(num_slots=4, capacity=1024, page_size=16)
+SERVE_KERNELS = ("b8_rmsnorm", "b10_norm_matmul", "b9_attention_wgmma",
+                 "b9_attention_decode")
+SERVE_SLO_MS = 5.0
+SERVE_LP_REQUESTS = 3
+SERVE_LP_ATOL = 1e-5            # a streamed logprob vs batched_logprobs
+SERVE_SCORE_LEN = 512
+SERVE_SCORE_RTOL = 1e-4         # Server.score vs the f64 log-softmax
+SERVE_WARMUP_LENS = (64, 128, 256, 512)
+SERVE_SWEEP_REQUESTS = 2
+SERVE_CLOSE_S = 5.0
+SERVE_STATS_STEPS = 64
+SERVE_STATS_SHAPE = (1024, 8)   # (seq_len, batch) of a SyntheticLMData batch
+SERVE_STATS_PCT = 5e-3          # the pallas ceiling, in %
+
 SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
 SCAN_HOST_N = 1 << 12
 SCAN_ITERS = {1 << 12: 50, 1 << 20: 50, 1 << 24: 10, 1 << 26: 5,
@@ -686,6 +739,10 @@ SWEEP_SIZES = (1 << 20, 1 << 24, 1 << 28)
 SWEEP_ROUNDS = 5
 SWEEP_ITERS = {1 << 20: 50, 1 << 24: 20, 1 << 28: 5}
 PICK_SLACK = 1.25
+# Phases 3g-3i time auto against each engine in this many passes of
+# balanced orders, each method's time the median of all its single-call
+# timings (pick_times).
+PICK_PASSES = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -1870,17 +1927,13 @@ def run_norm_path(layers, param, dispatch, autotune, gen) -> tuple:
                 check(err <= ceiling, f"{rows}x{d} {dt} {label}: "
                                       f"{err:.3e}% > {ceiling:.3g}%")
             if (rows, d) == NORM_SHAPES[0]:
-                # norm_matmul's engines and auto in balanced rounds, each
-                # the fastest of its medians, as in phase 3h: with B8
-                # near its bound a host burst on one single-call median
-                # outweighs the engines' difference.
+                # norm_matmul's engines and auto timed as in phase 3h
+                # (pick_times): with B8 near its bound a host burst on
+                # one single-call median outweighs the engines'
+                # difference.
                 calls = norm_calls(layers, params, x)
-                methods = NM_ENGINES + ("auto",)
-                best = dict.fromkeys(methods, math.inf)
-                for order in balanced_orders(methods):
-                    for m in order:
-                        best[m] = min(best[m], median_ms(
-                            calls[f"norm_matmul:{m}"], reps=5, warmup=1))
+                best = pick_times({m: calls[f"norm_matmul:{m}"] for m in
+                                   NM_ENGINES + ("auto",)}, reps=5)
                 for row in rows_out[-len(calls):]:
                     route, m = row["method"].split(":")
                     if route == "norm_matmul":
@@ -2020,16 +2073,12 @@ def run_norm_matmul_path(layers, param, dispatch, autotune, problems,
                                   "method": method, "engine": engine,
                                   "frob_pct_err": err,
                                   "ceiling_pct": ceiling})
-            # norm_matmul's engines and auto in rounds whose orders make
-            # each method follow every other once (balanced_orders), each
-            # the fastest of its medians: a card slowed by the f32 matmuls
-            # just before, or a host burst, then lands on no one method;
-            # fused_mlp once.
-            times = dict.fromkeys(NM_METHODS, math.inf)
-            for order in balanced_orders(NM_METHODS):
-                for method in order:
-                    times[method] = min(times[method], median_ms(
-                        calls[("norm_matmul", method)], reps=5, warmup=1))
+            # norm_matmul's engines and auto in passes whose orders make
+            # each method follow every other once (pick_times): a card
+            # slowed by the f32 matmuls just before, or a host burst,
+            # then lands on no one method; fused_mlp once.
+            times = pick_times({m: calls[("norm_matmul", m)]
+                                for m in NM_METHODS}, reps=5)
             for row in found:
                 row["ms"] = times[row["method"]] \
                     if row["op"] == "norm_matmul" else median_ms(
@@ -2087,7 +2136,8 @@ def run_norm_matmul_path(layers, param, dispatch, autotune, problems,
 # ----------------------------------------------------- phase 5: timings
 
 
-def median_ms(fn, reps: int = 15, warmup: int = 3) -> float:
+def call_ms(fn, reps: int = 15, warmup: int = 3) -> list:
+    """CUDA-event times in ms of ``reps`` single calls after ``warmup``."""
     for _ in range(warmup):
         fn()
     times = []
@@ -2099,7 +2149,28 @@ def median_ms(fn, reps: int = 15, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def median_ms(fn, reps: int = 15, warmup: int = 3) -> float:
+    return statistics.median(call_ms(fn, reps, warmup))
+
+
+def pick_times(calls: dict, reps: int) -> dict:
+    """Each method's time for check_pick: the median of all its
+    single-call timings over PICK_PASSES passes of the methods in
+    balanced orders, ``reps`` after one warm call in each.  A host burst
+    or a card slowed by the calls before then lands on no one method.
+    The least median of one pass did not do: at a decode step the layer
+    call is held by the host, and auto against its own engine moved
+    0.90-1.19x between rounds and once reached 1.33x, where the pooled
+    median moved 0.91-1.05x (probes/attn_pick_noise.py)."""
+    samples = {m: [] for m in calls}
+    for _ in range(PICK_PASSES):
+        for order in balanced_orders(tuple(calls)):
+            for m in order:
+                samples[m] += call_ms(calls[m], reps=reps, warmup=1)
+    return {m: statistics.median(t) for m, t in samples.items()}
 
 
 def bound(n: int, dt: torch.dtype, out_values: int, mma_share: float):
@@ -3056,7 +3127,7 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
     2B's and GLM-4 9B's full widths (attn_problems): each engine's attention output
     against the f64 oracle of its own qg / k / v within ATTN_CEILINGS
     (+ 100 * 2^-8 % per rounding to bf16); auto within PICK_SLACK of the
-    fastest engine, the layer timed in balanced_orders.  B9's wgmma form
+    fastest engine, the layer timed by pick_times.  B9's wgmma form
     must launch at the bf16 prefill shapes, its f32 prefill form at the
     f32 ones, its decode form at decode over a bf16 ring and its mma.sync
     form over an f32 ring, each alone.  Returns (rows, picks, shapes)
@@ -3139,11 +3210,7 @@ def run_attention_path(A, param, dispatch, registry, base, ma, gen) -> tuple:
                               "phase": phase, "n": n, "dtype": dkind,
                               "method": method, "engine": engine,
                               "frob_pct_err": err, "ceiling_pct": ceiling})
-            times = dict.fromkeys(methods, math.inf)
-            for order in balanced_orders(methods):
-                for method in order:
-                    times[method] = min(times[method], median_ms(
-                        calls[method], reps=3, warmup=1))
+            times = pick_times({m: calls[m] for m in methods}, reps=3)
             for row in found:
                 row["ms"] = times[row["method"]]
                 rows_out.append(row)
@@ -3480,6 +3547,376 @@ def run_auto_f32_decode(registry, model_zoo, transformer, param, ma,
     del params, caches
     torch.cuda.empty_cache()
     return {"engine": engine, "launches": launches}
+
+
+# --------------------------------------------- phase 3k: the serving path
+
+
+class ServeTimer:
+    """Times a ContinuousServer's pieces on the host clock, each call
+    between two synchronizes: the admission prefills, the dense views
+    (``as_dense``), the decode steps and the token writes; checks that the
+    first admission's dense view holds the prefill's bf16 cache bit for
+    bit."""
+
+    def __init__(self, eng, kv_cache):
+        import dataclasses
+        self.kv = kv_cache
+        self.prefill, self.dense, self.decode = [], [], []
+        self.writes: list = []
+        self.store_checked = False
+        self.slot_leaves = 0
+        prefill, new_store = eng._prefill, eng._new_store
+        decode = eng.model.decode_step
+
+        def timed(fn, out):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+                return res
+            return call
+
+        def store():
+            st = new_store()
+            as_dense, write_slot = st.as_dense, st.write_slot
+            st.as_dense = timed(as_dense, self.dense)
+            st.write_token = timed(st.write_token, self.writes)
+
+            def admit(slot, caches):
+                write_slot(slot, caches)
+                if not self.store_checked:
+                    self._check_slot(st, as_dense(), slot, caches)
+            st.write_slot = admit
+            return st
+        eng._prefill = timed(prefill, self.prefill)
+        eng._new_store = store
+        eng.model = dataclasses.replace(eng.model,
+                                        decode_step=timed(decode,
+                                                          self.decode))
+
+    def _check_slot(self, store, dense, slot, caches):
+        leaves, paged = self.kv._leaf_paths(caches)
+        for path in paged:
+            pl = store._paged[path]
+            got = self.kv._tree_get(dense, path).select(pl.batch_axis, slot)
+            want = leaves[path].select(pl.batch_axis, 0)
+            check(got.dtype == want.dtype == torch.bfloat16
+                  and torch.equal(got, want),
+                  f"3k: the paged int8 store's dense view of slot {slot} "
+                  f"differs from the admission's bf16 cache at "
+                  f"{'/'.join(path)}")
+        self.store_checked = True
+        self.slot_leaves = len(paged)
+
+    def step_ms(self) -> list:
+        """Each engine step: its dense view, its decode step and its
+        token writes."""
+        steps, w = [], 0
+        writes_per_step = len(self.writes) / max(len(self.decode), 1)
+        for i, (d, s) in enumerate(zip(self.dense, self.decode)):
+            n = int(round((i + 1) * writes_per_step)) - w
+            steps.append(d + s + sum(self.writes[w:w + n]))
+            w += n
+        return steps
+
+
+def record_rows(eng) -> dict:
+    """Wrap a ContinuousServer's samplers: {(uid, index): logits row}."""
+    rows = {}
+    pick, picks = eng._pick, eng._picks
+
+    def one(row, uid, index):
+        rows[(uid, index)] = row.clone()
+        return pick(row, uid, index)
+
+    def many(last, slots):
+        for s, st in slots.items():
+            rows[(st.uid, st.n_out)] = last[s].clone()
+        return picks(last, slots)
+    eng._pick, eng._picks = one, many
+    return rows
+
+
+def serve_alone(serve, model, params, reqs) -> tuple:
+    """Each request alone through ``Server.generate`` at batch 1 with the
+    engine's capacity: (tokens by uid, logits rows by (uid, index))."""
+    out, rows = {}, {}
+    for r in reqs:
+        srv = serve.Server(model, extra_capacity=SERVE_ENGINE["capacity"]
+                           - len(r.prompt))
+        sample, seen = srv._sample, []
+
+        def spy(logits, seed, step, sample=sample, seen=seen):
+            seen.append(logits[0, -1].clone())
+            return sample(logits, seed, step)
+        srv._sample = spy
+        out[r.uid] = srv.generate(params, r.prompt[None],
+                                  max_new=r.max_new)[0]
+        for i, row in enumerate(seen[:len(out[r.uid])]):
+            rows[(r.uid, i)] = row
+    return out, rows
+
+
+def run_serving(registry, model_zoo, param, serve, pipeline, kv_cache,
+                autotune, precision, counters: dict, smi: str) -> dict:
+    """Phase 3k: the serving path at Gemma-2 2B's full width (SERVE_CUTS
+    cut only depth, if anything), kernel spellings, f32 params from SEED:
+    the int8 continuous engine, the none engine and one request at a
+    time through ``Server`` give the same greedy tokens; the counters of
+    B8, B10, B9's wgmma and decode forms move over the int8 engine's
+    stream; the store's dense view equals the admission's bf16 cache; the
+    logits rows of the engine against one request at a time (bits,
+    recorded); logprobs, score, warmup, the sweep worker's lifecycle, and
+    RunningStats on B1 and B6."""
+    import dataclasses
+    cfg = dataclasses.replace(registry.get_config(SERVE_ARCH),
+                              **SERVE_CUTS, **KERNEL_SPELLINGS)
+    model = model_zoo.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_params(param, model, None)
+    reqs = [serve.Request(**d) for d in
+            pipeline.synthetic_requests(cfg.vocab_size, **SERVE_REQUESTS)]
+    engine_kw = dict(SERVE_ENGINE, attn_method="fused_pallas",
+                     norm_matmul_method="fused_pallas", device=DEV)
+    kernels = counters["serve"]
+
+    # The int8 engine, the counters zeroed just before its stream.
+    eng = serve.ContinuousServer(
+        model, quant="int8", precision=precision.MmaPolicy(split_words=2),
+        **engine_kw)
+    served_model = eng.model
+    # One short request first, so that the timed stream holds no
+    # first-call costs (library loads, the first launch of each form).
+    eng.generate(params, [serve.Request(uid=-1, prompt=reqs[0].prompt[:64],
+                                        max_new=2)])
+    rows = record_rows(eng)
+    timer = ServeTimer(eng, kv_cache)
+    for mod in kernels:
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    int8_out = eng.generate(params, reqs)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = {kname: count for mod in kernels
+                for kname, count in mod.LAUNCHES.items()}
+    for kname in SERVE_KERNELS:
+        check(launches[kname] > 0,
+              f"3k: kernel {kname} was not launched on the serving path "
+              f"({launches})")
+    check(timer.store_checked, "3k: no admission reached the store")
+    tokens = sum(len(t) for t in int8_out.values())
+    steps = timer.step_ms()
+    row = {"arch": SERVE_ARCH, "reduced": SERVE_REDUCED,
+           "requests": [(r.uid, len(r.prompt), r.max_new) for r in reqs],
+           "engine": SERVE_ENGINE,
+           "tokens": {uid: t.tolist() for uid, t in int8_out.items()},
+           "stream_s": stream_s, "tokens_per_s": tokens / stream_s,
+           "step_ms_median": statistics.median(steps),
+           "as_dense_ms_median": statistics.median(timer.dense),
+           "decode_ms_median": statistics.median(timer.decode),
+           "write_token_ms_median": statistics.median(timer.writes),
+           "prefill_ms_median": statistics.median(timer.prefill),
+           "prefill_ms": timer.prefill, "step_ms": steps,
+           "outside_ms": stream_s * 1e3 - sum(timer.prefill) - sum(steps),
+           "steps": len(steps), "launches": launches,
+           "store_leaves_checked": timer.slot_leaves}
+
+    none_out = serve.ContinuousServer(model, quant="none",
+                                      **engine_kw).generate(params, reqs)
+    alone, alone_rows = serve_alone(serve, served_model, params, reqs)
+    for r in reqs:
+        for what, other in (("the none engine", none_out),
+                            ("one request at a time", alone)):
+            check(np.array_equal(int8_out[r.uid], other[r.uid]),
+                  f"3k: request {r.uid}: the int8 engine's tokens "
+                  f"{int8_out[r.uid].tolist()} differ from {what}'s "
+                  f"{other[r.uid].tolist()}")
+    apart = [k for k in alone_rows if not torch.equal(rows[k], alone_rows[k])]
+    row["rows_apart"] = {
+        "rows": len(alone_rows), "with_other_bits": len(apart),
+        "max_abs": max([float(torch.max(torch.abs(rows[k] - alone_rows[k])))
+                        for k in apart], default=0.0),
+        "first": [list(k) for k in apart[:8]]}
+    del rows, alone_rows
+
+    row["logprobs"] = run_serving_logprobs(serve, model, params, reqs,
+                                           engine_kw)
+    row["score"] = run_serving_score(serve, model, params)
+    row["warmup"] = run_serving_warmup(serve, model, params, engine_kw)
+    row["sweeps"] = run_serving_sweeps(serve, autotune, model, params,
+                                       reqs, engine_kw)
+    row["running_stats"] = run_serving_stats(registry, pipeline,
+                                             counters["stats"])
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    row["card"] = smi
+    print(f"phase 3k: {SERVE_ARCH} ({', '.join(SERVE_REDUCED) or 'full depth'}"
+          f") int8 engine: {tokens} tokens from {len(reqs)} requests over "
+          f"{SERVE_ENGINE['num_slots']} slots in {stream_s:.4f} s, "
+          f"{tokens / stream_s:.4f} tokens/s; median engine step "
+          f"{row['step_ms_median']:.4f} ms ({len(steps)} steps), of it "
+          f"as_dense {row['as_dense_ms_median']:.4f}, decode "
+          f"{row['decode_ms_median']:.4f}, a token write "
+          f"{row['write_token_ms_median']:.4f}; median admission prefill "
+          f"{row['prefill_ms_median']:.4f} ms (host clock between "
+          f"synchronizes); {row['outside_ms']:.4f} ms of the stream "
+          f"outside prefills and steps; peak {row['peak_gib']:.2f} GiB; "
+          f"on {smi}",
+          flush=True)
+    print(f"phase 3k: launches over the int8 engine's stream {launches}; "
+          f"the none engine and one request at a time give the same "
+          f"tokens; logits rows with other bits than one request at a "
+          f"time: {row['rows_apart']}; RunningStats(pallas) launches "
+          f"{row['running_stats']['launches']} on {smi}", flush=True)
+    print(f"phase 3k: {json.dumps(row)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_serving_logprobs(serve, model, params, reqs, engine_kw) -> dict:
+    """Logprobs with a latency SLO on the int8 store (no policy: the
+    scoring reduction refuses a split_words >= 2 policy, as the
+    reference's does): each finite, <= 0, and within SERVE_LP_ATOL of
+    ``batched_logprobs`` of the same logits row."""
+    eng = serve.ContinuousServer(model, quant="int8", logprobs=True,
+                                 latency_slo_ms=SERVE_SLO_MS, **engine_kw)
+    rows = record_rows(eng)
+    events = list(eng.serve(params, reqs[:SERVE_LP_REQUESTS]))
+    worst = 0.0
+    for ev in events:
+        check(ev.logprob is not None and math.isfinite(ev.logprob)
+              and ev.logprob <= 0.0,
+              f"3k: logprob {ev.logprob} of request {ev.uid}")
+        row = rows[(ev.uid, ev.index)]
+        want = float(serve.batched_logprobs(
+            row[None, None], torch.tensor([[ev.token]], device=DEV))[0, 0])
+        worst = max(worst, abs(ev.logprob - want))
+    check(worst <= SERVE_LP_ATOL,
+          f"3k: a streamed logprob is {worst} from batched_logprobs of "
+          f"its logits row (bound {SERVE_LP_ATOL})")
+    return {"events": len(events), "worst_abs": worst,
+            "min": min(ev.logprob for ev in events)}
+
+
+def run_serving_score(serve, model, params) -> dict:
+    """``Server.score`` of two SERVE_SCORE_LEN-token masked sequences
+    within SERVE_SCORE_RTOL of an f64 log-softmax over the same logits."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, SERVE_SCORE_LEN),
+                         device=DEV,
+                         generator=gen, dtype=torch.int32)
+    mask = (torch.rand((2, SERVE_SCORE_LEN), device=DEV, generator=gen)
+            > 0.3).to(torch.float32)
+    got = serve.Server(model).score(params, toks, mask=mask)
+    logits = model.logits(params, {"tokens": toks}).to(torch.float64)
+    lse = torch.logsumexp(logits, dim=-1)
+    lp = torch.gather(logits[:, :-1], -1,
+                      toks[:, 1:, None].long())[..., 0] - lse[:, :-1]
+    want = (lp * mask[:, 1:]).sum(-1)
+    del logits, lse, lp
+    rel = float(torch.max(torch.abs(got.to(torch.float64) - want)
+                          / torch.abs(want)))
+    check(rel <= SERVE_SCORE_RTOL,
+          f"3k: Server.score {got.tolist()} against the f64 oracle "
+          f"{want.tolist()}: {rel} relative (bound {SERVE_SCORE_RTOL})")
+    return {"got": got.tolist(), "want": want.tolist(), "rel": rel}
+
+
+def run_serving_warmup(serve, model, params, engine_kw) -> dict:
+    """warmup with params at SERVE_WARMUP_LENS: that many prefills; a
+    second warmup resolves no new plan."""
+    eng = serve.ContinuousServer(model, quant="int8", **engine_kw)
+    t0 = time.perf_counter()
+    first = eng.warmup(params, prompt_lens=SERVE_WARMUP_LENS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    again = eng.warmup()
+    check(first["prefill_compiles"] == len(SERVE_WARMUP_LENS),
+          f"3k: warmup ran {first['prefill_compiles']} prefills")
+    check(again["plans"] == 0,
+          f"3k: a second warmup resolved {again['plans']} plans")
+    return {"plans": first["plans"], "prefills": first["prefill_compiles"],
+            "seconds": warm_s, "again_plans": again["plans"]}
+
+
+def run_serving_sweeps(serve, autotune, model, params, reqs,
+                       engine_kw) -> dict:
+    """A short run with background sweeps (the scoring plans queued by
+    warmup are measured off the hot path), then close(): it returns
+    within SERVE_CLOSE_S and detaches the worker."""
+    eng = serve.ContinuousServer(model, quant="int8",
+                                 background_sweeps=True, **engine_kw)
+    worker = eng._sweeper
+    check(autotune.default_registry().sweep_worker is worker,
+          "3k: the sweep worker is not attached")
+    eng.warmup()
+    out = eng.generate(params, reqs[:SERVE_SWEEP_REQUESTS])
+    pending = worker.pending()
+    t0 = time.perf_counter()
+    eng.close()
+    close_s = time.perf_counter() - t0
+    check(close_s <= SERVE_CLOSE_S,
+          f"3k: close() took {close_s:.3f} s (bound {SERVE_CLOSE_S})")
+    check(autotune.default_registry().sweep_worker is None
+          and not worker._thread.is_alive(),
+          "3k: the sweep worker outlived close()")
+    row = {"tokens": sum(len(t) for t in out.values()),
+           "pending_at_close": pending, "close_s": close_s,
+           "upgraded": worker.upgraded, "failed": worker.failed}
+    print(f"phase 3k: background sweeps: {worker.upgraded} plans "
+          f"upgraded, {worker.failed} failed, {pending} pending at close; "
+          f"close() in {close_s:.4f} s", flush=True)
+    return row
+
+
+def run_serving_stats(registry, pipeline, kernels) -> dict:
+    """RunningStats(method='pallas') over SERVE_STATS_STEPS prefetched
+    SyntheticLMData batches on the card: B1 and B6 must move, and the
+    summary lie within SERVE_STATS_PCT % of an f64 sum of the masks."""
+    from repro_torch.configs.base import ShapeConfig
+    cfg = registry.get_config(SERVE_ARCH)
+    shape = ShapeConfig("serve", *SERVE_STATS_SHAPE, "train")
+    data = pipeline.SyntheticLMData(cfg, shape, seed=SEED, device=DEV)
+    stats = pipeline.RunningStats(method="pallas")
+    masks = []
+    for mod in kernels:
+        mod.reset_launches()
+    it = data.iter()
+    try:
+        for _, batch in zip(range(SERVE_STATS_STEPS), it):
+            check(batch["mask"].device.type == DEV,
+                  "3k: a SyntheticLMData batch is off the card")
+            stats.update(batch)
+            masks.append(batch["mask"].to(torch.float64).sum(-1))
+    finally:
+        it.close()
+    summary = stats.summary()
+    cum = stats.cumulative_tokens()
+    torch.cuda.synchronize()
+    launches = {kname: count for mod in kernels
+                for kname, count in mod.LAUNCHES.items()}
+    for kname in ("b1_single_pass", "b6_scan"):
+        check(launches[kname] > 0,
+              f"3k: kernel {kname} was not launched by RunningStats "
+              f"({launches})")
+    per_step = torch.stack([m.sum() for m in masks])
+    total = float(per_step.sum())
+    sq = float((per_step ** 2).sum())
+    want_cum = torch.cumsum(per_step, 0).cpu().numpy()
+    worst = max(
+        abs(summary["total_tokens"] - total) / total,
+        abs(summary["mean_tokens"] ** 2 + summary["std_tokens"] ** 2
+            - sq / len(masks)) / (sq / len(masks)),
+        float(np.max(np.abs(cum - want_cum) / want_cum))) * 100.0
+    check(summary["steps"] == SERVE_STATS_STEPS and worst <= SERVE_STATS_PCT,
+          f"3k: RunningStats {summary} is {worst} % from the f64 sums "
+          f"(bound {SERVE_STATS_PCT} %)")
+    return {"summary": summary, "worst_pct": worst, "launches": launches}
 
 
 # ------------------------------------------------- phase 5g: B9 timings
@@ -4262,6 +4699,15 @@ def main() -> int:
     auto_f32 = run_auto_f32_decode(registry, model_zoo, transformer, param,
                                    ma, smi)
 
+    print("phase 3k: the serving path at Gemma-2 2B's full width",
+          flush=True)
+    from repro_torch.data import pipeline
+    from repro_torch.launch import serve
+    from repro_torch.models import kv_cache
+    serving = run_serving(registry, model_zoo, param, serve, pipeline,
+                          kv_cache, autotune, precision,
+                          {"serve": (mrn, mnm, ma), "stats": (mr, ms)}, smi)
+
     print("phase 6: the cost model against measured times (f32, bf16, "
           "fp16)", flush=True)
     t0 = time.perf_counter()
@@ -4318,7 +4764,7 @@ def main() -> int:
                    "b9_wgmma_ptxas": wg_ptxas, "b9_f32_ptxas": wf_ptxas,
                    "b9_decode_ptxas": dc_ptxas,
                    "model_smoke": model_rows, "model_full": model_full,
-                   "auto_f32_decode": auto_f32,
+                   "auto_f32_decode": auto_f32, "serving": serving,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

@@ -14,7 +14,10 @@ families.
     table written by either package loads in the other.  The backend
     component is ``cuda`` or ``cpu``: a plan keyed ``|tpu`` or ``|cpu``
     never resolves on ``|cuda``;
-  * ``get_plan`` is the one-call entry of ``method='auto'``.
+  * ``get_plan`` is the one-call entry of ``method='auto'``;
+  * ``warmup`` resolves a serving hot set before traffic, and a
+    ``SweepWorker`` attached to a registry upgrades the model-cost plans
+    ``get_plan`` serves to measured ones on a background thread.
 
 Mesh-keyed plans keep their key grammar (``|mesh:``) so stored tables
 round-trip, but tuning one waits for the distributed slice of the port:
@@ -29,6 +32,7 @@ import functools
 import json
 import math
 import os
+import queue
 import re
 import tempfile
 import threading
@@ -1200,6 +1204,9 @@ class PlanRegistry:
         # of µs of host time, a tenth of a decode step's); emptied
         # whenever a plan changes.
         self.auto_memo: dict = {}
+        # A ``SweepWorker`` that upgrades the model plans ``get_plan``
+        # serves (None: no background sweeps).
+        self.sweep_worker: Optional["SweepWorker"] = None
 
     def get(self, key: str) -> Optional[ReductionPlan]:
         return self._plans.get(key)
@@ -1317,12 +1324,22 @@ def bind_default_registry(path: str) -> PlanRegistry:
 
 
 def reset_default_registry() -> None:
-    """Drop the process-wide cache (tests / re-tuning)."""
+    """Drop the process-wide cache (tests / re-tuning), closing any
+    attached background sweep worker first."""
     global _default_registry
+    if _default_registry is not None and \
+            _default_registry.sweep_worker is not None:
+        _default_registry.sweep_worker.close()
     _default_registry = None
 
 
 # ----------------------------------------------------------- autotune
+
+
+class SweepCancelled(RuntimeError):
+    """Raised by ``autotune`` when its ``cancel`` predicate fires: how a
+    background sweep worker abandons an in-flight measured sweep at a
+    candidate boundary during shutdown."""
 
 
 def autotune(n: int, dtype, *, op: str = "reduce_sum",
@@ -1332,7 +1349,8 @@ def autotune(n: int, dtype, *, op: str = "reduce_sum",
              objective: ObjectiveArg = None,
              bucket: BucketArg = DEFAULT_BUCKET,
              backend: Optional[str] = None,
-             form: tuple = ()) -> ReductionPlan:
+             form: tuple = (), cancel=None,
+             iters: int = 5) -> ReductionPlan:
     """Sweep the candidate space for one problem and return the winner.
 
     Scored at ``bucket_cap(n, bucket)`` by the model, or timed on
@@ -1355,9 +1373,12 @@ def autotune(n: int, dtype, *, op: str = "reduce_sum",
     for cand in candidate_plans(nb, dtype, chains=chains, blocks=blocks,
                                 m=m, engine=engine, op=op,
                                 policy=policy):
+        if cancel is not None and cancel():
+            raise SweepCancelled(
+                f"autotune sweep for op={op!r} n={n} cancelled")
         if measure:
-            cost = measure_cost(cand, nb, dtype, op=op, policy=policy,
-                                backend=backend, form=form)
+            cost = measure_cost(cand, nb, dtype, iters=iters, op=op,
+                                policy=policy, backend=backend, form=form)
             cand = dataclasses.replace(cand, source="measured", cost=cost)
         else:
             cost = model_cost(cand, nb, dtype, op=op, form=form)
@@ -1402,7 +1423,10 @@ def get_plan(n: int, dtype, *, op: str = "reduce_sum",
     A registry hit is returned (a model entry is re-tuned when
     ``measure=True`` asks for timings); a miss is tuned once for its key
     and cached.  ``backend`` (default: the card when present) is part of
-    the key; measuring for a backend this host lacks raises.
+    the key; measuring for a backend this host lacks raises.  A miss
+    never waits for a measured sweep: the model's winner is returned at
+    once, and when the registry has a ``sweep_worker`` attached the key
+    is queued for a measured sweep off the hot path.
     """
     backend = backend or default_backend()
     reg = registry if registry is not None else default_registry()
@@ -1419,4 +1443,162 @@ def get_plan(n: int, dtype, *, op: str = "reduce_sum",
                         mesh=mesh, policy=policy, objective=objective,
                         bucket=bucket, backend=backend, form=form)
         reg.put(key, plan)
+    if plan.source != "measured" and reg.sweep_worker is not None \
+            and backend in _live_backends():
+        reg.sweep_worker.submit(
+            key, dict(n=n, dtype=dtype, op=op, engine=engine, mesh=mesh,
+                      policy=policy, objective=objective, bucket=bucket,
+                      backend=backend, form=form))
     return plan
+
+
+# ------------------------------------------- warmup & background sweeps
+
+
+def warmup(ops, shapes, *, dtype=None, registry=None, measure=False,
+           backend=None, engine=None, mesh=None, policy=None,
+           objective=None, bucket=DEFAULT_BUCKET, form: tuple = ()) -> dict:
+    """Pre-resolve the serving hot set so live traffic never tunes.
+
+    ``ops`` is an op name or an iterable of them; ``shapes`` an iterable
+    of sizes or ``(n, dtype)`` pairs (``dtype``, default float32, covers
+    bare sizes).  Each (op, shape) is resolved through ``get_plan`` under
+    the bucket policy, so shapes that share a bucket cap tune once.
+    Returns ``{"resolved", "tuned", "keys"}``: ``tuned`` counts the
+    registry misses.
+    """
+    reg = registry if registry is not None else default_registry()
+    base_dtype = torch.float32 if dtype is None else dtype
+    if isinstance(ops, str):
+        ops = (ops,)
+    tuned = 0
+    keys: dict[str, None] = {}
+    for op in ops:
+        for shape in shapes:
+            n, dt = shape if isinstance(shape, tuple) \
+                else (shape, base_dtype)
+            key = plan_key(op, n, dt, backend, engine, mesh, policy,
+                           objective, bucket, form)
+            if reg.get(key) is None:
+                tuned += 1
+            get_plan(n, dt, op=op, backend=backend, registry=reg,
+                     measure=measure, engine=engine, mesh=mesh,
+                     policy=policy, objective=objective, bucket=bucket,
+                     form=form)
+            keys[key] = None
+    return {"resolved": len(keys), "tuned": tuned, "keys": tuple(keys)}
+
+
+class SweepWorker:
+    """Background measured-sweep upgrader for model-cost plans.
+
+    ``get_plan`` serves a miss from the cost model at once and, with a
+    worker attached (``registry.sweep_worker = worker``), submits the key
+    here; the worker re-tunes it with ``measure=True`` on its own thread
+    and puts the measured winner into the registry (``put`` clears the
+    registry's ``auto_memo`` under its lock).  The worker's queue gets
+    are timed, so it re-checks its stop event; a submit never blocks (a
+    full queue drops the upgrade, which the next serve of the model plan
+    submits again); ``close()`` sets the stop event, drains the queue and
+    joins with a timeout, and a sweep in flight stops at its next
+    candidate (``SweepCancelled``), so a shutdown never deadlocks.
+
+    On the card the worker times on the same device as the caller, so
+    its timings include whatever else runs there.
+    """
+
+    def __init__(self, registry=None, *, max_pending: int = 256,
+                 iters: int = 3, poll_s: float = 0.1):
+        self._registry = registry
+        self._iters = iters
+        self._poll_s = poll_s
+        self._q: queue.Queue = queue.Queue(maxsize=max_pending)
+        self._stop = threading.Event()
+        self._inflight: set[str] = set()
+        self._mu = threading.Lock()
+        self.upgraded = 0
+        self.failed = 0
+        self._thread = threading.Thread(
+            target=self._run, name="autotune-sweep", daemon=True)
+        self._thread.start()
+
+    def _reg(self) -> PlanRegistry:
+        return self._registry if self._registry is not None \
+            else default_registry()
+
+    def submit(self, key: str, spec: dict) -> bool:
+        """Queue ``key`` for a measured upgrade (non-blocking; a key in
+        flight is not queued twice).  ``spec`` holds the ``autotune``
+        arguments of the model plan.  Returns whether it was queued."""
+        if self._stop.is_set():
+            return False
+        with self._mu:
+            if key in self._inflight:
+                return False
+            self._inflight.add(key)
+        try:
+            self._q.put_nowait((key, spec))
+            return True
+        except queue.Full:
+            with self._mu:
+                self._inflight.discard(key)
+            return False
+
+    def pending(self) -> int:
+        with self._mu:
+            return len(self._inflight)
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Wait until every submitted key was swept or ``timeout_s``
+        passed; returns whether none is left."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if not self.pending():
+                return True
+            time.sleep(self._poll_s / 2)
+        return not self.pending()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                key, spec = self._q.get(timeout=self._poll_s)
+            except queue.Empty:
+                continue
+            try:
+                reg = self._reg()
+                current = reg.get(key)
+                if current is not None and current.source == "measured":
+                    continue            # a peer already upgraded it
+                spec = dict(spec)
+                n, dtype = spec.pop("n"), spec.pop("dtype")
+                plan = autotune(n, dtype, measure=True, iters=self._iters,
+                                cancel=self._stop.is_set, **spec)
+                reg.put(key, plan)
+                self.upgraded += 1
+            except SweepCancelled:
+                pass    # shutdown raced the sweep; the model plan serves
+            except Exception:  # noqa: BLE001 - the worker must keep running
+                # A failed sweep (a problem this host cannot time) keeps
+                # the model plan serving; ``failed`` reports it.
+                self.failed += 1
+            finally:
+                with self._mu:
+                    self._inflight.discard(key)
+
+    def close(self, timeout_s: float = 5.0) -> None:
+        """Idempotent shutdown: stop, drain the queue, join."""
+        self._stop.set()
+        while True:
+            try:
+                key, _ = self._q.get_nowait()
+            except queue.Empty:
+                break
+            with self._mu:
+                self._inflight.discard(key)
+        self._thread.join(timeout=timeout_s)
+
+    def __enter__(self) -> "SweepWorker":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

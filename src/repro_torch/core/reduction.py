@@ -239,10 +239,28 @@ def tc_reduce_axes(x, axes: tuple, *, b=None) -> torch.Tensor:
     return _bmm(xa, ba).reshape(out_shape)
 
 
+# Rows of a product go to the matrix library in a multiple of this
+# count.  A library picks its algorithm by the product's shape, and the
+# CPU's adds a row's products in another order at 1 row than at 2 or 4
+# (f32 against a ones column, bf16 against a projection); padded, every
+# call of up to _ROW_TILE rows (a decode step of up to 64 slots, or one
+# request alone) is one shape, and a row's bits depend on that row alone.
+_ROW_TILE = 64
+
+
+def pad_rows(x2d) -> torch.Tensor:
+    """(rows, d) with zero rows appended up to a multiple of
+    ``_ROW_TILE``."""
+    pad = (-x2d.shape[0]) % _ROW_TILE
+    return torch.nn.functional.pad(x2d, (0, 0, 0, pad)) if pad else x2d
+
+
 def tc_reduce_lastdim(x) -> torch.Tensor:
-    """Ones-contraction over the last dim: (..., d) -> (...) f32 sums."""
+    """Ones-contraction over the last dim: (..., d) -> (...) f32 sums;
+    a row's sum does not depend on the rows beside it."""
     d = x.shape[-1]
-    out = _mm(x.reshape(-1, d), _ones(d, x).reshape(d, 1))
+    x2d = x.reshape(-1, d)
+    out = _mm(pad_rows(x2d), _ones(d, x).reshape(d, 1))[:x2d.shape[0]]
     return out.reshape(x.shape[:-1])
 
 

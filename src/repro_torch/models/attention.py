@@ -254,7 +254,8 @@ def _registry_attn(cfg, qg, k, v, *, qpos, causal, window, kv_len,
 def _project(x, w, dt):
     """einsum('bsd,dhk->bshk', x, w.astype(dt))."""
     B, S, _ = x.shape
-    return (x @ w.to(dt).reshape(w.shape[0], -1)).view(B, S, *w.shape[1:])
+    return L.dense(x, w.to(dt).reshape(w.shape[0], -1)) \
+        .view(B, S, *w.shape[1:])
 
 
 def _write_cache(cache, k, v, *, per_row, decode, pos_now):
@@ -387,7 +388,7 @@ def attention(params, cfg, x, *, positions, kind: str = "global",
     o = o.reshape(B, Sq, H * hd)
     wo = params["wo"].reshape(H * hd, d)
     ct = torch.promote_types(o.dtype, dt)
-    out = o.to(ct) @ wo.to(dt).to(ct)
+    out = L.dense(o.to(ct), wo.to(dt).to(ct))
     if getattr(cfg, "bf16_activation_ar", False):
         # the reference asks its output dot for a dt-typed result (a
         # 2-byte tensor-parallel all-reduce)

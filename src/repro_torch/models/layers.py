@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import integration as ci
 from repro_torch.core.precision import ACCUM_DTYPE
+from repro_torch.core.reduction import pad_rows
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.param import Param
 
@@ -148,18 +149,29 @@ def _act(gate, act: str):
     raise ValueError(act)
 
 
+def dense(x, w):
+    """``x @ w`` for (..., d) x and a (d, n) w, x's leading dims taken as
+    rows and sent to the matrix library padded
+    (``core.reduction.pad_rows``): a row's bits do not depend on the
+    rows beside it, so a decode step's slots get the bits of one request
+    alone."""
+    x2d = x.reshape(-1, x.shape[-1])
+    out = pad_rows(x2d) @ w
+    return out[:x2d.shape[0]].reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _down(h, wo, dt):
     # bf16_out in the reference asks its dot for a dt-typed result (a
     # 2-byte tensor-parallel all-reduce); torch's matmul in dt returns
     # dt either way, so both spellings run this one product.
-    return h @ wo.to(dt)
+    return dense(h, wo.to(dt))
 
 
 def mlp(params, x, *, act: str = "silu", bf16_out: bool = False):
     """Gated MLP (SiLU/GeLU-GLU)."""
     dt = x.dtype
-    gate = x @ params["wi_gate"].to(dt)
-    up = x @ params["wi_up"].to(dt)
+    gate = dense(x, params["wi_gate"].to(dt))
+    up = dense(x, params["wi_up"].to(dt))
     gate = constrain(gate, ("batch", "seq", "mlp"))
     return _down(_act(gate, act) * up, params["wo"], dt)
 
@@ -212,7 +224,7 @@ def embed_lookup(params, tokens, *, scale: bool, d: int,
 
 def unembed(params, x, *, softcap=None):
     """Project to vocab logits (tied table or separate head)."""
-    logits = x @ params["table"].T.to(x.dtype)
+    logits = dense(x, params["table"].T.to(x.dtype))
     if softcap is not None:
         logits = softcap * torch.tanh(logits.to(ACCUM_DTYPE) / softcap)
     return logits

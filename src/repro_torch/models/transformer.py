@@ -364,7 +364,7 @@ def decoder_forward(params, cfg, tokens, *, positions=None, caches=None,
 def logits_from_hidden(params, cfg, x):
     if cfg.tie_embeddings:
         return L.unembed(params["embed"], x, softcap=cfg.final_softcap)
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = L.dense(x, params["lm_head"].to(x.dtype))
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(
             logits.to(torch.float32) / cfg.final_softcap)

@@ -51,9 +51,9 @@ B9's plain version, the ``attention`` op's engines and
     cache's capacity, through each engine spelling.
 
 The reference's ``test_fused_decode_over_paged_int8_store_bitwise``
-(the continuous-batching server over the paged int8 KV store) has no
-counterpart here yet: the paged cache and the server are ROADMAP item
-12.  The card's own checks of kernel B9 are in ``tests/test_torch_cuda.py``.
+(the continuous-batching server over the paged int8 KV store) has its
+counterpart in ``tests/test_torch_serving.py``.  The card's own checks
+of kernel B9 are in ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses

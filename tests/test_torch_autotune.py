@@ -311,3 +311,114 @@ def test_default_registry_is_seeded_from_the_environment(
         == 5
     bound = tat.bind_default_registry(str(tmp_path / "other.json"))
     assert bound is tat.default_registry()
+
+
+# ---------------------------------------------------------------------
+# Warmup and background sweeps (the serving pieces), against the
+# reference's tests/test_plan_store.py
+# ---------------------------------------------------------------------
+
+
+def test_warmup_counts_match_the_reference(fresh_registries):
+    shapes = [1000, 1024, 1700, 2048]
+    ops = ("reduce_sum", "squared_sum")
+    treg, jreg = tat.PlanRegistry(), jat.PlanRegistry()
+    got = tat.warmup(ops, shapes, registry=treg)
+    want = jat.warmup(ops, shapes, registry=jreg)
+    assert (got["resolved"], got["tuned"]) == \
+        (want["resolved"], want["tuned"]) == (4, 4)
+    assert got["keys"] == want["keys"]
+    assert len(treg) == len(jreg) == 4
+    again = tat.warmup(ops, shapes, registry=treg)
+    assert (again["resolved"], again["tuned"]) == (4, 0)
+    mixed = tat.warmup("reduce_sum", [(1000, torch.float32),
+                                      (1000, torch.bfloat16)],
+                       registry=tat.PlanRegistry())
+    jmixed = jat.warmup("reduce_sum", [(1000, jnp.float32),
+                                       (1000, jnp.bfloat16)],
+                        registry=jat.PlanRegistry())
+    assert mixed["keys"] == jmixed["keys"] == (
+        "reduce_sum|1024|float32|cpu", "reduce_sum|1024|bfloat16|cpu")
+    assert mixed["tuned"] == jmixed["tuned"] == 2
+
+
+def test_sweep_worker_upgrades_model_plan_off_hot_path(fresh_registries):
+    import time
+    reg = tat.PlanRegistry()
+    with tat.SweepWorker(reg, iters=1) as worker:
+        reg.sweep_worker = worker
+        t0 = time.perf_counter()
+        plan = tat.get_plan(512, torch.float32, registry=reg)
+        assert plan.source == "model"            # served at once
+        assert time.perf_counter() - t0 < 5.0
+        # the same key again while it is in flight is not queued twice
+        tat.get_plan(512, torch.float32, registry=reg)
+        assert worker.drain(timeout_s=120.0)
+        key = tat.plan_key("reduce_sum", 512, torch.float32)
+        assert reg.get(key).source == "measured"
+        assert worker.upgraded == 1 and worker.failed == 0
+        assert tat.get_plan(512, torch.float32,
+                            registry=reg).source == "measured"
+        # a swap clears dispatch's memo of auto plans under the lock
+        reg.auto_memo["stale"] = plan
+        reg.put(key, reg.get(key))
+        assert not reg.auto_memo
+
+
+def test_sweep_worker_dedups_and_close_never_deadlocks(fresh_registries):
+    import time
+    reg = tat.PlanRegistry()
+    worker = tat.SweepWorker(reg, iters=1)
+    spec = dict(n=512, dtype=torch.float32, op="reduce_sum")
+    key = tat.plan_key("reduce_sum", 512, torch.float32)
+    assert worker.submit(key, dict(spec))
+    assert not worker.submit(key, dict(spec))   # in-flight dedup
+    t0 = time.perf_counter()
+    worker.close(timeout_s=10.0)
+    assert time.perf_counter() - t0 < 30.0
+    assert not worker._thread.is_alive()
+    assert not worker.submit(key, dict(spec))   # closed: refuses
+    worker.close()                               # idempotent
+
+
+def test_sweep_worker_ignores_a_foreign_backend(fresh_registries):
+    reg = tat.PlanRegistry()
+    with tat.SweepWorker(reg) as worker:
+        reg.sweep_worker = worker
+        tat.get_plan(1024, torch.float32, registry=reg, backend="tpu")
+        assert worker.pending() == 0
+
+
+def test_sweep_worker_counts_a_failed_sweep(fresh_registries):
+    reg = tat.PlanRegistry()
+    with tat.SweepWorker(reg, iters=1) as worker:
+        assert worker.submit("k", dict(n=512, dtype=torch.float32,
+                                       op="no_such_op"))
+        assert worker.drain(timeout_s=60.0)
+        assert worker.failed == 1 and worker.upgraded == 0
+        assert reg.get("k") is None
+
+
+def test_autotune_cancel_raises_sweep_cancelled():
+    with pytest.raises(tat.SweepCancelled, match="cancelled"):
+        tat.autotune(512, torch.float32, measure=True, backend="cpu",
+                     cancel=lambda: True)
+    calls = []
+
+    def after_two():
+        calls.append(1)
+        return len(calls) > 2
+    with pytest.raises(tat.SweepCancelled):
+        tat.autotune(512, torch.float32, cancel=after_two)
+    assert len(calls) == 3
+    assert issubclass(tat.SweepCancelled, RuntimeError)
+
+
+def test_reset_default_registry_closes_the_worker(fresh_registries):
+    reg = tat.default_registry()
+    worker = tat.SweepWorker(reg)
+    reg.sweep_worker = worker
+    tat.reset_default_registry()
+    assert not worker._thread.is_alive()
+    assert tat.default_registry() is not reg
+    assert tat.default_registry().sweep_worker is None

@@ -1351,3 +1351,117 @@ def test_moe_combine_repeats_its_bits_on_the_card(cuda):
     a, aux_a = moe.moe_block(params, cfg, x)
     b, aux_b = moe.moe_block(params, cfg, x)
     assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+# ------------------------------------------------------------- serving
+
+
+def _served_smoke():
+    """Gemma-2 2B at SMOKE size with the kernel spellings, params on the
+    card, and a ragged request stream."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import synthetic_requests
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    cfg = dataclasses.replace(registry.get_config("gemma2-2b", smoke=True),
+                              reduce_method="fused_pallas",
+                              norm_matmul_method="fused_pallas",
+                              attn_method="fused_pallas")
+    model = model_zoo.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(3))
+    reqs = [serve.Request(**d) for d in synthetic_requests(
+        cfg.vocab_size, n=5, seed=4, min_len=3, max_len=30, min_new=2,
+        max_new=9, stagger=1)]
+    return serve, model, params, reqs
+
+
+def _rows_of(eng) -> dict:
+    rows = {}
+    pick, picks = eng._pick, eng._picks
+
+    def one(row, uid, index):
+        rows[(uid, index)] = row.clone()
+        return pick(row, uid, index)
+
+    def many(last, slots):
+        for s, st in slots.items():
+            rows[(st.uid, st.n_out)] = last[s].clone()
+        return picks(last, slots)
+    eng._pick, eng._picks = one, many
+    return rows
+
+
+def test_continuous_serving_matches_one_at_a_time_on_the_card(cuda):
+    """The continuous engine over the paged int8 store with the kernel
+    spellings: B8's, B10's and B9's prefill and decode counters move over
+    the stream, and each request's tokens and logits rows have the bits
+    of that request alone through ``Server`` at batch 1."""
+    from repro_torch.core.precision import MmaPolicy
+    serve, model, params, reqs = _served_smoke()
+    eng = serve.ContinuousServer(model, num_slots=3, capacity=40,
+                                 page_size=8, quant="int8",
+                                 precision=MmaPolicy(split_words=2),
+                                 attn_method="fused_pallas",
+                                 norm_matmul_method="fused_pallas")
+    assert eng.device.type == "cuda"
+    rows = _rows_of(eng)
+    for mod in (mrn, mnm, ma):
+        mod.reset_launches()
+    got = eng.generate(params, reqs)
+    torch.cuda.synchronize()
+    assert mrn.LAUNCHES["b8_rmsnorm"] > 0
+    assert mnm.LAUNCHES["b10_norm_matmul"] > 0
+    assert ma.LAUNCHES["b9_attention_wgmma"] > 0
+    assert ma.LAUNCHES["b9_attention_decode"] > 0
+    for r in reqs:
+        srv = serve.Server(eng.model, extra_capacity=40 - len(r.prompt))
+        seen, sample = [], srv._sample
+
+        def spy(logits, seed, step, sample=sample, seen=seen):
+            seen.append(logits[0, -1].clone())
+            return sample(logits, seed, step)
+        srv._sample = spy
+        want = srv.generate(params, r.prompt[None], max_new=r.max_new)[0]
+        assert np.array_equal(got[r.uid], want), r.uid
+        for i in range(len(want)):
+            assert torch.equal(rows[(r.uid, i)], seen[i]), (r.uid, i)
+
+
+def test_int8_store_matches_the_none_store_on_the_card(cuda):
+    """bf16 KV survives int8 codes and the bf16 residual exactly: the two
+    stores stream the same tokens and logprob bits, and the store's
+    pools live on the card."""
+    serve, model, params, reqs = _served_smoke()
+    kw = dict(num_slots=2, capacity=40, page_size=8, logprobs=True)
+    a = list(serve.ContinuousServer(model, quant="none", **kw)
+             .serve(params, reqs))
+    eng = serve.ContinuousServer(model, quant="int8", **kw)
+    store = eng._new_store()
+    assert all(pl.codes.is_cuda and pl.codes.dtype == torch.int8
+               for pl in store._paged.values())
+    b = list(eng.serve(params, reqs))
+    assert a == b
+    assert all(ev.logprob <= 0.0 for ev in a)
+
+
+def test_running_stats_run_b1_and_b6_on_the_card(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    data = pipeline.SyntheticLMData(
+        registry.get_config("gemma2-2b", smoke=True),
+        ShapeConfig("t", 32, 4, "train"), with_positions=True)
+    stats = pipeline.RunningStats(method="pallas")
+    mr.reset_launches()
+    ms.reset_launches()
+    for step in range(5):
+        batch = data.batch_at(step)
+        assert batch["tokens"].is_cuda and batch["positions"].is_cuda
+        assert stats.update(batch) == 4 * 32
+    summary = stats.summary()
+    cum = stats.cumulative_tokens()
+    torch.cuda.synchronize()
+    assert mr.LAUNCHES["b1_single_pass"] > 0 and ms.LAUNCHES["b6_scan"] > 0
+    assert summary["total_tokens"] == 5 * 128
+    assert np.array_equal(cum, 128.0 * np.arange(1, 6))

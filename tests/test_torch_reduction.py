@@ -132,6 +132,24 @@ def test_tc_reduce_axes_matches_reference(axes, squared):
     _agree(got, want, mags.sum(axis=axes))
 
 
+@pytest.mark.parametrize("d", [64, 2304])
+def test_tc_reduce_lastdim_row_bits_do_not_depend_on_the_rows(d):
+    """A row's sum has the bits of that row alone at 1 to 64 rows (a
+    decode step against one request at a time): the rows go to the
+    library padded to one shape.  Unpadded, the CPU's f32 products of 1
+    and 2 rows against a ones column disagreed in most random rows
+    (``probes/row_count.py``), and with them the continuous-batching
+    engine's norms."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.normal(size=(64, d)).astype(np.float32))
+    x = x.to(torch.bfloat16).to(torch.float32) ** 2
+    for rows in (1, 2, 4, 17, 64):
+        got = tr.tc_reduce_lastdim(x[:rows])
+        for r in range(rows):
+            assert torch.equal(got[r], tr.tc_reduce_lastdim(x[r:r + 1])[0]), \
+                (rows, r)
+
+
 def test_tc_reduce_lastdim_and_rows_match_reference():
     x = np.random.default_rng(4).normal(size=(4, 6, 33)).astype(np.float32)
     xj, xt = _pair(x, "bfloat16")
