@@ -293,6 +293,30 @@ after 3j:
       ``RunningStats(method='pallas')`` over 64 prefetched
       ``SyntheticLMData`` batches on the card (B1 and B6 must move,
       within 5e-3 % of the f64 sums).
+  3l. the training path (``repro_torch.launch.train``), after 3k with
+      its tensors freed: (a) Gemma-2 2B at full width (TRAIN_CUTS cut
+      depth only, if anything; f32 params and moments, the config's
+      ``reduce_method='mma'``, ``remat=TRAIN_REMAT``) takes TRAIN_STEPS
+      AdamW steps on one fixed batch of 2 x 1024 from
+      ``SyntheticLMData(seed=0)``: finite losses, the last below the
+      first; the median step ms (CUDA events), tokens/s, the device-busy
+      share of one step (``torch.profiler``) and the peak memory beside
+      the card's name and power limit; (b) step 8's gradient tree through
+      ``adamw.clip_by_global_norm`` under ``pallas`` (B1's counter zeroed
+      before and moved once a leaf after), ``mma`` and ``vpu``: each norm
+      within 5e-3 % of the tree's f64 norm, the whole clip timed; then
+      one step under ``reduce_method='auto'`` (each norm leaf's engine
+      printed, the loss within 1e-3 relative of the ``mma`` loss on the
+      same state and batch); (c) a train step under the kernel spellings
+      raises dispatch's refusal (no backward) before any kernel
+      launches; (d) at SMOKE size, 4 steps uninterrupted against 2 steps,
+      ``TrainSupervisor`` save, a fresh state, restore and 2 steps: the
+      same parameter bits; (e) ``examples.train_lm`` for 30 steps at 8 x
+      128 prints "improved"; (f) ``core.reduction._mm`` / ``_bmm``'s
+      backward in bf16 and fp16 against the f64 products of its operands
+      (one unit roundoff of the operand dtype, plus the f32 sum's worst
+      case, K 2^-24 of sum|terms| over a contraction of K).  Each part's
+      seconds are printed.
 
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
@@ -725,6 +749,26 @@ SERVE_CLOSE_S = 5.0
 SERVE_STATS_STEPS = 64
 SERVE_STATS_SHAPE = (1024, 8)   # (seq_len, batch) of a SyntheticLMData batch
 SERVE_STATS_PCT = 5e-3          # the pallas ceiling, in %
+
+# The training path (phase 3l): Gemma-2 2B at full width (f32 params
+# and moments; TRAIN_CUTS cuts depth only, TRAIN_REDUCED lists it), 8
+# steps on one fixed batch; the gradient norm within TRAIN_NORM_PCT of
+# the f64 oracle; the auto step's loss within TRAIN_AUTO_RTOL of mma's.
+TRAIN_ARCH = "gemma2-2b"
+# The config's own remat is 'dots'; PERF.md §5 says why (a) runs this.
+TRAIN_REMAT = "none"
+TRAIN_CUTS: dict = {}
+TRAIN_REDUCED: list = []
+TRAIN_SHAPE = (2, 1024)         # (batch, seq_len)
+TRAIN_STEPS = 8
+TRAIN_NORM_PCT = 5e-3
+TRAIN_AUTO_RTOL = 1e-3
+TRAIN_CLIP_REPS = 5
+TRAIN_RESTART_STEPS = (2, 2)
+TRAIN_LM_ARGS = ["--steps", "30", "--batch", "8", "--seq", "128"]
+# (f): the _mm / _bmm backward at these (m, k, n) and batch.
+TRAIN_MM_SHAPE = (256, 512, 384)
+TRAIN_BMM_SHAPE = (4, 96, 512, 160)
 
 SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
 SCAN_HOST_N = 1 << 12
@@ -3778,6 +3822,342 @@ def run_serving(registry, model_zoo, param, serve, pipeline, kv_cache,
     return row
 
 
+def run_training(registry, model_zoo, counters: dict, smi: str) -> dict:
+    """Phase 3l: the training path (see the module docstring)."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as trainlib
+    out = {"card": smi}
+    cfg = dataclasses.replace(registry.get_config(TRAIN_ARCH),
+                              remat=TRAIN_REMAT, **TRAIN_CUTS)
+    check(cfg.reduce_method == "mma",
+          f"3l: {TRAIN_ARCH}'s config trains under reduce_method "
+          f"{cfg.reduce_method!r}")
+    part_s = {}
+    t0 = time.perf_counter()
+    b, s = TRAIN_SHAPE
+    data = pipeline.SyntheticLMData(cfg, ShapeConfig("t", s, b, "train"),
+                                    seed=0, device=DEV)
+    batch = data.batch_at(0)
+    tconf = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    model = model_zoo.build(cfg)
+    step_fn, make_init = trainlib.make_train_step(model, tconf, device=DEV)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_init(SEED)
+    out["a"] = train_full_width(trainlib, model, step_fn, state, batch,
+                                counters["b1"], smi)
+    out["b"] = out["a"].pop("b")
+    mma_state = out["a"].pop("state")
+    part_s["a, b's clip"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"]["auto"] = train_auto_step(trainlib, model_zoo, cfg, tconf,
+                                       mma_state, batch, counters["b1"])
+    del mma_state, state
+    torch.cuda.empty_cache()
+    part_s["b's auto step"] = time.perf_counter() - t0
+    for part, fn in (
+            ("c", lambda: train_refusal(trainlib, registry, model_zoo,
+                                        counters["kernels"])),
+            ("d", lambda: train_restart(trainlib, registry, model_zoo,
+                                        pipeline)),
+            ("e", train_lm_example), ("f", train_mm_backward)):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        part_s[part] = time.perf_counter() - t0
+    out["s"] = part_s
+    print(f"phase 3l: seconds by part {part_s}", flush=True)
+    print(f"phase 3l: {json.dumps(out)}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full_width(trainlib, model, step_fn, state, batch, b1,
+                     smi: str) -> dict:
+    """3l (a) and (b): TRAIN_STEPS steps of the full-width model on one
+    batch; (b) runs on the gradient tree of the last step before it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import dispatch
+    from repro_torch.core.integration import _leaves
+    from repro_torch.optim import adamw
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    losses, times, dev_ms = [], [], None
+    clip = None
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:
+            clip = train_clip(trainlib, adamw, dispatch, _leaves, model,
+                              state, batch, b1, smi)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if i == 2:
+            # one step's device time: every CUDA event of its trace
+            from torch.autograd import DeviceType
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+            dev_ms = sum(ev.device_time_total for ev in prof.key_averages()
+                         if ev.device_type == DeviceType.CUDA) / 1e3
+        else:
+            start.record()
+            state, metrics = step_fn(state, batch)
+            end.record()
+            end.synchronize()
+            if i > 0:
+                times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        print(f"phase 3l (a): step {i + 1} loss {losses[-1]:.6f} "
+              f"grad_norm {float(metrics['grad_norm']):.6f} param_norm "
+              f"{float(metrics['param_norm']):.6f}", flush=True)
+    check(all(math.isfinite(v) for v in losses),
+          f"3l (a): a loss is not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"3l (a): the loss did not fall on a fixed batch: {losses}")
+    step_ms = statistics.median(times)
+    # the device-busy share: one step's device time over the median step
+    busy = None if not dev_ms else dev_ms / step_ms
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row = {"arch": TRAIN_ARCH, "reduced": TRAIN_REDUCED,
+           "remat": model.cfg.remat,
+           "layers": model.cfg.num_layers, "shape": TRAIN_SHAPE,
+           "params": model.num_params(), "losses": losses,
+           "step_ms": times, "step_ms_median": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "device_ms": dev_ms, "busy_share": busy, "peak_gib": peak,
+           "b": clip,
+           "state": state}
+    print(f"phase 3l (a): {TRAIN_ARCH} "
+          f"({', '.join(TRAIN_REDUCED) or 'all 26 layers'}), remat "
+          f"{model.cfg.remat!r}, "
+          f"{model.num_params()} params, batch {TRAIN_SHAPE}: loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; median step "
+          f"{step_ms:.4f} ms ({len(times)} steps), "
+          f"{tokens / step_ms * 1e3:.2f} tokens/s, device busy "
+          f"{busy} of a step; peak {peak:.2f} GiB; on {smi}", flush=True)
+    return row
+
+
+def train_clip(trainlib, adamw, dispatch, leaves_of, model, state, batch,
+               b1, smi: str) -> dict:
+    """3l (b): the gradient tree of the state and batch the last step
+    takes, through clip_by_global_norm under pallas (B1 once a leaf),
+    mma and vpu, against the f64 norm; each clip timed."""
+    _, _, grads = trainlib.loss_and_grads(model, state.params, batch)
+    leaves = leaves_of(grads)
+    oracle = math.sqrt(sum(float(torch.sum(g.double() ** 2))
+                           for g in leaves))
+    b1.reset_launches()
+    _, norm = adamw.clip_by_global_norm(grads, 1.0, method="pallas")
+    torch.cuda.synchronize()
+    launches = dict(b1.LAUNCHES)
+    check(launches["b1_single_pass"] == len(leaves),
+          f"3l (b): B1 launched {launches} times over {len(leaves)} "
+          f"gradient leaves")
+    row = {"leaves": len(leaves), "oracle": oracle, "launches": launches,
+           "norms": {}, "pct": {}, "clip_ms": {}}
+    for method in ("pallas", "mma", "vpu"):
+        _, norm = adamw.clip_by_global_norm(grads, 1.0, method=method)
+        pct = abs(float(norm) - oracle) / oracle * 100.0
+        row["norms"][method] = float(norm)
+        row["pct"][method] = pct
+        check(pct <= TRAIN_NORM_PCT,
+              f"3l (b): the {method} norm {float(norm)} is {pct} % from "
+              f"the f64 norm {oracle}")
+        row["clip_ms"][method] = median_ms(
+            lambda m=method: adamw.clip_by_global_norm(grads, 1.0,
+                                                       method=m),
+            reps=TRAIN_CLIP_REPS, warmup=1)
+    row["auto_engines"] = sorted({dispatch.auto_plan("squared_sum",
+                                                     g).method
+                                  for g in leaves})
+    del grads, leaves
+    torch.cuda.empty_cache()
+    print(f"phase 3l (b): the clip norm over {row['leaves']} leaves: "
+          f"{row['norms']} against the f64 {oracle} ({row['pct']} %); "
+          f"B1 launches {launches}; whole clip ms {row['clip_ms']}; auto "
+          f"takes {row['auto_engines']} for the leaves; on {smi}",
+          flush=True)
+    return row
+
+
+def train_auto_step(trainlib, model_zoo, cfg, tconf, state, batch,
+                    b1) -> dict:
+    """3l (b): one step under reduce_method='auto' from the state after
+    the mma steps; its loss against mma's on the same state and batch."""
+    import dataclasses
+    from repro_torch.core import dispatch
+    from repro_torch.core.integration import _leaves
+    with torch.no_grad():
+        mma_loss = float(model_zoo.build(cfg).loss(state.params, batch)[0])
+    acfg = dataclasses.replace(cfg, reduce_method="auto")
+    step_fn, _ = trainlib.make_train_step(model_zoo.build(acfg), tconf,
+                                          device=DEV)
+    b1.reset_launches()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    launches = dict(b1.LAUNCHES)
+    loss = float(metrics["loss"])
+    engines = {}
+    for leaf in _leaves(state.params):
+        key = f"{tuple(leaf.shape)} {name(leaf.dtype)}"
+        engines[key] = dispatch.auto_plan("squared_sum",
+                                          leaf.detach()).method
+    rel = abs(loss - mma_loss) / abs(mma_loss)
+    check(rel <= TRAIN_AUTO_RTOL,
+          f"3l (b): the auto step's loss {loss} is {rel} from mma's "
+          f"{mma_loss}")
+    print(f"phase 3l (b): reduce_method='auto' step: loss {loss:.6f} "
+          f"against mma's {mma_loss:.6f} ({rel:.3e} relative); B1 "
+          f"launches {launches}; the norm leaves' engines {engines}",
+          flush=True)
+    return {"loss": loss, "mma_loss": mma_loss, "rel": rel,
+            "launches": launches, "engines": engines,
+            "grad_norm": float(metrics["grad_norm"])}
+
+
+def train_refusal(trainlib, registry, model_zoo, kernels) -> dict:
+    """3l (c): a train step under KERNEL_SPELLINGS raises dispatch's
+    refusal in the forward pass: no kernel launches, no backward."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    cfg = dataclasses.replace(registry.get_config(TRAIN_ARCH, smoke=True),
+                              **KERNEL_SPELLINGS)
+    model = model_zoo.build(cfg)
+    step_fn, make_init = trainlib.make_train_step(
+        model, TrainConfig(total_steps=2, warmup_steps=1), device=DEV)
+    state = make_init(SEED)
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    b, s = MODEL_SMOKE_BATCH
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                     device=DEV),
+             "labels": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                     device=DEV),
+             "mask": torch.ones((b, s), device=DEV)}
+    for mod in kernels:
+        mod.reset_launches()
+    refusal = None
+    try:
+        step_fn(state, batch)
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "no backward" in refusal,
+          f"3l (c): a train step under {KERNEL_SPELLINGS} did not raise "
+          f"the refusal ({refusal})")
+    launches = {k: v for mod in kernels for k, v in mod.LAUNCHES.items()}
+    check(not any(launches.values()),
+          f"3l (c): kernels launched before the refusal: {launches}")
+    print(f"phase 3l (c): the kernel spellings' train step raised: "
+          f"{refusal}", flush=True)
+    return {"refusal": refusal, "launches": launches}
+
+
+def train_restart(trainlib, registry, model_zoo, pipeline) -> dict:
+    """3l (d): the restart contract at SMOKE size on the card."""
+    import tempfile
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core.integration import _leaves
+    from repro_torch.distributed.fault_tolerance import TrainSupervisor
+    cfg = registry.get_config(TRAIN_ARCH, smoke=True)
+    model = model_zoo.build(cfg)
+    tconf = TrainConfig(total_steps=20, warmup_steps=2)
+    step_fn, make_init = trainlib.make_train_step(model, tconf, device=DEV)
+    b, s = MODEL_SMOKE_BATCH
+    data = pipeline.SyntheticLMData(cfg, ShapeConfig("t", s, b, "train"),
+                                    seed=0, device=DEV)
+    first, second = TRAIN_RESTART_STEPS
+    ref = make_init(SEED)
+    for i in range(first + second):
+        ref, _ = step_fn(ref, data.batch_at(i))
+    with tempfile.TemporaryDirectory(prefix="repro_restart_") as d:
+        sup = TrainSupervisor(d, save_every=first, async_save=False)
+        st = make_init(SEED)
+        for i in range(first):
+            st, _ = step_fn(st, data.batch_at(i))
+        sup.maybe_save(first, st)
+        del st
+        st, start = sup.restore_or_init(lambda: make_init(SEED + 1))
+        check(start == first, f"3l (d): restored at step {start}")
+        for i in range(start, first + second):
+            st, _ = step_fn(st, data.batch_at(i))
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(ref.params),
+                                                 _leaves(st.params)))
+    check(same, "3l (d): the resumed run's parameters differ from the "
+                "uninterrupted run's")
+    print(f"phase 3l (d): {first} + {second} steps through save / restore "
+          f"give the uninterrupted run's parameter bits", flush=True)
+    return {"steps": TRAIN_RESTART_STEPS, "same_bits": same}
+
+
+def train_lm_example() -> dict:
+    """3l (e): examples.train_lm on the card prints 'improved'."""
+    import contextlib
+    import io
+    from repro_torch.examples import train_lm
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        history = train_lm.main(TRAIN_LM_ARGS)
+    took = time.perf_counter() - t0
+    text = buf.getvalue()
+    check("(improved)" in text,
+          f"3l (e): train_lm did not improve: {text[-400:]}")
+    print(f"phase 3l (e): train_lm {' '.join(TRAIN_LM_ARGS)}: loss "
+          f"{history[0][1]:.4f} -> {history[-1][1]:.4f} in {took:.1f} s",
+          flush=True)
+    return {"history": history, "s": took}
+
+
+def train_mm_backward() -> dict:
+    """3l (f): _mm / _bmm's backward in bf16 and fp16 on the card against
+    the f64 products of the operands: within the operand dtype's unit
+    roundoff of each element (the cast of the f32 result) plus K 2^-24
+    of the element's sum|terms| (the f32 sum of K products, worst
+    case)."""
+    from repro_torch.core import reduction
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    rows = {}
+    m, k, n = TRAIN_MM_SHAPE
+    bb, bm, bk, bn = TRAIN_BMM_SHAPE
+    for dt, unit in ((torch.bfloat16, 2.0 ** -8), (torch.float16,
+                                                    2.0 ** -11)):
+        for form in ("mm", "bmm"):
+            shape_a, shape_b = ((m, k), (k, n)) if form == "mm" \
+                else ((bb, bm, bk), (bb, bk, bn))
+            a = torch.randn(shape_a, generator=g, device=DEV).to(dt)
+            b = torch.randn(shape_b, generator=g, device=DEV).to(dt)
+            a.requires_grad_(True)
+            b.requires_grad_(True)
+            fn = reduction._mm if form == "mm" else reduction._bmm
+            out = fn(a, b)
+            check(out.dtype == torch.float32 and out.grad_fn is not None,
+                  f"3l (f): {form} {dt} gave {out.dtype}, {out.grad_fn}")
+            up = torch.randn(out.shape, generator=g, device=DEV)
+            ga, gb = torch.autograd.grad(out, (a, b), up)
+            ad, bd, ud = a.double(), b.double(), up.double()
+            want_a = ud @ bd.transpose(-1, -2)
+            want_b = ad.transpose(-1, -2) @ ud
+            sum_a = ud.abs() @ bd.abs().transpose(-1, -2)
+            sum_b = ad.abs().transpose(-1, -2) @ ud.abs()
+            worst = 0.0
+            for got, want, terms, k_len in (
+                    (ga, want_a, sum_a, up.shape[-1]),
+                    (gb, want_b, sum_b, up.shape[-2])):
+                check(got.dtype == dt, f"3l (f): grad in {got.dtype}")
+                err = (got.double() - want).abs()
+                bound = unit * want.abs() \
+                    + (1 + unit) * k_len * 2.0 ** -24 * terms
+                ratio = float(torch.max(err / bound))
+                check(ratio <= 1.0, f"3l (f): {form} {dt} backward off "
+                                    f"by {ratio} of its bound")
+                worst = max(worst, ratio)
+            rows[f"{form}/{name(dt)}"] = worst
+    print(f"phase 3l (f): _mm / _bmm backward against f64, worst error "
+          f"over its bound {rows}", flush=True)
+    return rows
+
+
 def run_serving_logprobs(serve, model, params, reqs, engine_kw) -> dict:
     """Logprobs with a latency SLO on the int8 store (no policy: the
     scoring reduction refuses a split_words >= 2 policy, as the
@@ -4708,6 +5088,11 @@ def main() -> int:
                           kv_cache, autotune, precision,
                           {"serve": (mrn, mnm, ma), "stats": (mr, ms)}, smi)
 
+    print("phase 3l: the training path at Gemma-2 2B's full width",
+          flush=True)
+    training = run_training(registry, model_zoo,
+                            {"b1": mr, "kernels": (mrn, mnm, ma)}, smi)
+
     print("phase 6: the cost model against measured times (f32, bf16, "
           "fp16)", flush=True)
     t0 = time.perf_counter()
@@ -4765,6 +5150,7 @@ def main() -> int:
                    "b9_decode_ptxas": dc_ptxas,
                    "model_smoke": model_rows, "model_full": model_full,
                    "auto_f32_decode": auto_f32, "serving": serving,
+                   "training": training,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

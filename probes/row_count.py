@@ -8,9 +8,13 @@ probe behind ``core.reduction._ROW_TILE``, on the device it runs on
     with the rows padded to a multiple of ``_ROW_TILE`` (as committed)
     and without padding (``_ROW_TILE = 1``, as before the repair);
   * the ``vpu`` attention's per-head ``bmm`` at a decode step's shape
-    over 1024 keys (a (2, 1024) by (1024, 256) product a batch item):
-    of 30 draws of 4 items, the items whose product at batch 1 differs
-    from the same item's at batch 4 (not padded; reported only);
+    over 1024 keys (a (2, 1024) by (1024, 256) product a batch item), in
+    f32 and bf16: of 30 draws of 4 items, and of 2 draws of 64, the
+    items whose product at batch 1 differs from the same item's in the
+    batch (torch's batched product; ``core.reduction.bmm_items`` runs
+    one item a call for this reason), and on the card the ms of one
+    ``bmm_items`` against one batched product at 4, 16 and 64 items
+    (CUDA events, median of 20 after 3 warm calls);
   * the continuous engine over the paged int8 store against each
     request alone (Gemma-2 2B at SMOKE size, ``attn_method=
     'fused_pallas'``, two slots, the request stream of seed 7: of seeds
@@ -50,17 +54,40 @@ def rows_apart(d: int, device) -> int:
                for r in range(ROWS))
 
 
-def bmm_items_apart(device) -> int:
+def bmm_items_apart(device, dtype, n: int, draws: int) -> int:
     gen = torch.Generator(device=device).manual_seed(1)
     apart = 0
-    for _ in range(30):
-        a = torch.randn(4, 2, 1024, generator=gen, device=device)
-        b = torch.randn(4, 1024, 256, generator=gen, device=device)
-        full = torch.bmm(a, b)
-        apart += sum(not torch.equal(full[i], torch.bmm(a[i:i + 1],
-                                                        b[i:i + 1])[0])
-                     for i in range(4))
+    for _ in range(draws):
+        a = torch.randn(n, 2, 1024, generator=gen, device=device).to(dtype)
+        b = torch.randn(n, 1024, 256, generator=gen,
+                        device=device).to(dtype)
+        full = reduction._bmm(a, b)
+        apart += sum(not torch.equal(full[i], reduction._bmm(
+            a[i:i + 1], b[i:i + 1])[0]) for i in range(n))
     return apart
+
+
+def bmm_items_ms(n: int) -> tuple:
+    """(bmm_items ms, one batched product's ms) at n items, bf16."""
+    import statistics
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.randn(n, 2, 1024, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(n, 1024, 256, generator=gen, device="cuda").bfloat16()
+    out = []
+    for fn in (reduction.bmm_items, reduction._bmm):
+        for _ in range(3):
+            fn(a, b)
+        times = []
+        for _ in range(20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(a, b)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out.append(statistics.median(times))
+    return tuple(out)
 
 
 def served_rows_apart(device) -> tuple:
@@ -111,7 +138,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cpu")
     args = ap.parse_args(argv)
     if args.device == "cuda":
-        print(torch.cuda.get_device_name(0))
+        import subprocess
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip())
     committed = reduction._ROW_TILE
     for tile, what in ((committed, f"padded to {committed} rows"),
                        (1, "unpadded")):
@@ -123,8 +154,17 @@ def main(argv=None) -> None:
               f"engine's logits rows with other bits than the request "
               f"alone: {apart} of {n}, max |diff| {worst}")
     reduction._ROW_TILE = committed
-    print(f"vpu attention's bmm over 1024 keys: {bmm_items_apart(args.device)}"
-          f" of 120 batch items with other bits at batch 1 than at 4")
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"vpu attention's bmm over 1024 keys, {dtype}: "
+              f"{bmm_items_apart(args.device, dtype, 4, 30)} of 120 items "
+              f"with other bits at batch 1 than at 4, "
+              f"{bmm_items_apart(args.device, dtype, 64, 2)} of 128 than "
+              f"at 64")
+    if args.device == "cuda":
+        for n in (4, 16, 64):
+            one, batched = bmm_items_ms(n)
+            print(f"bmm_items at {n} items, bf16: {one:.4f} ms against "
+                  f"{batched:.4f} ms for one batched product")
 
 
 if __name__ == "__main__":

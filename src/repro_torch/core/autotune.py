@@ -1228,6 +1228,30 @@ class PlanRegistry:
     def __len__(self) -> int:
         return len(self._plans)
 
+    def mesh_signatures(self) -> tuple:
+        """Every distinct ``|mesh:`` signature keyed in the registry,
+        sorted."""
+        return tuple(sorted({key.rsplit("|mesh:", 1)[1]
+                             for key, _ in self.items()
+                             if "|mesh:" in key}))
+
+    def invalidate_mesh(self, mesh: MeshArg) -> tuple:
+        """Drop every plan keyed to mesh signature ``mesh`` (a signature
+        string, or anything ``mesh_signature`` accepts): plans tuned for
+        a dead mesh geometry must not serve another.  Returns the removed
+        keys, sorted."""
+        sig = mesh if isinstance(mesh, str) else mesh_signature(mesh)
+        if not sig:
+            return ()
+        suffix = f"|mesh:{sig}"
+        with self._mu:
+            dead = sorted(k for k in self._plans if k.endswith(suffix))
+            for k in dead:
+                del self._plans[k]
+            if dead:
+                self.auto_memo.clear()
+        return tuple(dead)
+
     def merge(self, other: "PlanRegistry") -> int:
         """Adopt ``other``'s entries per the merge rule; returns the
         number adopted."""

@@ -104,6 +104,7 @@ class DispatchContext:
     mesh_axes: Optional[tuple] = None  # None on a single device
     policy: Optional[MmaPolicy] = None
     extras: Optional[tuple] = None  # op-family facts: ((key, value), ...)
+    grad: bool = False  # an input the engine would read requires grad
 
     def extra(self, key: str, default=None):
         """Look up one op-family fact recorded in ``extras``."""
@@ -157,6 +158,7 @@ class EngineSpec:
     max_split_words: int = 1        # split-bf16 words the engine runs
     accum_dtypes: tuple = ("float32",)  # accumulators it can honour
     predicate: Optional[Callable] = None  # (ctx) -> reason or None
+    kernel: bool = False            # launches a hand-written kernel
 
 
 def capability_reason(eng: EngineSpec, ctx: DispatchContext, *,
@@ -181,7 +183,23 @@ def capability_reason(eng: EngineSpec, ctx: DispatchContext, *,
     if reason is not None:
         return reason
     if eng.predicate is not None:
-        return eng.predicate(ctx)
+        reason = eng.predicate(ctx)
+        if reason is not None:
+            return reason
+    return _grad_reason(eng, ctx)
+
+
+def _grad_reason(eng: EngineSpec, ctx: DispatchContext) -> Optional[str]:
+    """Why ``eng`` cannot serve a call under autograd — or None.  A
+    hand-written kernel has no backward (the reference cannot
+    differentiate its ``pallas_call`` either): its output would carry no
+    ``grad_fn`` and every gradient upstream of it would be lost without
+    an error."""
+    if ctx.grad and eng.kernel:
+        return (f"engine {eng.name!r} launches a hand-written kernel, "
+                f"which has no backward: op {ctx.op!r} is called on a "
+                f"tensor that requires grad; use a differentiable engine "
+                f"('mma', 'unfused_mma', 'vpu', or 'auto')")
     return None
 
 
@@ -275,7 +293,8 @@ def build_context(op: str, x, *, axis=None, scan_axis=None,
                   multi_device: Optional[bool] = None,
                   mesh_axes: Optional[tuple] = None,
                   policy: Optional[MmaPolicy] = None,
-                  extras: Optional[tuple] = None) -> DispatchContext:
+                  extras: Optional[tuple] = None,
+                  grad: bool = False) -> DispatchContext:
     if multi_device is None:
         if mesh_axes is None:
             mesh_axes = _live_mesh_axes()
@@ -283,7 +302,7 @@ def build_context(op: str, x, *, axis=None, scan_axis=None,
     return DispatchContext(
         op=op, shape=tuple(x.shape), dtype=dtype_name(x.dtype),
         multi_device=multi_device, axis=axis, scan_axis=scan_axis,
-        mesh_axes=mesh_axes, policy=policy, extras=extras)
+        mesh_axes=mesh_axes, policy=policy, extras=extras, grad=grad)
 
 
 def legal_engines(spec: OpSpec, ctx: DispatchContext) -> tuple:
@@ -328,10 +347,22 @@ def supported_method(op: str, x, method: str, *, precision=None,
 def resolve_method(op: str, x, method: str, *, fallback: str = "vpu",
                    precision=None, **op_kwargs) -> str:
     """``method`` when ``dispatch`` would accept it, else ``fallback`` —
-    raising when the fallback cannot serve the call either."""
+    raising when the fallback cannot serve the call either.  A kernel
+    engine refused only because the call is under autograd raises (as
+    ``dispatch`` does): a kernel spelling in a training step is an error,
+    not a capability to fall back from."""
     if supported_method(op, x, method, precision=precision,
                         **op_kwargs):
         return method
+    spec = op_spec(op)
+    eng = spec.engine(method)
+    if eng is not None:
+        ctx = _context_for(spec, as_tensor(x), op_kwargs,
+                           policy=as_policy(precision))
+        reason = capability_reason(eng, ctx)
+        if reason is not None and reason == _grad_reason(eng, ctx):
+            raise ValueError(
+                f"engine {eng.name!r} cannot run op {op!r} here: {reason}")
     if not supported_method(op, x, fallback, precision=precision,
                             **op_kwargs):
         pol = as_policy(precision)
@@ -482,22 +513,34 @@ def execute(op: str, x, plan, **op_kwargs):
     return eng.run(x, plan, **op_kwargs)
 
 
+def _needs_grad(x, op_kwargs: dict) -> bool:
+    """Is the call under autograd with an input that requires grad (x or
+    a tensor operand: keys, values, weights, scale, mask)?"""
+    if not torch.is_grad_enabled():
+        return False
+    return any(isinstance(t, torch.Tensor) and t.requires_grad
+               for t in (x, *op_kwargs.values()))
+
+
 def _context_for(spec: OpSpec, x, op_kwargs: dict, *,
                  policy: Optional[MmaPolicy] = None) -> DispatchContext:
     if policy is None:
         policy = op_kwargs.get("policy")
+    grad = _needs_grad(x, op_kwargs)
     if spec.family == "scan":
         scan_axis = op_kwargs.get("axis", -1) % max(x.ndim, 1)
         return build_context(spec.name, x, scan_axis=scan_axis,
-                             policy=policy)
+                             policy=policy, grad=grad)
     if spec.family == "attention":
         return build_context(spec.name, x, policy=policy,
-                             extras=_attention_extras(x, op_kwargs))
+                             extras=_attention_extras(x, op_kwargs),
+                             grad=grad)
     if spec.family == "norm_matmul":
         return build_context(spec.name, x, policy=policy,
-                             extras=_norm_matmul_extras(x, op_kwargs))
+                             extras=_norm_matmul_extras(x, op_kwargs),
+                             grad=grad)
     return build_context(spec.name, x, axis=op_kwargs.get("axis"),
-                         policy=policy)
+                         policy=policy, grad=grad)
 
 
 def _attention_extras(qg, op_kwargs: dict) -> tuple:
@@ -1086,12 +1129,15 @@ _REDUCE_ENGINES = (
     EngineSpec("mma_chained", _reduce_chained, sweep=("chain",)),
     EngineSpec("mma_ec", _reduce_ec, max_split_words=3,
                sweep=("chain", "split_words")),
-    EngineSpec("pallas", _reduce_pallas, sweep=("chain", "block_rows")),
-    EngineSpec("pallas_ec", _reduce_pallas_ec, max_split_words=3,
+    EngineSpec("pallas", _reduce_pallas, kernel=True,
+               sweep=("chain", "block_rows")),
+    EngineSpec("pallas_ec", _reduce_pallas_ec, kernel=True,
+               max_split_words=3,
                sweep=("chain", "block_rows", "split_words")),
     EngineSpec("mma_dd", _reduce_dd, max_split_words=2,
                accum_dtypes=("float64",)),
-    EngineSpec("pallas_dd", _reduce_pallas_dd, max_split_words=2,
+    EngineSpec("pallas_dd", _reduce_pallas_dd, kernel=True,
+               max_split_words=2,
                accum_dtypes=("float64",), sweep=("chain", "block_rows")),
     EngineSpec("vpu", _reduce_vpu, multi_device_safe=True,
                axis_subsets=True),
@@ -1109,12 +1155,15 @@ register(OpSpec(
         EngineSpec("mma_chained", _sq_chained, sweep=("chain",)),
         EngineSpec("mma_ec", _sq_ec, max_split_words=3,
                    sweep=("chain", "split_words")),
-        EngineSpec("pallas", _sq_pallas, sweep=("chain", "block_rows")),
-        EngineSpec("pallas_ec", _sq_pallas_ec, max_split_words=3,
+        EngineSpec("pallas", _sq_pallas, kernel=True,
+                   sweep=("chain", "block_rows")),
+        EngineSpec("pallas_ec", _sq_pallas_ec, kernel=True,
+                   max_split_words=3,
                    sweep=("chain", "block_rows", "split_words")),
         EngineSpec("mma_dd", _sq_dd, max_split_words=2,
                    accum_dtypes=("float64",)),
-        EngineSpec("pallas_dd", _sq_pallas_dd, max_split_words=2,
+        EngineSpec("pallas_dd", _sq_pallas_dd, kernel=True,
+                   max_split_words=2,
                    accum_dtypes=("float64",),
                    sweep=("chain", "block_rows")),
         EngineSpec("vpu", _sq_vpu, multi_device_safe=True,
@@ -1128,7 +1177,7 @@ register(OpSpec(
         EngineSpec("mma", _masked_mean_mma, multi_device_safe=True),
         EngineSpec("mma_chained", _masked_mean_with(_reduce_chained),
                    sweep=("chain",)),
-        EngineSpec("pallas", _masked_mean_with(_reduce_pallas),
+        EngineSpec("pallas", _masked_mean_with(_reduce_pallas), kernel=True,
                    sweep=("chain", "block_rows")),
         EngineSpec("vpu", _masked_mean_with(_reduce_vpu),
                    multi_device_safe=True),
@@ -1148,7 +1197,7 @@ _SCAN_ENGINES = (
                sweep=("chain",)),
     EngineSpec("mma_ec", _scan_ec, max_split_words=3,
                sweep=("chain", "split_words")),
-    EngineSpec("pallas", _scan_pallas, needs_flat=True,
+    EngineSpec("pallas", _scan_pallas, kernel=True, needs_flat=True,
                sweep=("chain", "block_rows")),
     EngineSpec("vpu", _scan_vpu, multi_device_safe=True),
 )
@@ -1163,7 +1212,8 @@ register(OpSpec(
     name="segment_sum", family="segment",
     engines=(
         EngineSpec("mma", _segment_mma, multi_device_safe=True),
-        EngineSpec("pallas", _segment_pallas, sweep=("block_rows",)),
+        EngineSpec("pallas", _segment_pallas, kernel=True,
+                   sweep=("block_rows",)),
         EngineSpec("vpu", _segment_vpu, multi_device_safe=True),
     ),
     aliases={"mma_chained": "mma"}, reference=_ref_segment_sum))
@@ -1186,7 +1236,7 @@ register(OpSpec(
         # B9's geometry is fixed by the card and chosen by its form (the
         # mma.sync form: 64 query rows, 32 keys a step; the bf16 prefill
         # form: 128 rows, 64 keys): nothing to sweep.
-        EngineSpec("fused_pallas", _attn_fused, ndim=5,
+        EngineSpec("fused_pallas", _attn_fused, kernel=True, ndim=5,
                    dtypes=("float32", "bfloat16"),
                    predicate=_attn_fused_predicate),
         EngineSpec("unfused_mma", _attn_unfused, ndim=5,
@@ -1222,7 +1272,7 @@ register(OpSpec(
         # B8's and B10's geometries are fixed by the card (B8's walk a
         # function of d and the dtype; B10's of d and the dtypes, one
         # 128 x 128 tile a block): nothing to sweep.
-        EngineSpec("fused_pallas", _nm_fused,
+        EngineSpec("fused_pallas", _nm_fused, kernel=True,
                    dtypes=("float32", "bfloat16"),
                    predicate=_nm_fused_predicate),
         EngineSpec("unfused_mma", _nm_unfused, multi_device_safe=True),

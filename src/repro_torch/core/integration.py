@@ -153,6 +153,22 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _tree_like(tree, leaves: list):
+    """``tree``'s structure (nested dicts, lists, tuples) over ``leaves``
+    given in ``_leaves`` order."""
+    it = iter(leaves)
+
+    def one(sub):
+        if sub is None:
+            return None
+        if isinstance(sub, dict):
+            return {k: one(sub[k]) for k in sorted(sub)}
+        if isinstance(sub, (list, tuple)):
+            return type(sub)(one(item) for item in sub)
+        return next(it)
+    return one(tree)
+
+
 def global_norm(tree, *, method: Method = "mma",
                 precision=None) -> torch.Tensor:
     """L2 norm over nested dicts, lists and tuples of tensors (gradient

@@ -14,7 +14,10 @@ kernel, so they go to torch's matmul family:
   * on the CPU those overloads are not implemented, so both operands
     are cast to f32 first (the products of 16-bit values are exact in
     f32, so the contract is the same);
-  * f32 operands run in full f32 (TF32 is off: ``core.precision``).
+  * f32 operands run in full f32 (TF32 is off: ``core.precision``);
+  * under autograd ``_mm`` / ``_bmm`` are one ``torch.autograd.Function``
+    (``_F32Product``) whose backward keeps the f32 contract: the
+    ``out_dtype`` overloads have no derivative of their own.
 
 Shape convention: the input is flattened, zero-padded to a multiple of
 ``chain * m * m`` and viewed as groups of ``chain`` m x m matrices:
@@ -52,20 +55,57 @@ Variant = Literal["single_pass", "recurrence", "split"]
 _HALF = (torch.bfloat16, torch.float16)
 
 
+def _product(a, b, batched: bool) -> torch.Tensor:
+    """``a @ b`` (2-D, or 3-D when ``batched``) accumulated and returned
+    in f32: the ``out_dtype`` overload for two 16-bit operands of one
+    dtype on CUDA, both operands widened to f32 (exactly) otherwise."""
+    op = torch.bmm if batched else torch.mm
+    if a.is_cuda and a.dtype in _HALF and b.dtype == a.dtype:
+        return op(a, b, out_dtype=ACCUM_DTYPE)
+    return op(a.to(ACCUM_DTYPE), b.to(ACCUM_DTYPE))
+
+
+class _F32Product(torch.autograd.Function):
+    """The f32-accumulated product under autograd.  The ``out_dtype``
+    overloads have no derivative, so the backward is written here:
+    ``grad_a = g b^T`` and ``grad_b = a^T g``, each a product of the f32
+    gradient with the (exactly widened) other operand in f32, then cast
+    to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b, batched):
+        ctx.save_for_backward(a, b)
+        ctx.batched = batched
+        return _product(a, b, batched)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _product(g, b.transpose(-1, -2), ctx.batched).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _product(a.transpose(-1, -2), g, ctx.batched).to(b.dtype)
+        return ga, gb, None
+
+
+def _f32_product(a, b, batched: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _F32Product.apply(a, b, batched)
+    return _product(a, b, batched)
+
+
 def _mm(a, b) -> torch.Tensor:
-    """``a @ b`` (2-D) accumulated and returned in f32."""
-    if a.is_cuda and a.dtype in _HALF:
-        return torch.mm(a, b, out_dtype=ACCUM_DTYPE)
-    return torch.mm(a.to(ACCUM_DTYPE), b.to(ACCUM_DTYPE))
+    """``a @ b`` (2-D) accumulated and returned in f32; differentiable
+    (``_F32Product``)."""
+    return _f32_product(a, b, False)
 
 
 def _bmm(a, b) -> torch.Tensor:
     """Batched ``a @ b`` (3-D) accumulated and returned in f32; operands
     of two dtypes are both widened to f32 (exactly, as JAX promotes
-    them)."""
-    if a.is_cuda and a.dtype in _HALF and b.dtype == a.dtype:
-        return torch.bmm(a, b, out_dtype=ACCUM_DTYPE)
-    return torch.bmm(a.to(ACCUM_DTYPE), b.to(ACCUM_DTYPE))
+    them); differentiable (``_F32Product``)."""
+    return _f32_product(a, b, True)
 
 
 def _ones(n: int, like) -> torch.Tensor:
@@ -253,6 +293,37 @@ def pad_rows(x2d) -> torch.Tensor:
     ``_ROW_TILE``."""
     pad = (-x2d.shape[0]) % _ROW_TILE
     return torch.nn.functional.pad(x2d, (0, 0, 0, pad)) if pad else x2d
+
+
+def bmm_items(a, b) -> torch.Tensor:
+    """``_bmm`` with each batch item through a product of its own, of
+    one shape, for batches of up to ``_ROW_TILE`` items: a batched
+    product gives an item at batch 1 other bits than at batch 4 (the
+    CPU's in f32 and bf16, cuBLAS's in f32), so an item's bits would
+    depend on the items beside it (a decode step's slots against one
+    request alone).  ``_ROW_TILE`` is also the most slots
+    ``ContinuousServer`` takes (its padded rows' bound); a larger batch
+    is one batched call, since a call an item costs ~20 us on the card
+    and made a 128-slot f32 decode step 6-7x slower."""
+    n = a.shape[0]
+    if n == 1 or n > _ROW_TILE:
+        return _bmm(a, b)
+    return torch.cat([_bmm(a[i:i + 1], b[i:i + 1]) for i in range(n)])
+
+
+def dense_heads(x, w) -> torch.Tensor:
+    """Per-head projection ``einsum('...hk,hkn->...hn')`` in x's dtype:
+    x (..., H, k), w (H, k, n).  The leading dims are rows, padded
+    (``pad_rows``) as ``layers.dense`` pads them, so a row's bits do not
+    depend on the rows beside it."""
+    h, k = x.shape[-2:]
+    rows = x.reshape(-1, h, k).transpose(0, 1)           # (H, rows, k)
+    nrow = rows.shape[1]
+    pad = (-nrow) % _ROW_TILE
+    if pad:
+        rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+    out = torch.bmm(rows, w.to(x.dtype))[:, :nrow]
+    return out.transpose(0, 1).reshape(*x.shape[:-1], w.shape[-1])
 
 
 def tc_reduce_lastdim(x) -> torch.Tensor:

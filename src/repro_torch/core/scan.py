@@ -40,6 +40,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.precision import (ACCUM_DTYPE, split_f32_words,
                                         two_sum)
@@ -176,6 +177,17 @@ def tc_cumprod(x, *, axis: int = -1, inclusive: bool = True,
                              variant=variant, chain=chain, m=m))
 
 
+def _local_solve(ca, bf):
+    """A chunk's states from zero: ``h_local = L x b`` with the lower
+    triangular ``L[t, s] = exp(ca_t - ca_s)`` (s <= t) a channel."""
+    c = ca.shape[2]
+    diff = ca[:, :, :, None, :] - ca[:, :, None, :, :]
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=ca.device))
+    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                  _LOG_FLOOR))
+    return torch.einsum("bntsw,bnsw->bntw", l_mat, bf)
+
+
 def tc_linear_recurrence(log_a, b, h0, *, chunk: int = 16):
     """First-order linear recurrence ``h_t = a_t h_{t-1} + b_t`` as
     chunked triangular MMAs.  Returns ``(h, h_final)`` in f32: the
@@ -188,9 +200,11 @@ def tc_linear_recurrence(log_a, b, h0, *, chunk: int = 16):
     ``L[t, s] = exp(ca_t - ca_s)`` for s <= t, ``ca`` the chunk's
     triangular-MMA scan of ``log_a``, and solved as one batched
     contraction ``h_local = L x b``; the chunk-boundary states follow a
-    Python loop over the S / c chunks.  The reference rematerialises
-    ``L`` in its backward pass (``jax.checkpoint``); gradients through
-    this function wait for the port's training slice.
+    Python loop over the S / c chunks.  Under autograd the (B, nc, c, c,
+    W) matrix ``L`` is recomputed in the backward pass rather than saved
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    of its local solve), so the MMA form does not multiply a training
+    step's memory by the chunk.
     """
     bsz, s, w = log_a.shape
     c = int(chunk)
@@ -208,11 +222,11 @@ def tc_linear_recurrence(log_a, b, h0, *, chunk: int = 16):
     # ca_t = sum_{u<=t} log a_u within the chunk; m = 16 for c >= 16
     # (the reference's own call resolves to the same tile).
     ca = tc_scan(la, axis=2, chain=1, m=min(DEFAULT_M, max(c, 8)))
-    diff = ca[:, :, :, None, :] - ca[:, :, None, :, :]
-    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=la.device))
-    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], diff,
-                                  _LOG_FLOOR))
-    h_local = torch.einsum("bntsw,bnsw->bntw", l_mat, bf)
+    if torch.is_grad_enabled() and (ca.requires_grad or bf.requires_grad):
+        h_local = torch.utils.checkpoint.checkpoint(
+            _local_solve, ca, bf, use_reentrant=False)
+    else:
+        h_local = _local_solve(ca, bf)
 
     # Chunk-boundary carries: h_in_{k+1} = D_k h_in_k + local_last_k.
     decay = torch.exp(ca[:, :, -1, :])                # (B, nc, W)

@@ -1,2 +1,4 @@
-"""The port's distributed layer.  One module so far: the one-device part
-of ``sharding`` that the model layers import."""
+"""The port's distributed layer, its one-card part: ``sharding`` (the
+logical axes the model layers name), ``tc_collectives`` (the chained-MMA
+collectives, which reduce to plain dispatch on one card) and
+``fault_tolerance`` (checkpoint / restart around the training loop)."""

@@ -40,6 +40,7 @@ from repro_torch.core import autotune
 from repro_torch.core import integration as ci
 from repro_torch.core.dispatch import default_device
 from repro_torch.core.precision import dtype_name
+from repro_torch.core.reduction import _ROW_TILE
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import model_zoo
 from repro_torch.models import transformer as T
@@ -257,6 +258,14 @@ class ContinuousServer:
             raise ValueError(
                 "ContinuousServer serves text decoders; enc-dec and "
                 "vision configs need per-request memory (use Server)")
+        if not 1 <= num_slots <= _ROW_TILE:
+            # A step's rows are padded to _ROW_TILE (layers.dense); more
+            # slots would send the matrix library another row count than
+            # one request alone does, and the bits could differ.
+            raise ValueError(
+                f"num_slots={num_slots}: a decode step keeps each slot's "
+                f"bits those of its request alone for 1 to {_ROW_TILE} "
+                f"slots (core.reduction._ROW_TILE)")
         if attn_method is not None or norm_matmul_method is not None:
             # The engines take whole (dequantized) tensors, so their
             # policy never splits words: split_words is capped at 1; the

@@ -14,9 +14,11 @@ The f32-accumulator pin.  The reference's ``jnp.einsum(...,
 preferred_element_type=ACCUM_DTYPE)`` returns f32 for bf16 operands;
 ``torch.einsum`` on bf16 returns bf16, which would round the scores.
 Both products here (q.k and p.v) therefore go through ``_qk`` / ``_pv``,
-one ``core.reduction._bmm`` per KV head: ``torch.bmm(...,
+one ``core.reduction.bmm_items`` per KV head: ``torch.bmm(...,
 out_dtype=float32)`` for 16-bit operands on CUDA, f32 operands otherwise
-(a bf16 cache beside f32 queries is widened one head at a time).
+(a bf16 cache beside f32 queries is widened one head at a time), each
+batch item through a product of its own shape, so an item's bits do not
+depend on the batch beside it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.precision import ACCUM_DTYPE
-from repro_torch.core.reduction import _bmm
+from repro_torch.core.reduction import bmm_items
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.param import Param
@@ -115,8 +117,8 @@ def _qk(qg, k):
     """einsum('bqkgh,bckh->bkgqc') accumulated and returned in f32:
     qg (B, Sq, KV, G, hd), k (B, Sk, KV, hd) -> (B, KV, G, Sq, Sk)."""
     B, Sq, KV, G, hd = qg.shape
-    heads = [_bmm(qg[:, :, h].transpose(1, 2).reshape(B, G * Sq, hd),
-                  k[:, :, h].transpose(1, 2)) for h in range(KV)]
+    heads = [bmm_items(qg[:, :, h].transpose(1, 2).reshape(B, G * Sq, hd),
+                       k[:, :, h].transpose(1, 2)) for h in range(KV)]
     return torch.stack(heads, 1).view(B, KV, G, Sq, -1)
 
 
@@ -124,7 +126,7 @@ def _pv(p, v):
     """einsum('bkgqc,bckh->bkgqh') accumulated and returned in f32:
     p (B, KV, G, Sq, Sk), v (B, Sk, KV, hd_v) -> (B, KV, G, Sq, hd_v)."""
     B, KV, G, Sq, Sk = p.shape
-    heads = [_bmm(p[:, h].reshape(B, G * Sq, Sk), v[:, :, h])
+    heads = [bmm_items(p[:, h].reshape(B, G * Sq, Sk), v[:, :, h])
              for h in range(KV)]
     return torch.stack(heads, 1).view(B, KV, G, Sq, -1)
 

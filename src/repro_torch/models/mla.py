@@ -15,7 +15,10 @@ As in ``models.attention``, the cache's tensors are written in place and
 the returned dict holds them with ``idx`` advanced.  The absorbed form's
 score and context products accumulate and return f32 as the reference's
 ``preferred_element_type=ACCUM_DTYPE`` einsums do, through
-``core.reduction._bmm``.
+``core.reduction.bmm_items``.  Every product takes its rows padded
+(``layers.dense``, ``core.reduction.dense_heads``) and each batch item
+through a product of its own shape, so a decode step's slot gets the
+bits of its request alone.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import math
 
 import torch
 
-from repro_torch.core.reduction import _bmm
+from repro_torch.core.reduction import bmm_items, dense_heads
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.param import Param
@@ -89,7 +92,8 @@ def _pos_b(positions, shape):
 def _heads(x, w, dt):
     """einsum('bsr,rhk->bshk', x, w.astype(dt))."""
     B, S, _ = x.shape
-    return (x @ w.to(dt).reshape(w.shape[0], -1)).view(B, S, *w.shape[1:])
+    return L.dense(x, w.to(dt).reshape(w.shape[0], -1)) \
+        .view(B, S, *w.shape[1:])
 
 
 def _project_q(params, cfg, x, positions):
@@ -101,7 +105,7 @@ def _project_q(params, cfg, x, positions):
     if nm_method:
         # The query chain as ONE `norm_matmul` dispatch: q_norm and the
         # wq_b up-projection (kernel B10 under 'fused_pallas').
-        qa = x @ params["wq_a"].to(dt)
+        qa = L.dense(x, params["wq_a"].to(dt))
         qa = constrain(qa, ("batch", None, "q_lora"))
         q = L.norm_matmul(
             {"scale": params["q_norm"]}, qa,
@@ -111,7 +115,7 @@ def _project_q(params, cfg, x, positions):
             objective=getattr(cfg, "norm_matmul_slo_ms", None),
         ).reshape(*x.shape[:2], H, qk)
     else:
-        ql = _rms(x @ params["wq_a"].to(dt), params["q_norm"])
+        ql = _rms(L.dense(x, params["wq_a"].to(dt)), params["q_norm"])
         ql = constrain(ql, ("batch", None, "q_lora"))
         q = _heads(ql, params["wq_b"], dt)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
@@ -124,7 +128,7 @@ def _latent_kv(params, cfg, x, positions):
     """c_kv (B,S,r) latent + shared rotary key (B,S,rope)."""
     m = cfg.mla
     dt = x.dtype
-    kv = x @ params["wkv_a"].to(dt)
+    kv = L.dense(x, params["wkv_a"].to(dt))
     ckv, kr = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
     ckv = _rms(ckv, params["kv_norm"])
     pos_b = _pos_b(positions, x.shape[:2])
@@ -170,13 +174,13 @@ def _absorbed(params, q_nope, q_rope, cache, positions, *, per_row,
     C, r = ckv.shape[1], ckv.shape[2]
     kv_len = cache["idx"]                 # already includes this step
     # q_eff[h] = q_nope[h] @ W_uk[h]^T : (B,Sq,H,r)
-    q_eff = torch.einsum("bshk,rhk->bshr", q_nope, params["wk_b"].to(dt))
+    q_eff = dense_heads(q_nope, params["wk_b"].permute(1, 2, 0).to(dt))
 
     def rows(t):                          # (B,Sq,H,n) -> (B, H*Sq, n)
         return t.permute(0, 2, 1, 3).reshape(B, H * Sq, t.shape[-1])
 
-    s = _bmm(rows(q_eff), ckv.transpose(1, 2)) \
-        + _bmm(rows(q_rope), kr.transpose(1, 2))
+    s = bmm_items(rows(q_eff), ckv.transpose(1, 2)) \
+        + bmm_items(rows(q_rope), kr.transpose(1, 2))
     s = s.view(B, H, Sq, C) * scale
     kpos = torch.arange(C, device=s.device)
     if per_row:
@@ -188,9 +192,9 @@ def _absorbed(params, q_nope, q_rope, cache, positions, *, per_row,
                  & (kpos < kv_len)[None])[None, None]
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(dt)
-    ctx = _bmm(p.reshape(B, H * Sq, C), ckv).to(dt)
+    ctx = bmm_items(p.reshape(B, H * Sq, C), ckv).to(dt)
     ctx = ctx.view(B, H, Sq, r).transpose(1, 2)          # (B, Sq, H, r)
-    return torch.einsum("bshr,rhk->bshk", ctx, params["wv_b"].to(dt))
+    return dense_heads(ctx, params["wv_b"].permute(1, 0, 2).to(dt))
 
 
 def mla_attention(params, cfg, x, *, positions, cache=None,
@@ -241,5 +245,5 @@ def mla_attention(params, cfg, x, *, positions, cache=None,
         o = o.reshape(B, Sq, H, m.v_head_dim)
 
     wo = params["wo"].reshape(H * m.v_head_dim, -1).to(dt)
-    out = o.reshape(B, Sq, H * m.v_head_dim).to(dt) @ wo
+    out = L.dense(o.reshape(B, Sq, H * m.v_head_dim).to(dt), wo)
     return constrain(out, ("batch", None, None)), new_cache

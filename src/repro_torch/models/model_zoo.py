@@ -9,8 +9,9 @@ Batch layouts (tensors; ``input_specs`` gives their shapes and dtypes):
   decode:  {token (B,1), pos () or (B,), caches}   -> (logits, caches)
 
 Every entry point runs where the parameters lie: ``init`` puts them on
-the card unless it is asked for the CPU.  ``loss`` is the forward value;
-its gradients come with training (ROADMAP item 13).
+the card unless it is asked for the CPU.  ``loss`` is differentiable (CE,
+the MoE aux loss and DeepSeek's MTP loss): ``launch.train`` takes its
+gradients with ``torch.autograd``.
 """
 
 from __future__ import annotations

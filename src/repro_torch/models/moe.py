@@ -11,9 +11,9 @@ run as a triangular MMA (``integration.cumsum`` under
 
 The reference's mesh branch (expert parallelism over a ``shard_map``
 with all-to-alls) waits for ROADMAP item 14: with a mesh present
-``moe_block`` raises.  Its ``checkpoint_name`` tags on the dispatch
-buffers mark saves for rematerialisation, which waits for item 13; a
-forward pass has nothing to save.
+``moe_block`` raises.  The dispatch buffer and the experts' output carry
+the reference's ``checkpoint_name`` tags (``models.remat``), which
+``remat='dots_tagged'`` saves.
 
 Three scatters of the reference change form:
   * the counts are ``torch.bincount`` (exact);
@@ -40,6 +40,7 @@ from repro_torch.core import integration as ci
 from repro_torch.core.precision import EXACT_OFFSETS
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
+from repro_torch.models import remat as RM
 from repro_torch.models.param import Param
 
 
@@ -71,7 +72,7 @@ def moe_specs(cfg):
 def _route(cfg, router_w, x_flat):
     """(T, D) -> top-k expert ids (T,k), weights (T,k), probs (T,E)."""
     mc = cfg.moe
-    logits = x_flat.to(torch.float32) @ router_w.to(torch.float32)
+    logits = L.dense(x_flat.to(torch.float32), router_w.to(torch.float32))
     if mc.router == "sigmoid":           # deepseek-v3
         scores = torch.sigmoid(logits)
         w, ids = torch.topk(scores, mc.top_k, dim=-1)
@@ -144,17 +145,19 @@ def _dispatch_combine(cfg, params, x_flat):
     # ---- sort-based capacity dispatch -> (E*C, D) buffer and a spare row
     order, slot, keep, _, _ = _slots(ids, e, cap)
     token_of = order // k
-    # Kept slots are distinct, so the reference's scatter-add is a copy.
-    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=dev)
-    buf.index_copy_(0, slot, x_flat[token_of])
-    buf = buf[:e * cap].view(e, cap, d)
+    # Kept slots are distinct, so the reference's scatter-add is a copy
+    # (out of place: autograd carries the tokens' gradients back).
+    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=dev) \
+        .index_copy(0, slot, x_flat[token_of])
+    buf = RM.checkpoint_name(buf[:e * cap].view(e, cap, d), "moe_post_a2a")
 
     # ---- expert FFN
     gate = torch.bmm(buf, params["wi_gate"].to(dt))
     up = torch.bmm(buf, params["wi_up"].to(dt))
     act = F.silu(gate) * up if cfg.act == "silu" else \
         F.gelu(gate, approximate="tanh") * up
-    out = torch.bmm(act, params["wo"].to(dt)).reshape(e * cap, d)
+    out = RM.checkpoint_name(torch.bmm(act, params["wo"].to(dt)),
+                             "moe_expert_out").reshape(e * cap, d)
 
     # ---- weighted combine back to token order, in a fixed order; a
     # dropped entry's weight is 0

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.scan import tc_linear_recurrence
 from repro_torch.distributed.sharding import constrain
+from repro_torch.models.layers import dense
 from repro_torch.models.param import Param
 
 
@@ -82,16 +83,16 @@ def rglru_apply(params, cfg, x, state):
     g = cfg.rglru
     s = x.shape[1]
 
-    y_gate = F.gelu(x @ params["wy"].to(dt), approximate="tanh")
-    u = x @ params["wx"].to(dt)
+    y_gate = F.gelu(dense(x, params["wy"].to(dt)), approximate="tanh")
+    u = dense(x, params["wx"].to(dt))
     u = constrain(u, ("batch", "seq", "lru"))
     u, new_tail = _causal_conv(u, params["conv_w"], params["conv_b"],
                                state["conv"])
 
     uf = u.to(torch.float32)
-    r = torch.sigmoid(uf @ params["wa"].to(torch.float32)
+    r = torch.sigmoid(dense(uf, params["wa"].to(torch.float32))
                       + params["ba"].to(torch.float32))
-    i = torch.sigmoid(uf @ params["wi"].to(torch.float32)
+    i = torch.sigmoid(dense(uf, params["wi"].to(torch.float32))
                       + params["bi"].to(torch.float32))
     log_a = -g.power * F.softplus(params["lam"].to(torch.float32)) * r
     a = torch.exp(log_a)
@@ -101,6 +102,6 @@ def rglru_apply(params, cfg, x, state):
     # recurrence, seeded with the carry-in state.
     h, h_last = tc_linear_recurrence(log_a, gated_in, state["h"],
                                      chunk=min(16, max(s, 1)))
-    out = (h.to(dt) * y_gate) @ params["wo"].to(dt)
+    out = dense(h.to(dt) * y_gate, params["wo"].to(dt))
     new_state = {"h": h_last, "conv": new_tail}
     return constrain(out, ("batch", None, None)), new_state

@@ -19,8 +19,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.reduction import dense_heads
 from repro_torch.core.scan import tc_cumprod
 from repro_torch.distributed.sharding import constrain
+from repro_torch.models.layers import dense
 from repro_torch.models.param import Param
 
 MIX_NAMES = ("w", "k", "v", "r", "g")
@@ -91,11 +93,10 @@ def _shifted(x, x_prev_last):
 def _ddlerp(params, x, xx):
     """Finch data-dependent lerp for the 5 mix streams."""
     base = x + xx * params["maa_x"].to(x.dtype)
-    lora = torch.tanh(base @ params["maa_w1"].to(x.dtype))
+    lora = torch.tanh(dense(base, params["maa_w1"].to(x.dtype)))
     b, s, _ = lora.shape
     lora = lora.reshape(b, s, 5, -1)
-    mods = torch.einsum("bsfr,frd->fbsd", lora,
-                        params["maa_w2"].to(x.dtype))
+    mods = dense_heads(lora, params["maa_w2"]).permute(2, 0, 1, 3)
     mixes = params["maa_base"].to(x.dtype)  # (5, d)
     # xw, xk, xv, xr, xg
     return [x + xx * (mixes[i] + mods[i]) for i in range(5)]
@@ -180,17 +181,17 @@ def time_mix(params, cfg, x, state):
     xx = x_prev - x
     xw, xk, xv, xr, xg = _ddlerp(params, x, xx)
 
-    decay_mod = torch.tanh(xw @ params["decay_w1"].to(dt)) \
-        @ params["decay_w2"].to(dt)
+    decay_mod = dense(torch.tanh(dense(xw, params["decay_w1"].to(dt))),
+                      params["decay_w2"].to(dt))
     logw = -torch.exp(torch.clamp(
         params["decay_base"].to(torch.float32)
         + decay_mod.to(torch.float32), -10.0, 8.0))
     w = torch.exp(logw)                                      # (B,S,D) in (0,1)
 
-    r = (xr @ params["wr"].to(dt)).reshape(b, s, n, -1)
-    k = (xk @ params["wk"].to(dt)).reshape(b, s, n, -1)
-    v = (xv @ params["wv"].to(dt)).reshape(b, s, n, -1)
-    g = F.silu(xg @ params["wg"].to(dt))
+    r = dense(xr, params["wr"].to(dt)).reshape(b, s, n, -1)
+    k = dense(xk, params["wk"].to(dt)).reshape(b, s, n, -1)
+    v = dense(xv, params["wv"].to(dt)).reshape(b, s, n, -1)
+    g = F.silu(dense(xg, params["wg"].to(dt)))
     wh = w.reshape(b, s, n, -1)
     u = params["bonus"].to(torch.float32)
 
@@ -201,7 +202,7 @@ def time_mix(params, cfg, x, state):
         y, new_wkv = _wkv_scan(r, k, v, wh, u, state["wkv"])
     y = _group_norm(y.reshape(b, s, d), params["ln_x_scale"],
                     params["ln_x_bias"], n)
-    out = (y.to(dt) * g) @ params["wo"].to(dt)
+    out = dense(y.to(dt) * g, params["wo"].to(dt))
     new_state = dict(state, wkv=new_wkv, x_tm=x[:, -1, :])
     return constrain(out, ("batch", None, None)), new_state
 
@@ -212,8 +213,8 @@ def channel_mix(params, cfg, x, state):
     xx = x_prev - x
     xk = x + xx * params["maa_k"].to(dt)
     xr = x + xx * params["maa_r"].to(dt)
-    h = torch.square(F.relu(xk @ params["wk"].to(dt)))
+    h = torch.square(F.relu(dense(xk, params["wk"].to(dt))))
     h = constrain(h, ("batch", "seq", "mlp"))
-    out = torch.sigmoid(xr @ params["wr"].to(dt)) \
-        * (h @ params["wv"].to(dt))
+    out = torch.sigmoid(dense(xr, params["wr"].to(dt))) \
+        * dense(h, params["wv"].to(dt))
     return out, dict(state, x_cm=x[:, -1, :])

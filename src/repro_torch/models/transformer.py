@@ -15,11 +15,11 @@ Layer kinds: global / local (self-attn), cross (gated cross-attn,
 vision), selfcross (self+cross, enc-dec decoder), rwkv, rglru.
 MLP kinds: dense / moe / chanmix.
 
-``cfg.remat`` chooses what the reference's backward pass recomputes
-(``jax.checkpoint`` policies); a forward pass is the same under every
-policy, so it changes nothing here.  Its mapping onto
-``torch.utils.checkpoint`` comes with training (ROADMAP item 13), and so
-do the reference's ``checkpoint_name`` tags.
+``cfg.remat`` chooses what a backward pass recomputes: each layer group
+of a stack runs under ``models.remat.run`` (``torch.utils.checkpoint``
+with the reference's policies), and the mixer and MLP outputs carry the
+reference's ``checkpoint_name`` tags.  Caches are written in place, so a
+pass with caches (prefill, decode) is never recomputed.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import remat as RM
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.param import Param, _map, stack_specs
@@ -218,6 +219,8 @@ def block_apply(params, cfg, desc: LayerDesc, x, cache, *, positions,
     if desc.kind != "selfcross":
         if sandwich:
             out = _norm(params["post_attn_norm"], out, cfg)
+        # named so that remat="dots_tagged" saves it
+        out = RM.checkpoint_name(out, "mixer_out")
         x = x + out
 
     norm_key = "pre_mlp_norm" if sandwich else "mlp_norm"
@@ -251,6 +254,7 @@ def block_apply(params, cfg, desc: LayerDesc, x, cache, *, positions,
         out = out * torch.tanh(params["gate_mlp"].to(out.dtype))
     if sandwich:
         out = _norm(params["post_mlp_norm"], out, cfg)
+    out = RM.checkpoint_name(out, "mlp_out")
     return x + out, new_cache, aux
 
 
@@ -286,22 +290,32 @@ def _restack(stacked, views: list, news: list):
 
 def run_stack(params, cfg, plan: StackPlan, x, cache, aux, *, positions,
               memory=None, decode=False, causal=True):
-    """Run the stack's groups in order. Returns (x, new_cache, aux)."""
+    """Run the stack's groups in order. Returns (x, new_cache, aux).
+    Without caches each group runs under ``cfg.remat``."""
+    if cache is None:
+        def group(x, aux, gp):
+            for i, desc in enumerate(plan.descs):
+                x, _, a = block_apply(
+                    gp[f"L{i}"], cfg, desc, x, None, positions=positions,
+                    memory=memory, decode=decode, causal=causal)
+                aux = aux + a
+            return x, aux
+        for r in range(plan.repeats):
+            x, aux = RM.run(cfg.remat, group, x, aux,
+                            _map(lambda leaf: leaf[r], params))
+        return x, None, aux
     views, news = [], []
     for r in range(plan.repeats):
         gp = _map(lambda leaf: leaf[r], params)
-        gc = None if cache is None else _map(lambda leaf: leaf[r], cache)
+        gc = _map(lambda leaf: leaf[r], cache)
         new_gc = {}
         for i, desc in enumerate(plan.descs):
-            sub = None if gc is None else gc[f"L{i}"]
             x, new_gc[f"L{i}"], a = block_apply(
-                gp[f"L{i}"], cfg, desc, x, sub, positions=positions,
+                gp[f"L{i}"], cfg, desc, x, gc[f"L{i}"], positions=positions,
                 memory=memory, decode=decode, causal=causal)
             aux = aux + a
         views.append(gc)
         news.append(new_gc)
-    if cache is None:
-        return x, None, aux
     return x, _restack(cache, views, news), aux
 
 
@@ -429,8 +443,10 @@ def chunked_cross_entropy(params, cfg, hidden, labels, mask,
                           *, chunk: int):
     """CE without materialising (B, S, V) logits: a loop over vocab
     chunks with an online logsumexp (the flash-attention trick applied
-    to the loss).  The last chunk is the ragged rest of the vocabulary,
-    where the reference zero-pads the table and masks."""
+    to the loss), each chunk's logits recomputed in the backward pass
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    its scan body).  The last chunk is the ragged rest of the
+    vocabulary, where the reference zero-pads the table and masks."""
     if cfg.tie_embeddings:
         w = params["embed"]["table"]          # (V, D)
     else:
@@ -444,8 +460,7 @@ def chunked_cross_entropy(params, cfg, hidden, labels, mask,
     m_run = torch.full((b, s), -2.0e38, dtype=torch.float32, device=dev)
     l_run = torch.zeros((b, s), dtype=torch.float32, device=dev)
     ll = torch.zeros((b, s), dtype=torch.float32, device=dev)
-    for start in range(0, v, chunk):
-        wc = w[start:start + chunk]
+    def body(m_run, l_run, ll, wc, start):
         logits = (x @ wc.T.to(x.dtype)).to(torch.float32)
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)
@@ -453,8 +468,12 @@ def chunked_cross_entropy(params, cfg, hidden, labels, mask,
         m_new = torch.maximum(m_run, torch.amax(logits, dim=-1))
         l_run = l_run * torch.exp(m_run - m_new) \
             + torch.sum(torch.exp(logits - m_new[..., None]), dim=-1)
-        m_run = m_new
         hit = vocab_ids[None, None, :] == labels[..., None]
         ll = ll + torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+        return m_new, l_run, ll
+
+    for start in range(0, v, chunk):
+        m_run, l_run, ll = RM.run("full", body, m_run, l_run, ll,
+                                  w[start:start + chunk], start)
     lse = m_run + torch.log(torch.clamp(l_run, min=1e-37))
     return ci.masked_mean(lse - ll, mask, method=cfg.reduce_method)

@@ -50,6 +50,12 @@ and a decode step within the reference's model bound, max|got - ref| <
 with the ``fused_pallas`` spellings moving B8's, B9's and B10's counters
 (within the same bound of the plain engines), and the MoE combine
 repeating its bits.
+The training path: ``core.reduction._mm`` / ``_bmm``'s backward on
+16-bit operands within one unit roundoff of the f64 product plus K
+2^-24 of sum|terms| (an f32 sum of K products), a Gemma-2 2B SMOKE train
+step whose loss falls, the ``fused_pallas`` spellings refused in the
+forward pass before any kernel launches, and B1 launched once a leaf by
+``clip_by_global_norm(method='pallas')`` within 5e-5 of the f64 norm.
 """
 
 import importlib
@@ -1465,3 +1471,108 @@ def test_running_stats_run_b1_and_b6_on_the_card(cuda):
     assert mr.LAUNCHES["b1_single_pass"] > 0 and ms.LAUNCHES["b6_scan"] > 0
     assert summary["total_tokens"] == 5 * 128
     assert np.array_equal(cum, 128.0 * np.arange(1, 6))
+
+
+# ---- the training path: the f32 product's backward, a train step, the
+# refusal of kernels under autograd, B1 in the clip norm
+
+
+@pytest.mark.parametrize("dtype,unit", [(torch.bfloat16, 2.0 ** -8),
+                                        (torch.float16, 2.0 ** -11)])
+@pytest.mark.parametrize("form", ["mm", "bmm"])
+def test_f32_product_backward_on_the_card(cuda, dtype, unit, form):
+    """``core.reduction._mm`` / ``_bmm`` on 16-bit operands (the
+    ``out_dtype`` overload, which has no derivative of its own) carry
+    gradients in the operands' dtype within one unit roundoff of each
+    element of the f64 product plus K 2^-24 of its sum|terms| (the f32
+    sum of K products, worst case)."""
+    from repro_torch.core import reduction
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = ((96, 256), (256, 80)) if form == "mm" else \
+        ((3, 40, 256), (3, 256, 72))
+    a = torch.randn(shapes[0], generator=g, device="cuda").to(dtype)
+    b = torch.randn(shapes[1], generator=g, device="cuda").to(dtype)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    out = (reduction._mm if form == "mm" else reduction._bmm)(a, b)
+    assert out.dtype == torch.float32
+    up = torch.randn(out.shape, generator=g, device="cuda")
+    ga, gb = torch.autograd.grad(out, (a, b), up)
+    ad, bd, ud = a.double(), b.double(), up.double()
+    for got, want, terms in (
+            (ga, ud @ bd.transpose(-1, -2),
+             ud.abs() @ bd.abs().transpose(-1, -2)),
+            (gb, ad.transpose(-1, -2) @ ud,
+             ad.abs().transpose(-1, -2) @ ud.abs())):
+        assert got.dtype == dtype
+        err = (got.double() - want).abs()
+        k = up.shape[-1] if got is ga else up.shape[-2]
+        assert bool(torch.all(err <= unit * want.abs()
+                              + (1 + unit) * k * 2.0 ** -24 * terms))
+
+
+def _train_smoke(**cfg_kw):
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train as trainlib
+    from repro_torch.models import model_zoo
+    cfg = dataclasses.replace(registry.get_config("gemma2-2b", smoke=True),
+                              **cfg_kw)
+    model = model_zoo.build(cfg)
+    step, make_init = trainlib.make_train_step(
+        model, TrainConfig(total_steps=20, warmup_steps=2))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16),
+                                     generator=g, device="cuda"),
+             "labels": torch.randint(0, cfg.vocab_size, (4, 16),
+                                     generator=g, device="cuda"),
+             "mask": torch.ones((4, 16), device="cuda")}
+    return step, make_init(0), batch
+
+
+def test_train_step_loss_falls_on_the_card(cuda):
+    step, state, batch = _train_smoke()
+    assert state.params["embed"]["table"].is_cuda
+    losses = []
+    for _ in range(5):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert int(state.step) == 5 and int(state.opt.count) == 5
+
+
+def test_train_step_refuses_the_kernel_spellings_on_the_card(cuda):
+    """Under ``fused_pallas`` spellings the forward pass raises the
+    dispatch refusal (a kernel has no backward) before a kernel runs."""
+    step, state, batch = _train_smoke(reduce_method="fused_pallas",
+                                      norm_matmul_method="fused_pallas",
+                                      attn_method="fused_pallas")
+    for mod in (mrn, mnm, ma):
+        mod.reset_launches()
+    with pytest.raises(ValueError, match="no backward"):
+        step(state, batch)
+    assert not any(v for mod in (mrn, mnm, ma)
+                   for v in mod.LAUNCHES.values())
+
+
+def test_clip_norm_runs_b1_once_a_leaf_on_the_card(cuda):
+    from repro_torch.core.integration import _leaves
+    from repro_torch.launch import train as trainlib
+    from repro_torch.optim import adamw
+    _, state, batch = _train_smoke()
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    model = model_zoo.build(registry.get_config("gemma2-2b", smoke=True))
+    _, _, grads = trainlib.loss_and_grads(model, state.params, batch)
+    leaves = _leaves(grads)
+    oracle = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                  for g in leaves)))
+    mr.reset_launches()
+    clipped, norm = adamw.clip_by_global_norm(grads, 1.0, method="pallas")
+    torch.cuda.synchronize()
+    assert mr.LAUNCHES["b1_single_pass"] == len(leaves)
+    assert abs(float(norm) - oracle) <= 5e-5 * oracle
+    got = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                               for g in _leaves(clipped))))
+    assert abs(got - min(1.0, oracle)) <= 1e-4
