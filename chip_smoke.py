@@ -318,6 +318,36 @@ after 3j:
       case, K 2^-24 of sum|terms| over a contraction of K).  Each part's
       seconds are printed.
 
+  3m. the mesh collectives, after 3l: MESH_WORLD ranks (processes, gloo
+      carrying their all_reduces; ``launch.mesh.run_ranks``) share the
+      card as a (data 4, model 2) mesh, each holding its blocks of
+      Gemma-2 2B's full f32 parameter tree laid out by
+      ``sharding.tree_shardings`` with DEFAULT_RULES (every rank draws
+      the tree leaf by leaf from SEED and keeps its blocks as DTensors):
+      (a) ``tc_global_norm`` under pallas, mma and auto within 5e-3 % of
+      the f64 norm (each rank's f64 sum of squares of its blocks,
+      all-reduced), the same value on every rank, B1's counter zeroed
+      before and moved on every rank under pallas, and auto's plan keys
+      one a leaf: ``|mesh:data4.model2`` (or a one-axis signature) for
+      the split leaves, the plain key for the replicated norm scales,
+      the same on every rank; (b) rank 0's CUDA-event time of its
+      partials, the folds' host time and a scalar all_reduce's latency
+      over each axis (the combine cost's step), printed beside the card
+      (eight ranks time-share its SMs: not eight cards' times);
+      (c) ``compressed_grad_allreduce`` over data of a 64 Mi-value f32
+      tree a rank (seeded SEED + rank): each column's result equals, bit
+      for bit, its ranks' int8 codes summed times their mean scale (to
+      one f32 ulp of the mean), the same bits on every rank of a column,
+      each residual xf - q * scale bit for bit; (d) every rank remeshes
+      onto ranks 0-3 and runs ``TrainSupervisor.on_remesh``: the
+      data4.model2 plans are dropped, ranks 0-3 resolve fresh
+      ``|mesh:data2.model2`` keys for the SMOKE tree's norm (within 5e-3
+      %), ranks 4-7 sit outside; (e) ``examples.reduce_demo`` prints its
+      table on the card: single-pass within 5e-3 % of the f64 sum of
+      the bf16 input it reduced, recurrence with bf16 partials worse
+      than single-pass on uniform inputs.  One summary line; a rank
+      that fails, dies or outlives MESH_TIMEOUT fails the phase.
+
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
 prefill, the decode form at the global decode step with f32 q, the
@@ -769,6 +799,25 @@ TRAIN_LM_ARGS = ["--steps", "30", "--batch", "8", "--seq", "128"]
 # (f): the _mm / _bmm backward at these (m, k, n) and batch.
 TRAIN_MM_SHAPE = (256, 512, 384)
 TRAIN_BMM_SHAPE = (4, 96, 512, 160)
+
+# The mesh path (phase 3m): MESH_WORLD gloo ranks on the one card as a
+# (data, model) mesh over Gemma-2 2B's full parameter tree (f32, every
+# layer), each rank holding its shards by DEFAULT_RULES.  The norm
+# within MESH_NORM_PCT (%) of the f64 norm under each of MESH_METHODS;
+# the compressed all-reduce over data on a MESH_COMPRESSED tree of f32
+# leaves a rank; the remesh onto MESH_REMESH_RANKS ranks; the phase's
+# ranks are killed past MESH_TIMEOUT seconds.
+MESH_SHAPE = (4, 2)
+MESH_WORLD = 8
+MESH_ARCH = "gemma2-2b"
+MESH_METHODS = ("pallas", "mma", "auto")
+MESH_NORM_PCT = 5e-3
+MESH_COMPRESSED = {"a": (4096, 8192), "b": (8192, 4096)}   # 64 Mi values
+MESH_REMESH_RANKS = 4
+MESH_PSUM_CALLS = 200           # scalar all_reduces timed per axis
+MESH_PARTIAL_REPS = 5           # CUDA-event runs of a rank's partials
+MESH_TIMEOUT = 400
+MESH_DEMO_PCT = 5e-3            # reduce_demo's single-pass ceiling, in %
 
 SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
 SCAN_HOST_N = 1 << 12
@@ -4844,6 +4893,459 @@ def scan_grid(autotune, dispatch, gen) -> list:
     return rows
 
 
+# ------------------------------------------------------------ phase 3m
+
+
+def mesh_sync(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_tree(model, shardings, dev: str, leaves_of) -> list:
+    """This rank's shards (DTensors) of the model's parameters from
+    SEED: every rank draws the tree leaf by leaf in ``init``'s order (so
+    the values are ``model.init``'s), keeping its block of each leaf and
+    freeing the rest, so that a rank holds one whole leaf at a time."""
+    from repro_torch.models import param
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return [s.distribute(param._materialise(p, gen, dev))
+            for p, s in zip(leaves_of(model.specs), shardings)]
+
+
+def mesh_norm_f64(local: list, shardings: list, mesh, dev: str) -> float:
+    """The tree's f64 norm: each rank's f64 sum of squares of its
+    blocks, a block held by c ranks counted 1/c times, all-reduced in
+    f64."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    world = dist.get_world_size()
+    sq = 0.0
+    for s, d in zip(shardings, local):
+        split = math.prod(mesh.shape[a] for a in shd.spec_axes(s.spec))
+        sq += float(d.to_local().double().square().sum()) * split / world
+    total = torch.tensor(sq, dtype=torch.float64, device=dev)
+    dist.all_reduce(total)
+    return math.sqrt(float(total))
+
+
+def mesh_partials(method: str, local: list, mesh, dev: str) -> tuple:
+    """3m (b): this rank's partials under the plans tc_psum resolves
+    (CUDA events over MESH_PARTIAL_REPS runs), then their folds alone
+    (host clock, the ranks started together): (partials ms, fold ms)."""
+    import torch.distributed as dist
+    from repro_torch.core import dispatch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import tc_collectives as tcc
+    plans = []
+    for d in local:
+        names = tcc._sharded_axes(d)
+        sub = tuple((a, mesh.shape[a]) for a in names) or None
+        plans.append((names, dispatch.local_plan(
+            "squared_sum", d.numel(), d.dtype, method, mesh=sub,
+            backend=dev)))
+
+    def partials():
+        return [dispatch.execute("squared_sum", d.to_local(), plan)
+                for d, (_, plan) in zip(local, plans)]
+
+    parts = partials()
+    mesh_sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    for _ in range(MESH_PARTIAL_REPS):
+        parts = partials()
+    if dev == "cuda":
+        end.record()
+        end.synchronize()
+        partial_ms = start.elapsed_time(end) / MESH_PARTIAL_REPS
+    else:
+        partial_ms = (time.perf_counter() - t0) * 1e3 / MESH_PARTIAL_REPS
+    dist.barrier()
+    t0 = time.perf_counter()
+    for part, (names, _) in zip(parts, plans):
+        coll.mesh_psum(part.to(torch.float32), names, mesh=mesh)
+    mesh_sync(dev)
+    return partial_ms, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_psum_us(mesh, dev: str) -> dict:
+    """3m (b): µs of one scalar all_reduce over each axis's group (the
+    combine cost's step is this over log2 of the axis size)."""
+    import torch.distributed as dist
+    out = {}
+    s = torch.zeros((), device=dev)
+    for axis in mesh.axis_names:
+        group = mesh.get_group(axis)
+        for _ in range(20):
+            dist.all_reduce(s, group=group)
+        mesh_sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(MESH_PSUM_CALLS):
+            dist.all_reduce(s, group=group)
+        mesh_sync(dev)
+        out[axis] = (time.perf_counter() - t0) / MESH_PSUM_CALLS * 1e6
+    return out
+
+
+def mesh_compressed(tmp: str, mesh, dev: str, smoke: bool) -> dict:
+    """3m (c): compressed_grad_allreduce over data of this rank's tree
+    from SEED + rank.  Each rank checks its residuals bit for bit, and
+    writes its codes (and, on the first data row, the reduced tree) for
+    the parent's check; every rank's reduced tree is digested."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    rank = dist.get_rank()
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+    div = 64 if smoke else 1
+    grads = {k: torch.randn((a // div, b // div), generator=gen, device=dev)
+             for k, (a, b) in sorted(MESH_COMPRESSED.items())}
+    errors = {k: 1e-3 * torch.randn(v.shape, generator=gen, device=dev)
+              for k, v in grads.items()}
+    mesh_sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    red, res = coll.compressed_grad_allreduce(grads, errors, mesh,
+                                              axes=("data",))
+    mesh_sync(dev)
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "leaves": {}}
+    for k in sorted(grads):
+        xf = grads[k] + errors[k]
+        q, scale = coll._quantise_int8(xf)
+        np.save(os.path.join(tmp, f"q{rank}_{k}.npy"), q.cpu().numpy())
+        got = red[k].cpu().numpy()
+        if mesh.coordinate["data"] == 0:
+            np.save(os.path.join(tmp, f"red{rank}_{k}.npy"), got)
+        out["leaves"][k] = {
+            "scale": float(scale),
+            "residual_bits": bool(torch.equal(
+                res[k], xf - q.to(torch.float32) * scale)),
+            "sha": hashlib.sha256(got.tobytes()).hexdigest()}
+    return out
+
+
+def mesh_remesh(tmp: str, dev: str) -> dict:
+    """3m (d): every rank remeshes onto ranks 0..MESH_REMESH_RANKS-1 and
+    runs the replan hook; the ranks inside take the SMOKE tree's norm
+    under auto over the new mesh."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core import autotune
+    from repro_torch.core.integration import _leaves, _tree_like
+    from repro_torch.distributed import fault_tolerance as ft
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tc_collectives as tcc
+    from repro_torch.models import model_zoo
+    sup = ft.TrainSupervisor(ckpt_dir=os.path.join(tmp, "ckpt"))
+    mesh4 = ft.remesh(range(MESH_REMESH_RANKS),
+                      model_parallel=MESH_SHAPE[1], device=dev)
+    dead = sup.on_remesh(mesh4)
+    out = {"shape": dict(mesh4.shape), "inside": mesh4.coordinate is not None,
+           "dead_sigs": sorted({k.rsplit("|mesh:", 1)[1] for k in dead}),
+           "dead": len(dead)}
+    if mesh4.coordinate is not None:
+        model = model_zoo.build(registry.get_config(MESH_ARCH, smoke=True))
+        shapes = model.param_shapes()
+        shardings = _leaves(shd.tree_shardings(shapes, model.param_axes(),
+                                               mesh4))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        whole = _leaves(model.init(gen, dev))
+        tree = _tree_like(shapes, [s.distribute(v)
+                                   for s, v in zip(shardings, whole)])
+        out["value"] = float(tcc.tc_global_norm(tree, mesh=mesh4,
+                                                method="auto"))
+        out["want"] = math.sqrt(sum(float(v.double().square().sum())
+                                    for v in whole))
+    out["keys"] = sorted(k for k, _ in autotune.default_registry().items()
+                         if "|mesh:" in k)
+    dist.barrier()
+    return out
+
+
+def mesh_rank(tmp: str, dev: str, smoke: bool) -> list:
+    """Phase 3m on one of MESH_WORLD ranks; every rank's results are
+    gathered and rank 0's list comes back.  ``dev`` and ``smoke`` let
+    the phase rehearse on the CPU at SMOKE size; main runs it on the
+    card at full size."""
+    import torch.distributed as dist
+    from repro_torch import compat
+    from repro_torch.configs import registry
+    from repro_torch.core import autotune
+    from repro_torch.core.integration import _leaves, _tree_like
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tc_collectives as tcc
+    from repro_torch.models import model_zoo
+    mr = importlib.import_module("repro_torch.kernels.mma_reduce")
+    part_s = {}
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        torch.cuda.set_device(0)            # the one card every rank shares
+    importlib.import_module("torch.distributed.tensor")   # timed apart
+    mesh = compat.make_mesh(MESH_SHAPE, ("data", "model"), device=dev)
+    model = model_zoo.build(registry.get_config(MESH_ARCH, smoke=smoke))
+    shapes = model.param_shapes()
+    shardings = _leaves(shd.tree_shardings(shapes, model.param_axes(), mesh))
+    part_s["mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    local = mesh_tree(model, shardings, dev, _leaves)
+    tree = _tree_like(shapes, local)
+    mesh_sync(dev)
+    part_s["draw"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = {"norm64": mesh_norm_f64(local, shardings, mesh, dev),
+           "local_values": sum(d.to_local().numel() for d in local),
+           "leaves": len(local), "methods": {}}
+    out["expected_keys"] = sorted({autotune.plan_key(
+        "squared_sum", d.numel(), d.dtype, dev, mesh=tuple(
+            (a, mesh.shape[a]) for a in tcc._sharded_axes(d)) or None)
+        for d in local})
+    part_s["f64"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for method in MESH_METHODS:
+        autotune.reset_default_registry()
+        mr.reset_launches()
+        mesh_sync(dev)
+        dist.barrier()
+        t1 = time.perf_counter()
+        value = float(tcc.tc_global_norm(tree, mesh=mesh, method=method))
+        host_ms = (time.perf_counter() - t1) * 1e3
+        row = {"value": value, "host_ms": host_ms,
+               "b1": mr.LAUNCHES["b1_single_pass"],
+               "keys": sorted(k for k, _ in
+                              autotune.default_registry().items())}
+        row["partials_ms"], row["fold_ms"] = mesh_partials(method, local,
+                                                           mesh, dev)
+        out["methods"][method] = row
+    # via='gspmd' runs the same body: B1 is each rank's engine there too
+    mr.reset_launches()
+    value = float(tcc.tc_global_norm(tree, mesh=mesh, method="pallas",
+                                     via="gspmd"))
+    out["gspmd_pallas"] = {"value": value,
+                           "b1": mr.LAUNCHES["b1_single_pass"]}
+    out["psum_us"] = mesh_psum_us(mesh, dev)
+    part_s["a, b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["compressed"] = mesh_compressed(tmp, mesh, dev, smoke)
+    part_s["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    del tree, local
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["remesh"] = mesh_remesh(tmp, dev)
+    part_s["d"] = time.perf_counter() - t0
+    out["s"] = part_s
+    out["coordinate"] = mesh.coordinate
+    if dev == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+class MemoryPoll:
+    """The card's memory in use (nvidia-smi), sampled on a thread every
+    half second until ``stop``, which returns the largest sample (MiB)."""
+
+    def __init__(self):
+        import threading
+        self.samples: list = []
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._done.wait(0.5):
+            got = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=30)
+            if got.returncode == 0:
+                self.samples.append(int(got.stdout.split()[0]))
+
+    def stop(self) -> int:
+        self._done.set()
+        self._thread.join()
+        return max(self.samples, default=0)
+
+
+def check_mesh_compressed(tmp: str, ranks: list) -> dict:
+    """3m (c) in the parent: each data column's reduced tree equals, bit
+    for bit, the sum of its ranks' int8 codes times their mean scale,
+    the mean taken to one f32 ulp (the ranks' all_reduce adds the scales
+    in an order of its own); every rank of a column holds the same bits;
+    each residual was xf - q * scale bit for bit."""
+    cols = MESH_SHAPE[1]
+    off = {}
+    for k in sorted(MESH_COMPRESSED):
+        for col in range(cols):
+            members = [r for r in range(MESH_WORLD) if r % cols == col]
+            codes = sum(np.load(os.path.join(tmp, f"q{r}_{k}.npy"))
+                        .astype(np.int32) for r in members)
+            scales = np.float32(0.0)
+            for r in members:
+                scales = np.float32(
+                    scales + np.float32(ranks[r]["compressed"]["leaves"][k]
+                                        ["scale"]))
+            mean = scales / np.float32(len(members))
+            got = np.load(os.path.join(tmp, f"red{col}_{k}.npy"))
+            fits = [step for step, m in (
+                (0, mean), (-1, np.nextafter(mean, np.float32(0))),
+                (1, np.nextafter(mean, np.float32(np.inf))))
+                if np.array_equal(got, codes.astype(np.float32) * m)]
+            check(bool(fits), f"3m (c): leaf {k} column {col} is not its "
+                              f"codes times the mean scale")
+            off[f"{k}{col}"] = fits[0]
+            shas = {ranks[r]["compressed"]["leaves"][k]["sha"]
+                    for r in members}
+            check(len(shas) == 1, f"3m (c): column {col} of leaf {k} holds "
+                                  f"{len(shas)} different results")
+    check(all(leaf["residual_bits"] for r in ranks
+              for leaf in r["compressed"]["leaves"].values()),
+          "3m (c): a residual is not xf - q * scale bit for bit")
+    return {"mean_scale_ulps": off,
+            "ms": [r["compressed"]["ms"] for r in ranks]}
+
+
+def check_mesh_ranks(ranks: list, dev: str) -> dict:
+    """3m (a), (b), (d) on the gathered results: the norms, the B1
+    counters, the plan keys, the remesh."""
+    norm64 = ranks[0]["norm64"]
+    check(all(r["norm64"] == norm64 for r in ranks),
+          "3m: the ranks' f64 norms differ")
+    rows = {}
+    allowed = tuple(f"|mesh:{sig}" for sig in
+                    ("data4.model2", "data4", "model2"))
+    for method in MESH_METHODS:
+        values = {r["methods"][method]["value"] for r in ranks}
+        check(len(values) == 1,
+              f"3m (a): {method}: the ranks hold different norms {values}")
+        value = values.pop()
+        pct = abs(value - norm64) / norm64 * 100
+        check(pct <= MESH_NORM_PCT,
+              f"3m (a): {method}'s norm {value} is {pct:.3g} % off the f64 "
+              f"norm {norm64}")
+        b1 = [r["methods"][method]["b1"] for r in ranks]
+        if method == "pallas" and dev == "cuda":
+            check(all(c > 0 for c in b1),
+                  f"3m (a): B1 did not launch on every rank: {b1}")
+        r0 = ranks[0]["methods"][method]
+        rows[method] = {"value": value, "pct": pct, "b1_launches": b1,
+                        "host_ms": r0["host_ms"],
+                        "partials_ms": r0["partials_ms"],
+                        "fold_ms": r0["fold_ms"]}
+    gspmd = [r["gspmd_pallas"] for r in ranks]
+    pct = abs(gspmd[0]["value"] - norm64) / norm64 * 100
+    check(len({g["value"] for g in gspmd}) == 1 and pct <= MESH_NORM_PCT,
+          f"3m (a): pallas via gspmd: {gspmd}, {pct:.3g} % off the f64 norm")
+    if dev == "cuda":
+        check(all(g["b1"] > 0 for g in gspmd),
+              f"3m (a): pallas via gspmd: B1 did not launch on every rank: "
+              f"{[g['b1'] for g in gspmd]}")
+    rows["pallas/gspmd"] = {"value": gspmd[0]["value"], "pct": pct,
+                            "b1_launches": [g["b1"] for g in gspmd]}
+    keys = ranks[0]["methods"]["auto"]["keys"]
+    check(all(r["methods"]["auto"]["keys"] == keys for r in ranks),
+          "3m (a): the ranks resolved different auto plan keys")
+    check(keys == ranks[0]["expected_keys"],
+          f"3m (a): auto resolved {keys}, not one key a leaf "
+          f"{ranks[0]['expected_keys']}")
+    meshed = [k for k in keys if "|mesh:" in k]
+    check(meshed and all(k.endswith(allowed) for k in meshed),
+          f"3m (a): auto's mesh keys {meshed}")
+    rem = [r["remesh"] for r in ranks]
+    for rank, got in enumerate(rem):
+        inside = rank < MESH_REMESH_RANKS
+        check(got["inside"] == inside and got["shape"] == {"data": 2,
+                                                            "model": 2},
+              f"3m (d): rank {rank}'s remesh {got}")
+        check(got["dead_sigs"] == ["data4.model2"],
+              f"3m (d): rank {rank} dropped {got['dead_sigs']}")
+        check(not any("data4" in k for k in got["keys"]),
+              f"3m (d): rank {rank} kept {got['keys']}")
+        if inside:
+            pct = abs(got["value"] - got["want"]) / got["want"] * 100
+            check(pct <= MESH_NORM_PCT and any(
+                k.endswith("|mesh:data2.model2") for k in got["keys"]),
+                f"3m (d): rank {rank}: {pct:.3g} %, keys {got['keys']}")
+    return {"norm64": norm64, "methods": rows, "auto_keys": keys,
+            "psum_us": ranks[0]["psum_us"],
+            "remesh": {"dropped": rem[0]["dead"], "keys": rem[0]["keys"]},
+            "part_s": ranks[0]["s"], "leaves": ranks[0]["leaves"],
+            "local_values": [r["local_values"] for r in ranks],
+            "peak_gib": [r.get("peak_gib") for r in ranks]}
+
+
+def run_mesh_demo(dev: str) -> dict:
+    """3m (e): examples.reduce_demo's table on ``dev``; single-pass
+    within MESH_DEMO_PCT of the f64 sum of the bf16 input it reduced
+    (the table's errors are against the unrounded f64 input, whose bf16
+    rounding alone is ~5e-2 % on normal inputs), and the recurrence with
+    bf16 partials worse than single-pass on uniform inputs."""
+    from repro_torch.core import tc_reduce
+    from repro_torch.core.precision import normal_input, uniform_input
+    from repro_torch.examples import reduce_demo
+    errors = reduce_demo.main(device=dev)
+    worst = 0.0
+    for dist_name, gen in (("normal", normal_input),
+                           ("uniform", uniform_input)):
+        for n in reduce_demo.SIZES:
+            xb = torch.from_numpy(gen(n, seed=1)).to(dev, torch.float32) \
+                .to(torch.bfloat16)
+            want = float(xb.double().sum())
+            pct = abs(float(tc_reduce(xb)) - want) / abs(want) * 100
+            worst = max(worst, pct)
+            check(pct <= MESH_DEMO_PCT,
+                  f"3m (e): single-pass {dist_name} n={n} is {pct:.3g} % "
+                  f"off the bf16 input's f64 sum")
+    for n in reduce_demo.SIZES:
+        check(errors[("uniform", "recurrence/bf16(bf16 partials)", n)] >
+              errors[("uniform", "single_pass/bf16", n)],
+              f"3m (e): recurrence with bf16 partials is not worse than "
+              f"single-pass on uniform inputs at n={n}")
+    return {"single_pass_worst_pct": worst,
+            "table": {f"{d}/{c}/{n}": e for (d, c, n), e in errors.items()}}
+
+
+def run_mesh(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
+    """Phase 3m (see the module docstring): MESH_WORLD gloo ranks on the
+    card, started after phase 1 built the kernels, so that none builds
+    them."""
+    import tempfile
+    from repro_torch.launch import mesh as launch_mesh
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        poll = MemoryPoll()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        try:
+            ranks = launch_mesh.run_ranks(mesh_rank, MESH_WORLD,
+                                          backend="gloo",
+                                          args=(tmp, dev, smoke),
+                                          timeout=MESH_TIMEOUT)
+        finally:
+            peak_mib = poll.stop() if dev == "cuda" else None
+        ranks_s = time.perf_counter() - t0
+        out = check_mesh_ranks(ranks, dev)
+        out["compressed"] = check_mesh_compressed(tmp, ranks)
+    out["demo"] = run_mesh_demo(dev)
+    steps = {axis: us / math.log2(MESH_SHAPE[i])
+             for i, (axis, us) in enumerate(out["psum_us"].items())}
+    out.update(card=smi, ranks_s=ranks_s, s=time.perf_counter() - t0,
+               psum_step_us=steps, card_peak_mib=peak_mib,
+               parent_gib=held if dev == "cuda" else None,
+               note=f"{MESH_WORLD} ranks share one card's SMs by time "
+                    f"slicing: not the times of {MESH_WORLD} cards")
+    print(f"phase 3m: {json.dumps({k: v for k, v in out.items() if k != 'demo'})}",
+          flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -5093,6 +5595,10 @@ def main() -> int:
     training = run_training(registry, model_zoo,
                             {"b1": mr, "kernels": (mrn, mnm, ma)}, smi)
 
+    print(f"phase 3m: the mesh collectives on {MESH_WORLD} ranks over "
+          f"{MESH_ARCH}'s full parameter tree", flush=True)
+    mesh_out = run_mesh(smi)
+
     print("phase 6: the cost model against measured times (f32, bf16, "
           "fp16)", flush=True)
     t0 = time.perf_counter()
@@ -5150,7 +5656,7 @@ def main() -> int:
                    "b9_decode_ptxas": dc_ptxas,
                    "model_smoke": model_rows, "model_full": model_full,
                    "auto_f32_decode": auto_f32, "serving": serving,
-                   "training": training,
+                   "training": training, "mesh": mesh_out,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

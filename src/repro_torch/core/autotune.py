@@ -19,9 +19,14 @@ families.
     ``SweepWorker`` attached to a registry upgrades the model-cost plans
     ``get_plan`` serves to measured ones on a background thread.
 
-Mesh-keyed plans keep their key grammar (``|mesh:``) so stored tables
-round-trip, but tuning one waits for the distributed slice of the port:
-``autotune`` refuses a multi-device mesh.
+Plans are mesh-aware, as in the reference: under a mesh of more than one
+rank the key carries its signature (``|mesh:data4.model2``), and the
+sweep tunes the local shard of the global problem, adding the constant
+cost of the cross-rank combine (``combine_model_cost``).  A measured mesh
+sweep runs on every rank of a live mesh (``compat.make_mesh``) that the
+ranks pass together, never on a background ``SweepWorker``, and decides
+each candidate by its largest time over the ranks, so that every rank
+records the same plan.
 """
 
 from __future__ import annotations
@@ -107,6 +112,19 @@ _B7_GROUP_US = 2.52e-5
 # µs per element the vpu engine's float atomics add beyond its memory
 # traffic (contention on S addresses):
 _SEG_ATOMIC_US = 1.96e-4
+
+# The cross-rank combine: one f32 scalar all_reduce per mesh axis above
+# size 1, charged per step of a tree of depth log2(size).  It is the
+# same for every candidate of a sweep, so it ranks nothing; it makes a
+# mesh plan's recorded cost the whole.  µs a step of a scalar
+# all_reduce over a fast axis: chip_smoke.py phase 3m times one over
+# each axis of eight gloo ranks on one H100 80GB HBM3 (700 W), whose
+# tensors cross the host, and prints the fit: 651-2195 µs over four
+# runs (the host's load moves it).
+_PSUM_STEP_US = 1500.0
+# The slow pod axis crosses the data-centre network, which no run on one
+# card reaches: not measured.  Charged at four fast steps a step.
+_PSUM_STEP_US_SLOW = 4 * _PSUM_STEP_US
 
 # µs of host time one call of a scan engine costs (Python, allocations,
 # launches), whatever n is.  Calls queue on the card, so the host's time
@@ -261,6 +279,12 @@ def mesh_signature(mesh: MeshArg) -> str:
     if axes is None:
         return ""
     return ".".join(f"{n}{s}" for n, s in axes)
+
+
+def mesh_device_count(mesh: MeshArg) -> int:
+    """Ranks of the mesh: 1 for a single device."""
+    axes = mesh_axes(mesh)
+    return 1 if axes is None else math.prod(s for _, s in axes)
 
 
 def _mesh_tag(mesh: MeshArg) -> str:
@@ -1095,6 +1119,75 @@ def _measure_problem(op: str, n: int, dtype, seed: int, device: str,
     return x.to(device).to(as_dtype(dtype)), kwargs
 
 
+def combine_model_cost(mesh: MeshArg) -> float:
+    """µs of the cross-rank scalar combine: one term per mesh axis above
+    size 1, growing with log2 of its size, dearer on a slow axis
+    (``distributed.collectives.SLOW_AXES``); 0 without a mesh.  The fast
+    step is measured (gloo ranks sharing one card, see
+    ``_PSUM_STEP_US``); the slow axis's factor is not, so a plan's cost
+    over a ``pod`` axis holds an unmeasured term."""
+    from repro_torch.distributed.collectives import SLOW_AXES
+    axes = mesh_axes(mesh)
+    if axes is None:
+        return 0.0
+    return sum((_PSUM_STEP_US_SLOW if name in SLOW_AXES else _PSUM_STEP_US)
+               * math.log2(size) for name, size in axes if size > 1)
+
+
+def _measure_mesh(mesh: MeshArg):
+    """The live mesh a measured mesh sweep runs on: ``mesh`` itself,
+    which every rank of it passes.  A signature or a tuple names no
+    ranks and is refused: building a mesh here would start collectives
+    (``new_group``) that the other ranks do not match."""
+    from repro_torch import compat
+    if isinstance(mesh, compat.Mesh):
+        return mesh
+    raise ValueError(
+        f"cannot measure mesh {mesh_signature(mesh_axes(mesh))!r} plans "
+        f"without a live mesh that every rank passes (compat.make_mesh); "
+        f"use the analytical model (measure=False) or tune on the target "
+        f"mesh")
+
+
+def _mesh_max(value: float, mesh, device) -> float:
+    """The largest ``value`` over the ranks of ``mesh``."""
+    import torch.distributed as dist
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    for name in mesh.axis_names:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(name))
+    return float(t)
+
+
+def _sharded_executor(plan: ReductionPlan, op: str, mesh, x, kwargs: dict):
+    """The timed callable of a mesh-keyed measured sweep: every operand
+    with x's leading dimension split over all the mesh's axes, this
+    rank's block through ``execute_plan``, then the fast-before-slow
+    scalar combine: the structure ``distributed.tc_collectives`` runs."""
+    from repro_torch import compat
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import P
+    names = mesh.axis_names
+    if x.shape[0] % mesh_device_count(mesh):
+        raise ValueError(
+            f"measured-sweep problem of leading dim {x.shape[0]} does not "
+            f"shard over {mesh_device_count(mesh)} ranks")
+    arr_keys = tuple(k for k, v in kwargs.items()
+                     if isinstance(v, torch.Tensor) and v.ndim >= 1
+                     and v.shape[0] == x.shape[0])
+    static = {k: v for k, v in kwargs.items() if k not in arr_keys}
+
+    def body(xl, *arrs):
+        partial = execute_plan(xl, plan, op=op, **static,
+                               **dict(zip(arr_keys, arrs)))
+        return coll.mesh_psum(partial, names, mesh=mesh)
+
+    f = compat.shard_map(body, mesh=mesh,
+                         in_specs=(P(names),) * (1 + len(arr_keys)),
+                         out_specs=P())
+    extras = tuple(kwargs[k] for k in arr_keys)
+    return lambda v: f(v, *extras)
+
+
 def measure_cost(plan: ReductionPlan, n: int, dtype, *, iters: int = 5,
                  warmup: int = 2, seed: int = 0,
                  op: str = "reduce_sum", mesh: MeshArg = None,
@@ -1103,10 +1196,11 @@ def measure_cost(plan: ReductionPlan, n: int, dtype, *, iters: int = 5,
                  form: tuple = ()) -> float:
     """Microseconds for one plan on ``backend`` (default: the card when
     present): CUDA events around ``iters`` runs on the card, the host
-    clock on the CPU.  Measuring for a backend this host lacks raises."""
-    if mesh_axes(mesh) is not None:
-        raise NotImplementedError(
-            "mesh-keyed plans are tuned in the distributed slice")
+    clock on the CPU.  Measuring for a backend this host lacks raises.
+    With ``mesh`` (a live mesh, passed by every rank of it) the size-n
+    problem is global: each rank times its block and the scalar combine
+    (host clock), and every rank returns the largest time over the
+    ranks."""
     backend = backend or default_backend()
     if backend not in _live_backends():
         raise ValueError(f"cannot measure for backend {backend!r} on "
@@ -1114,21 +1208,32 @@ def measure_cost(plan: ReductionPlan, n: int, dtype, *, iters: int = 5,
     x, kwargs = _measure_problem(op, n, dtype, seed, backend, form)
     if policy is not None:
         kwargs = dict(kwargs, policy=policy)
+    live = None
+    if mesh_axes(mesh) is None:
+        fn = lambda v: execute_plan(v, plan, op=op, **kwargs)  # noqa: E731
+    else:
+        live = _measure_mesh(mesh)
+        fn = _sharded_executor(plan, op, live, x, kwargs)
     for _ in range(warmup):
-        execute_plan(x, plan, op=op, **kwargs)
-    if backend == "cuda":
+        fn(x)
+    if backend == "cuda" and live is None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            execute_plan(x, plan, op=op, **kwargs)
+            fn(x)
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters * 1e3
+    if backend == "cuda":
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        execute_plan(x, plan, op=op, **kwargs)
-    return (time.perf_counter() - t0) / iters * 1e6
+        fn(x)
+    if backend == "cuda":
+        torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    return us if live is None else _mesh_max(us, live, backend)
 
 
 def execute_plan(x, plan: ReductionPlan, *, op: str = "reduce_sum",
@@ -1385,37 +1490,54 @@ def autotune(n: int, dtype, *, op: str = "reduce_sum",
     ``objective`` makes it the most accurate candidate within the SLO
     (the fastest eligible one when none meets it) — the reference's
     selection rules.
+
+    With ``mesh`` the size-n problem is global and the sweep tunes the
+    local shard: candidates are enumerated and modelled at the shard's
+    bucket (plus ``combine_model_cost``), or timed on ``mesh`` (then a
+    live mesh that every rank of it passes) at the bucket rounded up to
+    a multiple of the rank count, so that every shard is whole.  Every
+    engine is legal there: the shard is a local tensor.
     """
-    if mesh_axes(mesh) is not None:
-        raise NotImplementedError(
-            "mesh-keyed plans are tuned in the distributed slice")
+    axes = mesh_axes(mesh)
     objective = as_objective(objective)
     nb = bucket_cap(n, bucket)
+    need = mesh_device_count(axes)
+    local = max(math.ceil(nb / need), 1)
+    local_nb = nb if axes is None else bucket_cap(local, bucket)
+    measure_nb = nb if axes is None else local * need
+    combine = combine_model_cost(axes)
+    live = None
+    if measure and axes is not None:
+        live = _measure_mesh(mesh)
     budget = None if policy is None else policy.error_budget_pct
     want_err = budget is not None or objective is not None
     best = fastest = fallback = None
-    for cand in candidate_plans(nb, dtype, chains=chains, blocks=blocks,
-                                m=m, engine=engine, op=op,
+    for cand in candidate_plans(local_nb, dtype, chains=chains,
+                                blocks=blocks, m=m, engine=engine, op=op,
                                 policy=policy):
         if cancel is not None and cancel():
             raise SweepCancelled(
                 f"autotune sweep for op={op!r} n={n} cancelled")
         if measure:
-            cost = measure_cost(cand, nb, dtype, iters=iters, op=op,
-                                policy=policy, backend=backend, form=form)
+            cost = measure_cost(cand, measure_nb, dtype, iters=iters, op=op,
+                                mesh=live, policy=policy, backend=backend,
+                                form=form)
             cand = dataclasses.replace(cand, source="measured", cost=cost)
         else:
-            cost = model_cost(cand, nb, dtype, op=op, form=form)
+            cost = model_cost(cand, local_nb, dtype, op=op,
+                              form=form) + combine
             cand = dataclasses.replace(cand, source="model", cost=cost)
         if objective is not None:
             cand = dataclasses.replace(
                 cand, latency_ms=cost * _MODEL_UNIT_US / 1e3)
         if want_err:
-            err = (measured_percent_error(cand, nb, dtype, op=op,
+            err = (measured_percent_error(cand, local_nb, dtype, op=op,
                                           policy=policy, backend=backend)
                    if measure else
-                   model_percent_error(cand, nb, dtype, op=op,
+                   model_percent_error(cand, local_nb, dtype, op=op,
                                        form=form))
+            if live is not None:
+                err = _mesh_max(err, live, backend or default_backend())
             cand = dataclasses.replace(cand, error_pct=err)
             if fallback is None or err < fallback.error_pct:
                 fallback = cand
@@ -1553,8 +1675,10 @@ class SweepWorker:
     def submit(self, key: str, spec: dict) -> bool:
         """Queue ``key`` for a measured upgrade (non-blocking; a key in
         flight is not queued twice).  ``spec`` holds the ``autotune``
-        arguments of the model plan.  Returns whether it was queued."""
-        if self._stop.is_set():
+        arguments of the model plan.  Returns whether it was queued.  A
+        mesh key (``|mesh:``) is not: its sweep is collective, every
+        rank of the mesh at once, which one rank's thread cannot run."""
+        if self._stop.is_set() or "|mesh:" in key:
             return False
         with self._mu:
             if key in self._inflight:

@@ -67,6 +67,7 @@ import torch
 
 from repro_torch.core.precision import (ACCUM_DTYPE, MmaPolicy, as_dtype,
                                         as_policy, dtype_name)
+from repro_torch.distributed import sharding as shd
 
 
 def default_device(device=None):
@@ -134,9 +135,15 @@ class DispatchContext:
 
 
 def _live_mesh_axes() -> Optional[tuple]:
-    """The ambient multi-device mesh: None on one card (the port's
-    distributed slice will read its process group here)."""
-    return None
+    """((name, size), ...) of the ambient mesh of more than one rank
+    (``distributed.sharding.current_mesh``), or None: a one-rank mesh is
+    no mesh to dispatch (every engine is legal, plans carry no mesh
+    signature)."""
+    mesh = shd.current_mesh()
+    if mesh is None:
+        return None
+    from repro_torch.core import autotune
+    return autotune.mesh_axes(mesh)
 
 
 # -------------------------------------------------------------- engines
@@ -322,6 +329,44 @@ def known_method(op: str, method: str) -> bool:
     """Does ``method`` spell an engine (or alias, or ``'auto'``) the op
     declares, whatever its capabilities?"""
     return method == "auto" or op_spec(op).engine(method) is not None
+
+
+def local_plan(op: str, n: int, dtype, method: str = "auto", *,
+               mesh=None, chain: int = 4, precision=None,
+               objective=None, bucket: str = "pow2",
+               backend: Optional[str] = None):
+    """Resolve a method spelling to a plan for a size-n problem without
+    running it: how the mesh collectives
+    (``repro_torch.distributed.tc_collectives``) pick each rank's
+    partial engine.
+
+    ``'auto'`` consults the plan registry (mesh-keyed when ``mesh`` is
+    given: tuned for the local shard of the global problem; keyed by the
+    policy, the objective and the ``bucket`` policy as ``dispatch``
+    keys them); an explicit spelling resolves through the op's aliases
+    to a one-engine plan with the hooks' default ``chain`` (and the
+    policy's split words), and an engine the op does not declare raises
+    as ``dispatch`` does.  Capabilities are checked when the plan runs
+    (``execute``, which skips the multi-device predicate: the shard is
+    local there).
+    """
+    from repro_torch.core import autotune
+    spec = op_spec(op)
+    policy = as_policy(precision)
+    if method == "auto":
+        return autotune.get_plan(n, dtype, op=op, mesh=mesh, policy=policy,
+                                 objective=objective, bucket=bucket,
+                                 backend=backend)
+    eng = spec.engine(method)
+    if eng is None:
+        raise _unknown_method(spec, method)
+    reason = _policy_reason(eng, policy)
+    if reason is not None:
+        raise ValueError(
+            f"engine {eng.name!r} cannot serve op {op!r} under this "
+            f"precision policy: {reason}")
+    return autotune.ReductionPlan(method=eng.name, chain=chain,
+                                  **_plan_words(policy))
 
 
 def _plan_words(policy: Optional[MmaPolicy]) -> dict:

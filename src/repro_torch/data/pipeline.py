@@ -11,7 +11,7 @@ from a mask with ``integration.masked_cumsum``.  ``synthetic_requests``
 is numpy only and yields the reference's requests value for value.
 
 Batches go to one device (the card unless the caller names another); a
-mesh sharding is ROADMAP item 14 and is refused.
+mesh sharding is ROADMAP item 14b and is refused.
 """
 
 from __future__ import annotations
@@ -148,8 +148,8 @@ class SyntheticLMData:
                  with_positions: bool = False, device=None):
         if sharding is not None:
             raise NotImplementedError(
-                "repro_torch runs on one card: a sharded batch is ROADMAP "
-                "item 14 (distributed); pass sharding=None")
+                "a sharded batch is ROADMAP item 14b (distributed: the "
+                "model over a mesh); pass sharding=None")
         self.cfg = cfg
         self.shape = shape_cfg
         self.seed = seed

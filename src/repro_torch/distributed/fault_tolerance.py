@@ -1,29 +1,34 @@
-"""Checkpoint / restart around the training loop, one card's part — the
-counterpart of ``repro.distributed.fault_tolerance``.
+"""Fault tolerance and elasticity — the counterpart of
+``repro.distributed.fault_tolerance``.
 
-The reference's recovery contract, as far as one card reaches:
+The reference's recovery contract:
 
   1. every ``save_every`` steps a step-atomic checkpoint of the train
      state (``checkpoint.manager``, the reference's layout);
-  2. the data pipeline is stateless in the step
+  2. on the loss of ranks, ``remesh`` folds the survivors into the
+     largest valid (data, model) mesh: the model axis is kept (its
+     degree is a property of the program), data is the elastic axis;
+  3. the data pipeline is stateless in the step
      (``data.pipeline.SyntheticLMData.batch_at``), so a restored step
      continues with the same batches: resumed == uninterrupted, bit for
      bit;
-  3. ``reassign`` is the deterministic shard -> worker map after a
+  4. ``reassign`` is the deterministic shard -> worker map after a
      re-mesh (the reference's numpy ``SeedSequence``, the same bits);
-  4. ``replan_after_remesh`` drops autotuned plans keyed to a mesh
-     geometry other than the new one.
+  5. ``replan_after_remesh`` (``TrainSupervisor.on_remesh``) drops
+     autotuned plans keyed to a mesh geometry other than the new one,
+     so the next ``method='auto'`` call tunes the survivors' shards.
 
-``remesh`` (folding surviving devices into a new mesh) is ROADMAP item
-14: on one card there is no mesh to fold, and a mesh of more than one
-device raises there.
+A device of the reference is a rank of the port: ``remesh`` lays out
+ranks of the live process group, and every rank of the world builds the
+mesh (``torch.distributed.new_group`` is collective); ranks left out of
+it idle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -32,24 +37,63 @@ from repro_torch.checkpoint import manager as ckpt
 log = logging.getLogger(__name__)
 
 
+def _remesh_layout(ranks: Sequence[int], model_parallel: int,
+                   pod_size: Optional[int]) -> tuple:
+    """(array of ranks shaped by the axes, axis names) of the largest
+    mesh over ``ranks`` with a model axis of ``model_parallel``."""
+    ranks = list(ranks)
+    n = len(ranks) - len(ranks) % model_parallel
+    ranks = ranks[:n]
+    if n == 0:
+        raise RuntimeError("no usable devices for remesh")
+    data = n // model_parallel
+    # A pod smaller than (or not a multiple of) the model group cannot
+    # hold a whole model group: the pod axis is dropped.
+    if pod_size and pod_size % model_parallel == 0 and \
+            data % (pod_size // model_parallel) == 0 and \
+            n % pod_size == 0:
+        arr = np.array(ranks).reshape(n // pod_size,
+                                      pod_size // model_parallel,
+                                      model_parallel)
+        return arr, ("pod", "data", "model")
+    return np.array(ranks).reshape(data, model_parallel), ("data", "model")
+
+
+def remesh(devices: Optional[Sequence[int]] = None, *, model_parallel: int,
+           pod_size: Optional[int] = None, device=None):
+    """The largest mesh over the surviving ranks ``devices`` (default:
+    every rank of the world) with a fixed model axis.
+
+    data' = floor(n / model); a ragged survivor count truncates to whole
+    model groups.  If ``pod_size`` tiles the survivors, a leading 'pod'
+    axis is kept; degenerate pod geometries fall back to the flat
+    (data, model) mesh.  Every rank of the world must call it."""
+    import torch.distributed as dist
+    from repro_torch import compat
+    if devices is None:
+        devices = range(dist.get_world_size())
+    arr, names = _remesh_layout(devices, model_parallel, pod_size)
+    return compat.make_mesh(arr.shape, names, ranks=arr.ravel(),
+                            device=device)
+
+
 def replan_after_remesh(mesh, *, registry=None) -> tuple:
     """Invalidate autotuned plans keyed to any mesh geometry other than
-    ``mesh``'s (None or a one-device mesh: every ``|mesh:`` plan).
+    ``mesh``'s (a mesh, a signature string or a tuple of (name, size);
+    None or a one-rank mesh: every ``|mesh:`` plan) — call it with the
+    mesh ``remesh`` returned.  Plans for the new signature are kept.
     Returns the invalidated keys."""
     from repro_torch.core import autotune
     reg = registry if registry is not None else \
         autotune.default_registry()
     keep = autotune.mesh_signature(mesh)
-    if keep:
-        raise NotImplementedError(
-            f"repro_torch runs on one card: a remesh onto {keep!r} is "
-            f"ROADMAP item 14 (distributed)")
     dead: list = []
     for sig in reg.mesh_signatures():
-        dead.extend(reg.invalidate_mesh(sig))
+        if sig != keep:
+            dead.extend(reg.invalidate_mesh(sig))
     if dead:
-        log.info("remesh to <single-device> invalidated %d stale mesh "
-                 "plan(s)", len(dead))
+        log.info("remesh to %s invalidated %d stale mesh plan(s)",
+                 keep or "<single-device>", len(dead))
     return tuple(dead)
 
 

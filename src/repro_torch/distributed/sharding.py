@@ -1,21 +1,34 @@
-"""Logical-axis sharding, the one-device part — the counterpart of
-``repro.distributed.sharding`` that the model layers need.
+"""Logical-axis sharding — the counterpart of
+``repro.distributed.sharding``: MaxText-style rules mapping logical
+tensor axes ("embed", "heads", "experts", ...) onto mesh axes ("pod",
+"data", "model"), with the same divisibility fallback.
 
-Model code annotates parameters and activations with logical axes
-("batch", "embed", "mlp", ...).  A context carries (mesh, rules); with no
-mesh every constraint is the identity, which is all a single card needs.
-Placing tensors on a mesh is ROADMAP item 14: until then a mesh that is
-not None is refused, never accepted and ignored.
+Models annotate parameters and activations with logical axes.  A context
+carries (mesh, rules); with no mesh every constraint is the identity.
+
+The reference holds one global ``jax.Array`` and lets ``NamedSharding``
+place it.  In the port each rank is a process that holds only its shard:
+``NamedSharding.shard`` cuts a tensor every rank holds whole (the global
+array) to this rank's block, and ``NamedSharding.distribute`` wraps that
+block in a ``torch.distributed.tensor.DTensor`` (made with
+``DTensor.from_local``, which communicates nothing), the form in which a
+sharded tensor reaches the collectives.  A dimension split over several
+mesh axes takes them major to minor in the order the spec names them, as
+the reference's ``PartitionSpec`` does.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Optional, Sequence
 
+import torch
+
 # Logical axis -> preference-ordered candidate mesh axes (the reference's
-# table, copied).
+# table, copied).  The first candidate that (a) exists in the mesh and
+# (b) divides the dimension wins.
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     # activations
     "batch": ("pod", "data"),
@@ -42,6 +55,122 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
 }
 
 
+class PartitionSpec(tuple):
+    """One entry per dimension: None (replicated), a mesh axis name, or a
+    tuple of names (split over their product, the first the major one).
+    A tuple, as the reference's ``jax.sharding.PartitionSpec`` is;
+    dimensions past its length are replicated."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec splits over, in the order it names them."""
+    return tuple(a for entry in spec for a in _names(entry))
+
+
+def _block(mesh, names: tuple) -> tuple:
+    """(this rank's block index, block count) of a dimension split over
+    ``names``: row-major over their coordinates, the first name major."""
+    coord = mesh.coordinate
+    if coord is None:
+        raise ValueError(f"this rank is not in the mesh {mesh.shape}")
+    idx, count = 0, 1
+    for a in names:
+        idx = idx * mesh.shape[a] + coord[a]
+        count *= mesh.shape[a]
+    return idx, count
+
+
+def local_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of a tensor every rank holds whole (a view)."""
+    if len(spec) > x.ndim:
+        raise ValueError(f"spec {spec} has more entries than the "
+                         f"{x.ndim}-d tensor it cuts")
+    for dim, entry in enumerate(spec):
+        names = _names(entry)
+        if not names:
+            continue
+        idx, count = _block(mesh, names)
+        if x.shape[dim] % count:
+            raise ValueError(f"dimension {dim} of size {x.shape[dim]} does "
+                             f"not split over {names} ({count} blocks)")
+        size = x.shape[dim] // count
+        x = x.narrow(dim, idx * size, size)
+    return x
+
+
+def gather_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The inverse of ``local_shard``: every rank's block put back in
+    place.  Each rank writes its block into zeros of the whole shape and
+    one ``all_reduce`` a named axis adds the blocks (a block meets only
+    zeros, so the sum is exact); ``all_reduce`` is the one collective
+    the layer asks of its backend."""
+    import torch.distributed as dist
+    for dim, entry in reversed(list(enumerate(spec))):
+        names = _names(entry)
+        if not names:
+            continue
+        idx, count = _block(mesh, names)
+        shape = list(x.shape)
+        shape[dim] *= count
+        full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        full.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
+        for a in names:
+            dist.all_reduce(full, group=mesh.get_group(a))
+        x = full
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec over a mesh (the reference's ``NamedSharding``)."""
+    mesh: object
+    spec: PartitionSpec
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``x``, which every rank holds whole."""
+        return local_shard(x, self.spec, self.mesh)
+
+    def placements(self) -> tuple:
+        """The ``DTensor`` placements of the spec, one per mesh axis."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = {a: Replicate() for a in self.mesh.axis_names}
+        for dim, entry in enumerate(self.spec):
+            names = _names(entry)
+            order = [self.mesh.axis_names.index(a) for a in names]
+            if order != sorted(order):
+                raise ValueError(
+                    f"spec entry {entry} names its axes out of mesh order "
+                    f"{self.mesh.axis_names}: a DTensor splits a "
+                    f"dimension major to minor in mesh order")
+            for a in names:
+                out[a] = Shard(dim)
+        return tuple(out[a] for a in self.mesh.axis_names)
+
+    def distribute(self, x: torch.Tensor, *, copy: bool = True):
+        """A ``DTensor`` of the global ``x`` holding this rank's block
+        (a copy by default, so ``x`` can be freed)."""
+        from torch.distributed.tensor import DTensor
+        local = self.shard(x)
+        local = local.clone() if copy else local.contiguous()
+        return DTensor.from_local(local, self.mesh.device_mesh,
+                                  self.placements(), run_check=False)
+
+
 class _Ctx(threading.local):
     def __init__(self):
         self.mesh = None
@@ -52,17 +181,16 @@ _CTX = _Ctx()
 
 
 def _refuse_mesh(mesh) -> None:
+    """Running the model over a mesh is ROADMAP item 14b."""
     if mesh is not None:
         raise NotImplementedError(
-            "repro_torch runs on one card: sharding over a mesh is "
-            "ROADMAP item 14 (distributed); pass mesh=None")
+            "running the model over a mesh is ROADMAP item 14b "
+            "(distributed: the model over a mesh); pass mesh=None")
 
 
 @contextlib.contextmanager
 def axis_rules(mesh, rules: Optional[dict] = None):
-    """Install (mesh, rules) for model code executed inside.  Only
-    ``mesh=None`` is served."""
-    _refuse_mesh(mesh)
+    """Install (mesh, rules) for code executed inside."""
     old_mesh, old_rules = _CTX.mesh, _CTX.rules
     _CTX.mesh = mesh
     _CTX.rules = dict(DEFAULT_RULES if rules is None else rules)
@@ -73,12 +201,96 @@ def axis_rules(mesh, rules: Optional[dict] = None):
 
 
 def current_mesh():
-    """The installed mesh: always None on one card."""
+    """The installed mesh, or None."""
     return _CTX.mesh
 
 
+def spec_for(shape: Sequence[int], logical_axes: Sequence[Optional[str]],
+             mesh=None, rules: Optional[dict] = None) -> PartitionSpec:
+    """PartitionSpec for a concrete shape given logical axis names.
+
+    A mesh axis is used at most once per spec and only when it divides
+    the dimension; multi-candidate rules take every candidate that fits
+    (batch -> ('pod', 'data'))."""
+    mesh = mesh or _CTX.mesh
+    rules = rules or _CTX.rules
+    if mesh is None:
+        return P()
+    if len(shape) != len(logical_axes):
+        raise ValueError(f"shape {tuple(shape)} and logical axes "
+                         f"{tuple(logical_axes)} differ in length")
+    used: set[str] = set()
+    parts = []
+    for dim, name in zip(shape, logical_axes):
+        if name is None:
+            parts.append(None)
+            continue
+        chosen: list[str] = []
+        remaining = dim
+        for ax in rules.get(name, ()):
+            if ax in used or ax not in mesh.shape:
+                continue
+            if remaining % mesh.shape[ax] == 0:
+                chosen.append(ax)
+                used.add(ax)
+                remaining //= mesh.shape[ax]
+        if not chosen:
+            parts.append(None)
+        elif len(chosen) == 1:
+            parts.append(chosen[0])
+        else:
+            parts.append(tuple(chosen))
+    return P(*parts)
+
+
+def sharding_for(shape, logical_axes, mesh=None, rules=None):
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, spec_for(shape, logical_axes, mesh, rules))
+
+
 def constrain(x, logical_axes: Sequence[Optional[str]]):
-    """A sharding constraint by logical axes: the identity without a
-    mesh."""
-    _refuse_mesh(_CTX.mesh)
-    return x
+    """Lay ``x`` out by its logical axes over the installed mesh: the
+    identity without one.  Under a mesh a tensor every rank holds whole
+    becomes a ``DTensor`` of this rank's block; a ``DTensor`` is checked
+    against the spec and returned as it is."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    sharding = NamedSharding(mesh, spec_for(x.shape, logical_axes, mesh))
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        if tuple(x.placements) != sharding.placements():
+            raise ValueError(
+                f"a DTensor placed {tuple(x.placements)} does not meet "
+                f"the spec {sharding.spec} of axes {tuple(logical_axes)}")
+        return x
+    return sharding.distribute(x, copy=False)
+
+
+def _tree_map2(fn, tree, other):
+    """``fn(leaf, other's subtree at the leaf)`` over ``tree``'s nested
+    dicts, lists and tuples (``other`` mirrors it down to the leaves)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map2(fn, tree[k], other[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map2(fn, t, o) for t, o in zip(tree, other))
+    return fn(tree, other)
+
+
+def tree_shardings(shape_tree, axes_tree, mesh=None, rules=None):
+    """(tree of leaves with ``.shape``, tree of axis tuples) -> tree of
+    ``NamedSharding`` (of None without a mesh)."""
+    mesh = mesh or _CTX.mesh
+    return _tree_map2(
+        lambda leaf, axes: sharding_for(leaf.shape, axes, mesh, rules),
+        shape_tree, axes_tree)
+
+
+def data_axis_names(mesh=None) -> tuple[str, ...]:
+    """Mesh axes that carry the batch (for psum of grads / metrics)."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return ()
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)

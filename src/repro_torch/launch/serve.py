@@ -21,8 +21,8 @@ for its logits shape.
 
 Nothing is traced or compiled: each call runs the model eagerly where
 its parameters lie.  ``ContinuousServer`` keeps its store on ``device``
-(the card unless the caller names another).  A mesh is ROADMAP item 14
-and is refused.
+(the card unless the caller names another).  A mesh is ROADMAP item
+14b and is refused.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ supervisor, metrics.
 
 Everything runs on one card (``device``, the card unless the CPU is
 asked for); ``data_parallel`` / ``model_parallel`` > 1 is ROADMAP item
-14 (distributed) and raises.
+14b (the model over a mesh) and raises.
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20
 """
@@ -72,9 +72,9 @@ def _split_microbatches(batch, k: int) -> list:
 def _no_mesh(data_parallel: int = 1, model_parallel: int = 1) -> None:
     if data_parallel * model_parallel > 1:
         raise NotImplementedError(
-            f"repro_torch trains on one card: data_parallel="
-            f"{data_parallel}, model_parallel={model_parallel} is ROADMAP "
-            f"item 14 (distributed)")
+            f"data_parallel={data_parallel}, model_parallel="
+            f"{model_parallel} is ROADMAP item 14b (distributed: the "
+            f"model over a mesh)")
 
 
 def make_train_step(model, tconf: TrainConfig, mesh=None, *, device=None):

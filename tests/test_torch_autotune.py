@@ -198,8 +198,18 @@ def test_selection_rules(fresh_registries):
         for c in tat.candidate_plans(n, torch.float32))
     slo = tat.autotune(n, torch.float32, objective=1e3, backend="cpu")
     assert slo.latency_ms <= 1e3 and slo.error_pct is not None
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tat.autotune(n, torch.float32, mesh="data2")
+    # a mesh tunes the local shard: n / 2 elements a rank on data2, plus
+    # the combine's constant cost, as the reference does
+    shard = tat.autotune(n, torch.float32, mesh="data2", backend="cpu")
+    half = tat.autotune(n // 2, torch.float32, backend="cpu")
+    assert (shard.method, shard.chain, shard.block_rows) == \
+        (half.method, half.chain, half.block_rows)
+    assert shard.cost == pytest.approx(
+        half.cost + tat.combine_model_cost("data2"))
+    jshard = jat.autotune(n, jnp.float32, mesh="data2")
+    jhalf = jat.autotune(n // 2, jnp.float32)
+    assert (jshard.method, jshard.chain, jshard.block_rows) == \
+        (jhalf.method, jhalf.chain, jhalf.block_rows)
     with pytest.raises(ValueError, match="no reduction candidates"):
         tat.autotune(n, torch.float32, engine="fused_pallas")
 

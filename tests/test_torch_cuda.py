@@ -56,6 +56,8 @@ The training path: ``core.reduction._mm`` / ``_bmm``'s backward on
 step whose loss falls, the ``fused_pallas`` spellings refused in the
 forward pass before any kernel launches, and B1 launched once a leaf by
 ``clip_by_global_norm(method='pallas')`` within 5e-5 of the f64 norm.
+The mesh path: two gloo ranks on the card, ``tc_psum(method='pallas')``
+over a (data 2) mesh within 5e-3 % of the f64 sum, B1 on both ranks.
 """
 
 import importlib
@@ -1576,3 +1578,40 @@ def test_clip_norm_runs_b1_once_a_leaf_on_the_card(cuda):
     got = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
                                for g in _leaves(clipped))))
     assert abs(got - min(1.0, oracle)) <= 1e-4
+
+
+def _mesh2_rank() -> dict:
+    """One of two gloo ranks on the card: tc_psum under ``pallas`` over
+    a (data 2) mesh of a vector every rank draws whole from one seed,
+    under each via."""
+    import torch.distributed as dist
+    from repro_torch import compat
+    from repro_torch.distributed import tc_collectives as tcc
+    mesh = compat.make_mesh((2,), ("data",), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((1 << 22) + 6, generator=gen, device="cuda")
+    out = {"want": float(x.double().sum())}
+    for via in ("shard_map", "gspmd"):
+        mr.reset_launches()
+        got = float(tcc.tc_psum(x, mesh=mesh, method="pallas", via=via))
+        torch.cuda.synchronize()
+        out[via] = {"got": got, "b1": mr.LAUNCHES["b1_single_pass"]}
+    gathered = [None, None]
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+def test_tc_psum_over_two_ranks_on_the_card(cuda):
+    """Two ranks on one card (gloo carries the fold), under each via:
+    the sum within 5e-3 % of the f64 sum, the same on both, and B1
+    launched on each."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as launch_mesh
+    _build.build_all(["mma_reduce"])      # built once, before the ranks
+    ranks = launch_mesh.run_ranks(_mesh2_rank, 2, backend="gloo",
+                                  timeout=300)
+    for via in ("shard_map", "gspmd"):
+        assert ranks[0][via]["got"] == ranks[1][via]["got"]
+        for r in ranks:
+            assert abs(r[via]["got"] - r["want"]) <= 5e-5 * abs(r["want"]), r
+            assert r[via]["b1"] > 0, r

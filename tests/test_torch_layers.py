@@ -171,10 +171,15 @@ def test_constrain_without_a_mesh_is_the_identity():
 
 
 def test_axis_rules_with_a_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        with tshd.axis_rules(object()):
-            pass
+    """Meshes are served now: ``axis_rules`` installs one (and its
+    rules) for the code inside, and restores what was there."""
+    mesh = object()
+    rules = {"batch": ("data",)}
+    with tshd.axis_rules(mesh, rules):
+        assert tshd.current_mesh() is mesh
+        assert tshd._CTX.rules == rules
     assert tshd.current_mesh() is None
+    assert tshd._CTX.rules == tshd.DEFAULT_RULES
 
 
 # ---------------------------------------------------------- norms

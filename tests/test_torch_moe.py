@@ -214,10 +214,12 @@ def test_a_mesh_is_refused_naming_item_14(monkeypatch):
 
 
 def test_compat_on_one_card():
+    """Without a mesh ``shard_map`` is the plain call; a mesh needs a
+    live process group, which this process has not started."""
     def f(a):
         return a + 1
     assert compat.shard_map(f, mesh=None, in_specs=(), out_specs=()) is f
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(RuntimeError, match="process group"):
         compat.shard_map(f, mesh=object(), in_specs=(), out_specs=())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(RuntimeError, match="process group"):
         compat.make_mesh((2, 2), ("data", "model"))

@@ -2,8 +2,8 @@
 ``optim.adamw``, ``distributed.tc_collectives``,
 ``distributed.fault_tolerance``, the ``train_lm`` and ``quickstart``
 examples) against the JAX package's, on the CPU: the counterparts of
-``tests/test_train_and_checkpoint.py`` (but ``remesh``, ROADMAP item 14)
-and more.
+``tests/test_train_and_checkpoint.py`` (``remesh`` is in
+``tests/test_torch_mesh.py``) and more.
 
 Tolerances, each stated where it is used:
 
@@ -210,16 +210,22 @@ def test_collectives_match_the_reference_on_one_device(method):
 
 
 def test_collectives_refuse_a_mesh_and_bad_arguments():
+    """A mesh given as a signature names no ranks: over more than one
+    it raises, naming the live mesh it needs.  ``via='gspmd'`` is served
+    (with no mesh it is plain dispatch, as ``'shard_map'`` is)."""
     x = torch.ones(8)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="needs a live mesh"):
         TC.tc_psum(x, mesh=(("data", 2),))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="needs a live mesh"):
         TC.tc_global_norm({"x": x}, mesh="data2.model2")
     assert float(TC.tc_psum(x, mesh=(("data", 1),))) == 8.0
     with pytest.raises(ValueError, match="scalar reduce ops"):
         TC.tc_psum(x, op="scan")
-    with pytest.raises(TypeError, match="via"):
-        TC.tc_psum(x, via="gspmd")          # a mesh's option: item 14
+    with pytest.raises(ValueError, match="unknown via"):
+        TC.tc_psum(x, via="xla")
+    assert float(TC.tc_psum(x, via="gspmd")) == 8.0
+    assert float(TC.tc_global_norm({"x": x}, via="gspmd")) == \
+        float(TC.tc_global_norm({"x": x}))
     assert float(TC.tc_global_norm({})) == 0.0
 
 
@@ -342,8 +348,12 @@ def test_a_mesh_or_data_parallel_is_refused():
     model = TZ.build(TR.get_config("gemma2-2b", smoke=True))
     with pytest.raises(NotImplementedError, match="item 14"):
         TT.make_train_step(model, TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TF.replan_after_remesh((("data", 4),))
+    # the replan is served: a tuple names the geometry to keep
+    reg = autotune.PlanRegistry()
+    reg.put("reduce_sum|1024|float32|cpu|mesh:data8",
+            autotune.ReductionPlan(method="vpu"))
+    assert TF.replan_after_remesh((("data", 4),), registry=reg) == \
+        ("reduce_sum|1024|float32|cpu|mesh:data8",)
 
 
 def test_entry_points_default_to_the_card():
