@@ -347,6 +347,31 @@ after 3j:
       the bf16 input it reduced, recurrence with bf16 partials worse
       than single-pass on uniform inputs.  One summary line; a rank
       that fails, dies or outlives MESH_TIMEOUT fails the phase.
+  3n. the SPMD train step (``launch.train`` over a mesh), after 3m:
+      gloo ranks on the card as (data, model) meshes, the state's
+      parameters and moments sharded by the logical rules (DTensors of
+      each rank's blocks), each rank training on its rows of the batch,
+      every leaf gathered whole where the model uses it and its gradient
+      summed over ``data``; (a) the reference test's program at SMOKE
+      size on eight ranks as 4 x 2 (its (8, 16) batch from
+      default_rng(0), microbatches 2, 3 steps) against the port's
+      one-card step from the same draw: loss, grad_norm and param_norm
+      within SPMD_RTOL (the reference test's 0.03) at every step, the
+      same on every rank; (b) Gemma-2 2B at full width (SPMD_FULL_CUTS:
+      4 of 26 layers; f32 params and moments; reduce_method auto) on a
+      2 x 2 mesh of four ranks, a global batch of 4 x 512 from
+      ``SyntheticLMData(sharding=P(("data",)))``, microbatches 2, 4
+      steps, against the one-card step, which runs first in this
+      process and is freed: the same gates, B1's counter zeroed before
+      each step and moved on every rank after it (the clip's and
+      param_norm's partials), rank 0's step ms (CUDA events) and its
+      gathers' and gradient sums' host ms, the card's peak (nvidia-smi,
+      polled); then the final state saved (each leaf gathered whole,
+      the first rank writing) and restored on every rank into an empty
+      template: every block the rank's own bits; (c) (a)'s checkpoint
+      after 2 steps restored onto a new world of four ranks remeshed
+      (``fault_tolerance.remesh``) to 2 x 2, 2 steps: the losses within
+      SPMD_ELASTIC_RTOL (the reference's 2e-3) of (a)'s steps 3 and 4.
 
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
@@ -818,6 +843,37 @@ MESH_PSUM_CALLS = 200           # scalar all_reduces timed per axis
 MESH_PARTIAL_REPS = 5           # CUDA-event runs of a rank's partials
 MESH_TIMEOUT = 400
 MESH_DEMO_PCT = 5e-3            # reduce_demo's single-pass ceiling, in %
+
+# The SPMD train step (phase 3n): gloo ranks on the one card as a
+# (data, model) mesh, the train state sharded by the logical rules, each
+# rank training on its rows of the batch.  (a) the reference test's
+# program (tests/test_sharding_multidevice.py: 4 x 2, an (8, 16) batch
+# from default_rng(0), microbatches 2, 3 steps) at SMOKE size, plus a
+# fourth step after a checkpoint at step 2 for (c); (b) Gemma-2 2B at
+# full width, SPMD_FULL_CUTS cut depth only (SPMD_FULL_REDUCED lists it),
+# f32 params and moments, reduce_method SPMD_FULL_METHOD, on a
+# (data 2, model 2) mesh: four ranks, since a rank holds the 589.8M-value
+# embedding and its gradient whole (4.7 GB) beside its blocks, and eight
+# would come within a few GB of the card's 80; (c) the checkpoint of (a)
+# restored onto a new world of four ranks, remeshed to 2 x 2.  Every
+# step's loss, grad_norm and param_norm within SPMD_RTOL of the one-card
+# step (the reference test's rtol); (c)'s losses within SPMD_ELASTIC_RTOL
+# of (a)'s (the reference's elastic test's).
+SPMD_ARCH = "gemma2-2b"
+SPMD_ORACLE_MESH = (4, 2)
+SPMD_ORACLE_SHAPE = (8, 16)     # (batch, seq_len)
+SPMD_ORACLE_STEPS = 3
+SPMD_MICROBATCHES = 2
+SPMD_RTOL = 0.03
+SPMD_FULL_MESH = (2, 2)
+SPMD_FULL_CUTS = {"num_layers": 4}
+SPMD_FULL_REDUCED = ["num_layers 26 -> 4 (2 local + 2 global)"]
+SPMD_FULL_SHAPE = (4, 512)      # (global batch, seq_len)
+SPMD_FULL_STEPS = 4
+SPMD_FULL_METHOD = "auto"
+SPMD_ELASTIC_STEPS = (2, 2)     # before the checkpoint, after the restore
+SPMD_ELASTIC_RTOL = 2e-3
+SPMD_TIMEOUT = 900
 
 SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
 SCAN_HOST_N = 1 << 12
@@ -5346,6 +5402,370 @@ def run_mesh(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 3n
+
+
+def spmd_batch(vocab: int) -> dict:
+    """3n (a)'s batch: the reference test's tokens and labels from
+    default_rng(0), every token counted (CPU tensors)."""
+    b, s = SPMD_ORACLE_SHAPE
+    rng = np.random.default_rng(0)
+    return {"tokens": torch.from_numpy(
+                rng.integers(0, vocab, (b, s)).astype(np.int32)),
+            "labels": torch.from_numpy(
+                rng.integers(0, vocab, (b, s)).astype(np.int32)),
+            "mask": torch.ones((b, s))}
+
+
+def spmd_metrics(m) -> list:
+    return [float(m[k]) for k in ("loss", "grad_norm", "param_norm")]
+
+
+def spmd_tconf():
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(microbatches=SPMD_MICROBATCHES, total_steps=10,
+                       warmup_steps=2)
+
+
+def spmd_full_cfg(smoke: bool):
+    """3n (b)'s config: Gemma-2 2B at full width (SMOKE when
+    rehearsing), SPMD_FULL_CUTS, reduce_method SPMD_FULL_METHOD."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cuts = {} if smoke else SPMD_FULL_CUTS
+    return dataclasses.replace(registry.get_config(SPMD_ARCH, smoke=smoke),
+                               reduce_method=SPMD_FULL_METHOD, **cuts)
+
+
+def spmd_full_data(cfg, dev: str, smoke: bool, sharding=None):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    b, s = (SPMD_FULL_SHAPE[0], 16) if smoke else SPMD_FULL_SHAPE
+    return pipeline.SyntheticLMData(cfg, ShapeConfig("t", s, b, "train"),
+                                    seed=SEED, sharding=sharding, device=dev)
+
+
+def spmd_one_card(cfg, steps: int, batch_at, dev: str) -> dict:
+    """The port's one-card step from SEED: each step's metrics and host
+    ms (between synchronizes), the peak memory."""
+    from repro_torch.launch import train as trainlib
+    from repro_torch.models import model_zoo
+    model = model_zoo.build(cfg)
+    step_fn, make_init = trainlib.make_train_step(model, spmd_tconf(),
+                                                  device=dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = make_init(SEED)
+    rows, ms = [], []
+    for i in range(steps):
+        batch = batch_at(i)
+        mesh_sync(dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        mesh_sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(spmd_metrics(m))
+    del state
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev == "cuda" else None
+    return {"rows": rows, "step_ms": ms, "peak_gib": peak}
+
+
+def spmd_rank_oracle(tmp: str, dev: str) -> list:
+    """3n (a) and the first half of (c) on one of the eight ranks: the
+    reference test's program on a 4 x 2 mesh from SEED, with a
+    checkpoint after SPMD_ELASTIC_STEPS[0] steps.  Every rank's rows are
+    gathered."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train as trainlib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model_zoo
+    if dev == "cuda":
+        torch.cuda.set_device(0)            # the one card every rank shares
+    mesh = make_local_mesh(*SPMD_ORACLE_MESH, device=dev)
+    cfg = registry.get_config(SPMD_ARCH, smoke=True)
+    model = model_zoo.build(cfg)
+    b, s = SPMD_ORACLE_SHAPE
+    step_fn, make_init, _, b_shard = trainlib.jit_train_step(
+        model, spmd_tconf(), mesh, model.input_specs(
+            ShapeConfig("t", s, b, "train")), device=dev)
+    batch = {k: b_shard[k].shard(v).to(dev)
+             for k, v in spmd_batch(cfg.vocab_size).items()}
+    state = make_init(SEED)
+    first, second = SPMD_ELASTIC_STEPS
+    rows = []
+    for i in range(max(SPMD_ORACLE_STEPS, first + second)):
+        state, m = step_fn(state, batch)
+        rows.append(spmd_metrics(m))
+        if i + 1 == first:
+            ckpt.save(os.path.join(tmp, "elastic"), first, state)
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, rows)
+    return gathered
+
+
+def spmd_timers(trainlib) -> tuple:
+    """Wrap the step's two collectives, the leaves' gathers
+    (``sharding.gather_shard``) and the gradients' sums over the batch
+    axes (``collectives.mesh_psum``), to add up their host ms.  Returns
+    (the running sums, a function that puts the originals back)."""
+    spent = {"gather_ms": 0.0, "grad_sum_ms": 0.0}
+    shd, coll = trainlib.shd, trainlib.collectives
+    real = (shd.gather_shard, coll.mesh_psum)
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    shd.gather_shard = timed(real[0], "gather_ms")
+    coll.mesh_psum = timed(real[1], "grad_sum_ms")
+
+    def restore():
+        shd.gather_shard, coll.mesh_psum = real
+    return spent, restore
+
+
+def spmd_same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype.is_floating_point:
+        words = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (x.view(words[x.element_size()]) for x in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def spmd_rank_full(tmp: str, dev: str, smoke: bool) -> list:
+    """3n (c)'s second half and (b) on one of the four ranks: the
+    checkpoint of (a) restored onto a 2 x 2 mesh and SPMD_ELASTIC_STEPS[1]
+    steps; then (b): SPMD_FULL_STEPS steps at full width on the same
+    mesh (B1's counter zeroed before each step and read after; the step's
+    ms by CUDA events, its gathers' and gradient sums' host ms), the
+    final state saved (each leaf gathered whole, the first rank writing)
+    and restored into an empty template, whose blocks must be this
+    rank's bits.  Every rank's results are gathered."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.integration import _leaves
+    from repro_torch.distributed import fault_tolerance as ft
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as trainlib
+    from repro_torch.models import model_zoo
+    mr = importlib.import_module("repro_torch.kernels.mma_reduce")
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    t0 = time.perf_counter()
+    mesh = ft.remesh(model_parallel=SPMD_ORACLE_MESH[1], device=dev)
+    out["elastic_mesh"] = list(mesh.shape.values())
+    cfg = registry.get_config(SPMD_ARCH, smoke=True)
+    model = model_zoo.build(cfg)
+    b, s = SPMD_ORACLE_SHAPE
+    step_fn, make_init, _, b_shard = trainlib.jit_train_step(
+        model, spmd_tconf(), mesh, model.input_specs(
+            ShapeConfig("t", s, b, "train")), device=dev)
+    state, at = ckpt.restore(os.path.join(tmp, "elastic"),
+                             make_init(SEED + 1))
+    out["restored_at"] = at
+    batch = {k: b_shard[k].shard(v).to(dev)
+             for k, v in spmd_batch(cfg.vocab_size).items()}
+    out["elastic"] = []
+    for _ in range(SPMD_ELASTIC_STEPS[1]):
+        state, m = step_fn(state, batch)
+        out["elastic"].append(float(m["loss"]))
+    del state
+    out["c_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = spmd_full_cfg(smoke)
+    model = model_zoo.build(cfg)
+    data = spmd_full_data(cfg, dev, smoke, sharding=shd.NamedSharding(
+        mesh, shd.P(("data",))))
+    step_fn, make_init, _, _ = trainlib.jit_train_step(
+        model, spmd_tconf(), mesh, model.input_specs(data.shape), device=dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = make_init(SEED)
+    out["local_values"] = sum(shd.local(x).numel()
+                              for x in _leaves(state.params))
+    out["init_s"] = time.perf_counter() - t0
+    spent, restore = spmd_timers(trainlib)
+    out["steps"] = []
+    try:
+        for i in range(SPMD_FULL_STEPS):
+            batch = data.batch_at(i)
+            mr.reset_launches()
+            spent.update(gather_ms=0.0, grad_sum_ms=0.0)
+            mesh_sync(dev)
+            dist.barrier()
+            t1 = time.perf_counter()
+            if dev == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            state, m = step_fn(state, batch)
+            if dev == "cuda":
+                end.record()
+                end.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            out["steps"].append({
+                "metrics": spmd_metrics(m),
+                "b1": mr.LAUNCHES["b1_single_pass"],
+                "event_ms": start.elapsed_time(end) if dev == "cuda"
+                else None,
+                "wall_ms": wall, **spent})
+    finally:
+        restore()
+    if dev == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    t1 = time.perf_counter()
+    ckpt.save(os.path.join(tmp, "full"), SPMD_FULL_STEPS, state)
+    out["save_s"] = time.perf_counter() - t1
+    leaves = ckpt._flatten(state)
+    template = ckpt._unflatten(state, {
+        key: shd.dtensor_sharding(x).wrap(torch.empty_like(shd.local(x)))
+        if shd.is_dtensor(x) else torch.empty_like(x) for key, x in leaves})
+    t1 = time.perf_counter()
+    back, at = ckpt.restore(os.path.join(tmp, "full"), template)
+    out["restore_s"] = time.perf_counter() - t1
+    out["same_bits"] = at == SPMD_FULL_STEPS and all(
+        spmd_same_bits(shd.local(a), shd.local(b))
+        for (_, a), (_, b) in zip(leaves, ckpt._flatten(back)))
+    out["b_s"] = time.perf_counter() - t0
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+def spmd_gaps(got: list, want: list) -> list:
+    """Each step's relative gaps (loss, grad_norm, param_norm)."""
+    return [[abs(g - w) / abs(w) for g, w in zip(gr, wr)]
+            for gr, wr in zip(got, want)]
+
+
+def run_spmd(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
+    """Phase 3n (see the module docstring).  ``dev`` and ``smoke`` let
+    the phase rehearse on the CPU at SMOKE size; main runs it on the
+    card."""
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as launch_mesh
+    out = {"card": smi, "reduced": SPMD_FULL_REDUCED,
+           "full_mesh": SPMD_FULL_MESH, "full_shape": SPMD_FULL_SHAPE,
+           "method": SPMD_FULL_METHOD, "s": {}}
+    t0 = time.perf_counter()
+    cfg = registry.get_config(SPMD_ARCH, smoke=True)
+    batch = {k: v.to(dev) for k, v in spmd_batch(cfg.vocab_size).items()}
+    one_a = spmd_one_card(cfg, SPMD_ORACLE_STEPS, lambda i: batch, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spmd_") as tmp:
+        ranks8 = launch_mesh.run_ranks(spmd_rank_oracle, 8, backend="gloo",
+                                       args=(tmp, dev), timeout=SPMD_TIMEOUT)
+        out["s"]["a"] = time.perf_counter() - t0
+        check(all(r == ranks8[0] for r in ranks8),
+              "3n (a): the ranks hold different metrics")
+        rows = ranks8[0]
+        gaps = spmd_gaps(rows[:SPMD_ORACLE_STEPS], one_a["rows"])
+        out["a"] = {"mesh": rows[:SPMD_ORACLE_STEPS], "one_card": one_a,
+                    "gaps": gaps}
+        print(f"phase 3n (a): {SPMD_ARCH} SMOKE on {SPMD_ORACLE_MESH}, "
+              f"loss / grad_norm / param_norm gaps to one card {gaps}",
+              flush=True)
+        check(all(g <= SPMD_RTOL for row in gaps for g in row),
+              f"3n (a): the mesh step is off the one-card step: {gaps}")
+
+        t0 = time.perf_counter()
+        full = spmd_full_cfg(smoke)
+        data = spmd_full_data(full, dev, smoke)
+        one_b = spmd_one_card(full, SPMD_FULL_STEPS, data.batch_at, dev)
+        del data
+        if dev == "cuda":
+            # the one-card state can sit in a reference cycle until the
+            # collector runs (3.45 GiB stayed allocated without it)
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["parent_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+            poll = MemoryPoll()
+        out["s"]["b one card"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the ranks' allocators grow by segments they can map more of,
+        # not by new blocks (four ranks' free cached blocks took ~11 GB
+        # of the card beside their 58 GiB allocated)
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks4 = launch_mesh.run_ranks(spmd_rank_full, 4,
+                                           backend="gloo",
+                                           args=(tmp, dev, smoke),
+                                           timeout=SPMD_TIMEOUT)
+        finally:
+            peak_mib = poll.stop() if dev == "cuda" else None
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        out["s"]["b, c ranks"] = time.perf_counter() - t0
+    first = ranks4[0]
+    want = [r[0] for r in rows[SPMD_ELASTIC_STEPS[0]:]]
+    check(first["elastic_mesh"] == [2, 2] and
+          first["restored_at"] == SPMD_ELASTIC_STEPS[0],
+          f"3n (c): remeshed to {first['elastic_mesh']}, restored at step "
+          f"{first['restored_at']}")
+    elastic_gaps = [abs(g - w) / abs(w)
+                    for g, w in zip(first["elastic"], want)]
+    out["c"] = {"restored": first["elastic"], "uninterrupted": want,
+                "gaps": elastic_gaps}
+    print(f"phase 3n (c): 4 x 2 -> 2 x 2 through a checkpoint: losses "
+          f"{first['elastic']} against {want} (gaps {elastic_gaps})",
+          flush=True)
+    check(all(g <= SPMD_ELASTIC_RTOL for g in elastic_gaps),
+          f"3n (c): the restored run is off the uninterrupted one: "
+          f"{elastic_gaps}")
+
+    mesh_rows = [st["metrics"] for st in first["steps"]]
+    check(all([st["metrics"] for st in r["steps"]] == mesh_rows
+              for r in ranks4), "3n (b): the ranks hold different metrics")
+    gaps = spmd_gaps(mesh_rows, one_b["rows"])
+    b1 = [[st["b1"] for st in r["steps"]] for r in ranks4]
+    out["b"] = {
+        "mesh": mesh_rows, "one_card": one_b, "gaps": gaps, "b1": b1,
+        "rank0_steps": first["steps"], "same_bits": [
+            r["same_bits"] for r in ranks4],
+        "local_values": first["local_values"],
+        "rank_peak_gib": [r.get("peak_gib") for r in ranks4],
+        "card_peak_mib": peak_mib,
+        "s": {k: first[k] for k in ("c_s", "init_s", "save_s",
+                                    "restore_s", "b_s")}}
+    print(f"phase 3n (b): {SPMD_ARCH} at full width "
+          f"({', '.join(SPMD_FULL_REDUCED)}), {SPMD_FULL_MESH} mesh of "
+          f"gloo ranks, batch {SPMD_FULL_SHAPE}, reduce_method "
+          f"{SPMD_FULL_METHOD}: gaps to one card {gaps}; B1 launches "
+          f"(rank x step) {b1}; rank 0's steps "
+          f"{[{k: v for k, v in st.items() if k != 'metrics'} for st in first['steps']]}; "
+          f"one card's step ms {one_b['step_ms']}; card peak "
+          f"{peak_mib} MiB; {smi}", flush=True)
+    check(all(math.isfinite(v) for row in mesh_rows for v in row),
+          f"3n (b): non-finite metrics {mesh_rows}")
+    check(all(g <= SPMD_RTOL for row in gaps for g in row),
+          f"3n (b): the mesh step is off the one-card step: {gaps}")
+    # the counter counts launches on the card (a CPU rehearsal runs the
+    # plain version)
+    check(dev != "cuda" or all(n > 0 for r in b1 for n in r),
+          f"3n (b): B1 did not launch on every rank in every step: {b1}")
+    check(all(out["b"]["same_bits"]),
+          f"3n (b): a rank's restored blocks differ from its state: "
+          f"{out['b']['same_bits']}")
+    print(f"phase 3n: seconds by part {out['s']}", flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -5599,6 +6019,10 @@ def main() -> int:
           f"{MESH_ARCH}'s full parameter tree", flush=True)
     mesh_out = run_mesh(smi)
 
+    print(f"phase 3n: the SPMD train step of {SPMD_ARCH} over meshes of "
+          f"gloo ranks", flush=True)
+    spmd_out = run_spmd(smi)
+
     print("phase 6: the cost model against measured times (f32, bf16, "
           "fp16)", flush=True)
     t0 = time.perf_counter()
@@ -5657,6 +6081,7 @@ def main() -> int:
                    "model_smoke": model_rows, "model_full": model_full,
                    "auto_f32_decode": auto_f32, "serving": serving,
                    "training": training, "mesh": mesh_out,
+                   "spmd": spmd_out,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

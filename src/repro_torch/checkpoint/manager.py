@@ -23,6 +23,15 @@ Guarantees, as in the reference: a checkpoint becomes visible only after
 its directory is written and ``LATEST`` is renamed over it; leaves are
 stored whole (logical shapes); ``AsyncSaver.save_async`` copies the tree
 to host memory synchronously and writes on a background thread.
+
+A state sharded over a mesh of ranks holds its leaves as ``DTensor``s
+(``launch.train``).  Every rank of the mesh calls ``save``: each such
+leaf is gathered whole (``sharding.gather_shard``, every bit kept, the
+sign of a zero too), the mesh's first rank writes, and ``save`` returns
+on every rank once the checkpoint is visible.  ``restore`` cuts each
+stored leaf by its template's own layout: the template may lie on
+another mesh than the one that saved (the reference's elastic
+re-shard).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.precision import as_dtype
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.param import ShapeDtype
 
 _SEP = "/"
@@ -92,8 +102,28 @@ def _to_host(leaf) -> tuple:
     return a, str(a.dtype)
 
 
-def _snapshot(tree) -> list:
-    return [(key, *_to_host(leaf)) for key, leaf in _flatten(tree)]
+def _device_mesh(leaves: list):
+    """The mesh of the first DTensor leaf, or None."""
+    for _, leaf in leaves:
+        if shd.is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
+
+
+def _snapshot(tree) -> tuple:
+    """(the mesh of a sharded tree or None, [(key, host array, dtype
+    name)], or None for that list on a rank of the mesh that does not
+    write).  A DTensor leaf is gathered whole by every rank of its
+    mesh."""
+    leaves = _flatten(tree)
+    mesh = _device_mesh(leaves)
+    writer = mesh is None or shd.is_first_rank(mesh)
+    snap = []
+    for key, leaf in leaves:
+        leaf = shd.whole(leaf)
+        if writer:
+            snap.append((key, *_to_host(leaf)))
+    return mesh, snap if writer else None
 
 
 def _write(directory: str, step: int, snap: list) -> str:
@@ -126,7 +156,13 @@ def _write(directory: str, step: int, snap: list) -> str:
 
 def save(directory: str, step: int, tree: Any) -> str:
     """Synchronous atomic save.  Returns the checkpoint path."""
-    return _write(directory, step, _snapshot(tree))
+    mesh, snap = _snapshot(tree)
+    path = os.path.join(directory, f"step_{step:08d}")
+    if snap is not None:
+        path = _write(directory, step, snap)
+    if mesh is not None:
+        shd.mesh_barrier(mesh)
+    return path
 
 
 class AsyncSaver:
@@ -146,7 +182,9 @@ class AsyncSaver:
 
     def save_async(self, directory: str, step: int, tree: Any):
         self.wait()
-        snap = _snapshot(tree)
+        _, snap = _snapshot(tree)
+        if snap is None:                # a rank of the mesh that does
+            return                      # not write
 
         def run():
             try:
@@ -180,8 +218,9 @@ def restore(directory: str, template: Any,
             step: Optional[int] = None) -> tuple[Any, int]:
     """Restore into ``template``: a tensor leaf is written in place and
     returned (its dtype and device; no second copy of the state on the
-    device); a ``ShapeDtype`` or a ``meta`` tensor gives a new tensor of
-    its dtype on the CPU.  Returns (tree, step)."""
+    device), a DTensor leaf's local block by its layout; a ``ShapeDtype``
+    or a ``meta`` tensor gives a new tensor of its dtype on the CPU.
+    Returns (tree, step)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -200,6 +239,9 @@ def restore(directory: str, template: Any,
 
 def _restore_leaf(leaf, stored: np.ndarray, dtype_name: str):
     host = _from_host(stored, dtype_name)
+    if shd.is_dtensor(leaf):
+        shd.local(leaf).copy_(shd.dtensor_sharding(leaf).shard(host))
+        return leaf
     if isinstance(leaf, torch.Tensor) and leaf.device.type != "meta":
         return leaf.copy_(host)
     return host.to(as_dtype(leaf.dtype))

@@ -10,8 +10,11 @@ cumulative token budget on the triangular-MMA scan
 from a mask with ``integration.masked_cumsum``.  ``synthetic_requests``
 is numpy only and yields the reference's requests value for value.
 
-Batches go to one device (the card unless the caller names another); a
-mesh sharding is ROADMAP item 14b and is refused.
+Batches go to one device (the card unless the caller names another).
+Given a ``sharding`` (a ``distributed.sharding.NamedSharding`` over a
+mesh of ranks; the train CLI passes ``P(("data",))``) each rank draws
+the same global batch from the seed and keeps its rows of it: the
+reference's host-sharded loading.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from repro_torch.core import dispatch
 from repro_torch.core import integration as ci
 from repro_torch.core.autotune import bucket_cap
+from repro_torch.distributed import sharding as shd
 
 
 class RunningStats:
@@ -142,17 +146,16 @@ def mask_positions(mask) -> torch.Tensor:
 class SyntheticLMData:
     """Deterministic LM batches (a stochastic bigram language, so a
     training loss falls) for ``cfg`` at ``shape_cfg``'s global batch and
-    sequence length, on ``device`` (default: the card)."""
+    sequence length, on ``device`` (default: the card).  With a
+    ``sharding``, ``batch_at`` gives this rank's block of each leaf (the
+    spec's entries from the leading dimension on)."""
 
     def __init__(self, cfg, shape_cfg, *, seed: int = 0, sharding=None,
                  with_positions: bool = False, device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "a sharded batch is ROADMAP item 14b (distributed: the "
-                "model over a mesh); pass sharding=None")
         self.cfg = cfg
         self.shape = shape_cfg
         self.seed = seed
+        self.sharding = sharding
         self.with_positions = with_positions
         self.device = dispatch.default_device(device)
 
@@ -190,8 +193,14 @@ class SyntheticLMData:
         return out
 
     def _put(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.sharding is not None:
+                t = shd.local_shard(t, self.sharding.spec,
+                                    self.sharding.mesh)
+            out[k] = t.to(self.device, copy=True)
+        return out
 
     def iter(self, start_step: int = 0, prefetch: int = 2
              ) -> Iterator[dict]:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import sys
 import threading
 from typing import Optional, Sequence
 
@@ -115,11 +116,14 @@ def local_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 def gather_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The inverse of ``local_shard``: every rank's block put back in
-    place.  Each rank writes its block into zeros of the whole shape and
-    one ``all_reduce`` a named axis adds the blocks (a block meets only
-    zeros, so the sum is exact); ``all_reduce`` is the one collective
-    the layer asks of its backend."""
+    place.  Each rank writes its block into the additive identity of the
+    whole shape (-0.0 for a float, so that -0.0 + -0.0 keeps its sign;
+    0 for an integer) and one ``all_reduce`` a named axis adds the
+    blocks: a block meets only that identity, so every bit is kept.
+    ``all_reduce`` is the one collective the layer asks of its
+    backend."""
     import torch.distributed as dist
+    identity = -0.0 if x.dtype.is_floating_point else 0
     for dim, entry in reversed(list(enumerate(spec))):
         names = _names(entry)
         if not names:
@@ -127,7 +131,7 @@ def gather_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
         idx, count = _block(mesh, names)
         shape = list(x.shape)
         shape[dim] *= count
-        full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        full = torch.full(shape, identity, dtype=x.dtype, device=x.device)
         full.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
         for a in names:
             dist.all_reduce(full, group=mesh.get_group(a))
@@ -164,28 +168,108 @@ class NamedSharding:
     def distribute(self, x: torch.Tensor, *, copy: bool = True):
         """A ``DTensor`` of the global ``x`` holding this rank's block
         (a copy by default, so ``x`` can be freed)."""
-        from torch.distributed.tensor import DTensor
         local = self.shard(x)
-        local = local.clone() if copy else local.contiguous()
-        return DTensor.from_local(local, self.mesh.device_mesh,
+        return self.wrap(local.clone() if copy else local.contiguous())
+
+    def wrap(self, block: torch.Tensor):
+        """A ``DTensor`` whose local tensor is ``block``, this rank's
+        block (no copy, no communication)."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(block, self.mesh.device_mesh,
                                   self.placements(), run_check=False)
+
+
+class _DeviceMeshView:
+    """What this module reads of a mesh (axis names and sizes, this
+    rank's coordinate, an axis's process group), over a DTensor's
+    ``DeviceMesh``."""
+
+    def __init__(self, device_mesh):
+        self.device_mesh = device_mesh
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names,
+                              (int(s) for s in device_mesh.mesh.shape)))
+        coord = device_mesh.get_coordinate()
+        self.coordinate = None if coord is None \
+            else dict(zip(self.axis_names, coord))
+
+    def get_group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+
+def is_dtensor(x) -> bool:
+    # No DTensor exists before torch.distributed.tensor is imported, so
+    # a call without one does not pay for that import.
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def dtensor_sharding(x) -> NamedSharding:
+    """The layout of a DTensor as a ``NamedSharding``: a dimension
+    sharded over several mesh axes takes them in mesh order, as
+    ``NamedSharding.placements`` lays them out."""
+    view = _DeviceMeshView(x.device_mesh)
+    parts: list = [[] for _ in range(x.ndim)]
+    for axis, p in zip(view.axis_names, x.placements):
+        if p.is_shard():
+            parts[p.dim].append(axis)
+        elif not p.is_replicate():
+            raise ValueError(f"a DTensor placed {tuple(x.placements)} holds "
+                             f"partial sums, not blocks of a tensor")
+    return NamedSharding(view, P(*(
+        None if not n else n[0] if len(n) == 1 else tuple(n)
+        for n in parts)))
+
+
+def local(x):
+    """This rank's block of a DTensor (its local tensor itself, so a
+    write into it is a write into the DTensor); any other tensor as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    with torch.no_grad():
+        return x.to_local()
+
+
+def whole(x):
+    """The global tensor of a DTensor, every rank's block put back by
+    ``gather_shard`` (a collective over the DTensor's mesh: every rank
+    of it must call); any other tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    s = dtensor_sharding(x)
+    return gather_shard(local(x), s.spec, s.mesh)
+
+
+def is_first_rank(mesh) -> bool:
+    """True on the rank at coordinate 0 of every axis of ``mesh`` (a
+    ``compat.Mesh`` or a DTensor's ``DeviceMesh``)."""
+    coord = mesh.get_coordinate() if hasattr(mesh, "get_coordinate") \
+        else None if mesh.coordinate is None \
+        else list(mesh.coordinate.values())
+    return coord is not None and not any(coord)
+
+
+def mesh_barrier(mesh) -> None:
+    """Return only once every rank of ``mesh`` (a ``compat.Mesh`` or a
+    ``DeviceMesh``) has called: one ``all_reduce`` over each axis in
+    turn, so that what any rank did before the call reaches every rank
+    through the lines of the axes."""
+    import torch.distributed as dist
+    dm = getattr(mesh, "device_mesh", mesh)
+    token = torch.zeros(1, device=dm.device_type)
+    for axis in dm.mesh_dim_names:
+        dist.all_reduce(token, group=dm.get_group(axis))
 
 
 class _Ctx(threading.local):
     def __init__(self):
         self.mesh = None
         self.rules: dict[str, tuple[str, ...]] = dict(DEFAULT_RULES)
+        self.fold: Optional[tuple] = None
 
 
 _CTX = _Ctx()
-
-
-def _refuse_mesh(mesh) -> None:
-    """Running the model over a mesh is ROADMAP item 14b."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "running the model over a mesh is ROADMAP item 14b "
-            "(distributed: the model over a mesh); pass mesh=None")
 
 
 @contextlib.contextmanager
@@ -203,6 +287,28 @@ def axis_rules(mesh, rules: Optional[dict] = None):
 def current_mesh():
     """The installed mesh, or None."""
     return _CTX.mesh
+
+
+@contextlib.contextmanager
+def local_step(mesh, batch_axes: Sequence[str]):
+    """Run a model on this rank's blocks: no mesh is installed inside
+    (``constrain`` is the identity and ``dispatch`` keeps its one-card
+    plans: every tensor is local), and a token mean (``models.
+    transformer.token_mean``) divides this rank's masked sum by the
+    count over every rank along ``batch_axes`` of ``mesh``, the axes
+    that split the batch's rows."""
+    old = (_CTX.mesh, _CTX.fold)
+    _CTX.mesh = None
+    _CTX.fold = (mesh, tuple(batch_axes))
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.fold = old
+
+
+def batch_fold() -> Optional[tuple]:
+    """(mesh, batch axes) inside ``local_step``, else None."""
+    return _CTX.fold
 
 
 def spec_for(shape: Sequence[int], logical_axes: Sequence[Optional[str]],

@@ -45,8 +45,6 @@ rank it raises.
 
 from __future__ import annotations
 
-import sys
-
 import torch
 
 from repro_torch import compat
@@ -89,13 +87,6 @@ def shardable_axes(mesh, dim: int) -> tuple:
     return tuple(chosen)
 
 
-def _is_dtensor(x) -> bool:
-    # No DTensor exists before torch.distributed.tensor is imported, so
-    # a call without one does not pay for that import.
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(x, mod.DTensor)
-
-
 def _sharded_axes(x) -> tuple:
     """The mesh axes a DTensor is not replicated over, in mesh order."""
     names = x.device_mesh.mesh_dim_names
@@ -135,7 +126,7 @@ def tc_psum(x, *, mesh=None, method: str = "auto",
                          f"(accepted: 'shard_map', 'gspmd')")
     mesh = _ambient_mesh(mesh)
     policy = precision_mod.as_policy(precision)
-    sharded = _is_dtensor(x)
+    sharded = shd.is_dtensor(x)
     if sharded:
         names, local = _sharded_axes(x), x.to_local()
     else:
@@ -172,6 +163,19 @@ def tc_psum(x, *, mesh=None, method: str = "auto",
         return body(local)
     return compat.shard_map(body, mesh=mesh, in_specs=(shd.P(names),),
                             out_specs=shd.P())(x)
+
+
+def psum_scalar(x, axes, *, mesh, method: str = "auto") -> torch.Tensor:
+    """``tc_psum`` of one scalar a rank over ``axes`` of ``mesh``: each
+    rank's value is its block of a vector split over those axes (a
+    DTensor), so the result is the sum along them, one f32 scalar, the
+    same on every rank of a line."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    placements = tuple(Shard(0) if a in axes else Replicate()
+                       for a in mesh.axis_names)
+    dt = DTensor.from_local(x.detach().reshape(1), mesh.device_mesh,
+                            placements, run_check=False)
+    return tc_psum(dt, mesh=mesh, method=method)
 
 
 def tc_all_reduce(tree, *, mesh=None, method: str = "auto",

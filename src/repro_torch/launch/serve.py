@@ -21,8 +21,8 @@ for its logits shape.
 
 Nothing is traced or compiled: each call runs the model eagerly where
 its parameters lie.  ``ContinuousServer`` keeps its store on ``device``
-(the card unless the caller names another).  A mesh is ROADMAP item
-14b and is refused.
+(the card unless the caller names another).  Serving over a mesh is
+ROADMAP item 14b(iii) and is refused.
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ from repro_torch.core import integration as ci
 from repro_torch.core.dispatch import default_device
 from repro_torch.core.precision import dtype_name
 from repro_torch.core.reduction import _ROW_TILE
-from repro_torch.distributed import sharding as shd
 from repro_torch.models import model_zoo
 from repro_torch.models import transformer as T
 from repro_torch.models.kv_cache import PagedKVCache
@@ -87,6 +86,13 @@ def _categorical(logits, temperature: float, gen: torch.Generator):
     return torch.argmax(lf + gumbel, dim=-1)
 
 
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "serving over a mesh is ROADMAP item 14b(iii) (distributed: "
+            "the model over a mesh); pass mesh=None")
+
+
 def _device_of(params) -> torch.device:
     return params["embed"]["table"].device
 
@@ -100,7 +106,7 @@ class Server:
     extra_capacity: int = 64   # decode headroom the prefill allocates
 
     def __post_init__(self):
-        shd._refuse_mesh(self.mesh)
+        _refuse_mesh(self.mesh)
 
     def score(self, params, tokens, *, mask=None,
               extras: Optional[dict] = None,
@@ -252,7 +258,7 @@ class ContinuousServer:
                  norm_matmul_method: Optional[str] = None,
                  bucket: str = "pow2",
                  background_sweeps: bool = False, device=None):
-        shd._refuse_mesh(mesh)
+        _refuse_mesh(mesh)
         cfg = model.cfg
         if cfg.is_encdec or cfg.vision_tokens:
             raise ValueError(

@@ -10,11 +10,32 @@ and the post-step parameter norm on the same reduction.  ``run`` is the
 end-to-end loop: the synthetic pipeline, the checkpoint / restart
 supervisor, metrics.
 
-Everything runs on one card (``device``, the card unless the CPU is
-asked for); ``data_parallel`` / ``model_parallel`` > 1 is ROADMAP item
-14b (the model over a mesh) and raises.
+Without a mesh everything runs on one card (``device``, the card unless
+the CPU is asked for).  Over a mesh of ranks (``compat.Mesh``; every
+rank a process of a live ``torch.distributed`` group) the step is the
+reference's SPMD step, run as each rank's share of it with explicit
+collectives:
+
+  * the state's leaves are ``DTensor``s of this rank's blocks, laid out
+    by ``state_shardings`` (the logical rules; a moment as its
+    parameter, so the AdamW state is ZeRO-sharded);
+  * the batch is this rank's rows: the leading dimension splits over the
+    mesh's batch axes (``sharding.data_axis_names``: ``pod``, ``data``);
+  * the model runs on plain local tensors with no mesh installed
+    (``sharding.local_step``): each parameter leaf is gathered whole
+    once a step and handed to the model through ``_Gathered``, whose
+    backward sums its gradient over the batch axes and cuts it back to
+    this rank's block, a microbatch at a time; the loss's token mean
+    divides by the count over every rank's rows;
+  * the clip's norm and ``param_norm`` are ``tc_global_norm`` over the
+    mesh, each leaf folded over the axes it is split over.
+
+The MoE layer's expert parallelism over a mesh is ROADMAP item 14b(ii):
+an MoE arch over a mesh is refused when its step is built.
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20
+    python -m repro_torch.launch.train --arch gemma2-2b --steps 20 \
+        --data-parallel 2 --model-parallel 2 --backend gloo
 """
 
 from __future__ import annotations
@@ -27,15 +48,18 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import compat
 from repro_torch.configs.base import SHAPES, TrainConfig
+from repro_torch.core import autotune
 from repro_torch.core.dispatch import default_device
 from repro_torch.core.integration import _leaves, _tree_like
 from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tc_collectives
 from repro_torch.distributed.fault_tolerance import TrainSupervisor
-from repro_torch.distributed.sharding import _refuse_mesh
 from repro_torch.models import model_zoo
-from repro_torch.models.param import axes_tree
+from repro_torch.models.param import ShapeDtype, _map, _materialise, axes_tree
 from repro_torch.optim import adamw
 
 log = logging.getLogger(__name__)
@@ -59,6 +83,38 @@ def state_logical_axes(model) -> TrainState:
     return TrainState(params=paxes, opt=adamw.state_axes(paxes), step=())
 
 
+def _state_shapes(model, tconf: TrainConfig) -> TrainState:
+    """The state's shapes and dtypes (the reference's ``eval_shape`` of
+    ``make_init_state``)."""
+    params = model.param_shapes()
+    moments = _map(lambda s: ShapeDtype(s.shape, tconf.moment_dtype),
+                   params)
+    scalar = ShapeDtype((), torch.int32)
+    return TrainState(params=params,
+                      opt=adamw.AdamWState(m=moments, v=moments,
+                                           count=scalar),
+                      step=scalar)
+
+
+def state_shardings(model, mesh, state_shapes: TrainState) -> TrainState:
+    """The state's ``NamedSharding``s over ``mesh`` by the logical rules
+    (leaves of None without a mesh)."""
+    axes = state_logical_axes(model)
+
+    def tree(shapes, ax):
+        return shd.tree_shardings(shapes, ax, mesh)
+
+    def scalar(shape):
+        return shd.sharding_for(shape.shape, (), mesh)
+
+    return TrainState(
+        params=tree(state_shapes.params, axes.params),
+        opt=adamw.AdamWState(m=tree(state_shapes.opt.m, axes.opt.m),
+                             v=tree(state_shapes.opt.v, axes.opt.v),
+                             count=scalar(state_shapes.opt.count)),
+        step=scalar(state_shapes.step))
+
+
 def _split_microbatches(batch, k: int) -> list:
     """(B, ...) -> k microbatches of B/k rows, microbatch i holding rows
     i, i + k, i + 2k, ... (the reference's strided split)."""
@@ -69,12 +125,18 @@ def _split_microbatches(batch, k: int) -> list:
     return [{key: v[i] for key, v in split.items()} for i in range(k)]
 
 
-def _no_mesh(data_parallel: int = 1, model_parallel: int = 1) -> None:
-    if data_parallel * model_parallel > 1:
-        raise NotImplementedError(
-            f"data_parallel={data_parallel}, model_parallel="
-            f"{model_parallel} is ROADMAP item 14b (distributed: the "
-            f"model over a mesh)")
+def _live_mesh(mesh):
+    """``mesh`` when it has more than one rank, else None (a one-rank
+    mesh is one card).  A mesh of several ranks must be a live
+    ``compat.Mesh`` holding this rank."""
+    if autotune.mesh_device_count(mesh) <= 1:
+        return None
+    if not isinstance(mesh, compat.Mesh):
+        raise TypeError(f"a train step over {mesh!r}: pass a compat.Mesh "
+                        f"of live ranks (launch.mesh.make_local_mesh)")
+    if mesh.coordinate is None:
+        raise ValueError(f"this rank is not in {mesh}")
+    return mesh
 
 
 def make_train_step(model, tconf: TrainConfig, mesh=None, *, device=None):
@@ -85,9 +147,20 @@ def make_train_step(model, tconf: TrainConfig, mesh=None, *, device=None):
     a new ``TrainState``.  ``make_init_state(seed)`` draws the
     parameters on ``device`` (the card by default) from ``seed`` (an int
     or a ``torch.Generator`` on that device).
+
+    Over a mesh of several ranks the state is sharded (see the module
+    docstring) and ``batch`` is this rank's rows; every rank draws the
+    same tree leaf by leaf and keeps its blocks, so that, gathered, the
+    state is the one-card state bit for bit.
     """
-    _refuse_mesh(mesh)
     cfg = model.cfg
+    if autotune.mesh_device_count(mesh) > 1 and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name} over a mesh: the MoE layer's expert parallelism "
+            f"is ROADMAP item 14b(ii) (distributed: the model over a mesh)")
+    mesh = _live_mesh(mesh)
+    shardings = None if mesh is None else state_shardings(
+        model, mesh, _state_shapes(model, tconf))
 
     def lr_at(step):
         return adamw.cosine_schedule(
@@ -96,18 +169,19 @@ def make_train_step(model, tconf: TrainConfig, mesh=None, *, device=None):
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         loss, metrics, grad_tree = loss_and_grads(
-            model, state.params, batch, microbatches=tconf.microbatches)
+            model, state.params, batch, microbatches=tconf.microbatches,
+            mesh=mesh)
         with torch.no_grad():
             lr = lr_at(state.step)
             new_params, new_opt, om = adamw.update(
                 grad_tree, state.opt, state.params, lr=lr,
                 beta1=tconf.beta1, beta2=tconf.beta2, eps=tconf.eps,
                 weight_decay=tconf.weight_decay, grad_clip=tconf.grad_clip,
-                reduce_method=cfg.reduce_method)
+                reduce_method=cfg.reduce_method, mesh=mesh)
             del grad_tree
             # the post-step parameter norm, on the grad norm's reduction
             pnorm = tc_collectives.tc_global_norm(
-                new_params, method=cfg.reduce_method)
+                new_params, mesh=mesh, method=cfg.reduce_method)
             new_step = state.step + 1
         metrics = dict(metrics, **om, lr=lr, loss=loss, param_norm=pnorm)
         return TrainState(new_params, new_opt, new_step), metrics
@@ -116,13 +190,69 @@ def make_train_step(model, tconf: TrainConfig, mesh=None, *, device=None):
         dev = torch.device(default_device(device))
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(seed))
-        params = model.init(gen, device=dev)
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        if mesh is None:
+            params = model.init(gen, device=dev)
+            return TrainState(
+                params=params,
+                opt=adamw.init(params, moment_dtype=tconf.moment_dtype),
+                step=count)
+        # ``model.init``'s draws, leaf by leaf, each cut to its block
+        params = shd._tree_map2(
+            lambda p, s: s.distribute(_materialise(p, gen, dev)),
+            model.specs, shardings.params)
+        opt = adamw.init(_map(shd.local, params),
+                         moment_dtype=tconf.moment_dtype)
+
+        def wrap(tree, sh):
+            return shd._tree_map2(lambda x, s: s.wrap(x), tree, sh)
         return TrainState(
             params=params,
-            opt=adamw.init(params, moment_dtype=tconf.moment_dtype),
-            step=torch.zeros((), dtype=torch.int32, device=dev))
+            opt=adamw.AdamWState(m=wrap(opt.m, shardings.opt.m),
+                                 v=wrap(opt.v, shardings.opt.v),
+                                 count=opt.count),
+            step=count)
 
     return train_step, make_init_state
+
+
+class _Gathered(torch.autograd.Function):
+    """A parameter leaf, whole, where the model uses it.  Forward: the
+    leaf gathered from every rank's block (``sharding.gather_shard``,
+    once a step: ``whole``).  Backward: the whole gradient summed over
+    the axes that split the batch (their ranks saw other rows), never
+    over ``model``, whose ranks saw the same rows (a sum there would
+    count their gradients twice), then this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, block, whole, spec, mesh, batch_axes):
+        ctx.spec, ctx.mesh, ctx.batch_axes = spec, mesh, batch_axes
+        return whole.view_as(whole)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # The ranks along the batch axes share this rank's block over the
+        # other axes, so the gradient is cut to that block before the sum
+        # (less to add and to move), and to the batch axes' block after.
+        before, after = _split_spec(ctx.spec, ctx.batch_axes)
+        part = shd.local_shard(grad, before, ctx.mesh).contiguous()
+        total = collectives.mesh_psum(part, ctx.batch_axes, mesh=ctx.mesh)
+        return (shd.local_shard(total, after, ctx.mesh).clone(), None,
+                None, None, None)
+
+
+def _split_spec(spec, batch_axes) -> tuple:
+    """(spec, spec): a leaf's dimensions split over no batch axis, and
+    those split over batch axes alone.  A dimension split over both is
+    cut after the sum (its blocks interleave the two)."""
+    before, after = [], []
+    for entry in spec:
+        names = shd.spec_axes((entry,))
+        batch = [a for a in names if a in batch_axes]
+        early = names and not batch
+        before.append(entry if early else None)
+        after.append(None if early else entry)
+    return shd.P(*before), shd.P(*after)
 
 
 def _grads(model, leaves, params, batch):
@@ -134,39 +264,100 @@ def _grads(model, leaves, params, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def loss_and_grads(model, params, batch, *, microbatches: int = 1):
+def loss_and_grads(model, params, batch, *, microbatches: int = 1,
+                   mesh=None):
     """(loss, metrics, gradient tree) of ``model.loss`` at ``params``
     (whose leaves are made to require grad).  Over k > 1 microbatches the
     gradients are summed in f32 and divided by k, the loss averaged and
-    the metrics the last microbatch's, as the reference's scan does."""
-    leaves = _leaves(params)
-    for p in leaves:
-        p.requires_grad_(True)
+    the metrics the last microbatch's, as the reference's scan does.
+
+    Over a mesh ``params`` are DTensors of this rank's blocks and
+    ``batch`` this rank's rows; the gradients come back as DTensors laid
+    out as their parameters, and the loss and metrics (token means: the
+    ranks' shares) are folded over the batch axes."""
+    mesh = _live_mesh(mesh)
     k = microbatches
+    if mesh is None:
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+
+        def grads_of(mb):
+            return _grads(model, leaves, params, mb)
+    else:
+        grads_of, leaves = _mesh_grads(model, params, mesh, batch, k)
     if k == 1:
-        loss, metrics, grads = _grads(model, leaves, params, batch)
-        return loss, metrics, _tree_like(params, grads)
-    g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in leaves]
-    loss = 0.0
-    for mb in _split_microbatches(batch, k):
-        lmb, metrics, grads = _grads(model, leaves, params, mb)
-        for acc, g in zip(g_acc, grads):
-            acc.add_(g)
-        loss = loss + lmb
-        del grads
-    return loss / k, metrics, _tree_like(params, [g / k for g in g_acc])
+        loss, metrics, grads = grads_of(batch)
+    else:
+        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in leaves]
+        loss = 0.0
+        for mb in _split_microbatches(batch, k):
+            lmb, metrics, grads = grads_of(mb)
+            for acc, g in zip(g_acc, grads):
+                acc.add_(g)
+            loss = loss + lmb
+            del grads
+        loss, grads = loss / k, [g / k for g in g_acc]
+    if mesh is not None:
+        grads = [shd.dtensor_sharding(p).wrap(g)
+                 for g, p in zip(grads, _leaves(params))]
+    return loss, metrics, _tree_like(params, grads)
+
+
+def _mesh_grads(model, params, mesh, batch, k: int):
+    """(one microbatch's (loss, metrics, this rank's gradient blocks),
+    the blocks) of a sharded ``params`` tree."""
+    axes = shd.data_axis_names(mesh)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % k:
+        raise ValueError(
+            f"this rank's {rows} rows do not split into {k} microbatches: "
+            f"the strided split of the global batch keeps each rank's "
+            f"rows only when (global batch / batch ranks) % k == 0")
+    dtensors = _leaves(params)
+    specs = [shd.dtensor_sharding(p).spec for p in dtensors]
+    blocks = [shd.local(p).detach().requires_grad_(True) for p in dtensors]
+    # every leaf gathered once a step, for all k microbatches
+    wholes = [shd.gather_shard(b.detach(), spec, mesh)
+              for b, spec in zip(blocks, specs)]
+    method = model.cfg.reduce_method
+
+    def fold(v):
+        return tc_collectives.psum_scalar(v, axes, mesh=mesh, method=method)
+
+    def grads_of(mb):
+        with shd.local_step(mesh, axes):
+            whole = _tree_like(params, [
+                _Gathered.apply(b, w, spec, mesh, axes)
+                for b, w, spec in zip(blocks, wholes, specs)])
+            loss, metrics, grads = _grads(model, blocks, whole, mb)
+        return fold(loss), {n: fold(v) for n, v in metrics.items()}, grads
+
+    return grads_of, blocks
 
 
 def jit_train_step(model, tconf: TrainConfig, mesh, sample_batch_shapes, *,
                    device=None):
     """The reference's entry point, with its return shape: (train_step,
-    make_init_state, the state's logical axes, the batch's).  Nothing is
-    compiled: the step runs eagerly; one card holds every leaf whole."""
+    make_init_state, the state's shardings, the batch's).  Nothing is
+    compiled: the step runs eagerly.  Without a mesh of several ranks the
+    shardings are None and one card holds every leaf whole; over one,
+    the batch's leading dimension must split over every batch axis."""
     train_step, make_init_state = make_train_step(model, tconf, mesh,
                                                   device=device)
-    return (train_step, make_init_state, state_logical_axes(model),
-            batch_axes(sample_batch_shapes))
+    mesh = _live_mesh(mesh)
+    s_shard = state_shardings(model, mesh, _state_shapes(model, tconf))
+    b_axes = batch_axes(sample_batch_shapes)
+    b_shard = {key: shd.sharding_for(v.shape, b_axes[key], mesh)
+               for key, v in sample_batch_shapes.items()}
+    want = shd.data_axis_names(mesh)
+    for key, s in b_shard.items():
+        if s is not None and shd.spec_axes(s.spec[:1]) != want:
+            raise ValueError(
+                f"batch leaf {key!r} of {sample_batch_shapes[key].shape[0]} "
+                f"rows does not split over the batch axes {want} of {mesh}")
+    return train_step, make_init_state, s_shard, b_shard
 
 
 def run(arch: str, *, steps: int = 200, smoke: bool = True,
@@ -178,11 +369,14 @@ def run(arch: str, *, steps: int = 200, smoke: bool = True,
         save_every: int = 100, seed: int = 0,
         plan_store: Optional[str] = None, device=None):
     """End-to-end training driver on ``device`` (default: the card).
+    With ``data_parallel * model_parallel`` > 1 it runs on a (data,
+    model) mesh over the live process group, whose every rank calls it
+    (``main`` starts them); the first rank of the mesh prints.
     ``plan_store`` binds the autotune registry to a shared plan-store
     file, merged at the start and saved at the end.  Returns (state,
     history), history the logged (step, loss) pairs."""
     from repro_torch.configs import registry
-    _no_mesh(data_parallel, model_parallel)
+    from repro_torch.launch.mesh import make_local_mesh
     device = default_device(device)
     cfg = registry.get_config(arch, smoke=smoke)
     shape_cfg = SHAPES[shape]
@@ -193,11 +387,17 @@ def run(arch: str, *, steps: int = 200, smoke: bool = True,
     tconf = TrainConfig(total_steps=steps, warmup_steps=max(steps // 10, 1),
                         microbatches=microbatches, seed=seed)
     if plan_store:
-        from repro_torch.core import autotune
         autotune.bind_default_registry(plan_store)
+    mesh = make_local_mesh(data_parallel, model_parallel, device=device) \
+        if data_parallel * model_parallel > 1 else None
     model = model_zoo.build(cfg)
-    data = SyntheticLMData(cfg, shape_cfg, seed=seed, device=device)
-    step_fn, make_init_state = make_train_step(model, tconf, device=device)
+    data_shard = None if mesh is None else \
+        shd.NamedSharding(mesh, shd.P(("data",)))
+    data = SyntheticLMData(cfg, shape_cfg, seed=seed, sharding=data_shard,
+                           device=device)
+    step_fn, make_init_state, _, _ = jit_train_step(
+        model, tconf, mesh, model.input_specs(shape_cfg), device=device)
+    lead = mesh is None or shd.is_first_rank(mesh)
 
     def init_fn():
         return make_init_state(seed)
@@ -206,7 +406,7 @@ def run(arch: str, *, steps: int = 200, smoke: bool = True,
         if ckpt_dir else None
     if sup:
         # drop plans keyed to another mesh geometry (the replan hook)
-        sup.on_remesh(None)
+        sup.on_remesh(mesh)
         state, start = sup.restore_or_init(init_fn)
     else:
         state, start = init_fn(), 0
@@ -218,20 +418,33 @@ def run(arch: str, *, steps: int = 200, smoke: bool = True,
         if step_i % log_every == 0 or step_i == steps - 1:
             loss = float(metrics["loss"])
             history.append((step_i, loss))
-            log.info("step %5d loss %.4f (%.2fs)", step_i, loss,
-                     time.time() - t0)
-            print(f"step {step_i:5d} loss {loss:.4f} "
-                  f"grad_norm {float(metrics.get('grad_norm', 0)):.3f}")
+            if lead:
+                log.info("step %5d loss %.4f (%.2fs)", step_i, loss,
+                         time.time() - t0)
+                print(f"step {step_i:5d} loss {loss:.4f} grad_norm "
+                      f"{float(metrics.get('grad_norm', 0)):.3f}")
         if sup:
             sup.maybe_save(step_i + 1, state)
     if sup:
         sup.finalize(steps, state)
-    if plan_store:
+    if plan_store and lead:
         autotune.default_registry().save(plan_store)
     return state, history
 
 
-def main(argv=None):
+def _run_rank(kwargs: dict) -> list:
+    """One rank of the CLI's mesh: each rank takes a card of its own
+    where there are several (rank modulo the cards)."""
+    if str(kwargs["device"]).startswith("cuda"):
+        import torch.distributed as dist
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    logging.basicConfig(level=logging.INFO)
+    return run(**kwargs)[1]
+
+
+def main(argv=None) -> list:
+    """The CLI; returns the logged (step, loss) pairs (the first
+    rank's over a mesh)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=200)
@@ -248,14 +461,26 @@ def main(argv=None):
                          "startup, saved at exit)")
     ap.add_argument("--device", default="cuda",
                     help="where the model trains (cuda | cpu)")
+    ap.add_argument("--backend", default="gloo",
+                    help="the ranks' process-group backend over a mesh "
+                         "(gloo | nccl; nccl takes one card a rank, gloo "
+                         "also several ranks on one card)")
+    ap.add_argument("--timeout", type=float, default=86400.0,
+                    help="seconds after which a mesh's ranks are killed")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    run(args.arch, steps=args.steps, smoke=not args.full,
-        batch_override=args.batch, seq_override=args.seq,
-        microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
-        data_parallel=args.data_parallel,
-        model_parallel=args.model_parallel,
-        plan_store=args.plan_store, device=args.device)
+    kwargs = dict(arch=args.arch, steps=args.steps, smoke=not args.full,
+                  batch_override=args.batch, seq_override=args.seq,
+                  microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
+                  data_parallel=args.data_parallel,
+                  model_parallel=args.model_parallel,
+                  plan_store=args.plan_store, device=args.device)
+    world = args.data_parallel * args.model_parallel
+    if world == 1:
+        return run(**kwargs)[1]
+    from repro_torch.launch.mesh import run_ranks
+    return run_ranks(_run_rank, world, backend=args.backend,
+                     args=(kwargs,), timeout=args.timeout)
 
 
 if __name__ == "__main__":

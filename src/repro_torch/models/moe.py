@@ -10,7 +10,7 @@ run as a triangular MMA (``integration.cumsum`` under
 ``EXACT_OFFSETS``).
 
 The reference's mesh branch (expert parallelism over a ``shard_map``
-with all-to-alls) waits for ROADMAP item 14b: with a mesh present
+with all-to-alls) waits for ROADMAP item 14b(ii): with a mesh present
 ``moe_block`` raises.  The dispatch buffer and the experts' output carry
 the reference's ``checkpoint_name`` tags (``models.remat``), which
 ``remat='dots_tagged'`` saves.
@@ -177,7 +177,7 @@ def moe_block(params, cfg, x):
     if shd.current_mesh() is not None:
         raise NotImplementedError(
             "moe_block over a mesh (expert parallelism) is ROADMAP item "
-            "14b (distributed: the model over a mesh)")
+            "14b(ii) (distributed: the model over a mesh)")
     b, s, d = x.shape
     y, aux = _dispatch_combine(cfg, params, x.reshape(-1, d))
     out = y.reshape(b, s, d)

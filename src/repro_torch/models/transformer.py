@@ -29,6 +29,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import integration as ci
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -431,12 +432,33 @@ def cache_logical_axes(caches):
 # ------------------------------------------------------------- losses
 
 
+def token_mean(values, mask, *, method="mma"):
+    """The mean of ``values`` where ``mask`` is 1: ``integration.
+    masked_mean``.  Inside a step on this rank's rows of a batch split
+    over ranks (``sharding.local_step``) a rank's mean over its own rows
+    is not the global mean once the ranks' token counts differ: its
+    share is its masked sum over the count of every rank's rows
+    (``tc_psum`` over the batch axes, one f32 scalar), so the ranks'
+    shares, and their gradients, add up to the global mean's."""
+    fold = shd.batch_fold()
+    if fold is None:
+        return ci.masked_mean(values, mask, method=method)
+    from repro_torch.distributed.tc_collectives import psum_scalar
+    mesh, axes = fold
+    mask = torch.as_tensor(mask, dtype=values.dtype, device=values.device)
+    part = ci.reduce_sum(values * mask, method=method)
+    with torch.no_grad():
+        count = psum_scalar(ci.reduce_sum(mask, method=method), axes,
+                            mesh=mesh, method=method)
+    return part / torch.clamp(count, min=1.0)
+
+
 def cross_entropy(logits, labels, mask, *, reduce_method="mma"):
     """Token CE with f32 logsumexp; reduction via the MMA engine."""
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return ci.masked_mean(lse - ll, mask, method=reduce_method)
+    return token_mean(lse - ll, mask, method=reduce_method)
 
 
 def chunked_cross_entropy(params, cfg, hidden, labels, mask,
@@ -476,4 +498,4 @@ def chunked_cross_entropy(params, cfg, hidden, labels, mask,
         m_run, l_run, ll = RM.run("full", body, m_run, l_run, ll,
                                   w[start:start + chunk], start)
     lse = m_run + torch.log(torch.clamp(l_run, min=1e-37))
-    return ci.masked_mean(lse - ll, mask, method=cfg.reduce_method)
+    return token_mean(lse - ll, mask, method=cfg.reduce_method)

@@ -8,7 +8,12 @@ for formula:
     ``squared_sum`` a leaf, the leaf scalars summed in f32, one sqrt);
   * ``state_axes``: the moments take the parameters' logical axes.
 
-The state is nested dicts of tensors on the parameters' device.
+The state is nested dicts of tensors on the parameters' device.  Over
+a mesh of ranks (``launch.train``'s sharded state) the parameters,
+gradients and moments are ``DTensor``s of each rank's blocks, a moment
+laid out as its parameter (the ZeRO-sharded moments of the reference's
+``state_axes``): the clip's norm folds each leaf over the mesh axes it
+is split over, and the update runs on each rank's local blocks.
 ``update`` writes the new parameters, moments and count into the given
 tensors, leaf by leaf (the memory a jitted step's donated buffers would
 reuse: a Gemma-2 2B step holds parameters, gradients and two moments,
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.core.integration import _leaves
 from repro_torch.core.precision import ACCUM_DTYPE
+from repro_torch.distributed.sharding import local
 from repro_torch.models.param import _map
 
 
@@ -102,15 +108,18 @@ def _step_leaf(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, c1,
 
 def update(grads, state: AdamWState, params, *, lr, beta1=0.9, beta2=0.95,
            eps=1e-8, weight_decay=0.1,
-           grad_clip: Optional[float] = 1.0, reduce_method: str = "mma"):
+           grad_clip: Optional[float] = 1.0, reduce_method: str = "mma",
+           mesh=None):
     """One AdamW step, written into ``params``' and ``state``'s tensors
-    (the count too).  Returns (params, state, metrics)."""
+    (the count too).  Over ``mesh`` the leaves are DTensors and the
+    clip's norm is taken over the mesh.  Returns (params, state,
+    metrics)."""
     from repro_torch.distributed import tc_collectives
     metrics = {}
     with torch.no_grad():
         scale = None
         if grad_clip is not None:
-            gnorm = tc_collectives.tc_global_norm(grads,
+            gnorm = tc_collectives.tc_global_norm(grads, mesh=mesh,
                                                   method=reduce_method)
             scale = _clip_scale(gnorm, grad_clip)
             metrics["grad_norm"] = gnorm
@@ -119,8 +128,9 @@ def update(grads, state: AdamWState, params, *, lr, beta1=0.9, beta2=0.95,
         c1 = 1.0 - torch.pow(torch.full_like(t, beta1), t)
         c2 = 1.0 - torch.pow(torch.full_like(t, beta2), t)
         lr = torch.as_tensor(lr, dtype=ACCUM_DTYPE, device=t.device)
-        for p, g, m, v in zip(*(_leaves(tree) for tree in
-                                (params, grads, state.m, state.v))):
+        for leaves in zip(*(_leaves(tree) for tree in
+                            (params, grads, state.m, state.v))):
+            p, g, m, v = (local(x) for x in leaves)
             if scale is not None:
                 g = _clipped(g, scale)
             _step_leaf(p, g, m, v, lr=lr, beta1=beta1, beta2=beta2,

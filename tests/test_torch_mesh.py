@@ -196,6 +196,14 @@ def _mesh_rank(ckpt_dir: str) -> dict:
                           out_specs=shd.P(("data", "model")))
     out["shard_map_1d"] = bool(torch.equal(
         f1(x), x.view(WORLD, -1).flip(1).reshape(-1)))
+    # ROADMAP C1: a sharded out-spec keeps the sign of a zero
+    mesh2 = compat.make_mesh((2,), ("data",), ranks=[0, 1], device="cpu")
+    if mesh2.coordinate is not None:
+        z = torch.tensor([-0.0, 1.0, -0.0, 2.0])
+        got = compat.shard_map(lambda b: b * 1.0, mesh=mesh2,
+                               in_specs=(shd.P("data"),),
+                               out_specs=shd.P("data"))(z)
+        out["signed_zero"] = torch.signbit(got).tolist()
     c = shd.NamedSharding(mesh, shd.P("data", "model"))
     with shd.axis_rules(mesh):
         dt = shd.constrain(x2, (None, "mlp"))
@@ -406,6 +414,13 @@ def test_hierarchical_psum_folds_data_before_pod(run):
 
 def test_shard_map_with_sharded_out_specs(run):
     assert run["shard_map_2d"] and run["shard_map_1d"]
+
+
+def test_shard_map_keeps_the_sign_of_a_zero(run):
+    """ROADMAP C1: f32 [-0.0, 1.0, -0.0, 2.0] through ``b * 1.0`` on a
+    (2,) data mesh, P("data") in and out, keeps each zero's sign, as the
+    reference's shard_map (blocks side by side) does."""
+    assert run["signed_zero"] == [True, False, True, False]
 
 
 def test_constrain_under_a_mesh(run):

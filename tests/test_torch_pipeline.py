@@ -188,5 +188,19 @@ def test_device_rule_and_sharding_refusal():
             tpipe.SyntheticLMData(cfg, shape)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpipe.RunningStats().update({"mask": np.ones((2, 8))})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tpipe.SyntheticLMData(cfg, shape, sharding=object(), device="cpu")
+    # a sharded batch: each rank keeps its rows of the global batch (a
+    # fake (data 2, model 2) mesh at coordinate (1, 0); every leaf,
+    # positions too)
+    from repro_torch.distributed import sharding as tshd
+
+    class _Fake:
+        shape = {"data": 2, "model": 2}
+        coordinate = {"data": 1, "model": 0}
+    whole = tpipe.SyntheticLMData(cfg, shape, with_positions=True,
+                                  device="cpu").batch_at(3)
+    mine = tpipe.SyntheticLMData(
+        cfg, shape, with_positions=True, device="cpu",
+        sharding=tshd.NamedSharding(_Fake(), tshd.P(("data",)))).batch_at(3)
+    assert sorted(mine) == sorted(whole)
+    for k, v in whole.items():
+        assert torch.equal(mine[k], v[1:]), k
