@@ -357,7 +357,9 @@ after 3j:
       default_rng(0), microbatches 2, 3 steps) against the port's
       one-card step from the same draw: loss, grad_norm and param_norm
       within SPMD_RTOL (the reference test's 0.03) at every step, the
-      same on every rank; (b) Gemma-2 2B at full width (SPMD_FULL_CUTS:
+      same on every rank, and the reference test's DeepSeek-V3 half on
+      the same ranks (its expert-parallel etp body) within the same
+      gates; (b) Gemma-2 2B at full width (SPMD_FULL_CUTS:
       4 of 26 layers; f32 params and moments; reduce_method auto) on a
       2 x 2 mesh of four ranks, a global batch of 4 x 512 from
       ``SyntheticLMData(sharding=P(("data",)))``, microbatches 2, 4
@@ -371,7 +373,19 @@ after 3j:
       template: every block the rank's own bits; (c) (a)'s checkpoint
       after 2 steps restored onto a new world of four ranks remeshed
       (``fault_tolerance.remesh``) to 2 x 2, 2 steps: the losses within
-      SPMD_ELASTIC_RTOL (the reference's 2e-3) of (a)'s steps 3 and 4.
+      SPMD_ELASTIC_RTOL (the reference's 2e-3) of (a)'s steps 3 and 4;
+      (d) expert parallelism at full width: Arctic (SPMD_EP_CUTS: 1 of
+      35 layers, 16 of 128 experts; f32 params and moments;
+      reduce_method auto) on a 2 x 2 mesh of four ranks, a global batch
+      of 4 x 512 from ``SyntheticLMData(sharding=...)``, 3 steps under
+      etp and then ep2d, each against the one-card step (run first in
+      this process, then freed) within SPMD_RTOL and ep2d against etp
+      within SPMD_EP_RTOL (the reference's 0.02); no expert leaf
+      gathered (counted per leaf, every step), the expert leaves laid
+      out as the MoE body's specs, B1 on every rank every step; printed:
+      each side's dropped tokens, rank 0's step ms (CUDA events) and the
+      host ms of its all-to-alls, gathers and sums, each rank's bytes
+      of expert blocks, the card's peak (nvidia-smi, polled).
 
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
@@ -874,6 +888,24 @@ SPMD_FULL_METHOD = "auto"
 SPMD_ELASTIC_STEPS = (2, 2)     # before the checkpoint, after the restore
 SPMD_ELASTIC_RTOL = 2e-3
 SPMD_TIMEOUT = 900
+# (a)'s second program: the reference test's DeepSeek-V3 half.  (d):
+# expert parallelism at full width, Arctic on a (data 2, model 2) mesh
+# under the etp and then the ep2d layout, cut in depth and expert count
+# only (SPMD_EP_REDUCED), each layout against the one-card step within
+# SPMD_RTOL and against the other within SPMD_EP_RTOL (the reference's
+# test_moe_ep2d_layout_matches_etp).  Arctic, not DeepSeek-V3: the
+# latter's untied 129280 x 7168 embedding and head, gathered whole with
+# their gradients, would take ~14.8 GB a rank before any expert.
+SPMD_MOE_ARCH = "deepseek-v3-671b"
+SPMD_EP_ARCH = "arctic-480b"
+SPMD_EP_CUTS = {"num_layers": 1, "num_experts": 16}
+SPMD_EP_REDUCED = ["num_layers 35 -> 1", "num_experts 128 -> 16"]
+SPMD_EP_MESH = (2, 2)
+SPMD_EP_SHAPE = (4, 512)        # (global batch, seq_len)
+SPMD_EP_STEPS = 3
+SPMD_EP_LAYOUTS = ("etp", "ep2d")
+SPMD_EP_METHOD = "auto"
+SPMD_EP_RTOL = 0.02
 
 SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
 SCAN_HOST_N = 1 << 12
@@ -3478,8 +3510,10 @@ def run_model_smoke(registry, model_zoo, gen) -> list:
 
 class MoeCapture:
     """Records each ``moe._route`` call's tokens and expert ids, so that
-    phase 3j prints the MoE's counts and the tokens its capacity
-    dropped."""
+    phases 3j and 3n (d) print the MoE's counts and the tokens its
+    capacity dropped (a call's own capacity: a rank's from its own
+    tokens).  A call that a remat recompute makes in the backward pass is
+    not recorded."""
 
     def __init__(self, moe_module):
         self.mod = moe_module
@@ -3489,6 +3523,8 @@ class MoeCapture:
     def __enter__(self):
         def spy(cfg, router_w, x_flat):
             ids, w, probs = self.inner(cfg, router_w, x_flat)
+            if torch._C._current_graph_task_id() != -1:
+                return ids, w, probs            # a backward's recompute
             mc = cfg.moe
             t = x_flat.shape[0]
             cap = max(8, int(math.ceil(mc.capacity_factor * t * mc.top_k
@@ -5502,8 +5538,22 @@ def spmd_rank_oracle(tmp: str, dev: str) -> list:
         rows.append(spmd_metrics(m))
         if i + 1 == first:
             ckpt.save(os.path.join(tmp, "elastic"), first, state)
+    del state
+    # the reference test's DeepSeek-V3 half: the same program and batch
+    cfg = registry.get_config(SPMD_MOE_ARCH, smoke=True)
+    model = model_zoo.build(cfg)
+    step_fn, make_init, _, b_shard = trainlib.jit_train_step(
+        model, spmd_tconf(), mesh, model.input_specs(
+            ShapeConfig("t", s, b, "train")), device=dev)
+    batch = {k: b_shard[k].shard(v).to(dev)
+             for k, v in spmd_batch(cfg.vocab_size).items()}
+    state = make_init(SEED)
+    moe_rows = []
+    for _ in range(SPMD_ORACLE_STEPS):
+        state, m = step_fn(state, batch)
+        moe_rows.append(spmd_metrics(m))
     gathered = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, rows)
+    dist.all_gather_object(gathered, (rows, moe_rows))
     return gathered
 
 
@@ -5650,6 +5700,248 @@ def spmd_gaps(got: list, want: list) -> list:
             for gr, wr in zip(got, want)]
 
 
+def spmd_ep_cfg(smoke: bool, layout: str = "etp"):
+    """3n (d)'s config: Arctic at full width (SMOKE when rehearsing, one
+    layer), SPMD_EP_CUTS, reduce_method SPMD_EP_METHOD, f32 params."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.get_config(SPMD_EP_ARCH, smoke=smoke)
+    experts = cfg.moe.num_experts if smoke else SPMD_EP_CUTS["num_experts"]
+    return dataclasses.replace(
+        cfg, num_layers=SPMD_EP_CUTS["num_layers"], moe_layout=layout,
+        reduce_method=SPMD_EP_METHOD,
+        moe=dataclasses.replace(cfg.moe, num_experts=experts))
+
+
+def spmd_ep_data(cfg, dev: str, smoke: bool, sharding=None):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    b, s = (SPMD_EP_SHAPE[0], 16) if smoke else SPMD_EP_SHAPE
+    return pipeline.SyntheticLMData(cfg, ShapeConfig("t", s, b, "train"),
+                                    seed=SEED, sharding=sharding, device=dev)
+
+
+def spmd_dropped(calls: list, steps: int) -> dict:
+    """Routed entries (tokens x top_k) and those the capacity dropped, a
+    step, from MoeCapture's forward calls."""
+    return {"entries": sum(c["counts_sum"] for c in calls) // steps,
+            "dropped": sum(c["dropped"] for c in calls) // steps,
+            "capacity": sorted({c["capacity"] for c in calls})}
+
+
+def spmd_wrap(obj, name: str, spent: dict, key: str):
+    """Replace ``obj.name`` by a call that adds its host ms to
+    ``spent[key]``; returns a function that puts the original back."""
+    real = getattr(obj, name)
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            spent[key] += (time.perf_counter() - t0) * 1e3
+    setattr(obj, name, call)
+    return lambda: setattr(obj, name, real)
+
+
+def spmd_rank_ep(dev: str, smoke: bool) -> list:
+    """3n (d) on one of the four ranks: for each layout, SPMD_EP_STEPS
+    steps of Arctic at full width on a 2 x 2 mesh (B1's counter and the
+    per-leaf gather counts zeroed before each step and read after; the
+    step's ms by CUDA events; the host ms of its all-to-alls, of its
+    gathers (the leaves' and ep2d's sequence) and of its sums; the
+    tokens each rank's capacity dropped), the expert leaves' specs
+    against the MoE body's and the bytes of expert blocks this rank
+    holds (parameters and both moments).  Every rank's results are
+    gathered."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.core.integration import _leaves
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as trainlib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as moe_mod
+    mr = importlib.import_module("repro_torch.kernels.mma_reduce")
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_local_mesh(*SPMD_EP_MESH, device=dev)
+    out = {}
+    for layout in SPMD_EP_LAYOUTS:
+        t0 = time.perf_counter()
+        cfg = spmd_ep_cfg(smoke, layout)
+        model = model_zoo.build(cfg)
+        data = spmd_ep_data(cfg, dev, smoke, sharding=shd.NamedSharding(
+            mesh, shd.P(("data",))))
+        step_fn, make_init, _, _ = trainlib.jit_train_step(
+            model, spmd_tconf(), mesh, model.input_specs(data.shape),
+            device=dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        state = make_init(SEED)
+        kinds = trainlib.expert_leaves(model)
+        paths = trainlib.leaf_paths(model.specs)
+        want = moe_mod.block_specs(cfg, dict(mesh.shape))
+        experts = [(p, x) for p, x, k in zip(paths, _leaves(state.params),
+                                             kinds) if k]
+        got = {"init_s": time.perf_counter() - t0, "specs_ok": all(
+            tuple(shd.dtensor_sharding(x).spec)[1:] == tuple(want[k])
+            for (_, x), k in zip(experts, [k for k in kinds if k])),
+            "expert_bytes": sum(
+                shd.local(x).numel() * shd.local(x).element_size()
+                for tree in (state.params, state.opt.m, state.opt.v)
+                for x, k in zip(_leaves(tree), kinds) if k),
+            "expert_paths": [p for p, _ in experts], "steps": []}
+        spent = {"a2a_ms": 0.0, "gather_ms": 0.0, "sum_ms": 0.0}
+        restore = [spmd_wrap(coll, "_all_to_all", spent, "a2a_ms"),
+                   spmd_wrap(shd, "gather_shard", spent, "gather_ms"),
+                   spmd_wrap(coll, "mesh_psum", spent, "sum_ms")]
+        try:
+            for i in range(SPMD_EP_STEPS):
+                batch = data.batch_at(i)
+                mr.reset_launches()
+                trainlib.GATHERED.clear()
+                spent.update(a2a_ms=0.0, gather_ms=0.0, sum_ms=0.0)
+                mesh_sync(dev)
+                dist.barrier()
+                if dev == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                t1 = time.perf_counter()
+                with MoeCapture(moe_mod) as cap:
+                    state, m = step_fn(state, batch)
+                if dev == "cuda":
+                    end.record()
+                    end.synchronize()
+                got["steps"].append({
+                    "metrics": spmd_metrics(m),
+                    "b1": mr.LAUNCHES["b1_single_pass"],
+                    "event_ms": start.elapsed_time(end) if dev == "cuda"
+                    else None,
+                    "wall_ms": (time.perf_counter() - t1) * 1e3,
+                    "expert_gathers": {p: trainlib.GATHERED.get(p, 0)
+                                       for p in got["expert_paths"]},
+                    "gathered_leaves": len(trainlib.GATHERED),
+                    **spmd_dropped(cap.calls, 1), **spent})
+        finally:
+            for r in restore:
+                r()
+        if dev == "cuda":
+            got["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, step_fn, make_init
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        got["s"] = time.perf_counter() - t0
+        out[layout] = got
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+def run_spmd_ep(smi: str, dev: str, smoke: bool) -> dict:
+    """3n (d) (see the module docstring): the one-card step first, in
+    this process, then freed; then four ranks, each layout in turn."""
+    import gc
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import moe as moe_mod
+    out = {"card": smi, "reduced": SPMD_EP_REDUCED, "mesh": SPMD_EP_MESH,
+           "shape": SPMD_EP_SHAPE, "method": SPMD_EP_METHOD, "s": {}}
+    t0 = time.perf_counter()
+    cfg = spmd_ep_cfg(smoke)
+    data = spmd_ep_data(cfg, dev, smoke)
+    with MoeCapture(moe_mod) as cap:
+        one = spmd_one_card(cfg, SPMD_EP_STEPS, data.batch_at, dev)
+    one["dropped"] = spmd_dropped(cap.calls, SPMD_EP_STEPS)
+    del data
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        out["parent_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        poll = MemoryPoll()
+    out["s"]["one card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = launch_mesh.run_ranks(spmd_rank_ep, SPMD_EP_MESH[0]
+                                      * SPMD_EP_MESH[1], backend="gloo",
+                                      args=(dev, smoke),
+                                      timeout=SPMD_TIMEOUT)
+    finally:
+        peak_mib = poll.stop() if dev == "cuda" else None
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    out["s"]["ranks"] = time.perf_counter() - t0
+    first = ranks[0]
+    rows = {}
+    for layout in SPMD_EP_LAYOUTS:
+        mine = [[st["metrics"] for st in r[layout]["steps"]] for r in ranks]
+        check(all(m == mine[0] for m in mine),
+              f"3n (d) {layout}: the ranks hold different metrics")
+        rows[layout] = mine[0]
+        gaps = spmd_gaps(mine[0], one["rows"])
+        b1 = [[st["b1"] for st in r[layout]["steps"]] for r in ranks]
+        gathers = [st["expert_gathers"] for r in ranks
+                   for st in r[layout]["steps"]]
+        out[layout] = {
+            "mesh": mine[0], "gaps": gaps, "b1": b1,
+            "specs_ok": [r[layout]["specs_ok"] for r in ranks],
+            "expert_bytes": [r[layout]["expert_bytes"] for r in ranks],
+            "expert_gathers": gathers,
+            "dropped": [[{k: st[k] for k in ("entries", "dropped",
+                                             "capacity")}
+                         for st in r[layout]["steps"]] for r in ranks],
+            "rank0_steps": [{k: v for k, v in st.items()
+                             if k not in ("metrics", "expert_gathers")}
+                            for st in first[layout]["steps"]],
+            "rank_peak_gib": [r[layout].get("peak_gib") for r in ranks],
+            "init_s": first[layout]["init_s"], "s": first[layout]["s"]}
+        print(f"phase 3n (d) {layout}: {SPMD_EP_ARCH} at full width "
+              f"({', '.join(SPMD_EP_REDUCED)}), {SPMD_EP_MESH} mesh of gloo "
+              f"ranks, batch {SPMD_EP_SHAPE}, reduce_method "
+              f"{SPMD_EP_METHOD}: gaps to one card {gaps}; B1 launches "
+              f"(rank x step) {b1}; dropped entries a step (rank x step) "
+              f"{[[d['dropped'] for d in r] for r in out[layout]['dropped']]}"
+              f" of {out[layout]['dropped'][0][0]['entries']} (capacity "
+              f"{out[layout]['dropped'][0][0]['capacity']}), one card "
+              f"{one['dropped']}; rank 0's steps {out[layout]['rank0_steps']}"
+              f"; expert bytes a rank (params, m, v) "
+              f"{out[layout]['expert_bytes']}; "
+              f"rank peaks {out[layout]['rank_peak_gib']} GiB; {smi}",
+              flush=True)
+        check(all(math.isfinite(v) for row in mine[0] for v in row),
+              f"3n (d) {layout}: non-finite metrics {mine[0]}")
+        check(all(out[layout]["specs_ok"]),
+              f"3n (d) {layout}: an expert leaf is not laid out as the MoE "
+              f"body takes it")
+        check(all(n == 0 for g in gathers for n in g.values())
+              and all(len(g) == 3 * SPMD_EP_CUTS["num_layers"]
+                      for g in gathers),
+              f"3n (d) {layout}: an expert leaf was gathered: {gathers}")
+        check(all(g <= SPMD_RTOL for row in gaps for g in row),
+              f"3n (d) {layout}: the mesh step is off the one-card step: "
+              f"{gaps}")
+        check(dev != "cuda" or all(n > 0 for r in b1 for n in r),
+              f"3n (d) {layout}: B1 did not launch on every rank in every "
+              f"step: {b1}")
+    ep_gaps = spmd_gaps(rows["ep2d"], rows["etp"])
+    out["ep2d_vs_etp"] = ep_gaps
+    out["one_card"] = one
+    out["card_peak_mib"] = peak_mib
+    print(f"phase 3n (d): ep2d against etp {ep_gaps}; one card's step ms "
+          f"{one['step_ms']}, peak {one['peak_gib']} GiB; card peak "
+          f"{peak_mib} MiB; this process held {out.get('parent_gib')} GiB "
+          f"beside the ranks; seconds {out['s']}; {smi}", flush=True)
+    check(all(g <= SPMD_EP_RTOL for row in ep_gaps for g in row),
+          f"3n (d): ep2d is off etp: {ep_gaps}")
+    return out
+
+
 def run_spmd(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
     """Phase 3n (see the module docstring).  ``dev`` and ``smoke`` let
     the phase rehearse on the CPU at SMOKE size; main runs it on the
@@ -5664,21 +5956,32 @@ def run_spmd(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
     cfg = registry.get_config(SPMD_ARCH, smoke=True)
     batch = {k: v.to(dev) for k, v in spmd_batch(cfg.vocab_size).items()}
     one_a = spmd_one_card(cfg, SPMD_ORACLE_STEPS, lambda i: batch, dev)
+    moe_cfg = registry.get_config(SPMD_MOE_ARCH, smoke=True)
+    moe_batch = {k: v.to(dev)
+                 for k, v in spmd_batch(moe_cfg.vocab_size).items()}
+    one_moe = spmd_one_card(moe_cfg, SPMD_ORACLE_STEPS,
+                            lambda i: moe_batch, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spmd_") as tmp:
         ranks8 = launch_mesh.run_ranks(spmd_rank_oracle, 8, backend="gloo",
                                        args=(tmp, dev), timeout=SPMD_TIMEOUT)
         out["s"]["a"] = time.perf_counter() - t0
         check(all(r == ranks8[0] for r in ranks8),
               "3n (a): the ranks hold different metrics")
-        rows = ranks8[0]
+        rows, moe_rows = ranks8[0]
         gaps = spmd_gaps(rows[:SPMD_ORACLE_STEPS], one_a["rows"])
+        moe_gaps = spmd_gaps(moe_rows, one_moe["rows"])
         out["a"] = {"mesh": rows[:SPMD_ORACLE_STEPS], "one_card": one_a,
-                    "gaps": gaps}
+                    "gaps": gaps, SPMD_MOE_ARCH: {
+                        "mesh": moe_rows, "one_card": one_moe,
+                        "gaps": moe_gaps}}
         print(f"phase 3n (a): {SPMD_ARCH} SMOKE on {SPMD_ORACLE_MESH}, "
-              f"loss / grad_norm / param_norm gaps to one card {gaps}",
-              flush=True)
+              f"loss / grad_norm / param_norm gaps to one card {gaps}; "
+              f"{SPMD_MOE_ARCH} SMOKE (etp) {moe_gaps}", flush=True)
         check(all(g <= SPMD_RTOL for row in gaps for g in row),
               f"3n (a): the mesh step is off the one-card step: {gaps}")
+        check(all(g <= SPMD_RTOL for row in moe_gaps for g in row),
+              f"3n (a): {SPMD_MOE_ARCH}'s mesh step is off the one-card "
+              f"step: {moe_gaps}")
 
         t0 = time.perf_counter()
         full = spmd_full_cfg(smoke)
@@ -5762,6 +6065,10 @@ def run_spmd(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
     check(all(out["b"]["same_bits"]),
           f"3n (b): a rank's restored blocks differ from its state: "
           f"{out['b']['same_bits']}")
+
+    t0 = time.perf_counter()
+    out["d"] = run_spmd_ep(smi, dev, smoke)
+    out["s"]["d"] = time.perf_counter() - t0
     print(f"phase 3n: seconds by part {out['s']}", flush=True)
     return out
 

@@ -8,12 +8,13 @@ one f32 partial a rank, folded over the mesh) and ``fault_tolerance``
 (checkpoint / restart, ``remesh`` and the replan after it).  The meshes
 themselves are ``compat.make_mesh`` and ``launch.mesh``.
 
-Served (ROADMAP item 14b(i)): the SPMD train step of the dense archs
-(``launch.train`` with ``data_parallel`` or ``model_parallel`` above 1,
-``make_train_step(mesh=...)``), ``SyntheticLMData``'s sharded batch, the
-sharded AdamW state and its checkpoints.  Waiting for the rest of item
-14b, and refused naming it: ``models.moe``'s expert-parallel branch and
-an MoE arch's step over a mesh (14b(ii)), ``Server`` and
+Served (ROADMAP item 14b(i) and (ii)): the SPMD train step of every
+arch (``launch.train`` with ``data_parallel`` or ``model_parallel``
+above 1, ``make_train_step(mesh=...)``), ``SyntheticLMData``'s sharded
+batch, the sharded AdamW state and its checkpoints, and ``models.moe``'s
+expert-parallel branch (the ``etp`` and ``ep2d`` layouts, with the
+autograd all-to-all and conjugate collectives of ``collectives``).
+Waiting for the rest of item 14b, and refused naming it: ``Server`` and
 ``ContinuousServer`` over a mesh (14b(iii)), and ``launch/dryrun``
 (14b(iv)).
 """

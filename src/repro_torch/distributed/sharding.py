@@ -311,6 +311,24 @@ def batch_fold() -> Optional[tuple]:
     return _CTX.fold
 
 
+def current_context() -> tuple:
+    """This thread's (mesh, rules, batch fold), for ``installed``."""
+    return _CTX.mesh, _CTX.rules, _CTX.fold
+
+
+@contextlib.contextmanager
+def installed(context: tuple):
+    """Run under a context that ``current_context`` took, in any thread:
+    the autograd engine runs a CUDA backward, and so a remat's
+    recompute, on a thread of its own, where the context is empty."""
+    old = current_context()
+    _CTX.mesh, _CTX.rules, _CTX.fold = context
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules, _CTX.fold = old
+
+
 def spec_for(shape: Sequence[int], logical_axes: Sequence[Optional[str]],
              mesh=None, rules: Optional[dict] = None) -> PartitionSpec:
     """PartitionSpec for a concrete shape given logical axis names.

@@ -36,12 +36,15 @@ def make_local_mesh(data: int = 1, model: int = 1, *, device=None):
     return compat.make_mesh((data, model), ("data", "model"), device=device)
 
 
-def _rank_main(fn, args, rank: int, world: int, backend: str, store: str,
-               threads: int, results) -> None:
+def _rank_main(fn, args_file: str, rank: int, world: int, backend: str,
+               store: str, threads: int, results) -> None:
+    import pickle
     import torch
     import torch.distributed as dist
     torch.set_num_threads(threads)
     try:
+        with open(args_file, "rb") as f:
+            args = pickle.load(f)
         dist.init_process_group(backend, init_method=f"file://{store}",
                                 world_size=world, rank=rank)
         try:
@@ -61,13 +64,20 @@ def run_ranks(fn, world: int, *, backend: str, args: tuple = (),
     rank 0's result.  ``fn`` must be importable by name (a module-level
     function) and its result picklable.  Raises, after killing every
     rank, when a rank fails or the ranks outlive ``timeout`` seconds."""
+    import pickle
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     threads = max(1, (os.cpu_count() or 1) // world)
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        # The arguments go through a file: a start's pickle that outgrows
+        # the pipe's buffer holds the parent until that rank has booted
+        # and read it, so the ranks would start one after another.
+        args_file = os.path.join(tmp, "args.pkl")
+        with open(args_file, "wb") as f:
+            pickle.dump(args, f)
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(fn, args, rank, world, backend,
+                             args=(fn, args_file, rank, world, backend,
                                    os.path.join(tmp, "store"), threads,
                                    results))
                  for rank in range(world)]

@@ -27,11 +27,17 @@ collectives:
     backward sums its gradient over the batch axes and cuts it back to
     this rank's block, a microbatch at a time; the loss's token mean
     divides by the count over every rank's rows;
+  * the expert leaves of an MoE layer (``wi_gate``, ``wi_up``, ``wo``)
+    are never gathered: ``models.moe``'s expert-parallel body takes this
+    rank's blocks, laid out by ``state_shardings`` as its specs, and
+    their gradients are complete over the axes its all-to-alls span, so
+    they are summed over the other batch axes (``pod``) alone;
   * the clip's norm and ``param_norm`` are ``tc_global_norm`` over the
     mesh, each leaf folded over the axes it is split over.
 
-The MoE layer's expert parallelism over a mesh is ROADMAP item 14b(ii):
-an MoE arch over a mesh is refused when its step is built.
+Every arch trains over a mesh (ROADMAP item 14b(i) and (ii)); serving
+over a mesh (14b(iii)) and ``launch/dryrun`` (14b(iv)) are still to
+come.
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20 \
@@ -41,6 +47,7 @@ an MoE arch over a mesh is refused when its step is built.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import logging
 import time
@@ -154,13 +161,11 @@ def make_train_step(model, tconf: TrainConfig, mesh=None, *, device=None):
     state is the one-card state bit for bit.
     """
     cfg = model.cfg
-    if autotune.mesh_device_count(mesh) > 1 and cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name} over a mesh: the MoE layer's expert parallelism "
-            f"is ROADMAP item 14b(ii) (distributed: the model over a mesh)")
     mesh = _live_mesh(mesh)
     shardings = None if mesh is None else state_shardings(
         model, mesh, _state_shapes(model, tconf))
+    if mesh is not None and cfg.moe is not None:
+        _check_expert_specs(model, mesh, shardings.params)
 
     def lr_at(step):
         return adamw.cosine_schedule(
@@ -241,6 +246,55 @@ class _Gathered(torch.autograd.Function):
                 None, None, None)
 
 
+def expert_leaves(model) -> list:
+    """For each parameter leaf, in ``_leaves`` order: the key of an
+    expert leaf that ``models.moe``'s body takes as its block
+    (``wi_gate``, ``wi_up``, ``wo``), else ""."""
+    def walk(tree, key):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], k) for k in sorted(tree)}
+        return key if any(a in ("experts", "experts_2d")
+                          for a in tree.axes) else ""
+    return _leaves(walk(model.specs, ""))
+
+
+def leaf_paths(tree) -> list:
+    """Each leaf's path of dict keys joined by '/', in ``_leaves``
+    order."""
+    def walk(sub, path):
+        if isinstance(sub, dict):
+            return {k: walk(sub[k], f"{path}/{k}" if path else k)
+                    for k in sorted(sub)}
+        return path
+    return _leaves(walk(tree, ""))
+
+
+def _check_expert_specs(model, mesh, param_shardings) -> None:
+    """Every expert leaf laid out exactly as the MoE body takes it (the
+    layers' stacking dims unsplit); raises naming the leaf, its shape
+    and both specs otherwise."""
+    from repro_torch.models import moe
+    want = moe.block_specs(model.cfg, dict(mesh.shape))
+    shapes = _leaves(model.param_shapes())
+    paths = leaf_paths(model.specs)
+    for kind, s, shape, path in zip(expert_leaves(model),
+                                    _leaves(param_shardings), shapes, paths):
+        if not kind:
+            continue
+        lead = len(shape.shape) - len(want[kind])
+        expect = shd.P(*(None,) * lead, *want[kind])
+        if tuple(s.spec) != tuple(expect):
+            raise ValueError(
+                f"{model.cfg.name} over {mesh}: the expert leaf {path} of "
+                f"shape {tuple(shape.shape)} is laid out {s.spec} by the "
+                f"logical rules, and the MoE body takes it as {expect}")
+
+
+# Gathers of each parameter leaf by the mesh step, by path (``leaf_paths``
+# of the parameter tree): an expert leaf is never gathered.
+GATHERED: collections.Counter = collections.Counter()
+
+
 def _split_spec(spec, batch_axes) -> tuple:
     """(spec, spec): a leaf's dimensions split over no batch axis, and
     those split over batch axes alone.  A dimension split over both is
@@ -318,9 +372,19 @@ def _mesh_grads(model, params, mesh, batch, k: int):
     dtensors = _leaves(params)
     specs = [shd.dtensor_sharding(p).spec for p in dtensors]
     blocks = [shd.local(p).detach().requires_grad_(True) for p in dtensors]
-    # every leaf gathered once a step, for all k microbatches
-    wholes = [shd.gather_shard(b.detach(), spec, mesh)
-              for b, spec in zip(blocks, specs)]
+    experts = expert_leaves(model)
+    # every other leaf gathered once a step, for all k microbatches; an
+    # expert leaf reaches the MoE body as its block
+    wholes = []
+    for b, spec, kind, path in zip(blocks, specs, experts,
+                                   leaf_paths(params)):
+        if not kind:
+            GATHERED[path] += 1
+        wholes.append(None if kind
+                      else shd.gather_shard(b.detach(), spec, mesh))
+    # the all-to-alls span data (and model): an expert block's gradient
+    # is summed over the other batch axes
+    expert_axes = tuple(a for a in axes if a not in ("data", "model"))
     method = model.cfg.reduce_method
 
     def fold(v):
@@ -329,9 +393,13 @@ def _mesh_grads(model, params, mesh, batch, k: int):
     def grads_of(mb):
         with shd.local_step(mesh, axes):
             whole = _tree_like(params, [
-                _Gathered.apply(b, w, spec, mesh, axes)
-                for b, w, spec in zip(blocks, wholes, specs)])
+                b if kind else _Gathered.apply(b, w, spec, mesh, axes)
+                for b, w, spec, kind in zip(blocks, wholes, specs,
+                                            experts)])
             loss, metrics, grads = _grads(model, blocks, whole, mb)
+        grads = [collectives.mesh_psum(g, expert_axes, mesh=mesh)
+                 if kind and expert_axes else g
+                 for g, kind in zip(grads, experts)]
         return fold(loss), {n: fold(v) for n, v in metrics.items()}, grads
 
     return grads_of, blocks

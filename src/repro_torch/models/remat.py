@@ -27,6 +27,8 @@ import functools
 import torch
 import torch.utils.checkpoint as tuc
 
+from repro_torch.distributed import sharding as shd
+
 POLICIES = ("none", "full", "dots", "dots_tagged")
 TAGGED = ("mixer_out", "mlp_out", "moe_post_a2a", "moe_expert_out")
 
@@ -83,4 +85,13 @@ def run(policy: str, fn, *args):
         kw["context_fn"] = functools.partial(
             tuc.create_selective_checkpoint_contexts,
             functools.partial(_policy, names))
-    return tuc.checkpoint(fn, *args, **kw)
+    # the recompute runs where the backward runs (on the card, the
+    # autograd engine's own thread) under the forward's sharding context:
+    # a step on this rank's blocks (``sharding.local_step``) recomputes
+    # the same collectives
+    context = shd.current_context()
+
+    def call(*a):
+        with shd.installed(context):
+            return fn(*a)
+    return tuc.checkpoint(call, *args, **kw)

@@ -74,6 +74,74 @@ def _keys(reg=None):
     return sorted(k for k, _ in reg.items())
 
 
+def _autograd_collectives(mesh) -> dict:
+    """The autograd collectives over the two ranks of a model line (and
+    the all-to-all over data and data x model), each gradient against
+    the one-rank gradient of the same function; beside ``reduce_from``
+    the library's all_reduce in its place.  Every value is an integer,
+    so each comparison is exact."""
+    import torch.distributed.nn.functional as dfn
+    from repro_torch.distributed import collectives as coll
+    m = mesh.coordinate["model"]
+    group = mesh.get_group("model")
+    g = torch.arange(1.0, 7.0).reshape(2, 3)      # every rank's cotangent
+    out = {}
+
+    # copy_to -> rank m's part c_m x -> reduce_from: y = (c_0 + c_1) x on
+    # one rank, so dx = (c_0 + c_1) g
+    c = (2.0, 5.0)
+    for name, reduce in (("ours", lambda t: coll.reduce_from(t, "model",
+                                                             mesh=mesh)),
+                         ("library", lambda t: dfn.all_reduce(t,
+                                                              group=group))):
+        x = torch.ones(2, 3, requires_grad=True)
+        y = reduce(coll.copy_to(x, "model", mesh=mesh) * c[m])
+        (y * g).sum().backward()
+        out[f"reduce_y_{name}"] = y.tolist()
+        out[f"reduce_dx_{name}"] = x.grad.tolist()
+    out["reduce_want"] = ((c[0] + c[1]) * g).tolist()
+
+    # gather_from of rank m's block: dx is its block of g, once (the
+    # library's all_gather, whose backward is a sum, cannot run its
+    # backward on a subgroup under gloo)
+    x = torch.full((1, 3), float(m + 1), requires_grad=True)
+    y = coll.gather_from(x, "model", 0, mesh=mesh)
+    (y * g).sum().backward()
+    out["gather_y"] = y.tolist() == [[1.0] * 3, [2.0] * 3]
+    out["gather_dx"] = x.grad.tolist() == g[m:m + 1].tolist()
+
+    # scatter_to: rank m keeps column block m of x; dx is all of g
+    x = torch.ones(3, 2, requires_grad=True)
+    y = coll.scatter_to(x, "model", 1, mesh=mesh)
+    (y * g.T[:, m:m + 1]).sum().backward()
+    out["scatter_y"] = y.shape == (3, 1)
+    out["scatter_dx"] = torch.equal(x.grad, g.T)
+
+    # all_to_all: expert e of rank r holds 100 r + e; after the exchange
+    # this rank holds its experts' blocks from every rank in rank order,
+    # and the backward is the reverse exchange
+    rank = mesh.coordinate["data"] * 2 + m
+    for axes in ("data", ("data", "model")):
+        names = (axes,) if isinstance(axes, str) else axes
+        n = 4 if axes == "data" else 8
+        x = (100.0 * rank + torch.arange(8.0))[:, None, None] \
+            .expand(8, 2, 3).clone().requires_grad_(True)
+        y = coll.all_to_all(x, axes, 0, 1, mesh=mesh)
+        me = mesh.coordinate["data"] if n == 4 else rank
+        srcs = [(j * 2 + m) if n == 4 else j for j in range(n)]
+        e = 8 // n
+        want = torch.cat([(100.0 * s + torch.arange(me * e, me * e + e))
+                          [:, None, None].expand(e, 2, 3) for s in srcs],
+                         dim=1)
+        w = torch.arange(float(y.numel())).reshape(y.shape) + rank
+        (y * w).sum().backward()
+        back = coll.all_to_all(w, axes, 1, 0, mesh=mesh)
+        out[f"a2a_{'x'.join(names)}"] = [
+            list(y.shape), torch.equal(y, want), torch.equal(x.grad, back),
+            torch.equal(coll.all_to_all(y, axes, 1, 0, mesh=mesh), x)]
+    return out
+
+
 def _mesh_rank(ckpt_dir: str) -> dict:
     """Everything the cases read, computed on each of the eight ranks;
     rank 0's dict comes back."""
@@ -260,6 +328,8 @@ def _mesh_rank(ckpt_dir: str) -> dict:
     except ValueError as e:
         out["refused_tuple"] = str(e)
 
+    out["autograd"] = _gather(_autograd_collectives(mesh))
+
     out["values"] = _gather([out["tc_psum"], out["norm"], out["engines"],
                              out["gemma"], out["partial"]])
     out["keys_by_rank"] = _gather(out["mesh_keys"])
@@ -421,6 +491,40 @@ def test_shard_map_keeps_the_sign_of_a_zero(run):
     (2,) data mesh, P("data") in and out, keeps each zero's sign, as the
     reference's shard_map (blocks side by side) does."""
     assert run["signed_zero"] == [True, False, True, False]
+
+
+def test_copy_to_and_reduce_from_give_the_one_rank_gradient(run):
+    """``copy_to``, a part a rank, then ``reduce_from`` over the two ranks
+    of a model line: the library all_reduce's forward, and the gradient
+    of the same function on one rank; the library's ``all_reduce`` in
+    place of ``reduce_from`` gives twice that (its backward sums the
+    model ranks' identical cotangents)."""
+    for got in run["autograd"]:
+        assert got["reduce_y_ours"] == got["reduce_y_library"]
+        assert got["reduce_dx_ours"] == got["reduce_want"]
+        assert got["reduce_dx_library"] == (
+            2 * np.asarray(got["reduce_want"])).tolist()
+
+
+def test_gather_from_keeps_its_slice_of_the_gradient(run):
+    for got in run["autograd"]:
+        assert got["gather_y"] and got["gather_dx"]
+
+
+def test_scatter_to_gathers_its_gradient(run):
+    for got in run["autograd"]:
+        assert got["scatter_y"] and got["scatter_dx"]
+
+
+@pytest.mark.parametrize("axes", ["data", "dataxmodel"])
+def test_all_to_all_blocks_and_its_reverse(run, axes):
+    """The tiled all-to-all over data (4 ranks) and over data x model (8,
+    data major): each rank holds its experts' blocks from every rank in
+    rank order, the reverse exchange gives x back, and the backward is
+    the reverse exchange of the cotangent."""
+    shape = [2, 8, 3] if axes == "data" else [1, 16, 3]
+    for got in run["autograd"]:
+        assert got[f"a2a_{axes}"] == [shape, True, True, True]
 
 
 def test_constrain_under_a_mesh(run):

@@ -14,30 +14,50 @@ exactly, and the outputs match — with ``compute_dtype`` f32 to 1e-4 of
 max|ref| (the aux loss to 1e-5 relative), in bf16 within the reference's
 model bound, max|got - ref| < 0.05 (max|ref| + 1).  A capacity factor of
 0.25 makes experts overflow, so tokens are dropped.
+
+The expert-parallel body over a mesh (``moe_block`` under
+``axis_rules``, both layouts) runs on one world of eight gloo ranks on
+the CPU (``launch.mesh.run_ranks``), started by a module fixture; it is
+held to the JAX package's single-device ``moe_block`` at a capacity that
+drops nothing, out within 1e-5 of max|ref|.
 """
 
 import dataclasses
 import math
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.configs import registry as JR
-from repro.core import integration as ji
-from repro.core.precision import EXACT_OFFSETS as J_EXACT
-from repro.models import moe as JMOE
-from repro.models import param as JP
 from repro_torch import compat
 from repro_torch.configs import registry as TR
 from repro_torch.distributed import sharding as tshd
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import moe as TMOE
 from repro_torch.models import param as TP
 
+# The JAX package, imported by the ``_jax_package`` fixture in the test
+# process only: the mesh test's ranks import this module, and no JAX.
+jax = jnp = JR = ji = J_EXACT = JMOE = JP = None
+
 ARCHS = ("deepseek-v3-671b", "arctic-480b")
+LAYOUTS = ("etp", "ep2d")
 GAP = 1e-4
+MESH = (4, 2)
+# the mesh test's input: 4 rows over data, 16 positions over model
+MESH_X = (4, 16)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_package():
+    global jax, jnp, JR, ji, J_EXACT, JMOE, JP
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as JR
+    from repro.core import integration as ji
+    from repro.core.precision import EXACT_OFFSETS as J_EXACT
+    from repro.models import moe as JMOE
+    from repro.models import param as JP
 
 
 def _np(t) -> np.ndarray:
@@ -205,12 +225,110 @@ def test_aux_counts_resolve_every_spelling(spelling):
     np.testing.assert_allclose(float(aux), float(base), rtol=1e-6)
 
 
-def test_a_mesh_is_refused_naming_item_14(monkeypatch):
+def _no_drop(cfg):
+    """A capacity factor of E / k: every expert takes every token, on one
+    device and on each rank."""
+    mc = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        mc, capacity_factor=mc.num_experts / mc.top_k))
+
+
+def _mesh_rank(cases: dict) -> dict:
+    """Entry (b): ``moe_block`` under ``axis_rules`` of a 4 x 2 mesh on
+    whole tensors, for each case (arch, layout); every rank's out and
+    aux."""
+    import torch.distributed as dist
+    mesh = compat.make_mesh(MESH, ("data", "model"), device="cpu")
+    out = {}
+    for key, (arch, layout, params, x) in cases.items():
+        cfg = _no_drop(dataclasses.replace(
+            TR.get_config(arch, smoke=True), compute_dtype=torch.float32,
+            moe_layout=layout))
+        tp = TP.from_numpy(params, device="cpu")
+        with torch.no_grad(), tshd.axis_rules(mesh):
+            y, aux = TMOE.moe_block(tp, cfg, torch.from_numpy(x))
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, (y.numpy(), float(aux)))
+        out[key] = got
+    return out
+
+
+# Seeds whose (4, 16) draws keep every token's k-th and (k+1)-th scores
+# apart.
+MESH_SEEDS = {"deepseek-v3-671b": 1, "arctic-480b": 3}
+
+
+def _mesh_case(arch: str):
+    jcfg, _ = _cfgs(arch)
+    jcfg = _no_drop(jcfg)
+    seed = MESH_SEEDS[arch]
+    jp = JP.init_tree(jax.random.PRNGKey(seed), JMOE.moe_specs(jcfg))
+    x = np.random.default_rng(seed).normal(
+        size=(*MESH_X, jcfg.d_model)).astype(np.float32)
+    return jcfg, jax.tree_util.tree_map(np.asarray, jp), x
+
+
+@pytest.fixture(scope="module")
+def mesh_run():
+    cases = {}
+    for arch in ARCHS:
+        _, params, x = _mesh_case(arch)
+        for layout in LAYOUTS:
+            cases[f"{arch}/{layout}"] = (arch, layout, params, x)
+    return launch_mesh.run_ranks(_mesh_rank, MESH[0] * MESH[1],
+                                 backend="gloo", args=(cases,), timeout=120)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_block_under_a_mesh_matches_one_device(mesh_run, arch, layout):
+    """Entry (b): ``moe_block`` under ``axis_rules`` of a (data 4, model
+    2) mesh of gloo ranks, on whole tensors, through ``shard_map`` with
+    the reference's specs, against the JAX package's single-device
+    ``moe_block`` on the same numpy parameters and x at a capacity that
+    drops nothing: out within f32 rtol 1e-5 of max|ref| on every rank;
+    aux, the reference's pmean of each shard's, within rtol 1e-6 of the
+    mean of the JAX package's ``_aux_loss`` on each shard's tokens
+    (etp: a data row's block; ep2d: its model slice of the sequence
+    too)."""
+    jcfg, params, x = _mesh_case(arch)
+    _assert_no_near_ties(jcfg, params, x)
+    jy, _ = JMOE.moe_block(params, jcfg, jnp.asarray(x))
+    rows = MESH_X[0] // MESH[0]
+    pieces = [x[r:r + rows] for r in range(0, MESH_X[0], rows)]
+    if layout == "ep2d":
+        cols = MESH_X[1] // MESH[1]
+        pieces = [p[:, c:c + cols] for p in pieces
+                  for c in range(0, MESH_X[1], cols)]
+    auxes = []
+    for p in pieces:
+        ids, _, probs = JMOE._route(jcfg, params["router"], jnp.asarray(
+            p.reshape(-1, jcfg.d_model)))
+        auxes.append(float(JMOE._aux_loss(jcfg, probs, ids)))
+    ranks = mesh_run[f"{arch}/{layout}"]
+    assert len(ranks) == MESH[0] * MESH[1]
+    for y, aux in ranks:
+        np.testing.assert_allclose(y, np.asarray(jy), rtol=0,
+                                   atol=1e-5 * float(np.max(np.abs(jy))))
+        np.testing.assert_allclose(aux, np.mean(auxes), rtol=1e-6)
+
+
+def test_a_mesh_refuses_experts_that_do_not_split(monkeypatch):
+    """Six experts over a 4-way data axis (etp's split; ep2d needs them
+    over data x model): refused before any collective, naming the
+    shapes, as the reference's ``shard_map`` fails there too."""
     arch = "arctic-480b"
     _, tcfg, _, tp, x = _setup(arch, SEEDS[arch])
-    monkeypatch.setattr(tshd._CTX, "mesh", object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TMOE.moe_block(tp, tcfg, torch.from_numpy(x))
+    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, num_experts=6))
+
+    class _Fake:
+        shape = {"data": 4, "model": 2}
+    monkeypatch.setattr(tshd._CTX, "mesh", _Fake())
+    for layout in LAYOUTS:
+        with pytest.raises(ValueError, match=r"E 6.*data \(4\)"):
+            TMOE.moe_block(tp, dataclasses.replace(tcfg, moe_layout=layout),
+                           torch.from_numpy(x))
 
 
 def test_compat_on_one_card():

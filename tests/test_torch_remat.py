@@ -177,3 +177,32 @@ def test_chunked_ce_recomputes_each_chunk_and_ignores_masked(monkeypatch):
     _, g2 = _loss_grads(cfg, params, dict(batch, mask=mask, labels=labels))
     for a, b in zip(g1, g2):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_recompute_runs_under_the_forwards_sharding_context(policy):
+    """On the card the autograd engine runs a backward, and so a remat's
+    recompute, on a thread of its own, where the thread-local sharding
+    context is empty; a step on this rank's blocks
+    (``sharding.local_step``) must recompute under its forward's context
+    (the MoE's all-to-alls).  A backward called from another thread
+    stands in for the engine's here."""
+    import threading
+    from repro_torch.distributed import sharding as shd
+    seen = []
+    w = torch.randn(4, 4)
+
+    def fn(x):
+        seen.append(shd.batch_fold())
+        return torch.sin(x) @ w
+
+    mesh = object()
+    x = torch.randn(4, 4, requires_grad=True)
+    with shd.local_step(mesh, ("data",)):
+        y = RM.run(policy, fn, x)
+    assert shd.batch_fold() is None
+    worker = threading.Thread(target=lambda: y.sum().backward())
+    worker.start()
+    worker.join()
+    assert x.grad is not None
+    assert seen == [(mesh, ("data",))] * 2

@@ -30,12 +30,23 @@ Tolerances, each stated where it is used:
     activations, microbatches 2: loss, ``grad_norm`` and ``param_norm``
     rtol 1e-5 of one rank (a rank's own mean would be off by tens of
     percent);
+  * the MoE archs (``models.moe``'s expert-parallel body, the expert
+    leaves never gathered): DeepSeek-V3 SMOKE, the oracle's program,
+    against the JAX package's single-device step on the same parameters
+    (the port's draw, bridged) within rtol 0.03; one mesh step of each
+    MoE arch under each layout against the port's one-rank step with f32
+    activations, aux weight 0 and a capacity factor of E / k (no token
+    dropped on either side): the dense archs' tolerances; the mesh's
+    reported aux the mean of ``_aux_loss`` on each rank's own tokens
+    within rtol 1e-6; ``etp`` against ``ep2d`` at the reference's
+    ``_EP2D_PROG`` settings within its rtol 0.02;
   * the elastic restore 4 x 2 -> 2 x 2: the reference test's rtol 2e-3;
   * the gathered initial state against the one-card draw, a checkpoint
     against the state it saved, the sharded batch against the
     reference's rows: bit for bit.
 """
 
+import concurrent.futures
 import dataclasses
 import os
 
@@ -59,10 +70,12 @@ DENSE = ("gemma2-2b", "gemma3-27b", "glm4-9b", "mistral-large-123b",
          "llama-3.2-vision-90b", "seamless-m4t-large-v2", "rwkv6-7b",
          "recurrentgemma-2b")
 MOE = ("deepseek-v3-671b", "arctic-480b")
+LAYOUTS = ("etp", "ep2d")
 TCONF = dict(total_steps=10, warmup_steps=2)
 # which rank of the world computes each one-rank reference
 ONE_RANK = {**{arch: rank for rank, arch in enumerate(DENSE)},
-            "oracle": 3, "masked": 2}
+            "oracle": 3, "masked": 2,
+            **{f"moe:{arch}": rank for rank, arch in zip((4, 5), MOE)}}
 
 
 def _batch_np(vocab: int) -> dict:
@@ -96,6 +109,56 @@ def _metrics(m) -> list:
 
 def _f32(cfg):
     return dataclasses.replace(cfg, compute_dtype=torch.float32)
+
+
+def _no_drop(arch: str, layout: str = "etp"):
+    """An MoE arch at SMOKE with f32 activations, aux weight 0 (a mesh's
+    aux is the mean of each rank's own, which one rank's is not) and a
+    capacity factor of E / k, so that no expert drops a token on one rank
+    or on a mesh."""
+    cfg = TR.get_config(arch, smoke=True)
+    mc = cfg.moe
+    return dataclasses.replace(
+        cfg, compute_dtype=torch.float32, moe_layout=layout,
+        moe=dataclasses.replace(mc, aux_loss_weight=0.0,
+                                capacity_factor=mc.num_experts / mc.top_k))
+
+
+def _moe_x(cfg) -> np.ndarray:
+    """An (8, 16, d) input of moe_block: 8 rows over the 4-way data
+    axis, 16 positions over the 2-way model axis."""
+    rng = np.random.default_rng(11)
+    return rng.normal(size=(8, 16, cfg.d_model)).astype(np.float32)
+
+
+def _moe_params(cfg):
+    from repro_torch.models import moe as TMOE
+    return TP.init_tree(torch.Generator().manual_seed(4),
+                        TMOE.moe_specs(cfg), device="cpu")
+
+
+def _moe_aux_rank(mesh) -> dict:
+    """moe_block on this rank's rows and expert blocks inside
+    ``local_step``: the aux share of each arch and layout, folded over
+    the batch axis as the train step folds its metrics."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.tc_collectives import psum_scalar
+    from repro_torch.models import moe as TMOE
+    out = {}
+    for arch in MOE:
+        for layout in LAYOUTS:
+            cfg = _no_drop(arch, layout)
+            params = _moe_params(cfg)
+            specs = TMOE.block_specs(cfg, dict(mesh.shape))
+            local = {k: shd.local_shard(v, specs[k], mesh) if k in specs
+                     else v for k, v in params.items()}
+            x = shd.local_shard(torch.from_numpy(_moe_x(cfg)),
+                                shd.P("data"), mesh)
+            with torch.no_grad(), shd.local_step(mesh, ("data",)):
+                _, aux = TMOE.moe_block(local, cfg, x)
+            out[f"{arch}/{layout}"] = _gather(float(psum_scalar(
+                aux, ("data",), mesh=mesh, method="vpu")))
+    return out
 
 
 def _gather(value):
@@ -187,14 +250,51 @@ def _world_rank(tmp: str, p0: list) -> dict:
     out["rows"] = _gather({k: v.numpy() for k, v in data.batch_at(1).items()})
     out["coords"] = _gather(mesh.coordinate)
 
-    # MoE archs over a mesh refuse when the step is built
-    out["moe"] = {}
+    # the MoE archs: the oracle's program for DeepSeek-V3 from the
+    # port's draw, which the JAX reference takes bridged
+    ds = TR.get_config("deepseek-v3-671b", smoke=True)
+    step, init, _, b_shard = _mesh_step(ds, mesh, k=2)
+    st = init(0)
+    batch = _cut(b_shard, _batch_np(ds.vocab_size))
+    out["moe_oracle"] = []
+    for _ in range(3):
+        st, m = step(st, batch)
+        out["moe_oracle"].append(_metrics(m))
+    # one step of each MoE arch under each layout, no token dropped;
+    # which leaves the step gathered
+    out["moe"], out["moe_gathered"] = {}, {}
     for arch in MOE:
-        try:
-            _mesh_step(TR.get_config(arch, smoke=True), mesh)
-            out["moe"][arch] = None
-        except NotImplementedError as e:
-            out["moe"][arch] = str(e)
+        for layout in LAYOUTS:
+            cfg = _no_drop(arch, layout)
+            step, init, _, b_shard = _mesh_step(cfg, mesh)
+            TT.GATHERED.clear()
+            _, m = step(init(0), _cut(b_shard, _data_batch(cfg)))
+            out["moe"][f"{arch}/{layout}"] = _metrics(m)
+            model = TZ.build(cfg)
+            out["moe_gathered"][f"{arch}/{layout}"] = {
+                "gathered": dict(TT.GATHERED),
+                "paths": TT.leaf_paths(model.specs),
+                "experts": TT.expert_leaves(model)}
+    # the reference's _EP2D_PROG: DeepSeek-V3 with 8 experts, 3 steps
+    out["ep2d_prog"] = {}
+    for layout in LAYOUTS:
+        cfg = dataclasses.replace(ds, moe_layout=layout, moe=dataclasses
+                                  .replace(ds.moe, num_experts=8))
+        step, init, _, b_shard = _mesh_step(cfg, mesh)
+        st = init(0)
+        batch = _cut(b_shard, _batch_np(cfg.vocab_size))
+        out["ep2d_prog"][layout] = []
+        for _ in range(3):
+            st, m = step(st, batch)
+            out["ep2d_prog"][layout].append(float(m["loss"]))
+    out["moe_aux"] = _moe_aux_rank(mesh)
+    # experts that do not split over data are refused, naming the shapes
+    try:
+        _mesh_step(dataclasses.replace(ds, moe=dataclasses.replace(
+            ds.moe, num_experts=6)), mesh)
+        out["moe_refused"] = None
+    except ValueError as e:
+        out["moe_refused"] = str(e)
 
     # the port's one-rank steps the cases hold these to, one a rank
     # (ONE_RANK), the ranks side by side
@@ -209,6 +309,9 @@ def _world_rank(tmp: str, p0: list) -> dict:
         elif job == "masked":
             (mine[job],) = _one_rank(_f32(gemma), _masked_batch_np(
                 gemma.vocab_size), k=2)
+        elif job.startswith("moe:"):
+            cfg = _no_drop(job[4:])
+            (mine[job],) = _one_rank(cfg, _data_batch(cfg))
         else:
             cfg = TR.get_config(job, smoke=True)
             (mine[job],) = _one_rank(cfg, _data_batch(cfg))
@@ -267,13 +370,52 @@ def ref():
     return {"p0": p0, "losses": losses}
 
 
+def _jax_moe_oracle() -> list:
+    """The JAX package's single-device program for DeepSeek-V3 SMOKE
+    (microbatches 2, three steps' losses) from the port's ``init(0)``,
+    bridged leaf by leaf."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as JR
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.configs.base import TrainConfig as JTrainConfig
+    from repro.launch import train as JT
+    from repro.launch.mesh import make_local_mesh
+    from repro.models import model_zoo as JZ
+    arch = "deepseek-v3-671b"
+    p0 = [x.numpy() for x in _leaves(TZ.build(TR.get_config(
+        arch, smoke=True)).init(torch.Generator().manual_seed(0),
+                                device="cpu"))]
+    jcfg = JR.get_config(arch, smoke=True)
+    jm = JZ.build(jcfg)
+    step, init, s_shard, _ = JT.jit_train_step(
+        jm, JTrainConfig(microbatches=2, **TCONF), make_local_mesh(1, 1),
+        jm.input_specs(JShape("t", 16, 8, "train")))
+    st = jax.jit(init, out_shardings=s_shard)(jax.random.PRNGKey(0))
+    treedef = jax.tree_util.tree_structure(st.params)
+    assert treedef.num_leaves == len(p0)
+    st = dataclasses.replace(st, params=jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(a) for a in p0]))
+    batch = {k: jnp.asarray(v) for k, v in _batch_np(jcfg.vocab_size).items()}
+    losses = []
+    for _ in range(3):
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
 @pytest.fixture(scope="module")
 def run(ref, tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("spmd"))
-    out = launch_mesh.run_ranks(_world_rank, WORLD, backend="gloo",
-                                args=(tmp, ref["p0"]), timeout=300)
-    out["elastic"] = launch_mesh.run_ranks(_restore_rank, 4, backend="gloo",
-                                           args=(tmp,), timeout=120)
+    # the JAX package's DeepSeek-V3 program runs beside the ranks
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        moe_ref = pool.submit(_jax_moe_oracle)
+        out = launch_mesh.run_ranks(_world_rank, WORLD, backend="gloo",
+                                    args=(tmp, ref["p0"]), timeout=300)
+        out["elastic"] = launch_mesh.run_ranks(_restore_rank, 4,
+                                               backend="gloo", args=(tmp,),
+                                               timeout=120)
+        out["moe_ref"] = moe_ref.result()
     return out
 
 
@@ -409,6 +551,85 @@ def test_elastic_restore_onto_smaller_mesh(run):
                                rtol=2e-3)
 
 
+def test_moe_spmd_train_matches_the_reference_single_device(run):
+    """The DeepSeek-V3 half of the reference's
+    ``test_spmd_train_matches_single_device``: the port's 4 x 2 losses
+    (the expert-parallel body, etp) against the JAX package's
+    single-device step on the same parameters and batch (rtol 0.03, the
+    reference test's; a rank's capacity comes from its own tokens, as in
+    the reference, so the mesh may drop other tokens than one device),
+    and the loss falls."""
+    got = [row[0] for row in run["moe_oracle"]]
+    want = run["moe_ref"]
+    np.testing.assert_allclose(got, want, rtol=0.03)
+    assert want[-1] < want[0]
+    assert got[-1] < got[0]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("arch", MOE)
-def test_moe_archs_over_a_mesh_refuse_naming_14b_ii(run, arch):
-    assert "14b(ii)" in run["moe"][arch]
+def test_moe_arch_mesh_step_matches_one_rank(run, arch, layout):
+    """One 4 x 2 step of each MoE arch under each layout against the
+    port's one-rank step on the same draw and batch (f32 activations,
+    aux weight 0, capacity factor E / k: no token dropped): loss and
+    param_norm rtol 1e-5, grad_norm rtol 2e-4 (the dense archs')."""
+    want = run["one_rank"][f"moe:{arch}"]
+    got = run["moe"][f"{arch}/{layout}"]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=2e-4)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_mesh_step_never_gathers_an_expert_leaf(run, arch, layout):
+    """Counted per leaf: the step gathers every other leaf once and no
+    expert leaf (``wi_gate``, ``wi_up``, ``wo`` of each MoE layer)."""
+    got = run["moe_gathered"][f"{arch}/{layout}"]
+    experts = [p for p, kind in zip(got["paths"], got["experts"]) if kind]
+    assert len(experts) == 3
+    assert {p: got["gathered"].get(p, 0) for p in experts} == \
+        {p: 0 for p in experts}
+    assert got["gathered"] == {p: 1 for p in got["paths"]
+                               if p not in experts}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_reported_aux_is_the_mean_over_the_shards(run, arch, layout):
+    """``moe_block`` inside ``local_step`` returns this rank's share of
+    the aux loss; folded over the batch axis it is the mean of
+    ``_aux_loss`` on each rank's own tokens (etp: a data row's block,
+    ep2d: its model slice of the sequence too) within rtol 1e-6, the
+    same on every rank."""
+    from repro_torch.models import moe as TMOE
+    cfg = _no_drop(arch, layout)
+    params = _moe_params(cfg)
+    x = _moe_x(cfg)
+    pieces = [x[r:r + 2] for r in range(0, 8, 2)]
+    if layout == "ep2d":
+        pieces = [p[:, m:m + 8] for p in pieces for m in (0, 8)]
+    auxes = []
+    for p in pieces:
+        flat = torch.from_numpy(p).reshape(-1, cfg.d_model)
+        ids, _, probs = TMOE._route(cfg, params["router"], flat)
+        auxes.append(float(TMOE._aux_loss(cfg, probs, ids)))
+    got = run["moe_aux"][f"{arch}/{layout}"]
+    assert len(set(got)) == 1
+    np.testing.assert_allclose(got[0], np.mean(auxes), rtol=1e-6)
+
+
+def test_moe_ep2d_layout_matches_etp(run):
+    """The counterpart of the reference's
+    ``test_moe_ep2d_layout_matches_etp``: DeepSeek-V3 SMOKE with 8
+    experts on 4 x 2, three steps' losses under ep2d within rtol 0.02 of
+    etp."""
+    np.testing.assert_allclose(run["ep2d_prog"]["ep2d"],
+                               run["ep2d_prog"]["etp"], rtol=0.02)
+
+
+def test_moe_experts_that_do_not_split_are_refused(run):
+    """Six experts over a 4-way data axis: the step is refused when it is
+    built, naming the shapes."""
+    msg = run["moe_refused"]
+    assert msg is not None and "E 6" in msg and "data (4)" in msg

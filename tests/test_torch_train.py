@@ -366,8 +366,8 @@ def test_a_mesh_or_data_parallel_is_refused(tmp_path):
     (atol 2e-3: where the ranks' bf16 gradient sums flip a near-zero
     gradient's sign, Adam moves that element by up to 2 lr = 6e-4 the
     other way); what is still refused: a mesh of several ranks
-    without a live process group, a mesh that is not a ``compat.Mesh``,
-    and an MoE arch over a mesh (ROADMAP item 14b(ii))."""
+    without a live process group and a mesh that is not a
+    ``compat.Mesh``."""
     got = TT.main(["--arch", "gemma2-2b", "--steps", "2", "--batch", "4",
                    "--seq", "8", "--data-parallel", "2",
                    "--model-parallel", "2", "--backend", "gloo",
@@ -395,9 +395,6 @@ def test_a_mesh_or_data_parallel_is_refused(tmp_path):
     model = TZ.build(TR.get_config("gemma2-2b", smoke=True))
     with pytest.raises(TypeError, match="compat.Mesh"):
         TT.make_train_step(model, TrainConfig(), mesh=_Fake())
-    moe = TZ.build(TR.get_config("arctic-480b", smoke=True))
-    with pytest.raises(NotImplementedError, match=r"item 14b\(ii\)"):
-        TT.make_train_step(moe, TrainConfig(), mesh=_Fake())
     # the replan is served: a tuple names the geometry to keep
     reg = autotune.PlanRegistry()
     reg.put("reduce_sum|1024|float32|cpu|mesh:data8",
