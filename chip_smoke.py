@@ -386,6 +386,34 @@ after 3j:
       each side's dropped tokens, rank 0's step ms (CUDA events) and the
       host ms of its all-to-alls, gathers and sums, each rank's bytes
       of expert blocks, the card's peak (nvidia-smi, polled).
+  3o. serving over a mesh (``launch.serve``'s ``Server`` and
+      ``ContinuousServer`` with ``mesh=``), after 3n: four gloo ranks on
+      the card as (data 2, model 2), each decoding its own rows with
+      whole weights (no mesh installed inside: B8, B9 and B10 on every
+      rank); (a) 3k's int8 engine (its spellings, four slots of 1024)
+      on 3k's six requests, Gemma-2 2B at full width and depth with f32
+      params (every rank draws the whole tree from SEED), after one warm
+      request: every rank yields the same events and 3k's recorded
+      greedy tokens, and B8's, B9's wgmma and decode forms' and B10's
+      counters (zeroed just before the stream) move on every rank;
+      printed: each logits row's bits against 3k's, tokens/s, rank 0's
+      median engine step (its decode and the logits' gather, CUDA
+      events) and the host ms of its gathers, each rank's store bytes;
+      (b) ``Server.generate`` on a SERVE_MESH_BATCH batch from
+      default_rng(SEED), SERVE_MESH_NEW tokens, greedy and at
+      SERVE_MESH_TEMPERATURE, the one card's tokens on every rank (the
+      one-card runs go first in this process and are freed), and
+      ``Server.score`` of two masked sequences within SERVE_SCORE_RTOL of
+      the one card's (their bits printed); (c) Arctic at 3n (d)'s cuts
+      served from a sharded state (``make_train_step``'s DTensor
+      parameters) under etp: finite logits, the same tokens on every
+      rank, no expert leaf gathered and every other leaf once; printed:
+      the tokens against the one card's, each side's dropped entries,
+      each rank's expert-block bytes; then ``ContinuousServer`` over a
+      new world on Arctic must raise the divisibility refusal at its
+      batch-1 admission on every rank within SERVE_MESH_TIMEOUT.  Each
+      part's seconds and the card's peak (nvidia-smi, polled) are
+      printed.
 
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
@@ -906,6 +934,31 @@ SPMD_EP_STEPS = 3
 SPMD_EP_LAYOUTS = ("etp", "ep2d")
 SPMD_EP_METHOD = "auto"
 SPMD_EP_RTOL = 0.02
+
+# Serving over a mesh (phase 3o): four gloo ranks on the one card as a
+# (data 2, model 2) mesh, each decoding its own rows.  (a) phase 3k's
+# engine (SERVE_ENGINE, the int8 store, the kernel spellings) and its six
+# requests, Gemma-2 2B at full width and depth with f32 params, every
+# rank drawing the whole tree from SEED, held to 3k's recorded greedy
+# stream; (b) Server.generate on a SERVE_MESH_BATCH batch from
+# default_rng(SEED), SERVE_MESH_NEW tokens, greedy and at
+# SERVE_MESH_TEMPERATURE, and Server.score of two masked sequences, held
+# to the one card (run first in this process, then freed); (c) Arctic at
+# 3n (d)'s cuts (SPMD_EP_CUTS) served from a sharded state under etp,
+# and ContinuousServer's refusal of its batch-1 admissions on every rank
+# of a new world within SERVE_MESH_TIMEOUT seconds.
+SERVE_MESH = (2, 2)
+SERVE_MESH_BATCH = (4, 256)     # (batch, prompt length)
+SERVE_MESH_NEW = 16
+SERVE_MESH_TEMPERATURE = 0.8
+SERVE_MESH_SCORE = (2, 256)     # two sequences, the second half-masked
+SERVE_MESH_WORLD_TIMEOUT = 600
+SERVE_MESH_TIMEOUT = 180
+# the CPU rehearsal's sizes (SMOKE configs)
+SERVE_MESH_SMOKE = dict(batch=(4, 16), score=(2, 16),
+                        requests=dict(n=6, seed=0, min_len=3, max_len=24,
+                                      min_new=2, max_new=8, stagger=1),
+                        engine=dict(num_slots=4, capacity=64, page_size=16))
 
 SCAN_PICK_SIZES = (1 << 20, 1 << 24, 1 << 28)
 SCAN_HOST_N = 1 << 12
@@ -3855,7 +3908,8 @@ def run_serving(registry, model_zoo, param, serve, pipeline, kv_cache,
     stream; the store's dense view equals the admission's bf16 cache; the
     logits rows of the engine against one request at a time (bits,
     recorded); logprobs, score, warmup, the sweep worker's lifecycle, and
-    RunningStats on B1 and B6."""
+    RunningStats on B1 and B6.  Returns the row and the int8 engine's
+    stream (tokens by uid, logits rows by (uid, index) on the host)."""
     import dataclasses
     cfg = dataclasses.replace(registry.get_config(SERVE_ARCH),
                               **SERVE_CUTS, **KERNEL_SPELLINGS)
@@ -3927,6 +3981,9 @@ def run_serving(registry, model_zoo, param, serve, pipeline, kv_cache,
         "max_abs": max([float(torch.max(torch.abs(rows[k] - alone_rows[k])))
                         for k in apart], default=0.0),
         "first": [list(k) for k in apart[:8]]}
+    # the stream phase 3o holds the meshed engine to, on the host
+    stream = {"tokens": int8_out,
+              "rows": {k: v.cpu() for k, v in rows.items()}}
     del rows, alone_rows
 
     row["logprobs"] = run_serving_logprobs(serve, model, params, reqs,
@@ -3960,7 +4017,7 @@ def run_serving(registry, model_zoo, param, serve, pipeline, kv_cache,
     print(f"phase 3k: {json.dumps(row)}", flush=True)
     del params
     torch.cuda.empty_cache()
-    return row
+    return row, stream
 
 
 def run_training(registry, model_zoo, counters: dict, smi: str) -> dict:
@@ -6073,6 +6130,433 @@ def run_spmd(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 3o
+
+
+def serve_mesh_cfg(smoke: bool):
+    """3o (a) and (b)'s config: 3k's (Gemma-2 2B at full width and
+    depth, f32 params, the kernel spellings); SMOKE when rehearsing."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cuts = {} if smoke else SERVE_CUTS
+    return dataclasses.replace(registry.get_config(SERVE_ARCH, smoke=smoke),
+                               **cuts, **KERNEL_SPELLINGS)
+
+
+def serve_mesh_engine(smoke: bool) -> dict:
+    """3k's int8 engine's arguments (SMOKE sizes when rehearsing)."""
+    from repro_torch.core.precision import MmaPolicy
+    return dict(SERVE_MESH_SMOKE["engine"] if smoke else SERVE_ENGINE,
+                quant="int8", precision=MmaPolicy(split_words=2),
+                attn_method="fused_pallas",
+                norm_matmul_method="fused_pallas")
+
+
+def serve_mesh_requests(vocab: int, smoke: bool) -> list:
+    from repro_torch.data import pipeline
+    from repro_torch.launch import serve
+    kw = SERVE_MESH_SMOKE["requests"] if smoke else SERVE_REQUESTS
+    return [serve.Request(**d)
+            for d in pipeline.synthetic_requests(vocab, **kw)]
+
+
+def serve_mesh_inputs(vocab: int, smoke: bool) -> dict:
+    """(b)'s and (c)'s prompts and (b)'s scored sequences and mask from
+    default_rng(SEED)."""
+    batch = SERVE_MESH_SMOKE["batch"] if smoke else SERVE_MESH_BATCH
+    score = SERVE_MESH_SMOKE["score"] if smoke else SERVE_MESH_SCORE
+    rng = np.random.default_rng(SEED)
+    mask = np.ones(score, np.float32)
+    mask[1, score[1] // 2:] = 0.0
+    return {"prompts": rng.integers(0, vocab, batch).astype(np.int32),
+            "score": rng.integers(0, vocab, score).astype(np.int32),
+            "mask": mask}
+
+
+def serve_mesh_sampled(srv) -> list:
+    """Wrap a Server's sampler: each step's (B, V) last logits, finite or
+    not, as they reach it."""
+    seen, sample = [], srv._sample
+
+    def spy(logits, seed, step):
+        seen.append(bool(torch.isfinite(logits).all()))
+        return sample(logits, seed, step)
+    srv._sample = spy
+    return seen
+
+
+def serve_mesh_arctic(smoke: bool):
+    """(c)'s model: Arctic at 3n (d)'s cuts under etp, f32 activations
+    as in 3n (d)."""
+    from repro_torch.models import model_zoo
+    return model_zoo.build(spmd_ep_cfg(smoke, "etp"))
+
+
+def serve_mesh_one_card(dev: str, smoke: bool, stream) -> dict:
+    """3o's one-card runs, in this process before the ranks start, each
+    model freed after its part: (b)'s greedy and sampled tokens and
+    score; (c)'s tokens and dropped entries; (a)'s stream where 3k's is
+    not given (the CPU rehearsal)."""
+    import gc
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as moe_mod
+    out = {}
+    cfg = serve_mesh_cfg(smoke)
+    model = model_zoo.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    inp = serve_mesh_inputs(cfg.vocab_size, smoke)
+    if stream is None:
+        eng = serve.ContinuousServer(model, device=dev,
+                                     **serve_mesh_engine(smoke))
+        rows = record_rows(eng)
+        toks = eng.generate(params, serve_mesh_requests(cfg.vocab_size,
+                                                        smoke))
+        stream = {"tokens": toks,
+                  "rows": {k: v.cpu() for k, v in rows.items()}}
+        del eng, rows
+    out["stream"] = stream
+    out["greedy"] = serve.Server(model).generate(
+        params, inp["prompts"], max_new=SERVE_MESH_NEW)
+    out["sampled"] = serve.Server(
+        model, temperature=SERVE_MESH_TEMPERATURE).generate(
+        params, inp["prompts"], max_new=SERVE_MESH_NEW, seed=SEED)
+    out["score"] = serve.Server(model).score(
+        params, inp["score"], mask=inp["mask"]).cpu().numpy()
+    del params, model
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    amodel = serve_mesh_arctic(smoke)
+    aparams = amodel.init(torch.Generator(device=dev).manual_seed(SEED),
+                          dev)
+    ainp = serve_mesh_inputs(amodel.cfg.vocab_size, smoke)
+    with MoeCapture(moe_mod) as cap:
+        out["arctic"] = serve.Server(amodel).generate(
+            aparams, ainp["prompts"], max_new=SERVE_MESH_NEW)
+    out["arctic_dropped"] = spmd_dropped(cap.calls, 1)
+    del aparams, amodel
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_rank(path: str, dev: str, smoke: bool) -> list:
+    """3o (a)-(c) on one of the four ranks (see the module docstring);
+    every rank's results are gathered."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.core.integration import _leaves
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as trainlib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as moe_mod
+    kernels = [importlib.import_module(f"repro_torch.kernels.{m}")
+               for m in ("mma_rmsnorm", "mma_norm_matmul", "mma_attention")]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_local_mesh(*SERVE_MESH, device=dev)
+    one = torch.load(path, weights_only=False)
+    out = {"coord": mesh.coordinate, "s": {}}
+
+    # (a) 3k's engine and requests over the mesh
+    t0 = time.perf_counter()
+    cfg = serve_mesh_cfg(smoke)
+    model = model_zoo.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    reqs = serve_mesh_requests(cfg.vocab_size, smoke)
+    eng = serve.ContinuousServer(model, mesh=mesh, device=dev,
+                                 **serve_mesh_engine(smoke))
+    eng.generate(params, [serve.Request(uid=-1, prompt=reqs[0].prompt[:64],
+                                        max_new=2)])
+    rows = record_rows(eng)
+    stores, steps = [], []
+    new_store, decode = eng._new_store, eng._decode
+
+    def store():
+        stores.append(new_store())
+        return stores[-1]
+
+    def timed(p, batch):
+        if dev != "cuda":
+            t1 = time.perf_counter()
+            got = decode(p, batch)
+            steps.append((time.perf_counter() - t1) * 1e3)
+            return got
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = decode(p, batch)
+        end.record()
+        end.synchronize()
+        steps.append(start.elapsed_time(end))
+        return got
+    eng._new_store, eng._decode = store, timed
+    spent = {"gather_ms": 0.0}
+    restore = spmd_wrap(shd, "gather_shard", spent, "gather_ms")
+    events = []
+    try:
+        for mod in kernels:
+            mod.reset_launches()
+        mesh_sync(dev)
+        dist.barrier()
+        t1 = time.perf_counter()
+        for ev in eng.serve(params, reqs):
+            events.append((ev.uid, ev.index, ev.token, ev.done))
+        mesh_sync(dev)
+        stream_s = time.perf_counter() - t1
+    finally:
+        restore()
+    want = one["stream"]["rows"]
+    apart = [k for k in want if not torch.equal(rows[k].cpu(), want[k])]
+    out["a"] = {
+        "events": events, "stream_s": stream_s,
+        "tokens_per_s": len(events) / stream_s,
+        "step_ms": steps, "step_ms_median": statistics.median(steps),
+        "gather_ms": spent["gather_ms"],
+        "store_bytes": stores[0].nbytes,
+        "launches": {k: n for mod in kernels
+                     for k, n in mod.LAUNCHES.items()},
+        "rows": len(want), "rows_recorded": len(rows),
+        "rows_with_other_bits": len(apart),
+        "max_abs": max([float(torch.max(torch.abs(rows[k].cpu() - want[k])))
+                        for k in apart], default=0.0)}
+    del eng, rows, stores
+    out["s"]["a"] = time.perf_counter() - t0
+
+    # (b) Server.generate and Server.score over the mesh
+    t0 = time.perf_counter()
+    inp = serve_mesh_inputs(cfg.vocab_size, smoke)
+    out["b"] = {
+        "greedy": serve.Server(model, mesh=mesh).generate(
+            params, inp["prompts"], max_new=SERVE_MESH_NEW),
+        "sampled": serve.Server(
+            model, mesh=mesh, temperature=SERVE_MESH_TEMPERATURE).generate(
+            params, inp["prompts"], max_new=SERVE_MESH_NEW, seed=SEED),
+        "score": serve.Server(model, mesh=mesh).score(
+            params, inp["score"], mask=inp["mask"]).cpu().numpy()}
+    del params, model
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["s"]["b"] = time.perf_counter() - t0
+
+    # (c) Arctic from a sharded state under etp
+    t0 = time.perf_counter()
+    amodel = serve_mesh_arctic(smoke)
+    _, make_init = trainlib.make_train_step(amodel, spmd_tconf(), mesh,
+                                            device=dev)
+    aparams = make_init(SEED).params
+    gc.collect()
+    kinds = trainlib.expert_leaves(amodel)
+    ainp = serve_mesh_inputs(amodel.cfg.vocab_size, smoke)
+    srv = serve.Server(amodel, mesh=mesh)
+    finite = serve_mesh_sampled(srv)
+    serve.GATHERED.clear()
+    spent["gather_ms"] = 0.0
+    restore = spmd_wrap(shd, "gather_shard", spent, "gather_ms")
+    try:
+        with MoeCapture(moe_mod) as cap:
+            toks = srv.generate(aparams, ainp["prompts"],
+                                max_new=SERVE_MESH_NEW)
+    finally:
+        restore()
+    out["c"] = {
+        "tokens": toks, "finite": finite,
+        "gathered": dict(serve.GATHERED),
+        "expert_paths": [p for p, k in zip(
+            trainlib.leaf_paths(amodel.specs), kinds) if k],
+        "leaves": len(kinds),
+        "expert_bytes": sum(shd.local(x).numel() * shd.local(x).element_size()
+                            for x, k in zip(_leaves(aparams), kinds) if k),
+        "dropped": spmd_dropped(cap.calls, 1),
+        "gather_ms": spent["gather_ms"]}
+    if dev == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del aparams, srv
+    out["s"]["c"] = time.perf_counter() - t0
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+def serve_mesh_refusal_rank(dev: str, smoke: bool) -> list:
+    """3o (c)'s refusal on one of four new ranks: ContinuousServer over
+    the mesh on Arctic raises at its first admission (a batch of 1 splits
+    over no batch axis); every rank's message and seconds are gathered."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_local_mesh(*SERVE_MESH, device=dev)
+    model = serve_mesh_arctic(smoke)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    req = serve.Request(uid=0, prompt=np.arange(16, dtype=np.int32),
+                        max_new=4)
+    t0 = time.perf_counter()
+    try:
+        list(serve.ContinuousServer(model, mesh=mesh, device=dev,
+                                    num_slots=4, capacity=64)
+             .serve(params, [req]))
+        msg = None
+    except ValueError as e:
+        msg = str(e)
+    got = {"refusal": msg, "s": time.perf_counter() - t0}
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, got)
+    return gathered
+
+
+def run_serve_mesh(smi: str, stream, dev: str = "cuda",
+                   smoke: bool = False) -> dict:
+    """Phase 3o (see the module docstring).  ``stream`` is 3k's int8
+    stream (None: run it here first); ``dev`` and ``smoke`` let the
+    phase rehearse on the CPU at SMOKE size; main runs it on the card."""
+    import tempfile
+    from repro_torch.launch import mesh as launch_mesh
+    out = {"card": smi, "mesh": SERVE_MESH, "reduced": SPMD_EP_REDUCED,
+           "s": {}}
+    t0 = time.perf_counter()
+    one = serve_mesh_one_card(dev, smoke, stream)
+    out["s"]["one card"] = time.perf_counter() - t0
+    world = SERVE_MESH[0] * SERVE_MESH[1]
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    poll = MemoryPoll() if dev == "cuda" else None
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_3o_") as tmp:
+            path = os.path.join(tmp, "one_card.pt")
+            torch.save({"stream": one["stream"]}, path)
+            ranks = launch_mesh.run_ranks(
+                serve_mesh_rank, world, backend="gloo",
+                args=(path, dev, smoke), timeout=SERVE_MESH_WORLD_TIMEOUT)
+        out["s"]["ranks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        refused = launch_mesh.run_ranks(
+            serve_mesh_refusal_rank, world, backend="gloo",
+            args=(dev, smoke), timeout=SERVE_MESH_TIMEOUT)
+        out["s"]["refusal"] = time.perf_counter() - t0
+    finally:
+        out["card_peak_mib"] = poll.stop() if poll else None
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    for r in ranks:
+        out["s"][f"rank {r['coord']}"] = r["s"]
+
+    # (a) every rank's stream is 3k's
+    want = one["stream"]["tokens"]
+    first = ranks[0]["a"]
+    got = {}
+    for uid, _, tok, _ in first["events"]:
+        got.setdefault(uid, []).append(tok)
+    check(all(r["a"]["events"] == first["events"] for r in ranks),
+          "3o (a): the ranks yield different event streams")
+    for uid, toks in want.items():
+        check(got.get(uid) == [int(t) for t in toks],
+              f"3o (a): request {uid}: the meshed engine's tokens "
+              f"{got.get(uid)} differ from the one card's "
+              f"{[int(t) for t in toks]}")
+    launches = [r["a"]["launches"] for r in ranks]
+    check(dev != "cuda" or all(r[k] > 0 for r in launches
+                               for k in SERVE_KERNELS),
+          f"3o (a): a kernel of {SERVE_KERNELS} did not launch on every "
+          f"rank: {launches}")
+    out["a"] = {
+        "tokens": sum(len(t) for t in want.values()),
+        "stream_s": first["stream_s"], "tokens_per_s": first["tokens_per_s"],
+        "step_ms_median": first["step_ms_median"],
+        "steps": len(first["step_ms"]), "gather_ms": first["gather_ms"],
+        "store_bytes": [r["a"]["store_bytes"] for r in ranks],
+        "launches": launches,
+        "rows": [(r["a"]["rows"], r["a"]["rows_recorded"],
+                  r["a"]["rows_with_other_bits"], r["a"]["max_abs"])
+                 for r in ranks]}
+    print(f"phase 3o (a): {SERVE_ARCH} ({', '.join(SERVE_REDUCED) or 'full depth'}"
+          f") int8 engine over a {SERVE_MESH} mesh of gloo ranks: "
+          f"{out['a']['tokens']} tokens in {first['stream_s']:.4f} s, "
+          f"{first['tokens_per_s']:.4f} tokens/s; rank 0's median engine "
+          f"step {first['step_ms_median']:.4f} ms over "
+          f"{len(first['step_ms'])} steps (decode and gather, CUDA "
+          f"events), its gathers {first['gather_ms']:.4f} ms of host "
+          f"time in all; store bytes by rank {out['a']['store_bytes']}; "
+          f"logits rows (one card's, recorded, with other bits, max "
+          f"|diff|) by rank {out['a']['rows']}; launches by rank "
+          f"{launches}; the one card's tokens on every rank; {smi}",
+          flush=True)
+
+    # (b) the one card's tokens and score on every rank
+    for r in ranks:
+        for kind in ("greedy", "sampled"):
+            check(np.array_equal(r["b"][kind], one[kind]),
+                  f"3o (b): {kind} tokens on rank {r['coord']} differ from "
+                  f"the one card's")
+    gaps = [float(np.max(np.abs(r["b"]["score"] - one["score"])
+                         / np.abs(one["score"]))) for r in ranks]
+    same = [bool(np.array_equal(r["b"]["score"].view(np.int32),
+                                one["score"].view(np.int32)))
+            for r in ranks]
+    out["b"] = {"score": one["score"].tolist(), "score_gaps": gaps,
+                "score_same_bits": same}
+    print(f"phase 3o (b): Server.generate over the mesh on a "
+          f"{one['greedy'].shape[0]}-row batch, {SERVE_MESH_NEW} tokens: "
+          f"greedy and at temperature {SERVE_MESH_TEMPERATURE} the one "
+          f"card's tokens on every rank; Server.score {one['score']} "
+          f"against the one card's: relative gaps {gaps}, same bits "
+          f"{same}", flush=True)
+    check(all(g <= SERVE_SCORE_RTOL for g in gaps),
+          f"3o (b): Server.score over the mesh is off the one card's: "
+          f"{gaps}")
+
+    # (c) Arctic: finite, the same tokens on every rank, no expert leaf
+    # gathered and every other leaf once
+    c0 = ranks[0]["c"]
+    for r in ranks:
+        c = r["c"]
+        check(c["finite"] and all(c["finite"]),
+              f"3o (c): non-finite logits on rank {r['coord']}")
+        check(np.array_equal(c["tokens"], c0["tokens"]),
+              f"3o (c): rank {r['coord']}'s tokens differ from rank 0's")
+        check(not set(c["gathered"]) & set(c["expert_paths"])
+              and len(c["gathered"]) == c["leaves"] - len(c["expert_paths"])
+              and all(n == 1 for n in c["gathered"].values()),
+              f"3o (c): gathers {c['gathered']} (expert leaves "
+              f"{c['expert_paths']})")
+    agree = float(np.mean(c0["tokens"] == one["arctic"]))
+    out["c"] = {"tokens_agree_with_one_card": agree,
+                "dropped": [r["c"]["dropped"] for r in ranks],
+                "one_card_dropped": one["arctic_dropped"],
+                "expert_bytes": [r["c"]["expert_bytes"] for r in ranks],
+                "gather_ms": c0["gather_ms"],
+                "rank_peak_gib": [r.get("peak_gib") for r in ranks]}
+    print(f"phase 3o (c): {SPMD_EP_ARCH} ({', '.join(SPMD_EP_REDUCED)}) "
+          f"from a sharded state under etp: finite, the same tokens on "
+          f"every rank, no expert leaf gathered; {agree:.4f} of its tokens "
+          f"the one card's; dropped entries by rank {out['c']['dropped']}, "
+          f"one card {one['arctic_dropped']}; expert-block bytes by rank "
+          f"{out['c']['expert_bytes']}; rank 0's gathers "
+          f"{c0['gather_ms']:.4f} ms", flush=True)
+
+    out["refusal"] = refused
+    check(all(r["refusal"] is not None and "do not divide over the batch "
+              "axes" in r["refusal"] for r in refused),
+          f"3o (c): ContinuousServer over the mesh was not refused on every "
+          f"rank: {refused}")
+    print(f"phase 3o (c): ContinuousServer on {SPMD_EP_ARCH} refused on "
+          f"every rank in {[round(r['s'], 4) for r in refused]} s: "
+          f"{refused[0]['refusal']}", flush=True)
+    print(f"phase 3o: card peak {out['card_peak_mib']} MiB; rank peaks "
+          f"{out['c']['rank_peak_gib']} GiB; seconds by part {out['s']}; "
+          f"{smi}", flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -6313,9 +6797,9 @@ def main() -> int:
     from repro_torch.data import pipeline
     from repro_torch.launch import serve
     from repro_torch.models import kv_cache
-    serving = run_serving(registry, model_zoo, param, serve, pipeline,
-                          kv_cache, autotune, precision,
-                          {"serve": (mrn, mnm, ma), "stats": (mr, ms)}, smi)
+    serving, served = run_serving(
+        registry, model_zoo, param, serve, pipeline, kv_cache, autotune,
+        precision, {"serve": (mrn, mnm, ma), "stats": (mr, ms)}, smi)
 
     print("phase 3l: the training path at Gemma-2 2B's full width",
           flush=True)
@@ -6329,6 +6813,11 @@ def main() -> int:
     print(f"phase 3n: the SPMD train step of {SPMD_ARCH} over meshes of "
           f"gloo ranks", flush=True)
     spmd_out = run_spmd(smi)
+
+    print(f"phase 3o: {SERVE_ARCH}'s and {SPMD_EP_ARCH}'s servers over a "
+          f"{SERVE_MESH} mesh of gloo ranks", flush=True)
+    serve_mesh_out = run_serve_mesh(smi, served)
+    del served
 
     print("phase 6: the cost model against measured times (f32, bf16, "
           "fp16)", flush=True)
@@ -6388,7 +6877,7 @@ def main() -> int:
                    "model_smoke": model_rows, "model_full": model_full,
                    "auto_f32_decode": auto_f32, "serving": serving,
                    "training": training, "mesh": mesh_out,
-                   "spmd": spmd_out,
+                   "spmd": spmd_out, "serve_mesh": serve_mesh_out,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

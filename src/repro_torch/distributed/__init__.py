@@ -8,13 +8,13 @@ one f32 partial a rank, folded over the mesh) and ``fault_tolerance``
 (checkpoint / restart, ``remesh`` and the replan after it).  The meshes
 themselves are ``compat.make_mesh`` and ``launch.mesh``.
 
-Served (ROADMAP item 14b(i) and (ii)): the SPMD train step of every
+Served (ROADMAP item 14b(i) to (iii)): the SPMD train step of every
 arch (``launch.train`` with ``data_parallel`` or ``model_parallel``
 above 1, ``make_train_step(mesh=...)``), ``SyntheticLMData``'s sharded
-batch, the sharded AdamW state and its checkpoints, and ``models.moe``'s
+batch, the sharded AdamW state and its checkpoints, ``models.moe``'s
 expert-parallel branch (the ``etp`` and ``ep2d`` layouts, with the
-autograd all-to-all and conjugate collectives of ``collectives``).
-Waiting for the rest of item 14b, and refused naming it: ``Server`` and
-``ContinuousServer`` over a mesh (14b(iii)), and ``launch/dryrun``
-(14b(iv)).
+autograd all-to-all and conjugate collectives of ``collectives``), and
+``launch.serve``'s ``Server`` and ``ContinuousServer`` over a mesh (each
+rank decoding its own rows, ``sharding.batch_rows``).  Waiting for the
+rest of item 14b: ``launch/dryrun`` (14b(iv)).
 """

@@ -376,21 +376,34 @@ def sharding_for(shape, logical_axes, mesh=None, rules=None):
 
 def constrain(x, logical_axes: Sequence[Optional[str]]):
     """Lay ``x`` out by its logical axes over the installed mesh: the
-    identity without one.  Under a mesh a tensor every rank holds whole
-    becomes a ``DTensor`` of this rank's block; a ``DTensor`` is checked
+    identity without one.  As the reference's ``with_sharding_constraint``
+    it is an annotation that changes no value: a tensor this rank holds
+    whole comes back as it is (every rank computes it whole, and the
+    layers mix it with other whole tensors); a ``DTensor`` is checked
     against the spec and returned as it is."""
     mesh = _CTX.mesh
-    if mesh is None:
+    if mesh is None or not is_dtensor(x):
         return x
     sharding = NamedSharding(mesh, spec_for(x.shape, logical_axes, mesh))
-    from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor):
-        if tuple(x.placements) != sharding.placements():
-            raise ValueError(
-                f"a DTensor placed {tuple(x.placements)} does not meet "
-                f"the spec {sharding.spec} of axes {tuple(logical_axes)}")
-        return x
-    return sharding.distribute(x, copy=False)
+    if tuple(x.placements) != sharding.placements():
+        raise ValueError(
+            f"a DTensor placed {tuple(x.placements)} does not meet "
+            f"the spec {sharding.spec} of axes {tuple(logical_axes)}")
+    return x
+
+
+def batch_rows(mesh, rows: int) -> tuple:
+    """(axes, start, stop): the mesh axes that split a batch of ``rows``
+    rows and this rank's rows of it.  The axes follow ``spec_for``'s rule
+    for the logical axis ``batch`` (``pod``, then ``data``, each where it
+    divides what is left); where none divides, the batch is replicated:
+    axes () and every row, as the reference lays out a batch of 1."""
+    axes = spec_axes(spec_for((rows,), ("batch",), mesh, DEFAULT_RULES))
+    if not axes:
+        return (), 0, rows
+    idx, count = _block(mesh, axes)
+    size = rows // count
+    return axes, idx * size, (idx + 1) * size
 
 
 def _tree_map2(fn, tree, other):

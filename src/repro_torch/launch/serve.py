@@ -21,13 +21,37 @@ for its logits shape.
 
 Nothing is traced or compiled: each call runs the model eagerly where
 its parameters lie.  ``ContinuousServer`` keeps its store on ``device``
-(the card unless the caller names another).  Serving over a mesh is
-ROADMAP item 14b(iii) and is refused.
+(the card unless the caller names another).
+
+Over a mesh of ranks (``compat.Mesh``; every rank a process of a live
+``torch.distributed`` group, every rank making the same calls) both
+servers follow the SPMD train step's design (``launch.train``):
+
+  * a batch's rows split over the mesh's batch axes where they divide
+    (``sharding.batch_rows``: ``pod``, ``data``), else every rank takes
+    every row; the ranks along ``model`` repeat their rows' work;
+  * the model runs on this rank's rows with no mesh installed
+    (``sharding.local_step``), so ``dispatch`` keeps its one-card plans
+    and a row's bits are those of one card (a decode row's bits do not
+    depend on the rows beside it);
+  * the parameters are a tree of whole tensors or the SPMD train
+    state's ``DTensor`` leaves: each non-expert ``DTensor`` leaf is
+    gathered whole once and kept while the leaf is unchanged
+    (``GATHERED`` counts the gathers); an expert leaf is never gathered:
+    ``models.moe``'s body takes this rank's blocks;
+  * the last position's logits are gathered over the batch axes before
+    sampling, so every rank draws the one card's tokens, pins EOS and
+    yields the same ``TokenEvent`` stream;
+  * ``ContinuousServer``'s store holds this rank's slots alone; its
+    batch-1 admission prefill runs on every rank, and the slot's owner
+    writes the pages.  An MoE arch refuses that replicated batch, as the
+    reference does.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import time
 from collections import deque
@@ -39,8 +63,11 @@ import torch
 from repro_torch.core import autotune
 from repro_torch.core import integration as ci
 from repro_torch.core.dispatch import default_device
+from repro_torch.core.integration import _leaves, _tree_like
 from repro_torch.core.precision import dtype_name
 from repro_torch.core.reduction import _ROW_TILE
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.train import expert_leaves, leaf_paths, live_mesh
 from repro_torch.models import model_zoo
 from repro_torch.models import transformer as T
 from repro_torch.models.kv_cache import PagedKVCache
@@ -86,11 +113,103 @@ def _categorical(logits, temperature: float, gen: torch.Generator):
     return torch.argmax(lf + gumbel, dim=-1)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "serving over a mesh is ROADMAP item 14b(iii) (distributed: "
-            "the model over a mesh); pass mesh=None")
+# Gathers of each parameter leaf by a server over a mesh, by path
+# (``launch.train.leaf_paths``): an expert leaf is never gathered.
+GATHERED: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Rows:
+    """A batch's rows on this rank: the mesh axes they split over (()
+    when every rank takes every row) and this rank's slice of them."""
+    axes: tuple
+    part: slice
+
+
+_WHOLE = _Rows((), slice(None))
+
+
+class _MeshShare:
+    """What a server over a mesh of several ranks does beside the model:
+    split a batch's rows, hand the model this rank's parameters, gather
+    the rows' results."""
+
+    def __init__(self, model, mesh):
+        self.model, self.mesh = model, mesh
+        self.kinds = expert_leaves(model)
+        self.paths = leaf_paths(model.specs)
+        self._held: dict = {}
+
+    def rows(self, n: int) -> _Rows:
+        axes, lo, hi = shd.batch_rows(self.mesh, n)
+        return _Rows(axes, slice(lo, hi))
+
+    def local(self, rows: _Rows):
+        return shd.local_step(self.mesh, rows.axes)
+
+    def whole(self, x, rows: _Rows):
+        """Every rank's rows of ``x`` (rows first) in place."""
+        if not rows.axes:
+            return x
+        return shd.gather_shard(x.contiguous(), shd.P(rows.axes), self.mesh)
+
+    def params(self, params, seq_len: int):
+        """The tree the model takes on this rank for a batch of
+        ``seq_len`` positions (the MoE body's layout may depend on it)."""
+        specs = None
+        if any(self.kinds):
+            from repro_torch.models import moe
+            specs = moe.block_specs(self.model.cfg, dict(self.mesh.shape),
+                                    seq_len)
+        return _tree_like(params, [
+            self._leaf(leaf, kind, path, specs) for leaf, kind, path
+            in zip(_leaves(params), self.kinds, self.paths)])
+
+    def _leaf(self, leaf, kind: str, path: str, specs):
+        dtensor = shd.is_dtensor(leaf)
+        if not kind and not dtensor:
+            return leaf
+        spec = None
+        if kind:
+            want = specs[kind]
+            spec = shd.P(*(None,) * (leaf.ndim - len(want)), *want)
+        version = shd.local(leaf)._version
+        held = self._held.get((path, spec))
+        if held is not None and held[0] is leaf and held[1] == version:
+            return held[2]
+        if kind and dtensor:
+            have = shd.dtensor_sharding(leaf).spec
+            if tuple(have) != tuple(spec):
+                raise ValueError(
+                    f"the expert leaf {path} is laid out {have}, and the "
+                    f"MoE body over {self.mesh} takes {spec}: an expert "
+                    f"leaf is never gathered")
+            value = shd.local(leaf)
+        elif kind:
+            value = shd.local_shard(leaf, spec, self.mesh).contiguous()
+        else:
+            GATHERED[path] += 1
+            value = shd.whole(leaf)
+        self._held[(path, spec)] = (leaf, version, value)
+        return value
+
+
+def _share(model, mesh) -> Optional[_MeshShare]:
+    mesh = live_mesh(mesh, "a server")
+    return None if mesh is None else _MeshShare(model, mesh)
+
+
+def _run(share, call, params, batch: dict, rows: _Rows, seq_len: int):
+    """``call(params, batch)``: on one card as it is, over a mesh on this
+    rank's rows (``batch`` holds them) and parameters."""
+    if share is None:
+        return call(params, batch)
+    with share.local(rows):
+        return call(share.params(params, seq_len), batch)
+
+
+def _whole(share, x, rows: _Rows):
+    return x if share is None else share.whole(x, rows)
 
 
 def _device_of(params) -> torch.device:
@@ -99,14 +218,19 @@ def _device_of(params) -> torch.device:
 
 @dataclasses.dataclass
 class Server:
-    """Prefill and decode for a fixed batch, where the parameters lie."""
+    """Prefill and decode for a fixed batch, where the parameters lie;
+    over a mesh of several ranks, each rank's rows on that rank (see the
+    module docstring)."""
     model: object
     mesh: Optional[object] = None
     temperature: float = 0.0
     extra_capacity: int = 64   # decode headroom the prefill allocates
 
     def __post_init__(self):
-        _refuse_mesh(self.mesh)
+        self._mesh = _share(self.model, self.mesh)
+
+    def _rows(self, n: int) -> _Rows:
+        return _WHOLE if self._mesh is None else self._mesh.rows(n)
 
     def score(self, params, tokens, *, mask=None,
               extras: Optional[dict] = None,
@@ -118,23 +242,28 @@ class Server:
         the token logprobs, both through ``reduce_sum``.  ``mask`` ((B,
         S), 1 = scored) zeroes padding before the fold; ``extras``
         carries the modality inputs of enc-dec / vision configs.
-        Returns (B,) f32.
+        Returns (B,) f32 (over a mesh: every rank's rows, on every
+        rank).
         """
         dev = _device_of(params)
         toks = torch.as_tensor(tokens, device=dev).to(torch.int32)
+        b, s = toks.shape
+        rows = self._rows(b)
+        toks = toks[rows.part]
         batch = {"tokens": toks}
         if extras:
-            batch.update(extras)
-        logits = self.model.logits(params, batch)
+            batch.update({k: v[rows.part] for k, v in extras.items()})
+        logits = _run(self._mesh, self.model.logits, params, batch, rows, s)
         lp = batched_logprobs(logits[:, :-1], toks[:, 1:],
                               method=method, precision=precision,
                               objective=objective, bucket=bucket)
         if mask is not None:
             lp = lp * torch.as_tensor(mask, device=dev).to(
-                torch.float32)[:, 1:]
-        return ci.reduce_sum(lp, axis=-1, method=method,
-                             precision=precision, objective=objective,
-                             bucket=bucket)
+                torch.float32)[rows.part, 1:]
+        total = ci.reduce_sum(lp, axis=-1, method=method,
+                              precision=precision, objective=objective,
+                              bucket=bucket)
+        return _whole(self._mesh, total, rows)
 
     def _sample(self, logits, seed: int, step: int) -> np.ndarray:
         last = logits[:, -1, :]
@@ -155,19 +284,24 @@ class Server:
         pinned to ``eos_id``: every position after a row's stop is
         overwritten before it is emitted or fed back.  With a
         temperature, step i samples from a generator seeded by (seed,
-        i).
+        i), over the whole batch (over a mesh too: the last position's
+        logits are gathered first).
         """
         dev = _device_of(params)
         b, s = np.shape(prompts)
-        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
-                                           device=dev)}
+        rows = self._rows(b)
+        batch = {"tokens": torch.as_tensor(
+            np.asarray(prompts, np.int32)[rows.part], device=dev)}
         if extras:
-            batch.update(extras)
-        logits, caches = self.model.prefill(
-            params, batch, extra_capacity=self.extra_capacity)
+            batch.update({k: v[rows.part] for k, v in extras.items()})
+
+        def prefill(p, bt):
+            return self.model.prefill(p, bt,
+                                      extra_capacity=self.extra_capacity)
+        logits, caches = _run(self._mesh, prefill, params, batch, rows, s)
         out = []
         done = np.zeros((b,), bool)
-        tok = self._sample(logits, seed, 0)
+        tok = self._sample(_whole(self._mesh, logits, rows), seed, 0)
         for i in range(max_new):
             t = tok
             if eos_id is not None:
@@ -176,10 +310,13 @@ class Server:
             out.append(t)
             if eos_id is not None and done.all():
                 break
-            step_batch = {"token": torch.as_tensor(t[:, None], device=dev),
+            step_batch = {"token": torch.as_tensor(t[rows.part, None],
+                                                   device=dev),
                           "pos": s + i, "caches": caches}
-            logits, caches = self.model.decode_step(params, step_batch)
-            tok = self._sample(logits, seed, i + 1)
+            logits, caches = _run(self._mesh, self.model.decode_step,
+                                  params, step_batch, rows, 1)
+            tok = self._sample(_whole(self._mesh, logits, rows), seed,
+                               i + 1)
         return np.stack(out, axis=1)
 
 
@@ -238,6 +375,12 @@ class ContinuousServer:
     sample of output ``index`` of request ``uid`` comes from a generator
     seeded by (seed, uid, index), whatever slot or step served it.
 
+    Over a mesh of several ranks (``mesh``) every rank runs the same
+    scheduler and yields the same events; a decode step's ``num_slots``
+    rows split over the batch axes where they divide (at most
+    ``_ROW_TILE`` a rank), this rank's store holds its own slots' pages,
+    and each step's logits are gathered before the picks.
+
     ``latency_slo_ms`` keys the scoring reductions' plans
     (``logprobs=True``) and, with ``attn_method`` or
     ``norm_matmul_method``, the plans of the rebuilt model's attention
@@ -258,20 +401,13 @@ class ContinuousServer:
                  norm_matmul_method: Optional[str] = None,
                  bucket: str = "pow2",
                  background_sweeps: bool = False, device=None):
-        _refuse_mesh(mesh)
         cfg = model.cfg
         if cfg.is_encdec or cfg.vision_tokens:
             raise ValueError(
                 "ContinuousServer serves text decoders; enc-dec and "
                 "vision configs need per-request memory (use Server)")
-        if not 1 <= num_slots <= _ROW_TILE:
-            # A step's rows are padded to _ROW_TILE (layers.dense); more
-            # slots would send the matrix library another row count than
-            # one request alone does, and the bits could differ.
-            raise ValueError(
-                f"num_slots={num_slots}: a decode step keeps each slot's "
-                f"bits those of its request alone for 1 to {_ROW_TILE} "
-                f"slots (core.reduction._ROW_TILE)")
+        if num_slots < 1:
+            raise ValueError(f"num_slots={num_slots}: at least one slot")
         if attn_method is not None or norm_matmul_method is not None:
             # The engines take whole (dequantized) tensors, so their
             # policy never splits words: split_words is capped at 1; the
@@ -292,6 +428,19 @@ class ContinuousServer:
             model = model_zoo.build(cfg)
         self.model = model
         self.cfg = cfg
+        self._mesh = _share(model, mesh)
+        # this rank's slots: a decode step's rows over the batch axes
+        self._slots = _WHOLE if self._mesh is None \
+            else self._mesh.rows(int(num_slots))
+        self._first, self._last = self._slots.part.indices(int(num_slots))[:2]
+        if self._last - self._first > _ROW_TILE:
+            # A step's rows are padded to _ROW_TILE (layers.dense); more
+            # rows would send the matrix library another row count than
+            # one request alone does, and the bits could differ.
+            raise ValueError(
+                f"num_slots={num_slots}: a decode step keeps each slot's "
+                f"bits those of its request alone for 1 to {_ROW_TILE} "
+                f"slots a rank (core.reduction._ROW_TILE)")
         self.device = torch.device(default_device(device))
         self.num_slots = int(num_slots)
         self.capacity = int(capacity)
@@ -389,13 +538,32 @@ class ContinuousServer:
     # ------------------------------------------------------ pieces
 
     def _prefill(self, params, tokens, extra_capacity: int):
-        return self.model.prefill(params, {"tokens": tokens},
-                                  extra_capacity=extra_capacity)
+        """An admission's prefill; over a mesh every rank runs it whole
+        (a batch of 1 splits over no axis)."""
+        def call(p, batch):
+            return self.model.prefill(p, batch,
+                                      extra_capacity=extra_capacity)
+        return _run(self._mesh, call, params, {"tokens": tokens}, _WHOLE,
+                    tokens.shape[1])
+
+    def _decode(self, params, batch: dict):
+        """One decode step on this rank's slots: (every slot's (num_slots,
+        1, V) logits, this rank's caches)."""
+        logits, caches = _run(self._mesh, self.model.decode_step, params,
+                              batch, self._slots, 1)
+        return _whole(self._mesh, logits, self._slots), caches
+
+    def _local_slot(self, s: int) -> Optional[int]:
+        """Slot ``s``'s index in this rank's store, or None on a rank that
+        does not hold it."""
+        return s - self._first if self._first <= s < self._last else None
 
     def _new_store(self) -> PagedKVCache:
-        template = T.init_decoder_cache(self.cfg, self.num_slots,
-                                        self.capacity, 0, device="meta")
-        return PagedKVCache(template, num_slots=self.num_slots,
+        """The paged store of this rank's slots."""
+        n = self._last - self._first
+        template = T.init_decoder_cache(self.cfg, n, self.capacity, 0,
+                                        device="meta")
+        return PagedKVCache(template, num_slots=n,
                             page_size=self.page_size, quant=self.quant,
                             precision=self.precision, device=self.device)
 
@@ -463,8 +631,10 @@ class ContinuousServer:
                 L = prompt.shape[1]
                 logits, caches = self._prefill(params, prompt,
                                                self.capacity - L)
-                store.alloc_slot(s)
-                store.write_slot(s, caches)
+                own = self._local_slot(s)
+                if own is not None:
+                    store.alloc_slot(own)
+                    store.write_slot(own, caches)
                 tok = self._pick(logits[0, -1], req.uid, 0)
                 lp = None
                 if self.logprobs:
@@ -475,7 +645,8 @@ class ContinuousServer:
                     or req.max_new == 1
                 yield TokenEvent(req.uid, 0, tok, done, lp)
                 if done:
-                    store.free_slot(s)
+                    if own is not None:
+                        store.free_slot(own)
                 else:
                     slots[s] = _Slot(req.uid, tok, L, 1, req.max_new)
             if not slots:
@@ -487,11 +658,11 @@ class ContinuousServer:
             for s, st in slots.items():
                 toks[s, 0] = st.last_tok
                 pos[s] = st.next_pos
-            dense = store.as_dense()
-            logits, caches = self.model.decode_step(
-                params, {"token": torch.as_tensor(toks, device=self.device),
-                         "pos": torch.as_tensor(pos, device=self.device),
-                         "caches": dense})
+            mine = self._slots.part
+            logits, caches = self._decode(params, {
+                "token": torch.as_tensor(toks[mine], device=self.device),
+                "pos": torch.as_tensor(pos[mine], device=self.device),
+                "caches": store.as_dense()})
             picks = self._picks(logits[:, -1], slots)
             lps = None
             if self.logprobs:
@@ -502,7 +673,9 @@ class ContinuousServer:
                     lpt, device=self.device)).cpu().numpy()
             for s in sorted(slots):
                 st = slots[s]
-                store.write_token(caches, s, st.next_pos)
+                own = self._local_slot(s)
+                if own is not None:
+                    store.write_token(caches, own, st.next_pos)
                 t = picks[s]
                 idx = st.n_out
                 st.n_out += 1
@@ -511,7 +684,8 @@ class ContinuousServer:
                 yield TokenEvent(st.uid, idx, t, done,
                                  None if lps is None else float(lps[s]))
                 if done:
-                    store.free_slot(s)
+                    if own is not None:
+                        store.free_slot(own)
                     del slots[s]
                 else:
                     st.last_tok = t

@@ -35,9 +35,9 @@ collectives:
   * the clip's norm and ``param_norm`` are ``tc_global_norm`` over the
     mesh, each leaf folded over the axes it is split over.
 
-Every arch trains over a mesh (ROADMAP item 14b(i) and (ii)); serving
-over a mesh (14b(iii)) and ``launch/dryrun`` (14b(iv)) are still to
-come.
+Every arch trains over a mesh (ROADMAP item 14b(i) and (ii)), and
+``launch.serve`` serves from the same sharded state over one (14b(iii));
+``launch/dryrun`` (14b(iv)) is still to come.
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20 \
@@ -132,14 +132,14 @@ def _split_microbatches(batch, k: int) -> list:
     return [{key: v[i] for key, v in split.items()} for i in range(k)]
 
 
-def _live_mesh(mesh):
+def live_mesh(mesh, what: str = "a train step"):
     """``mesh`` when it has more than one rank, else None (a one-rank
     mesh is one card).  A mesh of several ranks must be a live
     ``compat.Mesh`` holding this rank."""
     if autotune.mesh_device_count(mesh) <= 1:
         return None
     if not isinstance(mesh, compat.Mesh):
-        raise TypeError(f"a train step over {mesh!r}: pass a compat.Mesh "
+        raise TypeError(f"{what} over {mesh!r}: pass a compat.Mesh "
                         f"of live ranks (launch.mesh.make_local_mesh)")
     if mesh.coordinate is None:
         raise ValueError(f"this rank is not in {mesh}")
@@ -161,7 +161,7 @@ def make_train_step(model, tconf: TrainConfig, mesh=None, *, device=None):
     state is the one-card state bit for bit.
     """
     cfg = model.cfg
-    mesh = _live_mesh(mesh)
+    mesh = live_mesh(mesh)
     shardings = None if mesh is None else state_shardings(
         model, mesh, _state_shapes(model, tconf))
     if mesh is not None and cfg.moe is not None:
@@ -329,7 +329,7 @@ def loss_and_grads(model, params, batch, *, microbatches: int = 1,
     ``batch`` this rank's rows; the gradients come back as DTensors laid
     out as their parameters, and the loss and metrics (token means: the
     ranks' shares) are folded over the batch axes."""
-    mesh = _live_mesh(mesh)
+    mesh = live_mesh(mesh)
     k = microbatches
     if mesh is None:
         leaves = _leaves(params)
@@ -414,7 +414,7 @@ def jit_train_step(model, tconf: TrainConfig, mesh, sample_batch_shapes, *,
     the batch's leading dimension must split over every batch axis."""
     train_step, make_init_state = make_train_step(model, tconf, mesh,
                                                   device=device)
-    mesh = _live_mesh(mesh)
+    mesh = live_mesh(mesh)
     s_shard = state_shardings(model, mesh, _state_shapes(model, tconf))
     b_axes = batch_axes(sample_batch_shapes)
     b_shard = {key: shd.sharding_for(v.shape, b_axes[key], mesh)

@@ -225,6 +225,15 @@ class PagedKVCache:
     # --------------------------------------------------- allocator
 
     @property
+    def nbytes(self) -> int:
+        """Bytes the store holds on its device: the page pools (codes,
+        scales, residuals) and the dense per-slot leaves."""
+        parts = [t for pl in self._paged.values()
+                 for t in (pl.codes, pl.scale, pl.resid) if t is not None]
+        parts += list(self._dense.values())
+        return sum(t.numel() * t.element_size() for t in parts)
+
+    @property
     def live_slots(self) -> frozenset:
         return frozenset(self._live)
 

@@ -25,15 +25,18 @@ backward keeps one card's gradients):
     the sequence (``gather_from``); the router, used on this rank's
     slice only, goes through ``copy_to``.
 
-``moe_block`` takes that body two ways: (a) inside a train step on this
-rank's blocks (``sharding.local_step``): x is this rank's rows, the
-expert leaves arrive as this rank's blocks, and the aux loss returned is
-this rank's share of the reference's mean (the step adds the ranks'
-shares); (b) under an installed mesh (``sharding.axis_rules``) on whole
-tensors, through ``compat.shard_map`` with the reference's specs,
-forward only, for the server over a mesh (ROADMAP item 14b(iii); the
-dry run is 14b(iv)).  The capacity comes from the local token count, as in the
-reference, so a mesh drops other tokens than one card once it binds.
+``moe_block`` takes that body two ways: (a) on this rank's rows and
+blocks (``sharding.local_step``), in a train step and in a server over a
+mesh: x is this rank's rows, the expert leaves arrive as this rank's
+blocks, and the aux loss returned is this rank's share of the
+reference's mean (the step adds the ranks' shares; a server drops it);
+a batch whose rows do not split over every batch axis is refused there
+before any collective, as the reference's ``shard_map`` refuses it; (b)
+under an installed mesh (``sharding.axis_rules``) on whole tensors,
+through ``compat.shard_map`` with the reference's specs, forward only
+(the dry run over a mesh is ROADMAP item 14b(iv)).  The capacity comes
+from the local token count, as in the reference, so a mesh drops other
+tokens than one card once it binds.
 The dispatch buffer and the experts' output carry the reference's
 ``checkpoint_name`` tags (``models.remat``), which
 ``remat='dots_tagged'`` saves.
@@ -54,7 +57,6 @@ scaling.  Arctic: softmax top-2 of 128 + parallel dense-residual MLP.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional
 
@@ -346,25 +348,29 @@ def moe_block(params, cfg, x):
     fold = shd.batch_fold()
     mesh = shd.current_mesh()
     b, s, d = x.shape
-    outside = contextlib.nullcontext()
     if fold is not None and mesh_device_count(fold[0]) > 1:
+        want = shd.data_axis_names(fold[0])
+        if tuple(fold[1]) != want:
+            # every rank takes this branch on the same batch, so every
+            # rank raises, before the body's first all-to-all
+            n = b * math.prod(fold[0].shape[a] for a in fold[1])
+            raise ValueError(
+                f"moe_block over the mesh {dict(fold[0].shape)}: the "
+                f"batch's {n} rows do not divide over the batch axes "
+                f"{want}; the expert-parallel body takes each rank's own "
+                f"rows (the reference's shard_map refuses the same batch)")
         out, aux = _moe_over_mesh(params, cfg, x, fold[0], tuple(fold[1]),
                                   local=True)
     elif mesh is not None and mesh_device_count(mesh) > 1:
         out, aux = _moe_over_mesh(params, cfg, x, mesh,
                                   shd.data_axis_names(mesh), local=False)
-        # every rank computes the MLPs below on the whole x: laying
-        # their activations out over the installed mesh (``constrain``'s
-        # DTensors) is ROADMAP item 14b(iii)'s
-        outside = shd.axis_rules(None)
     else:
         y, aux = _dispatch_combine(cfg, params, x.reshape(-1, d))
         out = y.reshape(b, s, d)
     # shared experts (deepseek) / dense residual (arctic): plain MLPs,
     # outside the expert-parallel region.
-    with outside:
-        if cfg.moe.num_shared_experts:
-            out = out + L.mlp(params["shared"], x, act=cfg.act)
-        if cfg.moe.dense_residual:
-            out = out + L.mlp(params["dense"], x, act=cfg.act)
+    if cfg.moe.num_shared_experts:
+        out = out + L.mlp(params["shared"], x, act=cfg.act)
+    if cfg.moe.dense_residual:
+        out = out + L.mlp(params["dense"], x, act=cfg.act)
     return out, aux.to(torch.float32)

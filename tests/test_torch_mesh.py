@@ -274,13 +274,16 @@ def _mesh_rank(ckpt_dir: str) -> dict:
         out["signed_zero"] = torch.signbit(got).tolist()
     c = shd.NamedSharding(mesh, shd.P("data", "model"))
     with shd.axis_rules(mesh):
-        dt = shd.constrain(x2, (None, "mlp"))
-        out["constrain"] = [[(p.is_replicate(), p.is_shard(1))
-                             for p in dt.placements],
-                            bool(torch.equal(dt.to_local(),
-                                             x2[:, rank % 2 * 3:][:, :3]))]
-        out["constrain_same"] = shd.constrain(c.distribute(x2),
-                                              ("batch", "mlp")) is not None
+        # a layout annotation, as the reference's (C2): a tensor this
+        # rank holds whole comes back as it is
+        out["constrain"] = shd.constrain(x2, (None, "mlp")) is x2
+        dx2 = c.distribute(x2)
+        out["constrain_same"] = shd.constrain(dx2, ("batch", "mlp")) is dx2
+        try:
+            shd.constrain(dx2, (None, "mlp"))
+            out["constrain_other"] = None
+        except ValueError as e:
+            out["constrain_other"] = str(e)
     try:
         tcc.tc_psum(c.distribute(x2))
         out["no_mesh"] = None
@@ -528,9 +531,11 @@ def test_all_to_all_blocks_and_its_reverse(run, axes):
 
 
 def test_constrain_under_a_mesh(run):
-    # mlp (6) splits over model: dim 1, replicated over data
-    assert run["constrain"] == [[(True, False), (False, True)], True]
+    # identity on a whole tensor (C2); a DTensor checked against the
+    # spec and returned as it is, or refused when its layout differs
+    assert run["constrain"] is True
     assert run["constrain_same"]
+    assert "does not meet the spec" in run["constrain_other"]
 
 
 @pytest.mark.parametrize("via", VIAS)

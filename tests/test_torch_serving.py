@@ -27,9 +27,9 @@ batching gives the tokens and the logits rows (bit for bit) of one
 request at a time through ``Server.generate``; the int8 store (codes and
 a bf16 residual) gives the bits of the ``none`` store; the lazy, tagged
 iterator; post-EOS pinning; refusal of oversized and enc-dec requests
-and of a mesh; warmup's scoring shapes and prefills; the sweep worker
-attached and detached; with a temperature, a request's stream depends on
-(seed, uid) only.
+and of a mesh that is not a live ``compat.Mesh``; warmup's scoring
+shapes and prefills; the sweep worker attached and detached; with a
+temperature, a request's stream depends on (seed, uid) only.
 """
 
 import dataclasses
@@ -443,10 +443,12 @@ def test_engine_refuses_oversized_encdec_and_a_mesh(served):
     enc = TZ.build(TR.get_config("seamless-m4t-large-v2", smoke=True))
     with pytest.raises(ValueError, match="text decoders"):
         TS.ContinuousServer(enc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TS.ContinuousServer(model, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TS.Server(model, mesh=object())
+    # a mesh of several ranks must be a live compat.Mesh
+    # (tests/test_torch_serve_mesh.py serves over one)
+    with pytest.raises(TypeError, match="compat.Mesh"):
+        TS.ContinuousServer(model, mesh="data2.model2", device="cpu")
+    with pytest.raises(TypeError, match="compat.Mesh"):
+        TS.Server(model, mesh="data2.model2")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TS.ContinuousServer(model)
