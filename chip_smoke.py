@@ -415,6 +415,32 @@ after 3j:
       part's seconds and the card's peak (nvidia-smi, polled) are
       printed.
 
+``launch.dryrun`` dry-runs a step on fake tensors; its phase runs after
+3o (its production cells in processes of their own, started before
+phase 1's build and waited for before phase 3, so that no timed phase
+runs beside them):
+
+  3p. (a) DRYRUN_CELLS, each on a ``fake`` process group the size of
+      its production mesh (256 ranks for ``pod``, 512 for
+      ``multipod``): Gemma-2 2B's ``train_4k`` (``auto``: B1),
+      ``prefill_32k`` and ``decode_32k`` (the kernel spellings: B8-B10),
+      DeepSeek-V3's ``train_4k`` on ``multipod`` (8 microbatches, cut to
+      2 layers, and its one-layer dense and MoE cells, which carry it to
+      full depth: DRYRUN_DEPTH), RWKV-6's ``long_500k``; each must be
+      ok, record no
+      device event under ``torch.profiler`` (a control kernel must show),
+      leave ``torch.cuda.memory_allocated()`` as it was and leave no
+      group; printed: rank 0's argument
+      and temporary bytes beside the card's memory, the flops, the
+      collectives by kind, the seconds; (b) 3n (b)'s first step on
+      rank 0, recorded (the dry run's recorder, ``CommDebugMode``,
+      ``FlopCounterMode``, the allocator's peak), against the same cell
+      dry-run here on a fake world of 4: argument bytes, collectives
+      (kind, count, bytes, group sizes), B1's launches and flops equal,
+      measured / predicted peak within DRYRUN_PEAK; (c) B1, B8, B9 and
+      B10 through their ``torch.library`` ops (under a dispatch mode)
+      give the direct calls' bits.
+
 It prints the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line
 (B1-B10, B9 once per form: its bf16 and f32 prefill forms at the global
 prefill, the decode form at the global decode step with f32 q, the
@@ -820,6 +846,130 @@ MODEL_FULL = {
         "kernels": ("b8_rmsnorm", "b10_norm_matmul",
                     "b9_attention_wgmma")},
 }
+
+# The dry run (phase 3p, ``repro_torch.launch.dryrun``): (a) production
+# cells on fake worlds of 256 (pod) and 512 (multipod) ranks, each in a
+# process of its own started before phase 1's build and waited for
+# before phase 3 (their fake steps take minutes of host time and none of
+# the card's, so no timed phase runs beside them), with the config
+# spellings that reach the kernels (KERNEL_SPELLINGS serves; auto
+# trains: B1 takes the clip and param_norm).  DeepSeek-V3's step is cut
+# in depth, as phase 3j (c) cuts it: its fake step runs ~0.5 ms of host
+# time an op and its 128 heads' attention dispatches ~10^5 ops a layer
+# and microbatch.  DRYRUN_DEPTH carries it to full depth as the
+# reference's accounting does: the cut cell holds one layer of each kind
+# (base + dense + MoE), so a kind's layer costs the cut cell less the
+# other kind's one-layer cell, and the full depth adds (count - 1) such
+# layers of each kind; the temporaries are the cut cell's alone.  (b) 3n
+# (b)'s first step on rank 0 against the same cell dry-run on a fake
+# world of 4: DRYRUN_PEAK bounds measured peak / predicted peak.
+DRYRUN_CELLS = (
+    ("gemma2-2b", "train_4k", "pod", {"reduce_method": "auto"}, "auto",
+     []),
+    ("gemma2-2b", "prefill_32k", "pod", KERNEL_SPELLINGS, "kernels", []),
+    ("gemma2-2b", "decode_32k", "pod", KERNEL_SPELLINGS, "kernels", []),
+    ("deepseek-v3-671b", "train_4k", "multipod",
+     {"reduce_method": "auto", "num_layers": 2,
+      "moe": {"first_dense_layers": 1}}, "auto_2l",
+     ["num_layers 61 -> 2", "first_dense_layers 3 -> 1 (one dense, one "
+      "MoE layer)"]),
+    ("rwkv6-7b", "long_500k", "pod", {}, "", []),
+    ("deepseek-v3-671b", "train_4k", "multipod",
+     {"reduce_method": "auto", "num_layers": 1,
+      "moe": {"first_dense_layers": 1}}, "auto_1l_dense",
+     ["num_layers 61 -> 1", "first_dense_layers 3 -> 1 (one dense layer)"]),
+    ("deepseek-v3-671b", "train_4k", "multipod",
+     {"reduce_method": "auto", "num_layers": 1,
+      "moe": {"first_dense_layers": 0}}, "auto_1l_moe",
+     ["num_layers 61 -> 1", "first_dense_layers 3 -> 0 (one MoE layer)"]),
+)
+# (arch, the cut cell's tag, {mlp kind: the tag of its one-layer cell})
+DRYRUN_DEPTH = ("deepseek-v3-671b", "auto_2l",
+                {"dense": "auto_1l_dense", "moe": "auto_1l_moe"})
+DRYRUN_TIMEOUT = 540            # seconds from their start
+DRYRUN_PEAK = (0.8, 1.25)
+
+# One cell of 3p (a) in a process of its own: a control kernel the
+# profiler must see, then the dry run under torch.profiler (CUDA
+# activity: it must record no device event) with the allocator's count
+# before and after it (equal) and its peak (printed); the last line of
+# its output is one JSON object.
+DRYRUN_PROG = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.launch import dryrun
+torch.set_num_threads(1)
+arch, shape, mesh, overrides, tag, out_dir = json.loads(sys.argv[2])
+def device_events(run):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+_, control = device_events(
+    lambda: (torch.ones(8, device="cuda") + 1).sum().item())
+torch.cuda.reset_peak_memory_stats()
+before = torch.cuda.memory_allocated()
+rec, events = device_events(lambda: dryrun.run_cell(
+    arch, shape, mesh, out_dir, with_accounting=False, force=True,
+    overrides=overrides, tag=tag, device="cuda"))
+print(json.dumps({"rec": rec, "device_events": events,
+                  "control_events": len(control),
+                  "allocated": [before, torch.cuda.memory_allocated(),
+                                torch.cuda.max_memory_allocated()],
+                  "live_group": dist.is_initialized()}))
+"""
+
+
+class DryRuns:
+    """3p (a)'s cells, each in a process of its own, started together
+    before phase 1's build; ``results`` waits for them before phase 3
+    (killing any past DRYRUN_TIMEOUT), and every process still running
+    at exit is killed."""
+
+    def __init__(self):
+        import atexit
+        self.t0 = time.perf_counter()
+        out_dir = os.path.join(OUT_DIR, "dryrun")
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_PROG, SRC,
+             json.dumps([arch, shape, mesh, ov, tag, out_dir])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for arch, shape, mesh, ov, tag, _ in DRYRUN_CELLS]
+        atexit.register(self.kill)
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def results(self) -> list:
+        """Each cell's output; a process that failed or outlived the
+        timeout gives a record that is not ok."""
+        out = []
+        try:
+            for p in self.procs:
+                left = DRYRUN_TIMEOUT - (time.perf_counter() - self.t0)
+                try:
+                    stdout, stderr = p.communicate(timeout=max(left, 1.0))
+                except subprocess.TimeoutExpired:
+                    out.append({"rec": {"ok": False, "error": (
+                        f"outlived {DRYRUN_TIMEOUT} s")}})
+                    continue
+                if p.returncode or not stdout.strip():
+                    out.append({"rec": {"ok": False, "error": (
+                        f"exit {p.returncode}"), "traceback": stderr[-3000:]}})
+                    continue
+                out.append(json.loads(stdout.strip().splitlines()[-1]))
+        finally:
+            self.kill()
+        return out
 
 # The serving path (phase 3k): Gemma-2 2B at full width and depth (f32
 # params, the config's), the kernel spellings, six requests over four
@@ -5717,7 +5867,11 @@ def spmd_rank_full(tmp: str, dev: str, smoke: bool) -> list:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-            state, m = step_fn(state, batch)
+            if i == 0 and dist.get_rank() == 0:
+                state, m, out["dryrun"] = dryrun_real_step(
+                    step_fn, state, batch, dev)
+            else:
+                state, m = step_fn(state, batch)
             if dev == "cuda":
                 end.record()
                 end.synchronize()
@@ -5731,7 +5885,8 @@ def spmd_rank_full(tmp: str, dev: str, smoke: bool) -> list:
     finally:
         restore()
     if dev == "cuda":
-        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["peak_gib"] = max(torch.cuda.max_memory_allocated(), out.get(
+            "dryrun", {}).get("peak_before", 0)) / 2 ** 30
     t1 = time.perf_counter()
     ckpt.save(os.path.join(tmp, "full"), SPMD_FULL_STEPS, state)
     out["save_s"] = time.perf_counter() - t1
@@ -5749,6 +5904,90 @@ def spmd_rank_full(tmp: str, dev: str, smoke: bool) -> list:
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, out)
     return gathered
+
+
+# The reference's collective kinds by the c10d op CommDebugMode counts
+# (written apart from launch.dryrun's own table, which 3p (b) checks).
+C10D_KINDS = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather",
+              "allgather_": "all-gather",
+              "_reduce_scatter_base_": "reduce-scatter",
+              "reduce_scatter_": "reduce-scatter",
+              "alltoall_base_": "all-to-all", "alltoall_": "all-to-all"}
+
+
+def comm_bytes_mode():
+    """A ``CommDebugMode`` (which counts the collectives) that also reads
+    each c10d op's operand bytes and group size from its schema: the
+    arguments named ``input...``, else the tensors it reduces in place.
+    Its ``by_kind()`` gives {kind: {count, bytes, group_sizes}}."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils import _pytree as pytree
+
+    class CommBytes(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.operands: dict = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "c10d":
+                named = dict(zip((a.name for a in func._schema.arguments),
+                                 args), **(kwargs or {}))
+                inputs = [v for k, v in named.items()
+                          if k.startswith("input")]
+                nbytes = sum(t.numel() * t.element_size() for t in
+                             pytree.tree_leaves(inputs or named["tensors"]))
+                size = str(dist.ProcessGroup.unbox(
+                    named["process_group"]).size())
+                rec = self.operands.setdefault(
+                    func.overloadpacket.__name__,
+                    {"bytes": 0, "group_sizes": {}})
+                rec["bytes"] += nbytes
+                rec["group_sizes"][size] = \
+                    rec["group_sizes"].get(size, 0) + nbytes
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+        def by_kind(self) -> dict:
+            out: dict = {}
+            for packet, n in self.get_comm_counts().items():
+                name = str(packet).split(".")[-1]
+                rec = out.setdefault(C10D_KINDS.get(name, name), {
+                    "count": 0, "bytes": 0, "group_sizes": {}})
+                rec["count"] += n
+                rec["bytes"] += self.operands[name]["bytes"]
+                for size, b in self.operands[name]["group_sizes"].items():
+                    rec["group_sizes"][size] = \
+                        rec["group_sizes"].get(size, 0) + b
+            return out
+    return CommBytes()
+
+
+def dryrun_real_step(step_fn, state, batch, dev: str) -> tuple:
+    """3p (b)'s real side, on rank 0: one step under the dry run's
+    recorder (``launch.dryrun._Recorder``), ``comm_bytes_mode`` and
+    ``FlopCounterMode``, with the card's peak over it (the allocator's
+    peak reset just before; the peak before it is kept for 3n (b))."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun
+    mr = importlib.import_module("repro_torch.kernels.mma_reduce")
+    rec = dryrun._Recorder()
+    rec.hold((state, batch))
+    out = {"args": rec.live}
+    if dev == "cuda":
+        out["peak_before"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out["allocated_before"] = torch.cuda.memory_allocated()
+    with comm_bytes_mode() as comm, \
+            FlopCounterMode(display=False) as flops, rec.mode():
+        state, m = step_fn(state, batch)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        out["peak"] = torch.cuda.max_memory_allocated()
+    out.update(collectives=rec.collectives, flops=flops.get_total_flops(),
+               recorded_flops=rec.flops, launches=dict(rec.launches),
+               b1=mr.LAUNCHES["b1_single_pass"],
+               comm=comm.by_kind())
+    return state, m, out
 
 
 def spmd_gaps(got: list, want: list) -> list:
@@ -6099,6 +6338,7 @@ def run_spmd(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
         "rank0_steps": first["steps"], "same_bits": [
             r["same_bits"] for r in ranks4],
         "local_values": first["local_values"],
+        "dryrun": first.get("dryrun"),
         "rank_peak_gib": [r.get("peak_gib") for r in ranks4],
         "card_peak_mib": peak_mib,
         "s": {k: first[k] for k in ("c_s", "init_s", "save_s",
@@ -6560,6 +6800,213 @@ def run_serve_mesh(smi: str, stream, dev: str = "cuda",
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------ phase 3p
+
+
+def check_op_routes(gen) -> dict:
+    """3p (c): each kernel entry that ``kernels.ops`` registers as an op,
+    called under a dispatch mode (so through its op, as the dry run's
+    recorder and FlopCounterMode take it), gives the direct call's bits
+    and the mode sees the op."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels import ops
+
+    seen: set = set()
+
+    class Through(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "repro_torch":
+                seen.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    qpos = torch.arange(4096, 4096 + 16, dtype=torch.int32,
+                        device="cuda").expand(2, 16)
+    kv = t(2, 4096 + 16, 4, 256)
+    # B1 adds its blocks' partials with atomics, in no fixed order: its
+    # input counts (0 and 1), so that every order gives the same bits
+    ones = (torch.rand(1 << 20, generator=gen, device="cuda") < 0.5).float()
+    calls = {
+        "b1_single_pass": lambda x=ones:
+            ops.mma_squared_sum(x, chain=4, block_rows=128),
+        "b8_rmsnorm": lambda x=t(64, 2304), w=t(2304):
+            ops.mma_rmsnorm(x, w, weight_offset=1.0),
+        "b10_norm_matmul": lambda x=t(128, 2304), w=t(2304, 9216):
+            ops.mma_norm_matmul(x, w[:, 0].float(), w, w_gate=w,
+                                act="gelu"),
+        "b9_attention": lambda q=t(2, 16, 4, 2, 256):
+            ops.mma_attention(q, kv, kv, qpos=qpos, causal=True, cap=50.0),
+    }
+    out = {}
+    for name, call in calls.items():
+        direct = call()
+        with Through():
+            routed = call()
+        out[name] = bool(spmd_same_bits(direct, routed)) and name in seen
+    print(f"phase 3p (c): each entry through its op gives the direct call's "
+          f"bits {out}", flush=True)
+    check(all(out.values()), f"3p (c): an op route differs: {out}")
+    return out
+
+
+def dryrun_linear(rec: dict) -> dict:
+    """The quantities of a dry-run record that grow by a layer's own
+    cost with each layer: flops, argument bytes, each collective kind's
+    count and bytes."""
+    out = {"flops": rec["cost_analysis"]["flops"],
+           "arguments": rec["memory_analysis"]["argument_size_in_bytes"]}
+    for kind, v in rec["collectives"].items():
+        out[f"{kind} count"] = v["count"]
+        out[f"{kind} bytes"] = v["bytes"]
+    return out
+
+
+def dryrun_full_depth(recs: dict, card: int) -> dict:
+    """3p (a): DRYRUN_DEPTH's cut cell carried to the config's full
+    depth (see DRYRUN_DEPTH), printed beside the cut cell's figures."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    arch, cut_tag, ones = DRYRUN_DEPTH
+    cut = dryrun_linear(recs[(arch, cut_tag)])
+    one = {k: dryrun_linear(recs[(arch, tag)]) for k, tag in ones.items()}
+    counts = {mlp: n for (_, mlp), n in
+              dryrun._distinct_kinds(registry.get_config(arch)).items()}
+    check(set(counts) == set(ones) and len(ones) == 2,
+          f"3p (a): {arch}'s layer kinds {counts} are not {sorted(ones)}")
+    keys = sorted(set(cut).union(*one.values()))
+    layer = {k: {q: cut.get(q, 0) - one[other].get(q, 0) for q in keys}
+             for k in ones for other in ones if other != k}
+    full = {q: cut.get(q, 0) + sum((counts[k] - 1) * layer[k][q]
+                                   for k in ones) for q in keys}
+    check(all(layer[k]["flops"] > 0 for k in ones),
+          f"3p (a): a layer's flops are not positive: {layer}")
+    print(f"phase 3p (a): {arch} x train_4k x multipod at full depth "
+          f"({', '.join(f'{n} {k}' for k, n in counts.items())} layers, "
+          f"from the 2-layer cell less each 1-layer cell): flops "
+          f"{full['flops']:.6g} (2 layers {cut['flops']:.6g}), arguments "
+          f"{full['arguments'] / 2**30:.3f} GiB (2 layers "
+          f"{cut['arguments'] / 2**30:.3f}; {full['arguments'] / card:.3f} "
+          f"of the card), collectives {({q: full[q] for q in keys if ' ' in q})}"
+          f" (2 layers {({q: cut[q] for q in keys if ' ' in q})}); a layer "
+          f"by kind {layer}; temporaries at 2 layers only", flush=True)
+    return {"counts": counts, "layer": layer, "full": full, "cut": cut}
+
+
+def run_dryrun(smi: str, results: list, real: dict) -> dict:
+    """Phase 3p (see the module docstring): (a) the production cells'
+    records from their processes (``DryRuns.results``), DeepSeek-V3's at
+    full depth (``dryrun_full_depth``); (b) ``real``, 3n (b)'s first
+    step on rank 0, against the same cell dry-run here on a fake world
+    of 4."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {"card": smi, "cells": []}
+    t0 = time.perf_counter()
+    failed = []
+    recs = {}
+    for got, (arch, shape, mesh, ov, tag, cut) in zip(results,
+                                                      DRYRUN_CELLS):
+        rec = got["rec"]
+        cell = f"{arch} x {shape} x {mesh}" + (f" [{tag}]" if tag else "")
+        if not rec.get("ok"):
+            failed.append(f"{cell} failed: {rec.get('error')}\n"
+                          f"{rec.get('traceback')}")
+            continue
+        recs[(arch, tag)] = rec
+        mem = rec["memory_analysis"]
+        peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        row = {"cell": cell, "reduced": cut, "world": rec["world"],
+               "microbatches": rec["microbatches"],
+               "memory": mem, "peak_over_card": peak / card,
+               "flops": rec["cost_analysis"]["flops"],
+               "collectives": {k: [v["count"], v["bytes"]]
+                               for k, v in rec["collectives"].items()},
+               "launches": rec.get("launches", {}),
+               "seconds": rec["total_s"],
+               "device_events": len(got["device_events"]),
+               "allocated": got["allocated"]}
+        out["cells"].append(row)
+        print(f"phase 3p (a): {cell} on {rec['world']} ranks"
+              f"{' (' + ', '.join(cut) + ')' if cut else ''}: rank 0's "
+              f"arguments {mem['argument_size_in_bytes'] / 2**30:.3f} GiB "
+              f"and temporaries {mem['temp_size_in_bytes'] / 2**30:.3f} GiB "
+              f"({peak / card:.3f} of the card's "
+              f"{card / 2**30:.1f} GiB{', past it' if peak > card else ''}), "
+              f"flops {row['flops']:.6g}, collectives (count, bytes) "
+              f"{row['collectives']}, kernels {row['launches']}, "
+              f"{rec['total_s']} s; device events {row['device_events']}, "
+              f"allocated (before, after, peak) {got['allocated']}",
+              flush=True)
+        if got["device_events"] or not got["control_events"]:
+            failed.append(f"{cell}'s dry run launched on the card "
+                          f"{got['device_events'][:5]} (control kernel "
+                          f"seen: {got['control_events']})")
+        # the peak holds the one-element tensor with which PyTorch's fake
+        # tensors initialise the card's context (fake_tensor.py's
+        # init_gpu_context): freed at once, and no device event
+        if got["allocated"][0] != got["allocated"][1]:
+            failed.append(f"{cell}'s dry run left {got['allocated']} "
+                          f"allocated")
+        if got["live_group"]:
+            failed.append(f"{cell} left a process group live")
+    if not failed:
+        out["full_depth"] = dryrun_full_depth(recs, card)
+    out["s"] = {"a": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    full = spmd_full_cfg(False)
+    b, s = SPMD_FULL_SHAPE
+    with dryrun.fake_world(int(np.prod(SPMD_FULL_MESH))):
+        mesh = make_local_mesh(*SPMD_FULL_MESH, device="cuda")
+        fake = dryrun.compile_cell(full, ShapeConfig("t", s, b, "train"),
+                                   mesh, microbatches=SPMD_MICROBATCHES,
+                                   device="cuda")
+    import torch.distributed as dist
+    check(not dist.is_initialized(), "3p (b): a process group is live")
+    mem = fake["memory_analysis"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    comm = real["comm"]
+    b1 = fake["launches"].get("b1_single_pass", 0)
+    ratio = real["peak"] / predicted
+    out["b"] = {"reduced": SPMD_FULL_REDUCED, "mesh": SPMD_FULL_MESH,
+                "shape": SPMD_FULL_SHAPE, "fake": fake, "real": real,
+                "peak_ratio": ratio}
+    out["s"]["b"] = time.perf_counter() - t0
+    print(f"phase 3p (b): {SPMD_ARCH} ({', '.join(SPMD_FULL_REDUCED)}) on "
+          f"{SPMD_FULL_MESH}, batch {SPMD_FULL_SHAPE}, microbatches "
+          f"{SPMD_MICROBATCHES}: arguments {mem['argument_size_in_bytes']} "
+          f"predicted, {real['args']} on rank 0; collectives predicted "
+          f"{fake['collectives']}, recorded {real['collectives']}, "
+          f"CommDebugMode with schema operand bytes {comm}; B1 launches {b1} predicted, "
+          f"{real['b1']} launched; flops {fake['cost_analysis']['flops']} "
+          f"predicted, {real['flops']} by FlopCounterMode; peak "
+          f"{predicted / 2**30:.4f} GiB predicted, {real['peak'] / 2**30:.4f}"
+          f" GiB measured (ratio {ratio:.4f}; {real['allocated_before'] / 2**30:.4f}"
+          f" GiB allocated before the step); {fake['compile_s']} s; {smi}",
+          flush=True)
+    check(not failed, "3p (a): " + "; ".join(failed))
+    check(mem["argument_size_in_bytes"] == real["args"],
+          "3p (b): the argument bytes differ")
+    check(fake["collectives"] == real["collectives"],
+          "3p (b): the collectives differ from the recorded step's")
+    check(fake["collectives"] == comm,
+          "3p (b): the collectives differ from CommDebugMode's counts and "
+          "the schemas' operand bytes")
+    check(b1 == real["b1"] > 0, "3p (b): B1's launches differ")
+    check(fake["cost_analysis"]["flops"] == real["flops"] ==
+          real["recorded_flops"], "3p (b): the flops differ")
+    check(DRYRUN_PEAK[0] <= ratio <= DRYRUN_PEAK[1],
+          f"3p (b): measured / predicted peak {ratio:.4f} outside "
+          f"{DRYRUN_PEAK}")
+    out["c"] = check_op_routes(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    print(f"phase 3p: seconds by part {out['s']}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -6593,6 +7040,9 @@ def main() -> int:
     print(f"phase 1: {kind}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
+    # 3p (a)'s dry runs take the host's time and none of the card's: they
+    # run beside the build and phase 2's checks, which time nothing
+    dry_runs = DryRuns()
     t0 = time.perf_counter()
     # The mma.sync form as f32 prefill and decode ran it before B9's f32
     # prefill and decode forms (phase 5g's yardstick), built beside the
@@ -6622,6 +7072,11 @@ def main() -> int:
     norm_checks = check_rmsnorm_kernel(mrn, gen)
     nm_checks = check_norm_matmul_kernel(mnm, gen)
     attn_checks = check_attention_kernel(ma, gen)
+    t0 = time.perf_counter()
+    dry_results = dry_runs.results()
+    print(f"phase 3p (a): waited {time.perf_counter() - t0:.1f} s for the "
+          f"dry runs ({time.perf_counter() - dry_runs.t0:.1f} s since their "
+          f"start) before the timed phases", flush=True)
 
     print("phase 3: main path at n = 2^28", flush=True)
     mr.reset_launches()
@@ -6819,6 +7274,10 @@ def main() -> int:
     serve_mesh_out = run_serve_mesh(smi, served)
     del served
 
+    print("phase 3p: the dry run of the production meshes and of 3n (b)'s "
+          "cell", flush=True)
+    dryrun_out = run_dryrun(smi, dry_results, spmd_out["b"]["dryrun"])
+
     print("phase 6: the cost model against measured times (f32, bf16, "
           "fp16)", flush=True)
     t0 = time.perf_counter()
@@ -6878,6 +7337,7 @@ def main() -> int:
                    "auto_f32_decode": auto_f32, "serving": serving,
                    "training": training, "mesh": mesh_out,
                    "spmd": spmd_out, "serve_mesh": serve_mesh_out,
+                   "dryrun": dryrun_out,
                    "scan_picks": scan_picks,
                    "sweep_us": reduce_picks["sweep_us"],
                    "fit": reduce_picks["fit"],

@@ -1201,6 +1201,10 @@ def measure_cost(plan: ReductionPlan, n: int, dtype, *, iters: int = 5,
     problem is global: each rank times its block and the scalar combine
     (host clock), and every rank returns the largest time over the
     ranks."""
+    if _NO_TIMING is not None:
+        raise RuntimeError(
+            f"{_NO_TIMING} takes its plans from the cost model alone: a "
+            f"timed sweep of op {op!r} ({plan.method}, n={n}) would run")
     backend = backend or default_backend()
     if backend not in _live_backends():
         raise ValueError(f"cannot measure for backend {backend!r} on "
@@ -1430,6 +1434,9 @@ class PlanRegistry:
 
 _default_registry: Optional[PlanRegistry] = None
 
+# Why no timed sweep may run now (``model_plans_only``), or None.
+_NO_TIMING: Optional[str] = None
+
 
 def default_registry() -> PlanRegistry:
     """Process-wide registry; pre-seeded from $REPRO_AUTOTUNE_CACHE if
@@ -1442,6 +1449,24 @@ def default_registry() -> PlanRegistry:
         else:
             _default_registry = PlanRegistry()
     return _default_registry
+
+
+@contextlib.contextmanager
+def model_plans_only(what: str):
+    """Inside, ``auto`` takes its plans from the cost model and the memo
+    alone: the process-wide registry is a new one (no plan of a store,
+    so no measured one, and no sweep worker), and a timed sweep
+    (``measure_cost``: ``warmup(measure=True)``, a ``SweepWorker``, a
+    measured ``get_plan``) raises, naming ``what``.  The dry run
+    (``launch.dryrun``) runs on fake tensors, which a timing cannot
+    take."""
+    global _default_registry, _NO_TIMING
+    old = _default_registry, _NO_TIMING
+    _default_registry, _NO_TIMING = PlanRegistry(), what
+    try:
+        yield
+    finally:
+        _default_registry, _NO_TIMING = old
 
 
 def bind_default_registry(path: str) -> PlanRegistry:

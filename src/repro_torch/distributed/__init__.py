@@ -15,6 +15,7 @@ batch, the sharded AdamW state and its checkpoints, ``models.moe``'s
 expert-parallel branch (the ``etp`` and ``ep2d`` layouts, with the
 autograd all-to-all and conjugate collectives of ``collectives``), and
 ``launch.serve``'s ``Server`` and ``ContinuousServer`` over a mesh (each
-rank decoding its own rows, ``sharding.batch_rows``).  Waiting for the
-rest of item 14b: ``launch/dryrun`` (14b(iv)).
+rank decoding its own rows, ``sharding.batch_rows``), and
+``launch.dryrun``'s dry run of those steps for rank 0 of a fake world
+the size of a production mesh (14b(iv)).
 """

@@ -145,10 +145,11 @@ def _staged(x, group, what: str):
     """Whether ``x`` goes through the host for a collective over
     ``group``: gloo carries ``all_to_all`` on CPU tensors only (a CUDA
     tensor is copied to the host and back); NCCL takes CUDA tensors
-    directly."""
+    directly, and so does the ``fake`` backend of the dry run
+    (``launch.dryrun``), which moves nothing."""
     import torch.distributed as dist
     backend = str(dist.get_backend(group))
-    if x.device.type == "cpu" or "nccl" in backend:
+    if x.device.type == "cpu" or "nccl" in backend or backend == "fake":
         return False
     if "gloo" in backend and x.device.type == "cuda":
         return True

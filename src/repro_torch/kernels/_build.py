@@ -9,6 +9,11 @@ shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header builds anew and an unchanged one is reused.  The sources come
 from this package alone; a failed build raises with the compiler's
 output.
+
+``need_memory`` is the check every launch makes before it reads a
+pointer: a fake tensor (``torch._subclasses.FakeTensorMode``, which the
+dry run of ``launch.dryrun`` runs under) or a meta tensor has no memory
+to launch on, and its ``data_ptr()`` would not say so.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -91,3 +98,24 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(build_all([name])[name]))
         return _libs[name]
+
+
+def memoryless(t) -> str:
+    """'fake' or 'meta' for a tensor that holds no memory, else ''."""
+    if type(t) is torch.Tensor and not t.is_meta:
+        return ""
+    if t.is_meta:
+        return "meta"
+    from torch._subclasses.fake_tensor import is_fake
+    return "fake" if is_fake(t) else ""
+
+
+def need_memory(what: str, *tensors) -> None:
+    """Raise, naming ``what``, when one of ``tensors`` (None is skipped)
+    holds no memory."""
+    for t in tensors:
+        kind = "" if t is None else memoryless(t)
+        if kind:
+            raise RuntimeError(f"{what}: a {kind} tensor of shape "
+                               f"{tuple(t.shape)} holds no memory to "
+                               f"launch on")

@@ -581,6 +581,7 @@ def attention_cuda(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of their states, then their merge), checked.  A failed build or
     launch raises: no form falls back to another."""
     dev = qg.device
+    _build.need_memory("B9", qg, k, v, qpos, kv_len)
     for nm, t in (("qg", qg), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != dev or t.dtype not in _DTYPES:
             raise ValueError(f"B9 takes {nm} as an f32 or bf16 tensor on "

@@ -310,6 +310,7 @@ def norm_matmul_cuda(x2d: torch.Tensor, scale: torch.Tensor,
     if not x2d.is_cuda or x2d.dtype not in _DTYPES:
         raise ValueError(f"B10 takes an f32 or bf16 CUDA tensor, got "
                          f"{x2d.dtype} on {x2d.device}")
+    _build.need_memory("B10", x2d, scale, w, w_gate, bias)
     if x2d.dim() != 2 or not x2d.is_contiguous():
         raise ValueError(f"B10 takes a contiguous (rows, d) tensor, got "
                          f"shape {tuple(x2d.shape)}")

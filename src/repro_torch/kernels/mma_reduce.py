@@ -160,6 +160,7 @@ def _check(x, block_rows: int, chain: int = 1, dtypes=DTYPES) -> None:
                          f"one on {x.device}")
     if x.dtype not in dtypes:
         raise ValueError(f"dtype {x.dtype} not in {dtypes}")
+    _build.need_memory("the reduction kernels", x)
     if x.dim() != 1 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("the kernel takes a contiguous 1-D tensor "
                          "aligned to 16 bytes")

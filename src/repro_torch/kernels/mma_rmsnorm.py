@@ -191,6 +191,7 @@ def rmsnorm_cuda(x2d: torch.Tensor, weight: torch.Tensor, *,
     if code is None or dev.type != "cuda":
         raise ValueError(f"B8 takes an f32 or bf16 CUDA tensor, got "
                          f"{x2d.dtype} on {dev}")
+    _build.need_memory("B8", x2d, weight)
     if x2d.dim() != 2 or not x2d.is_contiguous():
         raise ValueError(f"B8 takes a contiguous (rows, d) tensor, got "
                          f"shape {tuple(x2d.shape)}")

@@ -10,14 +10,33 @@ tensor's device: a CUDA tensor launches the Hopper kernel (or the
 kernel's wrapper raises), a CPU tensor runs the kernel's plain PyTorch
 version on the reference's zero-padded ``(T, m)`` tiles.  There is no
 fallback from one to the other.
+
+B1's single pass, B8, B9 and B10 are also ``torch.library`` ops
+(``torch.ops.repro_torch.b1_single_pass``, ``b8_rmsnorm``,
+``b9_attention``, ``b10_norm_matmul``), each with a fake implementation
+that gives its output's shape and dtype and reads no pointer, and B9 and
+B10 with flop formulas.  A CUDA call goes through the op when its input
+is not a plain tensor (a fake one, under the dry run's
+``FakeTensorMode``) or a dispatch mode is on (the dry run's recorder,
+``FlopCounterMode``, ``CommDebugMode``), which then sees the launch by
+name; otherwise it calls the kernel's wrapper directly, as the op's CUDA
+implementation does, and pays nothing for the op (an op costs 1-21 us
+more a call when defined with ``torch.library.Library`` and ``impl``,
+16-41 us as a ``custom_op``, on an H100: ``probes/wrapper_host_us.py
+--ops``).  Every other launch
+raises on a fake or a meta tensor before it reads a pointer
+(``kernels._build.need_memory``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import mma_attention as _ma
 from repro_torch.kernels import mma_compensated as _mc
 from repro_torch.kernels import mma_norm_matmul as _mnm
@@ -27,6 +46,85 @@ from repro_torch.kernels import mma_scan as _ms
 from repro_torch.kernels import mma_segment as _mseg
 
 M = _mr.M
+
+
+def _traced(x) -> bool:
+    """Whether a CUDA call goes through the kernel's op (see the module
+    docstring)."""
+    return type(x) is not torch.Tensor or \
+        torch._C._len_torch_dispatch_stack() > 0
+
+
+@torch.library.custom_op("repro_torch::b1_single_pass", mutates_args=(),
+                         device_types="cuda")
+def _b1_op(x: torch.Tensor, chain: int, block_rows: int,
+           square: bool) -> torch.Tensor:
+    return _mr.single_pass_cuda(x, chain=chain, block_rows=block_rows,
+                                square=square)
+
+
+@_b1_op.register_fake
+def _b1_fake(x, chain, block_rows, square):
+    return x.new_empty((), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::b8_rmsnorm", mutates_args=(),
+                         device_types="cuda")
+def _b8_op(x2d: torch.Tensor, weight: torch.Tensor, eps: float,
+           weight_offset: float) -> torch.Tensor:
+    return _mrn.rmsnorm_cuda(x2d, weight, eps=eps,
+                             weight_offset=weight_offset)
+
+
+@_b8_op.register_fake
+def _b8_fake(x2d, weight, eps, weight_offset):
+    return torch.empty_like(x2d)
+
+
+@torch.library.custom_op("repro_torch::b10_norm_matmul", mutates_args=(),
+                         device_types="cuda")
+def _b10_op(x2d: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
+            w_gate: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+            act: Optional[str], eps: float) -> torch.Tensor:
+    return _mnm.norm_matmul_cuda(x2d, scale, w, w_gate=w_gate, bias=bias,
+                                 act=act, eps=eps)
+
+
+@_b10_op.register_fake
+def _b10_fake(x2d, scale, w, w_gate, bias, act, eps):
+    return x2d.new_empty((x2d.shape[0], w.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.b10_norm_matmul)
+def _b10_flops(x_shape, scale_shape, w_shape, w_gate_shape, *args,
+               **kwargs) -> int:
+    """The projections' products (the gate pair's two)."""
+    rows, d = x_shape
+    return 2 * rows * d * w_shape[1] * (1 if w_gate_shape is None else 2)
+
+
+@torch.library.custom_op("repro_torch::b9_attention", mutates_args=(),
+                         device_types="cuda")
+def _b9_op(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           qpos: torch.Tensor, causal: bool, window: Optional[int],
+           kv_len: Optional[torch.Tensor], scale: float,
+           cap: Optional[float]) -> torch.Tensor:
+    return _ma.attention_cuda(qg, k, v, qpos=qpos, causal=causal,
+                              window=window, kv_len=kv_len, scale=scale,
+                              cap=cap)
+
+
+@_b9_op.register_fake
+def _b9_fake(qg, k, v, qpos, causal, window, kv_len, scale, cap):
+    return v.new_empty((*qg.shape[:4], v.shape[-1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.b9_attention)
+def _b9_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    """The scores' and the values' products over every key, masked or
+    not, as ``FlopCounterMode`` counts ``scaled_dot_product_attention``."""
+    b, sq, kv, g, hd = q_shape
+    return 2 * b * sq * kv * g * k_shape[1] * (hd + v_shape[-1])
 
 
 def _to_tiles(x, tile_rows: int, m: int):
@@ -64,7 +162,7 @@ def _flat(x, m: int, dtypes=_mr.DTYPES):
     if x.dtype not in dtypes:
         x = x.to(torch.float32)
     flat = x.reshape(-1)
-    if x.is_cuda and flat.data_ptr() % 16:
+    if x.is_cuda and not _build.memoryless(flat) and flat.data_ptr() % 16:
         flat = flat.clone()
     return flat
 
@@ -72,6 +170,8 @@ def _flat(x, m: int, dtypes=_mr.DTYPES):
 def _single_pass(flat, chain: int, block_rows: int, m: int,
                  square: bool = False):
     if flat.is_cuda:
+        if _traced(flat):
+            return _b1_op(flat, chain, block_rows, square)
         return _mr.single_pass_cuda(flat, chain=chain,
                                     block_rows=block_rows, square=square)
     return _mr.single_pass_plain(_to_tiles(flat, chain * block_rows, m),
@@ -257,6 +357,7 @@ def mma_segment_sum(values, segment_ids, num_segments: int, *,
     if ids.numel() != flat.numel():
         raise ValueError(f"{ids.numel()} ids for {flat.numel()} values")
     if flat.is_cuda:
+        _build.need_memory("B7", flat, ids)
         return _mseg.segment_cuda(flat, _ids_for_kernel(ids, s), s,
                                   block_rows=block_rows)
     if not _mr.block_rows_ok(block_rows):
@@ -294,8 +395,11 @@ def mma_rmsnorm(x, weight, *, eps: float = 1e-6,
     x2d = x.reshape(-1, d)
     weight = torch.as_tensor(weight, device=x.device)
     if x2d.is_cuda:
-        out = _mrn.rmsnorm_cuda(x2d.contiguous(), weight, eps=eps,
-                                weight_offset=weight_offset)
+        x2d = x2d.contiguous()
+        out = _b8_op(x2d, weight, float(eps), float(weight_offset)) \
+            if _traced(x2d) else \
+            _mrn.rmsnorm_cuda(x2d, weight, eps=eps,
+                              weight_offset=weight_offset)
     else:
         out = _mrn.rmsnorm_plain(x2d, weight, eps=eps,
                                  weight_offset=weight_offset)
@@ -328,9 +432,11 @@ def mma_norm_matmul(x, scale, w, *, w_gate=None, bias=None, act=None,
     x2d = x.reshape(-1, d)
     scale = torch.as_tensor(scale, device=x.device)
     if x2d.is_cuda:
-        out = _mnm.norm_matmul_cuda(x2d.contiguous(), scale, w,
-                                    w_gate=w_gate, bias=bias, act=act,
-                                    eps=eps)
+        x2d = x2d.contiguous()
+        out = _b10_op(x2d, scale, w, w_gate, bias, act, float(eps)) \
+            if _traced(x2d) else \
+            _mnm.norm_matmul_cuda(x2d, scale, w, w_gate=w_gate, bias=bias,
+                                  act=act, eps=eps)
     else:
         out = _mnm.norm_matmul_plain(x2d, scale, w, w_gate=w_gate,
                                      bias=bias, act=act, eps=eps)
@@ -370,6 +476,10 @@ def mma_attention(qg, k, v, *, qpos, causal: bool = False, window=None,
     kw = dict(qpos=qpos, causal=causal, window=window, kv_len=kv_len,
               scale=scale, cap=cap)
     if qg.is_cuda:
-        return _ma.attention_cuda(qg.contiguous(), k.contiguous(),
-                                  v.contiguous(), **kw)
+        qg, k, v = qg.contiguous(), k.contiguous(), v.contiguous()
+        if _traced(qg):
+            return _b9_op(qg, k, v, qpos, causal,
+                          None if window is None else int(window), kv_len,
+                          scale, None if cap is None else float(cap))
+        return _ma.attention_cuda(qg, k, v, **kw)
     return _ma.attention_plain(qg, k, v, **kw)

@@ -35,9 +35,10 @@ collectives:
   * the clip's norm and ``param_norm`` are ``tc_global_norm`` over the
     mesh, each leaf folded over the axes it is split over.
 
-Every arch trains over a mesh (ROADMAP item 14b(i) and (ii)), and
-``launch.serve`` serves from the same sharded state over one (14b(iii));
-``launch/dryrun`` (14b(iv)) is still to come.
+Every arch trains over a mesh (ROADMAP item 14b(i) and (ii)),
+``launch.serve`` serves from the same sharded state over one (14b(iii)),
+and ``launch.dryrun`` runs this step on fake tensors for rank 0 of a
+production mesh (14b(iv)).
 
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20
     python -m repro_torch.launch.train --arch gemma2-2b --steps 20 \

@@ -102,8 +102,12 @@ def _mask(qpos, kpos, *, causal: bool, window: Optional[int],
     if window is not None:
         m = m & (kpos > q - window)
     if kv_len is not None:
-        kl = torch.as_tensor(kv_len, device=kpos.device)
-        m = m & (kpos < (kl[:, None, None] if kl.ndim else kl))
+        # a count given as a number is compared as one (no tensor for it
+        # on the card)
+        kl = kv_len if isinstance(kv_len, (int, float)) \
+            else torch.as_tensor(kv_len, device=kpos.device)
+        m = m & (kpos < (kl[:, None, None] if getattr(kl, "ndim", 0)
+                         else kl))
     return m
 
 

@@ -239,8 +239,10 @@ def rope_angles(positions, dim: int, theta: float):
     positions = torch.as_tensor(positions)
     expo = -torch.arange(0, half, dtype=ACCUM_DTYPE,
                          device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=ACCUM_DTYPE,
-                                  device=positions.device), expo)
+    # theta made on the host and copied (as the constructor does), so a
+    # dry run's fake step makes nothing on the card on any thread
+    freq = torch.pow(torch.tensor(theta, dtype=ACCUM_DTYPE)
+                     .to(positions.device), expo)
     ang = positions[..., None].to(ACCUM_DTYPE) * freq
     return torch.cos(ang), torch.sin(ang)
 

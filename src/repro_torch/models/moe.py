@@ -34,15 +34,16 @@ a batch whose rows do not split over every batch axis is refused there
 before any collective, as the reference's ``shard_map`` refuses it; (b)
 under an installed mesh (``sharding.axis_rules``) on whole tensors,
 through ``compat.shard_map`` with the reference's specs, forward only
-(the dry run over a mesh is ROADMAP item 14b(iv)).  The capacity comes
-from the local token count, as in the reference, so a mesh drops other
-tokens than one card once it binds.
+(``launch.dryrun`` runs (a), inside the train and serving steps).  The
+capacity comes from the local token count, as in the reference, so a
+mesh drops other tokens than one card once it binds.
 The dispatch buffer and the experts' output carry the reference's
 ``checkpoint_name`` tags (``models.remat``), which
 ``remat='dots_tagged'`` saves.
 
 Three scatters of the reference change form:
-  * the counts are ``torch.bincount`` (exact);
+  * the counts are a ``scatter_add_`` of ones (exact; its shape, unlike
+    ``torch.bincount``'s, does not depend on the ids' values);
   * a dropped token's slot ``E * C`` lies past the buffer, where the
     reference's ``mode="drop"`` scatter drops it and torch would raise,
     so the buffer has a spare row that is cut off;
@@ -143,7 +144,11 @@ def _slots(ids, e: int, cap: int):
     n = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)
+    # the tokens per expert: a scatter of ones (exact), whose shape,
+    # unlike bincount's, does not depend on the ids' values
+    ones = torch.ones_like(flat_e, dtype=torch.int64)
+    counts = torch.zeros(e, dtype=torch.int64, device=ids.device) \
+        .scatter_add_(0, flat_e.long(), ones)
     # Per-expert buffer offsets = exclusive prefix of the counts, a
     # triangular ones-MMA scan under EXACT_OFFSETS (f32 multiplicands
     # pinned past TF32, exact below 2^24); the int path beyond.
