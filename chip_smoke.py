@@ -351,10 +351,14 @@ after 3j:
       gloo ranks on the card as (data, model) meshes, the state's
       parameters and moments sharded by the logical rules (DTensors of
       each rank's blocks), each rank training on its rows of the batch,
-      every leaf gathered whole where the model uses it and its gradient
-      summed over ``data``; (a) the reference test's program at SMOKE
-      size on eight ranks as 4 x 2 (its (8, 16) batch from
-      default_rng(0), microbatches 2, 3 steps) against the port's
+      the products split over ``model`` as the rules split them (the
+      attention's heads, the gated MLP's width, the vocabulary of the
+      embedding, logits and cross-entropy: each such leaf gathered over
+      its other axes and kept as its block over ``model``), every other
+      leaf gathered whole, each gradient summed over ``data``; (a) the
+      reference test's program at SMOKE size on eight ranks as 4 x 2
+      (its (8, 16) batch from default_rng(0), microbatches 2, 3 steps)
+      against the port's
       one-card step from the same draw: loss, grad_norm and param_norm
       within SPMD_RTOL (the reference test's 0.03) at every step, the
       same on every rank, and the reference test's DeepSeek-V3 half on
@@ -366,9 +370,12 @@ after 3j:
       steps, against the one-card step, which runs first in this
       process and is freed: the same gates, B1's counter zeroed before
       each step and moved on every rank after it (the clip's and
-      param_norm's partials), rank 0's step ms (CUDA events) and its
-      gathers' and gradient sums' host ms, the card's peak (nvidia-smi,
-      polled); then the final state saved (each leaf gathered whole,
+      param_norm's partials), rank 0's step ms (CUDA events) and the
+      host ms of its gathers, its gradient sums, its sums over model and
+      its max over model, each rank's peak and the card's (nvidia-smi,
+      polled), and the leaves replicated over model (parameters and both
+      moments) must hold the same bits on the model ranks of each data
+      row; then the final state saved (each leaf gathered whole,
       the first rank writing) and restored on every rank into an empty
       template: every block the rank's own bits; (c) (a)'s checkpoint
       after 2 steps restored onto a new world of four ranks remeshed
@@ -382,10 +389,12 @@ after 3j:
       this process, then freed) within SPMD_RTOL and ep2d against etp
       within SPMD_EP_RTOL (the reference's 0.02); no expert leaf
       gathered (counted per leaf, every step), the expert leaves laid
-      out as the MoE body's specs, B1 on every rank every step; printed:
-      each side's dropped tokens, rank 0's step ms (CUDA events) and the
-      host ms of its all-to-alls, gathers and sums, each rank's bytes
-      of expert blocks, the card's peak (nvidia-smi, polled).
+      out as the MoE body's specs, B1 on every rank every step, the
+      leaves replicated over model the same bits on the model ranks;
+      printed: each side's dropped tokens, rank 0's step ms (CUDA
+      events) and the host ms of its all-to-alls, gathers, sums and max
+      (by SPMD_TIMERS's kinds), each rank's bytes of expert blocks, the
+      card's peak (nvidia-smi, polled).
   3o. serving over a mesh (``launch.serve``'s ``Server`` and
       ``ContinuousServer`` with ``mesh=``), after 3n: four gloo ranks on
       the card as (data 2, model 2), each decoding its own rows with
@@ -1044,9 +1053,10 @@ MESH_DEMO_PCT = 5e-3            # reduce_demo's single-pass ceiling, in %
 # fourth step after a checkpoint at step 2 for (c); (b) Gemma-2 2B at
 # full width, SPMD_FULL_CUTS cut depth only (SPMD_FULL_REDUCED lists it),
 # f32 params and moments, reduce_method SPMD_FULL_METHOD, on a
-# (data 2, model 2) mesh: four ranks, since a rank holds the 589.8M-value
-# embedding and its gradient whole (4.7 GB) beside its blocks, and eight
-# would come within a few GB of the card's 80; (c) the checkpoint of (a)
+# (data 2, model 2) mesh: four ranks (each holds half of the 589.8M-value
+# embedding over model and its gradient, 2.4 GB, beside its other blocks;
+# whole before the products split over model, when eight would have come
+# within a few GB of the card's 80); (c) the checkpoint of (a)
 # restored onto a new world of four ranks, remeshed to 2 x 2.  Every
 # step's loss, grad_norm and param_norm within SPMD_RTOL of the one-card
 # step (the reference test's rtol); (c)'s losses within SPMD_ELASTIC_RTOL
@@ -1072,8 +1082,9 @@ SPMD_TIMEOUT = 900
 # only (SPMD_EP_REDUCED), each layout against the one-card step within
 # SPMD_RTOL and against the other within SPMD_EP_RTOL (the reference's
 # test_moe_ep2d_layout_matches_etp).  Arctic, not DeepSeek-V3: the
-# latter's untied 129280 x 7168 embedding and head, gathered whole with
-# their gradients, would take ~14.8 GB a rank before any expert.
+# latter's untied 129280 x 7168 embedding and head with their gradients
+# took ~14.8 GB a rank before any expert when they were gathered whole
+# (half that now that they split over model).
 SPMD_MOE_ARCH = "deepseek-v3-671b"
 SPMD_EP_ARCH = "arctic-480b"
 SPMD_EP_CUTS = {"num_layers": 1, "num_experts": 16}
@@ -5764,30 +5775,72 @@ def spmd_rank_oracle(tmp: str, dev: str) -> list:
     return gathered
 
 
-def spmd_timers(trainlib) -> tuple:
-    """Wrap the step's two collectives, the leaves' gathers
-    (``sharding.gather_shard``) and the gradients' sums over the batch
-    axes (``collectives.mesh_psum``), to add up their host ms.  Returns
-    (the running sums, a function that puts the originals back)."""
-    spent = {"gather_ms": 0.0, "grad_sum_ms": 0.0}
-    shd, coll = trainlib.shd, trainlib.collectives
-    real = (shd.gather_shard, coll.mesh_psum)
+# The host ms a mesh step spends in its collectives, by kind: the leaves'
+# gathers, the sums over model (the tensor-parallel bodies' copy_to and
+# reduce_from, the expert ffn's), the other sums (the gradients over the
+# batch axes) and the max over model (the vocabulary-parallel
+# cross-entropy's).
+SPMD_TIMERS = ("gather_ms", "grad_sum_ms", "model_sum_ms", "model_max_ms")
 
-    def timed(fn, key):
+
+def spmd_timers(trainlib) -> tuple:
+    """Wrap the step's collectives (``sharding.gather_shard``,
+    ``collectives.mesh_psum`` and ``mesh_max``) to add up their host ms
+    by SPMD_TIMERS's kinds.  Returns (the running sums, a function that
+    puts the originals back)."""
+    spent = dict.fromkeys(SPMD_TIMERS, 0.0)
+    shd, coll = trainlib.shd, trainlib.collectives
+    real = (shd.gather_shard, coll.mesh_psum, coll.mesh_max)
+
+    def timed(fn, key_of):
         def call(*a, **kw):
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                spent[key] += (time.perf_counter() - t0) * 1e3
+                spent[key_of(*a)] += (time.perf_counter() - t0) * 1e3
         return call
 
-    shd.gather_shard = timed(real[0], "gather_ms")
-    coll.mesh_psum = timed(real[1], "grad_sum_ms")
+    shd.gather_shard = timed(real[0], lambda *a: "gather_ms")
+    coll.mesh_psum = timed(real[1], lambda x, axes, *a: (
+        "model_sum_ms" if coll._names(axes) == ("model",)
+        else "grad_sum_ms"))
+    coll.mesh_max = timed(real[2], lambda *a: "model_max_ms")
 
     def restore():
-        shd.gather_shard, coll.mesh_psum = real
+        shd.gather_shard, coll.mesh_psum, coll.mesh_max = real
     return spent, restore
+
+
+def spmd_replicated(state, trainlib) -> dict:
+    """A digest (sha256) of this rank's block of each state leaf
+    (parameters and both moments) that the rules do not split over
+    ``model``: the ranks along ``model`` must hold the same bits."""
+    import hashlib
+    from repro_torch.core.integration import _leaves
+    shd = trainlib.shd
+    out = {}
+    for name, tree in (("params", state.params), ("m", state.opt.m),
+                       ("v", state.opt.v)):
+        for path, x in zip(trainlib.leaf_paths(tree), _leaves(tree)):
+            if "model" in shd.spec_axes(shd.dtensor_sharding(x).spec):
+                continue
+            words = shd.local(x).detach().contiguous().view(-1) \
+                .view(torch.uint8).cpu().numpy()
+            out[f"{name}/{path}"] = hashlib.sha256(words.tobytes()) \
+                .hexdigest()
+    return out
+
+
+def spmd_same_on_model(ranks: list, pick) -> tuple:
+    """(whether the ranks of each data row hold the same digests, the
+    number of leaves compared a rank) from each rank's ``coord`` and
+    ``pick(rank)``'s digests."""
+    rows: dict = {}
+    for r in ranks:
+        rows.setdefault(r["coord"]["data"], []).append(pick(r))
+    same = all(d == ds[0] for ds in rows.values() for d in ds)
+    return same, len(pick(ranks[0]))
 
 
 def spmd_same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -5859,7 +5912,7 @@ def spmd_rank_full(tmp: str, dev: str, smoke: bool) -> list:
         for i in range(SPMD_FULL_STEPS):
             batch = data.batch_at(i)
             mr.reset_launches()
-            spent.update(gather_ms=0.0, grad_sum_ms=0.0)
+            spent.update(dict.fromkeys(spent, 0.0))
             mesh_sync(dev)
             dist.barrier()
             t1 = time.perf_counter()
@@ -5884,6 +5937,8 @@ def spmd_rank_full(tmp: str, dev: str, smoke: bool) -> list:
                 "wall_ms": wall, **spent})
     finally:
         restore()
+    out["coord"] = dict(mesh.coordinate)
+    out["replicated"] = spmd_replicated(state, trainlib)
     if dev == "cuda":
         out["peak_gib"] = max(torch.cuda.max_memory_allocated(), out.get(
             "dryrun", {}).get("peak_before", 0)) / 2 ** 30
@@ -6089,16 +6144,16 @@ def spmd_rank_ep(dev: str, smoke: bool) -> list:
                 for tree in (state.params, state.opt.m, state.opt.v)
                 for x, k in zip(_leaves(tree), kinds) if k),
             "expert_paths": [p for p, _ in experts], "steps": []}
-        spent = {"a2a_ms": 0.0, "gather_ms": 0.0, "sum_ms": 0.0}
+        spent, restore_timers = spmd_timers(trainlib)
+        spent["a2a_ms"] = 0.0
         restore = [spmd_wrap(coll, "_all_to_all", spent, "a2a_ms"),
-                   spmd_wrap(shd, "gather_shard", spent, "gather_ms"),
-                   spmd_wrap(coll, "mesh_psum", spent, "sum_ms")]
+                   restore_timers]
         try:
             for i in range(SPMD_EP_STEPS):
                 batch = data.batch_at(i)
                 mr.reset_launches()
                 trainlib.GATHERED.clear()
-                spent.update(a2a_ms=0.0, gather_ms=0.0, sum_ms=0.0)
+                spent.update(dict.fromkeys(spent, 0.0))
                 mesh_sync(dev)
                 dist.barrier()
                 if dev == "cuda":
@@ -6124,6 +6179,8 @@ def spmd_rank_ep(dev: str, smoke: bool) -> list:
         finally:
             for r in restore:
                 r()
+        got["coord"] = dict(mesh.coordinate)
+        got["replicated"] = spmd_replicated(state, trainlib)
         if dev == "cuda":
             got["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         del state, step_fn, make_init
@@ -6222,6 +6279,13 @@ def run_spmd_ep(smi: str, dev: str, smoke: bool) -> dict:
         check(all(g <= SPMD_RTOL for row in gaps for g in row),
               f"3n (d) {layout}: the mesh step is off the one-card step: "
               f"{gaps}")
+        same, n = spmd_same_on_model([r[layout] for r in ranks],
+                                     lambda r: r["replicated"])
+        out[layout]["replicated_same"] = [same, n]
+        print(f"phase 3n (d) {layout}: the {n} leaves replicated over model "
+              f"hold the same bits on the model ranks: {same}", flush=True)
+        check(same and n > 0, f"3n (d) {layout}: a leaf replicated over "
+              f"model differs between the model ranks")
         check(dev != "cuda" or all(n > 0 for r in b1 for n in r),
               f"3n (d) {layout}: B1 did not launch on every rank in every "
               f"step: {b1}")
@@ -6343,14 +6407,22 @@ def run_spmd(smi: str, dev: str = "cuda", smoke: bool = False) -> dict:
         "card_peak_mib": peak_mib,
         "s": {k: first[k] for k in ("c_s", "init_s", "save_s",
                                     "restore_s", "b_s")}}
+    same, n = spmd_same_on_model(ranks4, lambda r: r["replicated"])
+    out["b"]["replicated_same"] = [same, n]
     print(f"phase 3n (b): {SPMD_ARCH} at full width "
           f"({', '.join(SPMD_FULL_REDUCED)}), {SPMD_FULL_MESH} mesh of "
-          f"gloo ranks, batch {SPMD_FULL_SHAPE}, reduce_method "
+          f"gloo ranks, tensor-parallel over model, batch "
+          f"{SPMD_FULL_SHAPE}, reduce_method "
           f"{SPMD_FULL_METHOD}: gaps to one card {gaps}; B1 launches "
           f"(rank x step) {b1}; rank 0's steps "
           f"{[{k: v for k, v in st.items() if k != 'metrics'} for st in first['steps']]}; "
-          f"one card's step ms {one_b['step_ms']}; card peak "
-          f"{peak_mib} MiB; {smi}", flush=True)
+          f"one card's step ms {one_b['step_ms']}, peak "
+          f"{one_b['peak_gib']} GiB; rank peaks "
+          f"{out['b']['rank_peak_gib']} GiB; card peak {peak_mib} MiB; "
+          f"the {n} leaves replicated over model the same bits on the "
+          f"model ranks: {same}; {smi}", flush=True)
+    check(same and n > 0, "3n (b): a leaf replicated over model differs "
+          "between the model ranks")
     check(all(math.isfinite(v) for row in mesh_rows for v in row),
           f"3n (b): non-finite metrics {mesh_rows}")
     check(all(g <= SPMD_RTOL for row in gaps for g in row),

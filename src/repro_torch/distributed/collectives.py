@@ -14,7 +14,9 @@
                         (``models.moe``), over an axis or a tuple of axes;
 ``reduce_from`` / ``copy_to`` / ``gather_from`` / ``scatter_to``
                         the conjugate collectives of a tensor-parallel
-                        region over ``model``.
+                        region over ``model``;
+``mesh_max``            the elementwise max over axes, with no gradient
+                        (the vocabulary-parallel cross-entropy's shift).
 
 Each axis is one ``torch.distributed.all_reduce`` (``all_to_all_single``
 for the all-to-all) over the process group of this rank's line along it
@@ -84,6 +86,25 @@ def mesh_psum(x, axes, *, mesh=None):
     return x
 
 
+def mesh_max(x, axes, *, mesh=None):
+    """The elementwise max of ``x`` over the ranks of ``axes`` (a name or
+    a tuple of names), one ``all_reduce(MAX)`` an axis; a new tensor
+    with no gradient.  Under gloo a CUDA tensor goes through the host
+    (``_staged``)."""
+    import torch.distributed as dist
+    names = _names(axes)
+    out = x.detach().clone()
+    if not names:
+        return out
+    mesh = _live_mesh(mesh, "mesh_max")
+    dev = out.device
+    if _staged(out, mesh.get_group(names[0]), "all_reduce MAX"):
+        out = out.cpu()
+    for a in names:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    return out.to(dev)
+
+
 def _quantise_int8(x):
     """Symmetric per-tensor int8 quantisation. Returns (q, scale).
     ``torch.round`` rounds half to even, as ``jnp.round`` does."""
@@ -144,7 +165,8 @@ def _names(axes) -> tuple:
 def _staged(x, group, what: str):
     """Whether ``x`` goes through the host for a collective over
     ``group``: gloo carries ``all_to_all`` on CPU tensors only (a CUDA
-    tensor is copied to the host and back); NCCL takes CUDA tensors
+    tensor is copied to the host and back, and ``mesh_max`` stages its
+    tensor the same way); NCCL takes CUDA tensors
     directly, and so does the ``fake`` backend of the dry run
     (``launch.dryrun``), which moves nothing."""
     import torch.distributed as dist

@@ -267,6 +267,7 @@ class _Ctx(threading.local):
         self.mesh = None
         self.rules: dict[str, tuple[str, ...]] = dict(DEFAULT_RULES)
         self.fold: Optional[tuple] = None
+        self.model: Optional[str] = None
 
 
 _CTX = _Ctx()
@@ -290,20 +291,24 @@ def current_mesh():
 
 
 @contextlib.contextmanager
-def local_step(mesh, batch_axes: Sequence[str]):
+def local_step(mesh, batch_axes: Sequence[str],
+               model_axis: Optional[str] = None):
     """Run a model on this rank's blocks: no mesh is installed inside
     (``constrain`` is the identity and ``dispatch`` keeps its one-card
     plans: every tensor is local), and a token mean (``models.
     transformer.token_mean``) divides this rank's masked sum by the
     count over every rank along ``batch_axes`` of ``mesh``, the axes
-    that split the batch's rows."""
-    old = (_CTX.mesh, _CTX.fold)
+    that split the batch's rows.  ``model_axis`` names the mesh axis the
+    model's products split over (``model_share``): the train step passes
+    ``model``, a server nothing, so that it runs whole weights."""
+    old = (_CTX.mesh, _CTX.fold, _CTX.model)
     _CTX.mesh = None
     _CTX.fold = (mesh, tuple(batch_axes))
+    _CTX.model = model_axis
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.fold = old
+        _CTX.mesh, _CTX.fold, _CTX.model = old
 
 
 def batch_fold() -> Optional[tuple]:
@@ -311,9 +316,56 @@ def batch_fold() -> Optional[tuple]:
     return _CTX.fold
 
 
+def model_axis() -> Optional[str]:
+    """The mesh axis the model's products split over inside a train
+    step's ``local_step``, else None."""
+    return _CTX.model
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShare:
+    """This rank's share of a dimension split over the model axis: block
+    ``index`` of ``count`` along ``axis`` of ``mesh``."""
+    mesh: object
+    axis: str
+    index: int
+    count: int
+
+    def start(self, size: int) -> int:
+        """The first index of this rank's block of ``size`` values."""
+        return self.index * size
+
+
+def model_share(local: int, whole: Optional[int]) -> Optional[ModelShare]:
+    """Whether a tensor-parallel body holds a dimension of ``whole``
+    values as this rank's block (``local`` of them) over the model axis:
+    its ``ModelShare``, or None where the body holds it whole (no model
+    axis, or one the rules did not split the dimension over: then it runs
+    whole, with no collective).  A body reached inside a train step
+    without the whole size, or with a block of another size, raises:
+    nothing runs a block as if it were the whole."""
+    axis = _CTX.model
+    if axis is None:
+        return None
+    if whole is None:
+        raise ValueError(
+            "a tensor-parallel body inside a train step needs the whole "
+            "size of the dimension it may hold as a block")
+    if local == whole:
+        return None
+    mesh = _CTX.fold[0]
+    count = int(mesh.shape[axis])
+    if local * count != whole:
+        raise ValueError(
+            f"a dimension of {whole} over the {axis} axis ({count} ranks) "
+            f"arrives as {local} values, neither whole nor a block")
+    return ModelShare(mesh, axis, int(mesh.coordinate[axis]), count)
+
+
 def current_context() -> tuple:
-    """This thread's (mesh, rules, batch fold), for ``installed``."""
-    return _CTX.mesh, _CTX.rules, _CTX.fold
+    """This thread's (mesh, rules, batch fold, model axis), for
+    ``installed``."""
+    return _CTX.mesh, _CTX.rules, _CTX.fold, _CTX.model
 
 
 @contextlib.contextmanager
@@ -322,11 +374,11 @@ def installed(context: tuple):
     the autograd engine runs a CUDA backward, and so a remat's
     recompute, on a thread of its own, where the context is empty."""
     old = current_context()
-    _CTX.mesh, _CTX.rules, _CTX.fold = context
+    _CTX.mesh, _CTX.rules, _CTX.fold, _CTX.model = context
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules, _CTX.fold = old
+        _CTX.mesh, _CTX.rules, _CTX.fold, _CTX.model = old
 
 
 def spec_for(shape: Sequence[int], logical_axes: Sequence[Optional[str]],

@@ -19,8 +19,11 @@ every tensor has a shape, a dtype and a device and no memory.  The step is the p
   * a train cell is ``launch.train.jit_train_step``'s step on the
     state's ``DTensor`` blocks (``make_init_state``'s leaves, laid out by
     the logical rules) and rank 0's rows, with the reference's
-    ``TRAIN_MICROBATCHES``: every non-expert leaf gathered whole once a
-    step, the gradients summed over the batch axes;
+    ``TRAIN_MICROBATCHES``: every non-expert leaf gathered once a step
+    (a tensor-parallel body's block over ``model`` over its other axes
+    only, every other leaf whole), the products split over ``model``
+    where the rules split them, the gradients summed over the batch
+    axes;
   * a prefill or decode cell is a step of ``launch.serve``'s server over
     the mesh: the parameters in ``cfg.compute_dtype``, laid out by the
     logical rules, gathered once (``serve._MeshShare``), the model run

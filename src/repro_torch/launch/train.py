@@ -22,11 +22,20 @@ collectives:
   * the batch is this rank's rows: the leading dimension splits over the
     mesh's batch axes (``sharding.data_axis_names``: ``pod``, ``data``);
   * the model runs on plain local tensors with no mesh installed
-    (``sharding.local_step``): each parameter leaf is gathered whole
-    once a step and handed to the model through ``_Gathered``, whose
-    backward sums its gradient over the batch axes and cuts it back to
-    this rank's block, a microbatch at a time; the loss's token mean
-    divides by the count over every rank's rows;
+    (``sharding.local_step``): each parameter leaf is gathered once a
+    step and handed to the model through ``_Gathered``, whose backward
+    sums its gradient over the batch axes and cuts it back to this
+    rank's block, a microbatch at a time; the loss's token mean divides
+    by the count over every rank's rows;
+  * the products split over ``model`` as the reference's rules split
+    them: a leaf that a tensor-parallel body reads (``model_blocks``:
+    the attention's heads, the gated MLP's width, the embedding's and
+    the head's vocabulary) and whose spec names ``model`` is gathered
+    over its other axes only and stays this rank's block over
+    ``model``; the bodies (``models.layers``, ``models.attention``,
+    ``models.transformer``'s logits and cross-entropy) run on those
+    blocks with ``collectives.copy_to`` / ``reduce_from``.  Every other
+    leaf is gathered whole;
   * the expert leaves of an MoE layer (``wi_gate``, ``wi_up``, ``wo``)
     are never gathered: ``models.moe``'s expert-parallel body takes this
     rank's blocks, laid out by ``state_shardings`` as its specs, and
@@ -223,12 +232,15 @@ def make_train_step(model, tconf: TrainConfig, mesh=None, *, device=None):
 
 
 class _Gathered(torch.autograd.Function):
-    """A parameter leaf, whole, where the model uses it.  Forward: the
-    leaf gathered from every rank's block (``sharding.gather_shard``,
-    once a step: ``whole``).  Backward: the whole gradient summed over
-    the axes that split the batch (their ranks saw other rows), never
-    over ``model``, whose ranks saw the same rows (a sum there would
-    count their gradients twice), then this rank's block of it."""
+    """A parameter leaf where the model uses it: whole, or this rank's
+    block over ``model`` for a tensor-parallel body.  Forward: the leaf
+    gathered from every rank's block over the axes of ``spec``
+    (``sharding.gather_shard``, once a step: ``whole``).  Backward: its
+    gradient summed over the axes that split the batch (their ranks saw
+    other rows), never over ``model``, whose ranks saw the same rows (a
+    sum there would count their gradients twice; a tensor-parallel
+    body's own ``copy_to`` completes what it holds whole), then this
+    rank's block of it."""
 
     @staticmethod
     def forward(ctx, block, whole, spec, mesh, batch_axes):
@@ -257,6 +269,41 @@ def expert_leaves(model) -> list:
         return key if any(a in ("experts", "experts_2d")
                           for a in tree.axes) else ""
     return _leaves(walk(model.specs, ""))
+
+
+def _tp_leaf(node: dict, path: tuple, key: str) -> bool:
+    """Whether the leaf ``key`` of ``node`` (a dict of the spec tree at
+    ``path``) is read by a tensor-parallel body: ``models.attention.
+    attention``'s (``attn_specs``), the gated MLP's (``layers.
+    mlp_specs``), the embedding table, the untied head."""
+    keys = set(node)
+    if {"wq", "wk", "wv", "wo"} <= keys:
+        return True
+    if keys == {"wi_gate", "wi_up", "wo"}:
+        return not any(a in ("experts", "experts_2d")
+                       for a in node["wi_gate"].axes)
+    return (path, key) in ((("embed",), "table"), ((), "lm_head"))
+
+
+def model_blocks(model) -> list:
+    """For each parameter leaf, in ``_leaves`` order: whether a
+    tensor-parallel body reads it as this rank's block over ``model``
+    where the rules split it over ``model`` (``_tp_leaf``).  Every other
+    leaf the rules split over ``model`` is gathered whole: MLA's leaves
+    (``q_lora``, and the heads of its own body), RWKV-6's and RG-LRU's
+    (ROADMAP item 14c(iii)); the expert leaves are the MoE body's blocks
+    (``expert_leaves``)."""
+    def walk(tree, path):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else _tp_leaf(tree, path, k) for k, v in sorted(tree.items())}
+    return _leaves(walk(model.specs, ()))
+
+
+def _without_model(spec):
+    """``spec`` less its ``model`` entry: the axes a tensor-parallel
+    body's leaf is gathered over."""
+    return shd.P(*(None if "model" in shd.spec_axes((e,)) else e
+                   for e in spec))
 
 
 def leaf_paths(tree) -> list:
@@ -294,6 +341,10 @@ def _check_expert_specs(model, mesh, param_shardings) -> None:
 # Gathers of each parameter leaf by the mesh step, by path (``leaf_paths``
 # of the parameter tree): an expert leaf is never gathered.
 GATHERED: collections.Counter = collections.Counter()
+# The mesh axes each leaf's last gather spanned and the bytes it gave,
+# by path: a tensor-parallel body's block over model is gathered over
+# its other axes only.
+GATHERED_OVER: dict = {}
 
 
 def _split_spec(spec, batch_axes) -> tuple:
@@ -371,18 +422,30 @@ def _mesh_grads(model, params, mesh, batch, k: int):
             f"the strided split of the global batch keeps each rank's "
             f"rows only when (global batch / batch ranks) % k == 0")
     dtensors = _leaves(params)
-    specs = [shd.dtensor_sharding(p).spec for p in dtensors]
+    paths = leaf_paths(params)
     blocks = [shd.local(p).detach().requires_grad_(True) for p in dtensors]
     experts = expert_leaves(model)
+    # the products split over model where its axis has several ranks; a
+    # tensor-parallel body's leaf split over model keeps its block there
+    tp_axis = "model" if mesh.shape.get("model", 1) > 1 else None
+    specs = []
+    for p, tp in zip(dtensors, model_blocks(model)):
+        spec = shd.dtensor_sharding(p).spec
+        if tp and tp_axis and tp_axis in shd.spec_axes(spec):
+            spec = _without_model(spec)
+        specs.append(spec)
     # every other leaf gathered once a step, for all k microbatches; an
     # expert leaf reaches the MoE body as its block
     wholes = []
-    for b, spec, kind, path in zip(blocks, specs, experts,
-                                   leaf_paths(params)):
-        if not kind:
-            GATHERED[path] += 1
-        wholes.append(None if kind
-                      else shd.gather_shard(b.detach(), spec, mesh))
+    for b, spec, kind, path in zip(blocks, specs, experts, paths):
+        if kind:
+            wholes.append(None)
+            continue
+        w = shd.gather_shard(b.detach(), spec, mesh)
+        GATHERED[path] += 1
+        GATHERED_OVER[path] = (shd.spec_axes(spec),
+                               w.numel() * w.element_size())
+        wholes.append(w)
     # the all-to-alls span data (and model): an expert block's gradient
     # is summed over the other batch axes
     expert_axes = tuple(a for a in axes if a not in ("data", "model"))
@@ -392,7 +455,7 @@ def _mesh_grads(model, params, mesh, batch, k: int):
         return tc_collectives.psum_scalar(v, axes, mesh=mesh, method=method)
 
     def grads_of(mb):
-        with shd.local_step(mesh, axes):
+        with shd.local_step(mesh, axes, tp_axis):
             whole = _tree_like(params, [
                 b if kind else _Gathered.apply(b, w, spec, mesh, axes)
                 for b, w, spec, kind in zip(blocks, wholes, specs,

@@ -19,6 +19,17 @@ out_dtype=float32)`` for 16-bit operands on CUDA, f32 operands otherwise
 (a bf16 cache beside f32 queries is widened one head at a time), each
 batch item through a product of its own shape, so an item's bits do not
 depend on the batch beside it.
+
+Inside a train step over a mesh (``sharding.local_step`` with a model
+axis) ``attention`` runs the reference's tensor-parallel layout where the
+rules split the heads over ``model``: ``wq`` / ``bq`` / ``wo`` arrive as
+this rank's blocks of the heads, ``wk`` / ``wv`` / ``bk`` / ``bv`` as
+blocks of the KV heads where those split too, else whole, and then this
+rank's query heads read their own groups' KV heads of the whole K and V;
+the input (and a cross-attention's memory) enters each projection
+through ``layers.column``, the QK-norm scales and a whole KV weight
+through ``layers.copy_in``, and the output projection's row block is
+summed over the ranks (``layers.row_parallel``).
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import torch
 
 from repro_torch.core.precision import ACCUM_DTYPE
 from repro_torch.core.reduction import bmm_items
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.param import Param
@@ -257,10 +269,11 @@ def _registry_attn(cfg, qg, k, v, *, qpos, causal, window, kv_len,
                              **kw)
 
 
-def _project(x, w, dt):
-    """einsum('bsd,dhk->bshk', x, w.astype(dt))."""
+def _project(x, w, dt, heads=None):
+    """einsum('bsd,dhk->bshk', x, w.astype(dt)); under ``heads`` ``w``
+    is this rank's block of the heads (``layers.column``)."""
     B, S, _ = x.shape
-    return L.dense(x, w.to(dt).reshape(w.shape[0], -1)) \
+    return L.column(x, w.to(dt).reshape(w.shape[0], -1), heads) \
         .view(B, S, *w.shape[1:])
 
 
@@ -316,7 +329,9 @@ def attention(params, cfg, x, *, positions, kind: str = "global",
     """
     dt = x.dtype
     B, Sq, d = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    heads = shd.model_share(params["wq"].shape[1], cfg.num_heads)
+    params = _head_blocks(params, cfg, heads)
+    H, KV, hd = params["wq"].shape[1], params["wk"].shape[1], cfg.head_dim
     G = H // KV
     window = cfg.window if kind == "local" else None
     theta = cfg.rope_theta
@@ -329,7 +344,7 @@ def attention(params, cfg, x, *, positions, kind: str = "global",
             "per-row (B, Sq) positions require decode with Sq == 1 "
             "(per-slot prefill is admitted one request at a time)")
 
-    q = _project(x, params["wq"], dt)
+    q = _project(x, params["wq"], dt, heads)
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
     if cfg.use_qk_norm:
@@ -350,8 +365,8 @@ def attention(params, cfg, x, *, positions, kind: str = "global",
             k, v = cache["k"], cache["v"]
         else:
             src = memory.to(dt)
-            k = _project(src, params["wk"], dt)
-            v = _project(src, params["wv"], dt)
+            k = _project(src, params["wk"], dt, heads)
+            v = _project(src, params["wv"], dt, heads)
             if cfg.qkv_bias:
                 k = k + params["bk"].to(dt)
                 v = v + params["bv"].to(dt)
@@ -361,8 +376,8 @@ def attention(params, cfg, x, *, positions, kind: str = "global",
                 new_cache = dict(cache, k=k, v=v)
         kv_len, causal, window = k.shape[1], False, None
     else:
-        k = _project(x, params["wk"], dt)
-        v = _project(x, params["wv"], dt)
+        k = _project(x, params["wk"], dt, heads)
+        v = _project(x, params["wv"], dt, heads)
         if cfg.qkv_bias:
             k = k + params["bk"].to(dt)
             v = v + params["bv"].to(dt)
@@ -394,9 +409,46 @@ def attention(params, cfg, x, *, positions, kind: str = "global",
     o = o.reshape(B, Sq, H * hd)
     wo = params["wo"].reshape(H * hd, d)
     ct = torch.promote_types(o.dtype, dt)
-    out = L.dense(o.to(ct), wo.to(dt).to(ct))
-    if getattr(cfg, "bf16_activation_ar", False):
-        # the reference asks its output dot for a dt-typed result (a
-        # 2-byte tensor-parallel all-reduce)
+    # the reference asks its output dot for a dt-typed result (a 2-byte
+    # tensor-parallel all-reduce)
+    narrow = getattr(cfg, "bf16_activation_ar", False)
+    out = L.row_parallel(o.to(ct), wo.to(dt), ct, heads, narrow=narrow)
+    if narrow:
         out = out.to(dt)
     return constrain(out, ("batch", None, None)), new_cache
+
+
+def _head_blocks(params, cfg, heads):
+    """The parameters this rank's query heads read in a tensor-parallel
+    body over ``heads``' axis; as they are without one.
+    Where the KV heads split too, ``wk`` / ``wv`` / ``bk`` / ``bv`` are
+    their blocks, with the group size G = H / KV kept.  Where they do not
+    (GQA with fewer KV heads than ranks, e.g. H / KV 4 / 2 over 4 ranks),
+    the whole KV weights enter through ``copy_in`` and are cut to the KV
+    heads of this rank's query heads h // G, h in [r H/m, (r+1) H/m):
+    the heads of a rank then lie in one group (m a multiple of KV), or
+    span whole groups.  The QK-norm scales, read by every head, enter
+    through ``copy_in``."""
+    if heads is None:
+        return params
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    out = dict(params)
+    for key in ("q_norm", "k_norm"):
+        if key in out:
+            out[key] = L.copy_in(out[key], heads)
+    if shd.model_share(params["wk"].shape[1], KV) is not None:
+        return out
+    G, h_loc = H // KV, params["wq"].shape[1]
+    lo = heads.start(h_loc)
+    if not (G % h_loc == 0 or (h_loc % G == 0 and lo % G == 0)):
+        raise ValueError(
+            f"{cfg.name}'s {H} heads over {heads.count} ranks with {KV} "
+            f"whole KV heads: rank {heads.index}'s heads {lo}..."
+            f"{lo + h_loc - 1} straddle a group of {G}")
+    k0, k1 = lo // G, (lo + h_loc - 1) // G + 1
+    for key in ("wk", "wv", "bk", "bv"):
+        if key in out:
+            w = L.copy_in(out[key], heads)
+            dim = w.ndim - 2          # (.., KV, hd)
+            out[key] = w.narrow(dim, k0, k1 - k0)
+    return out

@@ -4,6 +4,17 @@ RoPE, softcapping — the counterpart of ``repro.models.layers``.
 Layouts at these functions are the reference's: activations (B, S, D),
 attention inputs to RoPE (B, S, H, D), weights (d_in, d_out).  Parameters
 are nested dicts of tensors (``models.param``).
+
+Inside a train step over a mesh (``sharding.local_step`` with a model
+axis) the gated MLP, the embedding and the logits run the reference's
+tensor-parallel layout over ``model`` where the rules split their
+weights (``sharding.model_share``; the callers pass the whole width): the
+MLP's ``wi_gate`` / ``wi_up`` are column blocks (``column``: the input
+enters through ``copy_in``) and ``wo`` a row block whose partial products
+leave through ``reduce_out`` (``row_parallel``); the embedding table and the head are row blocks of the
+vocabulary, a lookup sums the ranks' rows (each rank's zero outside its
+own) and ``unembed`` gives this rank's block of the logits.  GSPMD
+partitions the reference's products the same way.
 """
 
 from __future__ import annotations
@@ -13,9 +24,12 @@ import torch.nn.functional as F
 
 from repro_torch.core import integration as ci
 from repro_torch.core.precision import ACCUM_DTYPE
-from repro_torch.core.reduction import pad_rows
-from repro_torch.distributed.sharding import constrain
+from repro_torch.core.reduction import _mm, pad_rows
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import constrain, model_share
 from repro_torch.models.param import Param
+
+_HALF = (torch.bfloat16, torch.float16)
 
 # ---------------------------------------------------------------- norms
 
@@ -160,36 +174,122 @@ def dense(x, w):
     return out[:x2d.shape[0]].reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _down(h, wo, dt):
+def copy_in(x, share):
+    """``x`` entering a tensor-parallel body over ``share``'s axis
+    (``collectives.copy_to``: the ranks' cotangents are summed, each rank
+    having used ``x`` for its own block); ``x`` itself without one.
+    Every tensor a body holds whole and reads for its block goes through
+    it (an input, a norm's scale, a weight that stays whole): without it
+    that tensor's gradient is one rank's part and differs across the
+    ranks."""
+    if share is None:
+        return x
+    return coll.copy_to(x, share.axis, mesh=share.mesh)
+
+
+class _Column(torch.autograd.Function):
+    """``dense(x.to(w.dtype), w)`` for an f32 ``x`` of 16-bit values:
+    forward the compute dtype's product, as one card's; backward x's
+    gradient accumulated and returned in f32, w's in its dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xd = x.to(w.dtype)
+        ctx.save_for_backward(xd, w)
+        return dense(xd, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        xd, w = ctx.saved_tensors
+        g2d = g.reshape(-1, g.shape[-1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = _mm(g2d, w.T).reshape(*g.shape[:-1], w.shape[0])
+        if ctx.needs_input_grad[1]:
+            gw = xd.reshape(-1, xd.shape[-1]).T @ g2d
+        return gx, gw
+
+
+def column(x, w, share):
+    """``x @ w`` for a whole ``x`` and a (d, n) ``w`` in x's dtype, under
+    a ``share`` this rank's column block of it.  There ``x`` enters
+    through ``copy_in`` for this product alone, a 16-bit ``x`` widened to
+    f32 (exactly): the ranks' partial gradients of ``x`` are summed in
+    f32 and rounded to x's dtype once, and the products' gradients are
+    then added as one card adds them (each product's gradient rounded,
+    then their sum)."""
+    if share is None:
+        return dense(x, w)
+    if x.dtype in _HALF:
+        return _Column.apply(copy_in(x.to(ACCUM_DTYPE), share), w)
+    return dense(copy_in(x, share), w)
+
+
+def reduce_out(x, share):
+    """The sum of the ranks' partial ``x`` over ``share``'s axis
+    (``collectives.reduce_from``); ``x`` itself without one."""
+    if share is None:
+        return x
+    return coll.reduce_from(x, share.axis, mesh=share.mesh)
+
+
+def row_parallel(h, w, dt, share, *, narrow: bool = False):
+    """``h @ w.astype(dt)`` for (..., k) ``h``; under a ``share``, ``w``
+    is this rank's row block and ``h`` its columns, and the ranks'
+    partial products are summed.  A partial is accumulated in f32 and
+    the partials summed in f32, then rounded to ``dt`` once, as one
+    card's product rounds its f32 accumulator; ``narrow`` asks for the
+    reference's ``preferred_element_type=dt`` dot, whose partials are
+    ``dt`` and summed in ``dt`` (its 2-byte all-reduce)."""
+    if share is None or narrow:
+        return reduce_out(dense(h, w.to(dt)), share)
+    h2d = h.reshape(-1, h.shape[-1])
+    part = _mm(pad_rows(h2d), w.to(dt))[:h2d.shape[0]]
+    out = reduce_out(part, share).to(dt)
+    return out.reshape(*h.shape[:-1], w.shape[-1])
+
+
+def _down(h, wo, dt, share=None, bf16_out: bool = False):
     # bf16_out in the reference asks its dot for a dt-typed result (a
     # 2-byte tensor-parallel all-reduce); torch's matmul in dt returns
-    # dt either way, so both spellings run this one product.
-    return dense(h, wo.to(dt))
+    # dt either way, so on one card both spellings run this one product.
+    return row_parallel(h, wo, dt, share, narrow=bf16_out)
 
 
-def mlp(params, x, *, act: str = "silu", bf16_out: bool = False):
-    """Gated MLP (SiLU/GeLU-GLU)."""
+def mlp(params, x, *, act: str = "silu", bf16_out: bool = False,
+        d_ff=None):
+    """Gated MLP (SiLU/GeLU-GLU).  ``d_ff``, the whole hidden width,
+    tells a train step's tensor-parallel body whether ``wi_gate`` is a
+    column block (``sharding.model_share``)."""
     dt = x.dtype
-    gate = dense(x, params["wi_gate"].to(dt))
-    up = dense(x, params["wi_up"].to(dt))
+    share = model_share(params["wi_gate"].shape[-1], d_ff)
+    gate = column(x, params["wi_gate"].to(dt), share)
+    up = column(x, params["wi_up"].to(dt), share)
     gate = constrain(gate, ("batch", "seq", "mlp"))
-    return _down(_act(gate, act) * up, params["wo"], dt)
+    return _down(_act(gate, act) * up, params["wo"], dt, share, bf16_out)
 
 
 def fused_mlp(norm_params, mlp_params, x, *, act: str = "silu",
               method: str = "auto", precision=None, objective=None,
               bf16_out: bool = False, eps: float = 1e-6,
-              bucket: str = "pow2"):
+              bucket: str = "pow2", d_ff=None):
     """Pre-norm gated MLP with the norm in the up/gate projections:
     ``norm_matmul`` computes ``act(rmsnorm(x) @ wi_gate) * (rmsnorm(x)
     @ wi_up)`` in one dispatch, then the down projection runs as in
-    ``mlp``.  Drop-in for ``mlp(p, rmsnorm(n, x))``."""
+    ``mlp``.  Drop-in for ``mlp(p, rmsnorm(n, x))``.  In a
+    tensor-parallel body the norm's scale, read for this rank's
+    columns, enters through ``copy_in`` beside ``x``."""
+    share = model_share(mlp_params["wi_gate"].shape[-1], d_ff)
+    if share is not None:
+        x = copy_in(x, share)
+        norm_params = dict(norm_params,
+                           scale=copy_in(norm_params["scale"], share))
     h = norm_matmul(norm_params, x, mlp_params["wi_up"],
                     w_gate=mlp_params["wi_gate"], act=act, eps=eps,
                     method=method, precision=precision,
                     objective=objective, bucket=bucket)
     h = constrain(h, ("batch", "seq", "mlp"))
-    return _down(h, mlp_params["wo"], x.dtype)
+    return _down(h, mlp_params["wo"], x.dtype, share, bf16_out)
 
 
 # ---------------------------------------------------------------- embeds
@@ -203,28 +303,48 @@ def embed_specs(vocab: int, d: int):
 
 def embed_lookup(params, tokens, *, scale: bool, d: int,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 cast_table: bool = False, onehot: bool = False):
+                 cast_table: bool = False, onehot: bool = False,
+                 vocab=None):
+    """The embedding rows of ``tokens``.  ``vocab``, the whole
+    vocabulary, tells a train step's tensor-parallel body whether the
+    table is this rank's row block: a token outside it gives a zero row,
+    and the ranks' rows are summed (one rank holds each token's)."""
     table = params["table"]
-    tokens = torch.as_tensor(tokens, device=table.device)
+    tokens = torch.as_tensor(tokens, device=table.device).long()
+    share = model_share(table.shape[0], vocab)
+    inside = None
+    if share is not None:
+        tokens = tokens - share.start(table.shape[0])
+        inside = (tokens >= 0) & (tokens < table.shape[0])
+        tokens = torch.where(inside, tokens, 0)
     if cast_table or onehot:
         table = table.to(compute_dtype)
     if onehot:
         # The paper's encoding applied to the gather: a one-hot MMA
         # against the table.
-        oh = F.one_hot(tokens.long(), table.shape[0]).to(compute_dtype)
+        oh = F.one_hot(tokens, table.shape[0]).to(compute_dtype)
+        if inside is not None:
+            oh = oh * inside[..., None].to(compute_dtype)
         oh = constrain(oh, ("batch", None, "vocab"))
         x = torch.matmul(oh, table)
     else:
-        x = table[tokens.long()].to(compute_dtype)
+        x = table[tokens].to(compute_dtype)
+        if inside is not None:
+            x = torch.where(inside[..., None], x, 0.0)
+    x = reduce_out(x, share)
     if scale:
         root = torch.sqrt(torch.tensor(float(d), dtype=ACCUM_DTYPE))
         x = x * root.to(device=x.device, dtype=compute_dtype)
     return constrain(x, ("batch", "seq", None))
 
 
-def unembed(params, x, *, softcap=None):
-    """Project to vocab logits (tied table or separate head)."""
-    logits = dense(x, params["table"].T.to(x.dtype))
+def unembed(params, x, *, softcap=None, vocab=None):
+    """Project to vocab logits (tied table or separate head).  In a
+    train step's tensor-parallel body (the table a row block of
+    ``vocab``) these are this rank's block of the logits, the softcap
+    applied to the block."""
+    share = model_share(params["table"].shape[0], vocab)
+    logits = column(x, params["table"].T.to(x.dtype), share)
     if softcap is not None:
         logits = softcap * torch.tanh(logits.to(ACCUM_DTYPE) / softcap)
     return logits

@@ -89,7 +89,8 @@ def _mtp_loss(params, cfg, hidden, tokens, labels, mask):
     mp = params["mtp"]
     emb_next = L.embed_lookup(params["embed"], tokens, scale=False,
                               d=cfg.d_model,
-                              compute_dtype=cfg.compute_dtype)
+                              compute_dtype=cfg.compute_dtype,
+                              vocab=cfg.vocab_size)
     # shift: h_t pairs with embedding of t+1 (== tokens shifted left)
     h = hidden[:, :-1]
     e = emb_next[:, 1:]
@@ -104,7 +105,8 @@ def _mtp_loss(params, cfg, hidden, tokens, labels, mask):
     logits = T.logits_from_hidden(params, cfg, z)
     # labels for t+2 = labels shifted left by one
     return T.cross_entropy(logits, labels[:, 1:], mask[:, 1:],
-                           reduce_method=cfg.reduce_method)
+                           reduce_method=cfg.reduce_method,
+                           vocab=cfg.vocab_size)
 
 
 def build(cfg) -> Model:
@@ -129,7 +131,8 @@ def build(cfg) -> Model:
         else:
             logits = T.logits_from_hidden(params, cfg, hidden)
             ce = T.cross_entropy(logits, labels, mask,
-                                 reduce_method=cfg.reduce_method)
+                                 reduce_method=cfg.reduce_method,
+                                 vocab=cfg.vocab_size)
         total = ce
         metrics = {"ce": ce}
         if cfg.moe is not None:

@@ -374,8 +374,10 @@ def moe_block(params, cfg, x):
         out = y.reshape(b, s, d)
     # shared experts (deepseek) / dense residual (arctic): plain MLPs,
     # outside the expert-parallel region.
-    if cfg.moe.num_shared_experts:
-        out = out + L.mlp(params["shared"], x, act=cfg.act)
-    if cfg.moe.dense_residual:
-        out = out + L.mlp(params["dense"], x, act=cfg.act)
+    mc = cfg.moe
+    if mc.num_shared_experts:
+        out = out + L.mlp(params["shared"], x, act=cfg.act,
+                          d_ff=mc.d_ff_expert * mc.num_shared_experts)
+    if mc.dense_residual:
+        out = out + L.mlp(params["dense"], x, act=cfg.act, d_ff=cfg.d_ff)
     return out, aux.to(torch.float32)

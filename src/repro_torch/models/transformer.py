@@ -20,6 +20,14 @@ of a stack runs under ``models.remat.run`` (``torch.utils.checkpoint``
 with the reference's policies), and the mixer and MLP outputs carry the
 reference's ``checkpoint_name`` tags.  Caches are written in place, so a
 pass with caches (prefill, decode) is never recomputed.
+
+Inside a train step over a mesh whose rules split the vocabulary over
+``model`` the logits are this rank's block of the vocabulary
+(``layers.unembed``) and the cross-entropy is vocabulary-parallel: its
+f32 logsumexp shifts by the max over the ranks (``collectives.mesh_max``,
+no gradient), sums the block's exponentials on the port's reduction path
+and the ranks' sums through ``layers.reduce_out``, and the label's logit
+comes from the rank that holds it; no tensor has the whole vocabulary.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import integration as ci
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -236,11 +245,13 @@ def block_apply(params, cfg, desc: LayerDesc, x, cache, *, positions,
             method=nm_method,
             precision=getattr(cfg, "norm_matmul_precision", None),
             objective=getattr(cfg, "norm_matmul_slo_ms", None),
-            bf16_out=getattr(cfg, "bf16_activation_ar", False))
+            bf16_out=getattr(cfg, "bf16_activation_ar", False),
+            d_ff=cfg.d_ff)
     elif desc.mlp == "dense":
         h = _norm(params[norm_key], x, cfg)
         out = L.mlp(params["mlp"], h, act=cfg.act,
-                    bf16_out=getattr(cfg, "bf16_activation_ar", False))
+                    bf16_out=getattr(cfg, "bf16_activation_ar", False),
+                    d_ff=cfg.d_ff)
     else:
         h = _norm(params[norm_key], x, cfg)
     if desc.mlp == "moe":
@@ -358,7 +369,8 @@ def decoder_forward(params, cfg, tokens, *, positions=None, caches=None,
             params["embed"], tokens, scale=cfg.embed_scale,
             d=cfg.d_model, compute_dtype=cfg.compute_dtype,
             cast_table=getattr(cfg, "bf16_activation_ar", False),
-            onehot=getattr(cfg, "onehot_embed", False))
+            onehot=getattr(cfg, "onehot_embed", False),
+            vocab=cfg.vocab_size)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -377,9 +389,13 @@ def decoder_forward(params, cfg, tokens, *, positions=None, caches=None,
 
 
 def logits_from_hidden(params, cfg, x):
+    """The vocabulary logits of ``x`` (this rank's block of them in a
+    train step's tensor-parallel body)."""
     if cfg.tie_embeddings:
-        return L.unembed(params["embed"], x, softcap=cfg.final_softcap)
-    logits = L.dense(x, params["lm_head"].to(x.dtype))
+        return L.unembed(params["embed"], x, softcap=cfg.final_softcap,
+                         vocab=cfg.vocab_size)
+    share = shd.model_share(params["lm_head"].shape[-1], cfg.vocab_size)
+    logits = L.column(x, params["lm_head"].to(x.dtype), share)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(
             logits.to(torch.float32) / cfg.final_softcap)
@@ -453,11 +469,50 @@ def token_mean(values, mask, *, method="mma"):
     return part / torch.clamp(count, min=1.0)
 
 
-def cross_entropy(logits, labels, mask, *, reduce_method="mma"):
-    """Token CE with f32 logsumexp; reduction via the MMA engine."""
+def _row_sums(x, method):
+    """Each row's sum of ``x`` (..., n) -> (...) f32 on the port's
+    reduction path (``integration.reduce_sum`` over the last axis; an
+    engine that cannot serve a per-row sum falls back to ``vpu``, as
+    ``layers.rmsnorm``'s statistic does)."""
+    from repro_torch.core import dispatch
+    method = dispatch.resolve_method("reduce_sum", x, method,
+                                     fallback="vpu", axis=(x.ndim - 1,))
+    return ci.reduce_sum(x, axis=-1, method=method)
+
+
+def _label_logit(lf, labels, share):
+    """Each row's logit of its label, from the rank whose block of the
+    vocabulary holds it (0 on the others), summed over the ranks."""
+    local = labels.long() - share.start(lf.shape[-1])
+    inside = (local >= 0) & (local < lf.shape[-1])
+    got = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])
+    return L.reduce_out(torch.where(inside, got[..., 0], 0.0), share)
+
+
+def _lse_over(m, s, share):
+    """The logsumexp over the ranks' blocks from each block's shift ``m``
+    and sum ``s`` of exp(logit - m): shifted by the max over the ranks
+    (no gradient), the sums added with one."""
+    top = coll.mesh_max(m, share.axis, mesh=share.mesh)
+    total = L.reduce_out(s * torch.exp(m - top), share)
+    return top + torch.log(total)
+
+
+def cross_entropy(logits, labels, mask, *, reduce_method="mma",
+                  vocab=None):
+    """Token CE with f32 logsumexp; reduction via the MMA engine.
+    ``vocab``, the whole vocabulary, tells a train step's
+    vocabulary-parallel body that ``logits`` are this rank's block."""
     lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    share = shd.model_share(lf.shape[-1], vocab)
+    if share is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    else:
+        m = torch.amax(lf, dim=-1).detach()
+        s = _row_sums(torch.exp(lf - m[..., None]), reduce_method)
+        lse = _lse_over(m, s, share)
+        ll = _label_logit(lf, labels, share)
     return token_mean(lse - ll, mask, method=reduce_method)
 
 
@@ -468,13 +523,18 @@ def chunked_cross_entropy(params, cfg, hidden, labels, mask,
     to the loss), each chunk's logits recomputed in the backward pass
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
     its scan body).  The last chunk is the ragged rest of the
-    vocabulary, where the reference zero-pads the table and masks."""
+    vocabulary, where the reference zero-pads the table and masks.  In a
+    train step's vocabulary-parallel body the loop walks this rank's
+    block of the table, and the blocks' running sums are combined over
+    the ranks as ``cross_entropy`` combines them."""
     if cfg.tie_embeddings:
         w = params["embed"]["table"]          # (V, D)
     else:
         w = params["lm_head"].T               # (V, D)
     v = w.shape[0]
+    share = shd.model_share(v, cfg.vocab_size)
     x = hidden.to(cfg.compute_dtype)
+    v0 = 0 if share is None else share.start(v)
     cap = cfg.final_softcap
     labels = labels.long()
     b, s = labels.shape
@@ -483,7 +543,9 @@ def chunked_cross_entropy(params, cfg, hidden, labels, mask,
     l_run = torch.zeros((b, s), dtype=torch.float32, device=dev)
     ll = torch.zeros((b, s), dtype=torch.float32, device=dev)
     def body(m_run, l_run, ll, wc, start):
-        logits = (x @ wc.T.to(x.dtype)).to(torch.float32)
+        logits = (x @ wc.T.to(x.dtype) if share is None
+                  else L.column(x, wc.T.to(x.dtype), share)
+                  ).to(torch.float32)
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)
         vocab_ids = start + torch.arange(wc.shape[0], device=dev)
@@ -496,6 +558,10 @@ def chunked_cross_entropy(params, cfg, hidden, labels, mask,
 
     for start in range(0, v, chunk):
         m_run, l_run, ll = RM.run("full", body, m_run, l_run, ll,
-                                  w[start:start + chunk], start)
-    lse = m_run + torch.log(torch.clamp(l_run, min=1e-37))
+                                  w[start:start + chunk], v0 + start)
+    if share is None:
+        lse = m_run + torch.log(torch.clamp(l_run, min=1e-37))
+    else:
+        lse = _lse_over(m_run, l_run, share)
+        ll = L.reduce_out(ll, share)
     return token_mean(lse - ll, mask, method=cfg.reduce_method)

@@ -409,6 +409,39 @@ def test_deepseek_trains_under_etp_with_its_all_to_alls(port):
         "all-to-all"]["count"] > 0
 
 
+def test_the_train_cell_splits_the_vocabulary_over_model():
+    """Gemma-2 2B SMOKE's train cell on a fake world of 4 (2, 2), its step
+    on rank 0's rows (2 of the batch's 4, 32 positions): the rules split
+    the 512-token vocabulary over model, so no tensor the step makes has
+    the whole vocabulary beside those rows (as (2, 32, V) or 64 rows by
+    V); the logits and their gradients have 256 there."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    cfg = registry.get_config("gemma2-2b", smoke=True)
+    rows = {(BATCH // MESH[0], SEQ), (BATCH // MESH[0] * SEQ,)}
+    widths: set = set()
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in pytree.tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.ndim >= 2:
+                    lead = tuple(t.shape[:2]) if t.ndim == 3 \
+                        else tuple(t.shape[:1])
+                    if lead in rows:
+                        widths.add(int(t.shape[-1]))
+            return out
+
+    with D.fake_world(WORLD):
+        mesh = launch_mesh.make_local_mesh(*MESH, device="cpu")
+        with autotune.model_plans_only("the test"), D._fake_mode():
+            step, args = D._cell_step(cfg, _shape("train_4k"), mesh,
+                                      device="cpu")
+            with Shapes():
+                step(*args)
+    assert cfg.vocab_size == 512
+    assert 256 in widths and 512 not in widths, sorted(widths)
+
+
 # ------------------------------------------------ (iv) accounting
 
 
